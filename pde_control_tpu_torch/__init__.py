@@ -4,8 +4,15 @@ It mirrors the JAX package's module layout; a module here ports the module
 of the same path there. Ported so far: the 64² smoke-control training
 iteration (2D incompressible flow with the masked pressure solve, shift
 advection, the CFE and OP networks, the staggered and chain sequences, and
-the training step). The pressure solve runs as a hand-written CUDA kernel
-(`csrc/pcg.cu`) for CUDA tensors and as its plain torch version on the CPU.
+the training step). Three hand-written CUDA kernels carry it on the card,
+each with a plain torch version beside it that runs for CPU tensors:
+  * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
+    unfused step calls;
+  * K2 and K3, the whole fluid step forward and its hand-written VJP
+    (`csrc/fused_step.cu`, `ops/cuda_fluid.py`), which the fused step
+    (`FluidConfig(fused='cuda')`) runs, one launch per step and direction.
+Constructors build on the GPU unless given `device=` (`device="cpu"` for
+the CPU); without a GPU they raise.
 
 The package imports torch and numpy only, never jax or the JAX package.
 """

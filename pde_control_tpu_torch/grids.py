@@ -17,6 +17,18 @@ import dataclasses
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the GPU when it is None. The port's constructors build
+    on the card unless the caller asks for another device; without a card
+    they raise rather than fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds on the GPU by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 @dataclasses.dataclass
 class Staggered2D:
     """MAC-grid velocity: vy (B, H+1, W), vx (B, H, W+1)."""
@@ -58,6 +70,8 @@ class Staggered2D:
     @classmethod
     def zeros(cls, batch: int, h: int, w: int, dtype=torch.float32,
               device=None) -> "Staggered2D":
+        """Zero velocity on `device` (the GPU when None)."""
+        device = resolve_device(device)
         return cls(
             vy=torch.zeros((batch, h + 1, w), dtype=dtype, device=device),
             vx=torch.zeros((batch, h, w + 1), dtype=dtype, device=device),
@@ -132,7 +146,9 @@ class Domain2D:
         device=None,
     ) -> "Domain2D":
         """Build a domain from an optional obstacle mask (1 = solid); the
-        mask may be a numpy array or a tensor."""
+        mask may be a numpy array or a tensor. The masks go to `device`,
+        the GPU when None (see `resolve_device`)."""
+        device = resolve_device(device)
         if obstacle_mask is None:
             fluid = torch.ones((h, w), dtype=dtype, device=device)
             has_obstacles = False

@@ -182,6 +182,16 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _runs_plain(t: torch.Tensor, fn: str) -> bool:
+    """True for a CPU tensor (the plain version runs), False for a CUDA one
+    (the kernel launches); a tensor on any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"{fn} takes CPU or CUDA tensors, got {t.device}")
+    return False
+
+
 def pressure_solve(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
                    closed: bool = True, tol: float = 1e-5, maxiter: int = 500,
                    precond: bool = True):
@@ -197,12 +207,9 @@ def pressure_solve(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
     on a closed domain.
     """
     global LAUNCHES
-    if div.device.type == "cpu":
+    if _runs_plain(div, "pressure_solve"):
         return pcg_plain(div, acc_y, acc_x, fluid, x0, dx=dx, closed=closed,
                          tol=tol, maxiter=maxiter, precond=precond)
-    if div.device.type != "cuda":
-        raise ValueError(f"pressure_solve takes CPU or CUDA tensors, got "
-                         f"{div.device}")
     if div.dim() != 3:
         raise ValueError(f"div: want (B, H, W), got {tuple(div.shape)}")
     b, h, w = div.shape

@@ -1,8 +1,9 @@
 """2D incompressible Navier-Stokes step (smoke / shape-transition physics).
 
-Counterpart of `pde_control_tpu/physics/fluid.py`, unfused path. Order of
-operations: advect(density, velocity) → inflow → advect(velocity) → diffuse
-→ forces, buoyancy → pressure projection.
+Counterpart of `pde_control_tpu/physics/fluid.py`. Order of operations:
+advect(density, velocity) → inflow → advect(velocity) → diffuse → forces,
+buoyancy → pressure projection. With `FluidConfig.fused='cuda'` the whole
+step runs as one kernel per direction (`ops/cuda_fluid.py`).
 """
 
 from __future__ import annotations
@@ -11,7 +12,13 @@ import dataclasses
 
 import torch
 
-from pde_control_tpu_torch.grids import Domain2D, Staggered2D, centered_to_y_faces
+from pde_control_tpu_torch.grids import (
+    Domain2D,
+    Staggered2D,
+    centered_to_y_faces,
+    resolve_device,
+)
+from pde_control_tpu_torch.ops.cuda_fluid import fused_fluid_step, fused_step_fits
 from pde_control_tpu_torch.ops.stencils import laplace
 from pde_control_tpu_torch.physics.advect import advect_centered, advect_staggered
 from pde_control_tpu_torch.physics.poisson import solve_pressure
@@ -33,6 +40,8 @@ class FluidState:
     @classmethod
     def zeros(cls, batch: int, h: int, w: int, dtype=torch.float32,
               device=None) -> "FluidState":
+        """A state at rest on `device` (the GPU when None)."""
+        device = resolve_device(device)
         return cls(
             velocity=Staggered2D.zeros(batch, h, w, dtype, device),
             density=torch.zeros((batch, h, w), dtype=dtype, device=device),
@@ -55,17 +64,50 @@ class FluidConfig:
     # Seed rollouts with a zero pressure field (PDE.initial_state) so each
     # step's CG warm-starts from the previous step's solution.
     warm_start_pressure: bool = False
-    # 'auto' and 'off' both take the unfused step. The whole-step kernel
-    # ('pallas' in the JAX package) is not ported yet.
+    # Whole-step fusion (ops/cuda_fluid.py): 'cuda' runs the step as one
+    # kernel per direction where supported (2D, closed, shift advection, no
+    # viscosity, static buoyancy, fits shared memory) and raises elsewhere;
+    # on CPU tensors it runs the kernels' plain versions. 'auto' and 'off'
+    # take the unfused step, as in the JAX package.
     fused: str = "auto"
 
     def __post_init__(self):
         if self.fused == "pallas":
-            raise NotImplementedError(
-                "the fused whole-step kernel (ops/pallas_fluid.py) is not "
-                "ported yet (ROADMAP B2); use fused='auto' or 'off'")
-        if self.fused not in ("auto", "off"):
+            raise ValueError("fused='pallas' is the JAX package's name; the "
+                             "port's whole-step kernel is fused='cuda'")
+        if self.fused not in ("auto", "off", "cuda"):
             raise ValueError(f"unknown fused mode {self.fused!r}")
+
+
+def _fused_applicable(state: FluidState, domain: Domain2D, cfg: FluidConfig,
+                      buoyancy_factor) -> bool:
+    """Whether the step takes the fused kernels (see FluidConfig.fused).
+    'cuda' on a configuration the kernels do not implement raises."""
+    if cfg.fused != "cuda":
+        return False
+    supported = (
+        buoyancy_factor is None
+        and cfg.advection_mode == "shift"
+        and not cfg.viscosity
+        and domain.closed
+        and state.density.dim() == 3
+        and fused_step_fits(*domain.grid_shape)
+    )
+    if not supported:
+        raise ValueError(
+            "FluidConfig.fused='cuda' but this configuration is not supported "
+            "by the fused kernel (needs 2D closed domain, shift advection, "
+            "viscosity=0, static buoyancy, grid within one block's shared "
+            "memory)")
+    if not domain.has_obstacles and cfg.pressure_backend in ("auto", "spectral"):
+        # The unfused step would take the exact spectral solve here; the
+        # fused kernel always runs tol-bounded PCG.
+        raise ValueError(
+            "FluidConfig.fused='cuda' conflicts with the exact spectral "
+            "pressure solve this domain would use (closed, no obstacles). "
+            "Set pressure_backend='pcg' explicitly to accept tol-bounded "
+            "pressure, or fused='off'/'auto'.")
+    return True
 
 
 def divergence_free(
@@ -110,6 +152,22 @@ def fluid_step(
     adv = dict(dx=dx, mode=cfg.advection_mode, max_shift=cfg.max_shift)
     if inflow is None:
         inflow = state.inflow
+
+    if _fused_applicable(state, domain, cfg, buoyancy_factor):
+        if inflow is not None and inflow.dim() == 2:
+            inflow = inflow.expand(state.density.shape)
+        vy, vx, rho, p = fused_fluid_step(
+            state.velocity.vy, state.velocity.vx, state.density,
+            domain.acc_y, domain.acc_x, domain.fluid_mask,
+            fy=None if force is None else force.vy,
+            fx=None if force is None else force.vx,
+            inflow=inflow, x0=state.pressure, dt=dt, dx=dx,
+            max_shift=cfg.max_shift, buoyancy=cfg.buoyancy,
+            closed=domain.closed, tol=cfg.pressure_tol,
+            maxiter=cfg.pressure_maxiter)
+        return FluidState(velocity=Staggered2D(vy=vy, vx=vx), density=rho,
+                          inflow=state.inflow,
+                          pressure=p if state.pressure is not None else None)
 
     density = advect_centered(state.density, state.velocity, dt, **adv)
     if inflow is not None:

@@ -65,7 +65,7 @@ def _rollout(mod, stag, domain, cfg, steps, zeros, vy, vx, rho, fy, fx):
 
 def _compare(rng, steps, start, backend="auto"):
     m = _plate()
-    td = TDomain.create(H, H, obstacle_mask=m)
+    td = TDomain.create(H, H, obstacle_mask=m, device="cpu")
     jd = JDomain.create(H, H, obstacle_mask=jnp.asarray(m))
     tcfg, jcfg = _cfgs(backend)
     args = _inputs(rng, start)
@@ -112,7 +112,7 @@ def test_one_step_kernel_route_against_pallas(rng):
 
 def test_divergence_free_projects(rng):
     m = _plate()
-    td = TDomain.create(H, H, obstacle_mask=m)
+    td = TDomain.create(H, H, obstacle_mask=m, device="cpu")
     tcfg, _ = _cfgs()
     vy, vx = _inputs(rng, "moving")[:2]
     v, p = tfluid.divergence_free(TStag(_t(vy), _t(vx)), td, tcfg)
@@ -123,7 +123,8 @@ def test_divergence_free_projects(rng):
 
 def test_fused_modes():
     assert tfluid.FluidConfig(fused="off").fused == "off"
-    with pytest.raises(NotImplementedError, match="B2"):
+    assert tfluid.FluidConfig(fused="cuda").fused == "cuda"
+    with pytest.raises(ValueError, match="fused='cuda'"):
         tfluid.FluidConfig(fused="pallas")
     with pytest.raises(ValueError):
         tfluid.FluidConfig(fused="bogus")
@@ -133,7 +134,7 @@ def test_step_with_inflow_buoyancy_factor_and_viscosity(rng):
     """The step's other inputs: a per-sample smoke source, a per-sample
     buoyancy factor (B, 1, 1) and viscous diffusion; forward and VJP."""
     m = _plate()
-    td = TDomain.create(H, H, obstacle_mask=m)
+    td = TDomain.create(H, H, obstacle_mask=m, device="cpu")
     jd = JDomain.create(H, H, obstacle_mask=jnp.asarray(m))
     kw = dict(dt=0.5, viscosity=0.1, buoyancy=0.08, pressure_tol=1e-6,
               pressure_maxiter=500)
@@ -171,7 +172,7 @@ def test_pde_glue_matches_jax(rng, control):
 
     m = _plate()
     tcfg, jcfg = _cfgs()
-    tpde = TPDE(TDomain.create(H, H, obstacle_mask=m, dx=0.5), tcfg,
+    tpde = TPDE(TDomain.create(H, H, obstacle_mask=m, dx=0.5, device="cpu"), tcfg,
                 control=control)
     jpde = JPDE(JDomain.create(H, H, obstacle_mask=jnp.asarray(m), dx=0.5),
                 jcfg, control=control)

@@ -20,6 +20,7 @@ from pde_control_tpu_torch import grids as tgrids
 from pde_control_tpu_torch.ops import interp as tinterp
 from pde_control_tpu_torch.ops import stencils as tstencils
 from pde_control_tpu_torch.physics import advect as tadvect
+from pde_control_tpu_torch.physics import fluid as tfluid
 
 torch.set_num_threads(1)
 
@@ -75,7 +76,8 @@ def _obstacle():
 @pytest.mark.parametrize("obstacle", [False, True])
 def test_domain_masks_and_pressure_gradient(rng, closed, obstacle):
     m = _obstacle() if obstacle else None
-    td = tgrids.Domain2D.create(H, W, obstacle_mask=m, dx=0.5, closed=closed)
+    td = tgrids.Domain2D.create(H, W, obstacle_mask=m, dx=0.5, closed=closed,
+                                device="cpu")
     jd = jgrids.Domain2D.create(H, W, obstacle_mask=None if m is None
                                 else jnp.asarray(m), dx=0.5, closed=closed)
     assert td.has_obstacles == jd.has_obstacles
@@ -171,6 +173,21 @@ def test_advect_centered_and_staggered(rng, scale):
 
 
 def test_advect_rejects_unported_mode():
-    v = tgrids.Staggered2D.zeros(1, H, W)
+    v = tgrids.Staggered2D.zeros(1, H, W, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
         tadvect.advect_centered(torch.zeros(1, H, W), v, 1.0, mode="gather")
+
+
+def test_constructors_default_to_the_gpu():
+    """With no `device`, the port builds on the card; on a host without one
+    it raises and says how to ask for the CPU, and never falls back."""
+    if torch.cuda.is_available():
+        assert tgrids.Domain2D.create(H, W).device.type == "cuda"
+        return
+    for build in (lambda: tgrids.Domain2D.create(H, W),
+                  lambda: tgrids.Staggered2D.zeros(1, H, W),
+                  lambda: tfluid.FluidState.zeros(1, H, W)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    d = tgrids.Domain2D.create(H, W, device="cpu")
+    assert d.device.type == "cpu" and d.fluid_mask.shape == (H, W)

@@ -34,7 +34,7 @@ def _domains(obstacle: bool, closed: bool, n: int = N):
         m = np.zeros((n, n), np.float32)
         m[5:9, 6:11] = 1.0
         m[n // 2 + 3, n // 4:n // 2] = 1.0
-    return (TDomain.create(n, n, obstacle_mask=m, closed=closed),
+    return (TDomain.create(n, n, obstacle_mask=m, closed=closed, device="cpu"),
             JDomain.create(n, n, obstacle_mask=None if m is None
                            else jnp.asarray(m), closed=closed))
 

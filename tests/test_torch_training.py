@@ -76,8 +76,10 @@ def _jax_app(bf16: bool):
     return _JAX[bf16]
 
 
-def _apps(bf16: bool, perturb_cfe: bool):
-    """(JAX app, its parameters, the port's app on the same weights)."""
+def _apps(bf16: bool, perturb_cfe: bool, fused: str = "auto"):
+    """(JAX app, its parameters, the port's app on the same weights); the
+    port's step fused or not (the JAX package's tests pin its fused step
+    to the unfused one, so the JAX side is always unfused)."""
     japp = _jax_app(bf16)[0]
     params = jax.device_get(japp.params)
     if perturb_cfe:
@@ -88,48 +90,78 @@ def _apps(bf16: bool, perturb_cfe: bool):
         params["CFE"]["Conv_4"]["kernel"] = (
             0.05 * rng.normal(size=k.shape)).astype(np.float32)
     tpde = IncompressibleFluidPDE(
-        Domain2D.create(H, H, obstacle_mask=_plate()), FluidConfig(**_CFG),
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"),
+        FluidConfig(**_CFG, fused=fused),
         dtype=torch.bfloat16 if bf16 else torch.float32, **_PDE)
     tapp = ControlTraining(N, tpde, **_APP).prepare()
     tapp.load_params(params_from_flax(params))
     return japp, params, tapp
 
 
+_JAX_STEP = {}
 _RESULTS = {}
 
 
-def _step(perturb_cfe: bool):
-    """Loss, gradients and one Adam step on both sides (cached per case)."""
-    if perturb_cfe not in _RESULTS:
-        japp, params, tapp = _apps(False, perturb_cfe)
-        batch = _batch()
-        (jloss, _), jgrads = _jax_app(False)[2](params, batch)
+def _jax_step(perturb_cfe: bool):
+    """The JAX side's loss, gradients and one Adam step (cached per case)."""
+    if perturb_cfe not in _JAX_STEP:
+        japp, params, _ = _apps(False, perturb_cfe)
+        (jloss, _), jgrads = _jax_app(False)[2](params, _batch())
         updates, _ = japp.optimizer.update(jgrads, japp.optimizer.init(params),
                                            params)
         jparams = jax.device_get(optax.apply_updates(params, updates))
-        tmetrics = tapp.progress(batch)
+        _JAX_STEP[perturb_cfe] = dict(
+            jloss=float(jloss), jgrads=params_from_flax(jax.device_get(jgrads)),
+            jparams=params_from_flax(jparams))
+    return _JAX_STEP[perturb_cfe]
+
+
+def _step(perturb_cfe: bool, fused: str = "auto"):
+    """Loss, gradients and one Adam step on both sides (cached per case)."""
+    if (perturb_cfe, fused) not in _RESULTS:
+        _, _, tapp = _apps(False, perturb_cfe, fused)
+        tmetrics = tapp.progress(_batch())
         tgrads = {name: {k: p.grad.clone() for k, p in
                          tapp.nets[name].named_parameters()} for name in NETS}
-        _RESULTS[perturb_cfe] = dict(
-            jloss=float(jloss), tloss=float(tmetrics["loss"]),
-            jgrads=params_from_flax(jax.device_get(jgrads)), tgrads=tgrads,
-            jparams=params_from_flax(jparams),
+        _RESULTS[perturb_cfe, fused] = dict(
+            _jax_step(perturb_cfe), tloss=float(tmetrics["loss"]),
+            tgrads=tgrads,
             tparams={name: tapp.nets[name].state_dict() for name in NETS},
             tmetrics=tmetrics)
-    return _RESULTS[perturb_cfe]
+    return _RESULTS[perturb_cfe, fused]
 
 
 @pytest.mark.parametrize("perturb_cfe", [False, True])
 def test_loss_matches_jax(perturb_cfe):
-    r = _step(perturb_cfe)
-    assert np.isfinite(r["tloss"])
-    np.testing.assert_allclose(r["tloss"], r["jloss"], rtol=1e-4)
+    _check_loss(_step(perturb_cfe))
 
 
 @pytest.mark.parametrize("net", NETS)
 @pytest.mark.parametrize("perturb_cfe", [False, True])
 def test_gradients_match_jax(perturb_cfe, net):
-    r = _step(perturb_cfe)
+    _check_gradients(_step(perturb_cfe), net, perturb_cfe)
+
+
+@pytest.mark.parametrize("perturb_cfe", [False, True])
+def test_fused_loss_matches_jax(perturb_cfe):
+    """The slice with the whole-step kernels' route (`fused='cuda'`, their
+    plain versions on CPU tensors) against the JAX package's unfused
+    iteration."""
+    _check_loss(_step(perturb_cfe, "cuda"))
+
+
+@pytest.mark.parametrize("net", NETS)
+@pytest.mark.parametrize("perturb_cfe", [False, True])
+def test_fused_gradients_match_jax(perturb_cfe, net):
+    _check_gradients(_step(perturb_cfe, "cuda"), net, perturb_cfe)
+
+
+def _check_loss(r):
+    assert np.isfinite(r["tloss"])
+    np.testing.assert_allclose(r["tloss"], r["jloss"], rtol=1e-4)
+
+
+def _check_gradients(r, net, perturb_cfe):
     tg = torch.cat([g.reshape(-1) for g in r["tgrads"][net].values()])
     jg = torch.cat([r["jgrads"][net][k].reshape(-1) for k in r["tgrads"][net]])
     if net != "CFE" and not perturb_cfe:
@@ -151,6 +183,12 @@ def test_adam_step_matches_jax():
     """The main path's first iteration: each side steps on its own
     gradients."""
     r = _step(False)
+    _assert_params_close(r["tparams"], r["jparams"])
+    assert r["tmetrics"]["notfinite_total"] == 0
+
+
+def test_fused_adam_step_matches_jax():
+    r = _step(False, "cuda")
     _assert_params_close(r["tparams"], r["jparams"])
     assert r["tmetrics"]["notfinite_total"] == 0
 
@@ -213,7 +251,7 @@ def test_nonfinite_update_is_skipped():
 
 def test_frozen_network_gets_no_update():
     tpde = IncompressibleFluidPDE(
-        Domain2D.create(H, H, obstacle_mask=_plate()), FluidConfig(**_CFG),
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"), FluidConfig(**_CFG),
         dtype=torch.float32, **_PDE)
     app = ControlTraining(N, tpde, **dict(_APP, trainable_networks=("CFE",)))
     app.prepare()
@@ -256,12 +294,33 @@ def test_solves_per_iteration(monkeypatch):
 
     monkeypatch.setattr(cuda_cg, "pcg_plain", counting)
     tpde = IncompressibleFluidPDE(
-        Domain2D.create(H, H, obstacle_mask=_plate()),
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"),
         FluidConfig(**dict(_CFG, pressure_backend="cuda")),
         dtype=torch.float32, **_PDE)
     app = ControlTraining(N, tpde, **_APP).prepare()
     app.progress(_batch())
     assert calls.count("warm") == N and calls.count("cold") == N - 1
+
+
+def test_fused_steps_per_iteration(monkeypatch):
+    """fused='cuda' (the kernels' plain versions on CPU tensors) runs one
+    forward and one backward per step, the last step's backward included:
+    the final-frame loss reads that step's density. No separate solve."""
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+
+    calls = []
+    for name in ("fused_step_plain_forward", "fused_step_plain_backward"):
+        fn = getattr(cuda_fluid, name)
+        monkeypatch.setattr(cuda_fluid, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    monkeypatch.setattr(cuda_cg, "pressure_solve", None)  # never reached
+    tpde = IncompressibleFluidPDE(
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"),
+        FluidConfig(**_CFG, fused="cuda"), dtype=torch.float32, **_PDE)
+    app = ControlTraining(N, tpde, **_APP).prepare()
+    app.progress(_batch())
+    assert calls.count("fused_step_plain_forward") == N
+    assert calls.count("fused_step_plain_backward") == N
 
 
 def test_staggered_targets_match_jax(rng):
@@ -294,7 +353,7 @@ def test_chain_loss_matches_jax():
     batch = {k: v[:, :n + 1] if k == "obs" else v for k, v in _batch().items()}
     jloss, _ = jax.jit(japp._loss_fn)(params, batch)
     tpde = IncompressibleFluidPDE(
-        Domain2D.create(H, H, obstacle_mask=_plate()), FluidConfig(**_CFG),
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"), FluidConfig(**_CFG),
         dtype=torch.float32, **_PDE)
     tapp = ControlTraining(n, tpde, **app_kw).prepare()
     tapp.load_params(params_from_flax(params))
