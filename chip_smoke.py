@@ -6,9 +6,10 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result):
   1. device: needs CUDA; prints the card, its power limit and the TF32
      settings (both off);
-  2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`,
-     prints each kernel's registers and spills, and checks the kernels'
-     shared-memory counts against the Python gates;
+  2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`
+     (one nvcc per source, in parallel), prints each kernel's registers and
+     spills, and checks the kernels' shared-memory counts against the
+     Python gates;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed) and 32² (open, with an obstacle), batch 8,
      warm and cold, at tol 1e-4 / 100 iterations and tol 1e-6 / 500;
@@ -20,14 +21,26 @@ prints no result):
      NaN and an infinity planted in the velocity (the non-finite cells must
      be the plain version's), at tol 1e-6 / 500; then their times at
      64²×8, tol 1e-4 / 100;
-  5. the main path, unfused: the 64² smoke-control training iteration
+  5. the first iteration of each training path below, every one with the
+     same perturbed CFE output layer, so that every net has a gradient; the
+     conv path's run records the shape of every conv its kernels compute;
+  6. the main path, unfused: the 64² smoke-control training iteration
      (n=16, batch 8, full widths, bf16 nets) with the pressure solve on K1;
      the first iteration against the plain solve, 2 warm-up and 5 timed
      iterations, K1's launches;
-  6. the main path, fused (`FluidConfig.fused='cuda'`): the same
+  7. the main path, fused (`FluidConfig.fused='cuda'`): the same
      iteration with each step on K2 and K3; the first iteration against
-     the unfused one on the same weights, 2 warm-up and 5 timed
-     iterations, K2's and K3's launches.
+     the unfused one, 2 warm-up and 5 timed iterations, K2's and K3's
+     launches;
+  8. the main path, fused, with the nets' 3×3 stride-1 convs on K4/K5
+     (`conv_impl='cuda'`): the first iteration against the fused cuDNN
+     path, 2 warm-up and 5 timed iterations, the launches of all five
+     kernels;
+  9. the 3×3 conv's forward and dX (K4) and dW (K5) against their plain
+     versions at every conv shape the conv path ran, with db, then their
+     device times (CUDA-graph replay) beside the plain versions', cuDNN's
+     and the bound, per launch and summed over one iteration. It runs last
+     because the graphs' memory pools would raise the paths' peak memory.
 The line before the last is the kernels' JSON summary; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -45,9 +58,13 @@ import torch
 
 H, N, BATCH = 64, 16, 8
 SEED = 0
-# One H100 SXM at its full power limit: fp32 outside the tensor cores, and
-# HBM (NVIDIA's data sheet). Every kernel here is fp32 CUDA-core work.
+CFE_FEATURES, UNET_LEVELS = (32, 64, 64, 32), 3
+SPANS = [N >> i for i in range(N.bit_length() - 1)]  # the OP nets: 16, 8, 4, 2
+# One H100 SXM at its full power limit: fp32 outside the tensor cores, bf16
+# dense on the tensor cores, and HBM (NVIDIA's data sheet). K1-K3 are fp32
+# CUDA-core work, K4/K5 bf16 tensor-core work.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -81,14 +98,21 @@ def build_phase() -> None:
     print(info.log.strip())
     print(f"build_seconds {info.seconds:.2f} ({info.path.name})")
     for block in info.log.split("Compiling entry function")[1:]:
-        name = re.search(r"(pcg_kernel|fused_fwd_kernel|fused_bwd_kernel)", block)
+        name = re.search(r"((?:pcg|fused_fwd|fused_bwd|conv3x3_fwd|"
+                         r"conv3x3_dw_reduce|conv3x3_dw)_kernel)"
+                         r"(?:ILi(\d+)E(?:Lb([01])E)?)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            block)
+        smem = re.search(r"(\d+) bytes smem", block)
         if name and regs and spills:
-            print(f"ptxas {name.group(1)}: {regs.group(1)} registers, "
+            args = [a for a in (name.group(2), name.group(3)) if a is not None]
+            label = name.group(1) + (f"<{', '.join(args)}>" if args else "")
+            print(f"ptxas {label}: {regs.group(1)} registers, "
                   f"{spills.group(1)} bytes spill stores, {spills.group(2)} "
-                  f"bytes spill loads")
+                  f"bytes spill loads"
+                  + (f", {smem.group(1)} bytes static shared memory" if smem
+                     else ""))
     for c_name, gate in (("pcg_shared_bytes", cuda_cg.shared_bytes),
                          ("fused_shared_bytes", cuda_fluid.shared_bytes)):
         fn = getattr(lib, c_name)
@@ -114,6 +138,30 @@ def _time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time per call of `fn`: `reps` calls captured in one CUDA graph
+    and replayed, so that the host's cost per call, which exceeds the device
+    time of the smaller convs, stays out of the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # handles and workspaces are made outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -407,12 +455,132 @@ def fused_kernel_phase(card: str) -> dict:
     return summary
 
 
-# ------------------------------------------------------------ phases 5 and 6
+# ---------------------------------------------------------------- phase 9
 
 
-def make_app(backend: str = "auto", fused: str = "auto"):
+def _conv_work(b: int, h: int, w: int, cin: int, cout: int) -> tuple[float, dict]:
+    """Operations of one direction of the conv (2·M·N·K with M = B·H·W,
+    N = Cout, K = 9·Cin; the same for forward, dX and dW) and each
+    direction's bf16 bytes, each input read once and each output written
+    once."""
+    m, wts = b * h * w, 9 * cin * cout
+    return 2.0 * m * cout * 9 * cin, {
+        "fwd": 2 * (m * cin + wts + cout + m * cout),
+        "dx": 2 * (m * cout + wts + m * cin),
+        "dw": 2 * (m * cin + m * cout + wts)}
+
+
+def conv_kernel_phase(card: str, shapes: dict) -> dict:
+    """K4 (forward and dX) and K5 (dW) against their plain versions, and db
+    as `_Conv3x3` computes it, at every conv shape of the conv path's first
+    iteration; then each direction's time per launch beside its plain
+    version's, cuDNN's (timed as a yardstick; the port never calls it on
+    this path) and its bound, and the sums over one iteration. Times are
+    device times (`_graph_ms`)."""
+    _phase("K4 / K5 (3x3 conv forward, dX, dW) against plain")
+    import torch.nn.functional as F
+
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    print("limits: y, dX and db max|d|/max|ref| <= 1e-2 (one bf16 ulp is "
+          "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
+          "2^15..2^18 products)")
+    err = {"K4": 0.0, "K5": 0.0}
+    dirs = ("fwd", "dx", "dw")
+    sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    t_bytes=0.0, t_ops=0.0, launches=0) for d in dirs}
+    for key in sorted(shapes):
+        b, h, w, cin, cout = key
+        per_iter = shapes[key]
+
+        def t(*shape, scale=1.0):
+            return torch.tensor(scale * rng.normal(size=shape),
+                                dtype=torch.float32, device=dev).to(torch.bfloat16)
+
+        x, g = t(b, h, w, cin), t(b, h, w, cout)
+        wflat, bias = t(9 * cin, cout, scale=1 / np.sqrt(9 * cin)), t(cout, scale=0.1)
+        kernel = {"fwd": lambda: cuda_conv.conv3x3_forward(x, wflat, bias),
+                  "dx": lambda: cuda_conv.conv3x3_dx(g, wflat),
+                  "dw": lambda: cuda_conv.conv3x3_dw(x, g)}
+        plain = {"fwd": lambda: cuda_conv.conv3x3_plain(x, wflat, bias),
+                 "dx": lambda: cuda_conv.conv3x3_plain(
+                     g, cuda_conv.rotate_weights(wflat)),
+                 "dw": lambda: cuda_conv.conv3x3_dw_plain(x, g)}
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_oihw = wflat.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        library = {"fwd": lambda: F.conv2d(xn, w_oihw, bias, padding=1),
+                   "dx": lambda: torch.nn.grad.conv2d_input(
+                       xn.shape, w_oihw, gn, padding=1),
+                   "dw": lambda: torch.nn.grad.conv2d_weight(
+                       xn, w_oihw.shape, gn, padding=1)}
+        got = {d: fn() for d, fn in kernel.items()}
+        want = {d: fn() for d, fn in plain.items()}
+        got["db"] = torch.sum(g, dim=(0, 1, 2), dtype=torch.float32).to(g.dtype)
+        want["db"] = g.float().reshape(-1, cout).sum(0).to(g.dtype)
+        torch.cuda.synchronize()
+        rels = {}
+        for d, limit in (("fwd", 1e-2), ("dx", 1e-2), ("dw", 2e-2), ("db", 1e-2)):
+            a, r = got[d].float(), want[d].float()
+            if a.shape != r.shape or not torch.isfinite(a).all():
+                raise AssertionError(f"{key} {d}: shape {tuple(a.shape)} against "
+                                     f"{tuple(r.shape)}, or non-finite values")
+            diff = float((a - r).abs().max())
+            if d != "db":
+                err["K5" if d == "dw" else "K4"] = max(
+                    err["K5" if d == "dw" else "K4"], diff)
+            rels[d] = diff / max(float(r.abs().max()), 1e-30)
+            if rels[d] > limit:
+                raise AssertionError(f"{key} {d}: max|d|/max|ref| {rels[d]:.3e} > "
+                                     f"{limit}")
+        flops, nbytes = _conv_work(*key)
+        times = []
+        for d in dirs:
+            ms, plain_ms = _graph_ms(kernel[d], 20), _graph_ms(plain[d], 3)
+            library_ms = _graph_ms(library[d], 20)
+            t_bytes, t_ops = nbytes[d] / PEAK_HBM_BYTES, flops / PEAK_BF16_TC_FLOPS
+            bound_ms = 1e3 * max(t_bytes, t_ops)
+            n = per_iter[d]
+            for k, v in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", library_ms), ("bound_ms", bound_ms),
+                         ("t_bytes", 1e3 * t_bytes), ("t_ops", 1e3 * t_ops),
+                         ("launches", 1)):
+                sums[d][k] += n * v
+            times.append(f"{d} {ms:.4f} (plain {plain_ms:.4f}, cuDNN "
+                         f"{library_ms:.4f}, bound {bound_ms:.6f} "
+                         f"{'bytes' if t_bytes >= t_ops else 'operations'})")
+        print(f"{b}x{h}x{w} {cin}->{cout}, per iteration fwd {per_iter['fwd']} "
+              f"dX {per_iter['dx']} dW {per_iter['dw']}: max|d|/max|ref| "
+              + " ".join(f"{k}={v:.2e}" for k, v in rels.items())
+              + f" | {flops / 1e9:.3f} GFLOP | ms per launch: " + "; ".join(times)
+              + f" [{card}]")
+    for d in dirs:
+        s = sums[d]
+        print(f"{d} summed over one iteration ({s['launches']} launches): kernel "
+              f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, cuDNN "
+              f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms [{card}]")
+
+    def summary(parts, name):
+        n = sum(sums[d]["launches"] for d in parts)
+        out = {k: sum(sums[d][k] for d in parts) / n
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_ops = sum(sums[d]["t_ops"] for d in parts)
+        by_bytes = sum(sums[d]["t_bytes"] for d in parts)
+        out.update(err=err[name], bound_by="operations" if by_ops >= by_bytes
+                   else "bytes")
+        return out
+
+    return {"K4": summary(("fwd", "dx"), "K4"), "K5": summary(("dw",), "K5")}
+
+
+# ------------------------------------------------------------ phases 5 to 8
+
+
+def make_app(backend: str = "auto", fused: str = "auto", conv_impl: str = "xla"):
     """The port's counterpart of `__graft_entry__._make_app(64, 16, 8)`
-    (`fused='cuda'`: of `_make_app(64, 16, 8, fused='pallas')`)."""
+    (`fused='cuda'`: of `_make_app(64, 16, 8, fused='pallas')`;
+    `conv_impl='cuda'`: of its `conv_impl='pallas'`)."""
     from pde_control_tpu_torch import (
         ControlTraining,
         Domain2D,
@@ -425,13 +593,13 @@ def make_app(backend: str = "auto", fused: str = "auto"):
     cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
                       pressure_maxiter=100, warm_start_pressure=True,
                       pressure_backend=backend, fused=fused)
-    pde = IncompressibleFluidPDE(domain, cfg, control="buoyancy", unet_levels=3,
-                                 cfe_features=(32, 64, 64, 32),
-                                 op_base_features=16, dtype=torch.bfloat16)
-    spans = [N >> i for i in range(N.bit_length() - 1)]  # 16, 8, 4, 2
+    pde = IncompressibleFluidPDE(domain, cfg, control="buoyancy",
+                                 unet_levels=UNET_LEVELS,
+                                 cfe_features=CFE_FEATURES, op_base_features=16,
+                                 dtype=torch.bfloat16, conv_impl=conv_impl)
     return ControlTraining(
         N, pde,
-        trainable_networks=("CFE",) + tuple(f"OP{s}" for s in spans),
+        trainable_networks=("CFE",) + tuple(f"OP{s}" for s in SPANS),
         sequence_class="staggered", obs_loss_frames=(N,), seed=SEED).prepare()
 
 
@@ -451,21 +619,72 @@ def _grad_norms(app) -> dict:
             for name, net in app.nets.items()}
 
 
-def _first_iteration(batch, backend: str, fused: str) -> tuple[float, dict]:
-    app = make_app(backend, fused)
-    metrics = app.compute_gradients(app.to_batch(batch))
+def perturb_cfe(app) -> None:
+    """Loads a nonzero CFE output layer (Conv_4's kernel = 0.05·N(0, 1) from
+    a numpy seed, as tests/test_torch_training.py does). At its zero init no
+    gradient reaches the OP nets, so their first-iteration gradients would
+    be 0 on both sides of a comparison."""
+    w = app.nets["CFE"].Conv_4.weight
+    k = 0.05 * np.random.default_rng(3).normal(size=(3, 3, w.shape[1], w.shape[0]))
+    with torch.no_grad():
+        w.copy_(torch.tensor(k.transpose(3, 2, 0, 1), dtype=torch.float32))
+
+
+def _record_conv_shapes(shapes: dict):
+    """Wraps the conv's three directions so that each call counts its
+    (B, H, W, Cin, Cout) in `shapes[key][direction]`; returns the
+    originals."""
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    originals = {d: getattr(cuda_conv, f"conv3x3_{d}")
+                 for d in ("forward", "dx", "dw")}
+
+    def key_of(d, a, b):
+        if d == "dx":  # (dY, wflat)
+            return (*a.shape[:3], b.shape[0] // 9, a.shape[3])
+        return (*a.shape, b.shape[-1])  # (x, wflat) or (x, dY)
+
+    for d, fn in originals.items():
+        short = "fwd" if d == "forward" else d
+
+        def recording(a, b, *rest, _fn=fn, _d=d, _short=short):
+            entry = shapes.setdefault(key_of(_d, a, b),
+                                      {"fwd": 0, "dx": 0, "dw": 0})
+            entry[_short] += 1
+            return _fn(a, b, *rest)
+
+        setattr(cuda_conv, f"conv3x3_{d}", recording)
+    return originals
+
+
+def _first_iteration(batch, backend: str, fused: str, conv_impl: str = "xla",
+                     shapes: dict | None = None) -> tuple[float, dict]:
+    """Loss and gradient norms of one iteration with the CFE perturbed."""
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    app = make_app(backend, fused, conv_impl)
+    perturb_cfe(app)
+    originals = _record_conv_shapes(shapes) if shapes is not None else {}
+    try:
+        metrics = app.compute_gradients(app.to_batch(batch))
+    finally:
+        for d, fn in originals.items():
+            setattr(cuda_conv, f"conv3x3_{d}", fn)
     return float(metrics["loss"]), _grad_norms(app)
 
 
 def _compare_first(label: str, got: tuple, ref: tuple) -> None:
-    """Loss within 1e-3 relative, each net's gradient norm within 2e-2."""
+    """Loss within 1e-3 relative, each net's gradient norm nonzero on both
+    sides and within 2e-2."""
     (loss_k, gn_k), (loss_p, gn_p) = got, ref
     print(f"first iteration loss: {label} {loss_k:.7e} reference {loss_p:.7e}")
     print(f"first iteration grad norms: {label} {gn_k} reference {gn_p}")
     if abs(loss_k - loss_p) > 1e-3 * abs(loss_p):
         raise AssertionError(f"{label}: first-iteration loss differs")
     for name in gn_p:
-        if abs(gn_k[name] - gn_p[name]) > 2e-2 * gn_p[name] + 1e-12:
+        if not (gn_k[name] > 0 and gn_p[name] > 0):
+            raise AssertionError(f"{label}: {name} gradient norm is not positive")
+        if abs(gn_k[name] - gn_p[name]) > 2e-2 * gn_p[name]:
             raise AssertionError(f"{label}: {name} gradient norm differs")
 
 
@@ -483,16 +702,29 @@ def _record_trips(module, name: str, trips: list):
 
 
 def _zero_counts() -> None:
-    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_conv, cuda_fluid
 
     cuda_cg.LAUNCHES = cuda_fluid.LAUNCHES_FWD = cuda_fluid.LAUNCHES_BWD = 0
+    cuda_conv.LAUNCHES_FWD = cuda_conv.LAUNCHES_DX = cuda_conv.LAUNCHES_DW = 0
 
 
 def _counts() -> dict:
-    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_conv, cuda_fluid
 
     return {"K1": cuda_cg.LAUNCHES, "K2": cuda_fluid.LAUNCHES_FWD,
-            "K3": cuda_fluid.LAUNCHES_BWD}
+            "K3": cuda_fluid.LAUNCHES_BWD, "K4 fwd": cuda_conv.LAUNCHES_FWD,
+            "K4 dX": cuda_conv.LAUNCHES_DX, "K5": cuda_conv.LAUNCHES_DW}
+
+
+def conv_launches_per_iteration() -> dict:
+    """The conv path's launches per iteration: N CFE calls of
+    len(CFE_FEATURES) + 1 convs and one call of each OP net with 5·levels +
+    2 eligible convs (two per ConvBlock, levels + 1 + levels blocks, and
+    levels upsampling convs; the stride-2 and 1×1 convs stay on cuDNN)
+    forward; a dW for each; a dX for each but the top OP's first conv,
+    whose input is the ground truth."""
+    fwd = N * (len(CFE_FEATURES) + 1) + len(SPANS) * (5 * UNET_LEVELS + 2)
+    return {"K4 fwd": fwd, "K4 dX": fwd - 1, "K5": fwd}
 
 
 def _timed_iterations(app, batch, card: str, label: str, iters: int = 5) -> dict:
@@ -564,7 +796,8 @@ def main_path_phase(card: str, batch: dict, first: dict) -> dict:
     # whose pressure reaches the loss: all but the last, whose velocity the
     # final-frame loss never reads.
     print(f"expected per iteration: K1 {N} warm forward + {N - 1} cold backward")
-    _expect("unfused", launches, {"K1": 2 * N - 1, "K2": 0, "K3": 0})
+    _expect("unfused", launches, {"K1": 2 * N - 1, "K2": 0, "K3": 0,
+                                  "K4 fwd": 0, "K4 dX": 0, "K5": 0})
     return launches
 
 
@@ -592,7 +825,27 @@ def fused_path_phase(card: str, batch: dict, first: dict) -> dict:
     # One forward and one backward per step; the last step's backward runs
     # too, because the final-frame loss reads that step's density.
     print(f"expected per iteration: K2 {N}, K3 {N}, K1 0")
-    _expect("fused", launches, {"K1": 0, "K2": N, "K3": N})
+    _expect("fused", launches, {"K1": 0, "K2": N, "K3": N, "K4 fwd": 0,
+                                "K4 dX": 0, "K5": 0})
+    return launches
+
+
+def conv_path_phase(card: str, batch: dict, first: dict, shapes: dict) -> dict:
+    _phase("main path, fused, conv kernels (K2 / K3 / K4 / K5)")
+    _compare_first("conv", first["conv"], first["fused"])
+    per_iter = conv_launches_per_iteration()
+    recorded = {d: sum(v[k] for v in shapes.values())
+                for d, k in (("K4 fwd", "fwd"), ("K4 dX", "dx"), ("K5", "dw"))}
+    print(f"expected per iteration: K2 {N}, K3 {N}, K1 0, {per_iter}; "
+          f"recorded in the first iteration: {recorded} over {len(shapes)} "
+          "conv shapes")
+    if recorded != per_iter:
+        raise AssertionError("the first iteration's convs differ from the count")
+    app = make_app("auto", fused="cuda", conv_impl="cuda")
+    app.progress(batch)  # warm-up iterations
+    app.progress(batch)
+    launches = _timed_iterations(app, batch, card, "conv")
+    _expect("conv", launches, {"K1": 0, "K2": N, "K3": N, **per_iter})
     return launches
 
 
@@ -602,18 +855,24 @@ def main() -> None:
     k1 = kernel_phase(card)
     fused = fused_kernel_phase(card)
     batch = make_batch()
+    _phase("first iterations, CFE perturbed")
+    shapes = {}
     first = {"pcg": _first_iteration(batch, "pcg", "auto"),
              "auto": _first_iteration(batch, "auto", "auto"),
-             "fused": _first_iteration(batch, "auto", "cuda")}
+             "fused": _first_iteration(batch, "auto", "cuda"),
+             "conv": _first_iteration(batch, "auto", "cuda", "cuda", shapes)}
     unfused_launches = main_path_phase(card, batch, first)
     fused_launches = fused_path_phase(card, batch, first)
+    conv_launches = conv_path_phase(card, batch, first, shapes)
+    # Last, so that its CUDA graphs' memory stays out of the paths' peaks.
+    conv = conv_kernel_phase(card, shapes)
 
     def entry(name, source, replaces, launches, s):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": s["err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": s["bound_by"], "library_ms": None}
+                "bound_by": s["bound_by"], "library_ms": s.get("library_ms")}
 
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
                   for key in ("ms", "plain_ms", "bound_ms")}
@@ -629,6 +888,12 @@ def main() -> None:
         entry("fused_step_backward", "pde_control_tpu_torch/csrc/fused_step.cu",
               "pde_control_tpu/ops/pallas_fluid.py:516", fused_launches["K3"],
               fused["bwd"]),
+        entry("conv3x3_forward_and_dx", "pde_control_tpu_torch/csrc/conv3x3.cu",
+              "pde_control_tpu/ops/pallas_conv.py:110",
+              conv_launches["K4 fwd"] + conv_launches["K4 dX"], conv["K4"]),
+        entry("conv3x3_dw", "pde_control_tpu_torch/csrc/conv3x3.cu",
+              "pde_control_tpu/ops/pallas_conv.py:160", conv_launches["K5"],
+              conv["K5"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,16 @@ It mirrors the JAX package's module layout; a module here ports the module
 of the same path there. Ported so far: the 64² smoke-control training
 iteration (2D incompressible flow with the masked pressure solve, shift
 advection, the CFE and OP networks, the staggered and chain sequences, and
-the training step). Three hand-written CUDA kernels carry it on the card,
+the training step). Five hand-written CUDA kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
     unfused step calls;
   * K2 and K3, the whole fluid step forward and its hand-written VJP
     (`csrc/fused_step.cu`, `ops/cuda_fluid.py`), which the fused step
-    (`FluidConfig(fused='cuda')`) runs, one launch per step and direction.
+    (`FluidConfig(fused='cuda')`) runs, one launch per step and direction;
+  * K4 and K5, the 3×3 stride-1 conv's forward/dX and weight gradient
+    (`csrc/conv3x3.cu`, `ops/cuda_conv.py`), which the nets run under
+    `conv_impl='cuda'`.
 Constructors build on the GPU unless given `device=` (`device="cpu"` for
 the CPU); without a GPU they raise.
 

@@ -39,6 +39,8 @@ class IncompressibleFluidPDE(PDE):
         cfe_features: tuple | None = None,  # conv widths; None = CFENet default
         op_base_features: int = 16,
         dtype=torch.bfloat16,  # net compute dtype; params and physics are fp32
+        conv_impl: str = "xla",  # models/nets.py :: Conv; 'cuda' routes the
+        # 3x3 stride-1 convs to the hand-written kernels (ops/cuda_conv.py)
     ):
         if control not in ("direct", "buoyancy"):
             raise ValueError(f"unknown control mode {control!r}")
@@ -49,6 +51,7 @@ class IncompressibleFluidPDE(PDE):
         self.cfe_features = cfe_features
         self.op_base_features = op_base_features
         self.dtype = dtype
+        self.conv_impl = conv_impl
 
     # solver ---------------------------------------------------------------
     def step(self, state: FluidState, force: Staggered2D | None) -> FluidState:
@@ -85,13 +88,13 @@ class IncompressibleFluidPDE(PDE):
     def build_cfe(self, generator: torch.Generator | None = None) -> CFENet:
         out = 1 if self.control == "buoyancy" else 2
         kw = {"features": tuple(self.cfe_features)} if self.cfe_features else {}
-        return CFENet(in_channels=5, out_channels=out,
-                      dtype=self.dtype, generator=generator, **kw)
+        return CFENet(in_channels=5, out_channels=out, dtype=self.dtype,
+                      generator=generator, conv_impl=self.conv_impl, **kw)
 
     def build_op(self, generator: torch.Generator | None = None) -> UNet:
         return UNet(in_channels=3, out_channels=1, levels=self.unet_levels,
                     base_features=self.op_base_features, dtype=self.dtype,
-                    generator=generator)
+                    generator=generator, conv_impl=self.conv_impl)
 
     def op_inputs(self, o_start, o_end):
         mask = self.domain.fluid_mask[None, :, :, None].expand_as(o_start)

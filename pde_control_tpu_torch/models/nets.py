@@ -2,10 +2,21 @@
 
 Counterpart of `pde_control_tpu/models/nets.py` (`Conv`, `ConvBlock`,
 `UNet`, `CFENet`) at dim=2. Inputs and outputs are channels-last
-(B, H, W, C) at the public boundary, as in the JAX package; inside, the
-nets run NCHW through `torch.nn.functional.conv2d`. Parameters are fp32;
-compute runs in `dtype` (bf16 on the main path), as flax's `dtype`
+(B, H, W, C) at the public boundary, as in the JAX package. Parameters are
+fp32; compute runs in `dtype` (bf16 on the main path), as flax's `dtype`
 attribute does.
+
+`conv_impl` picks the convolution, as in the JAX package:
+  * 'xla' and 'auto': `torch.nn.functional.conv2d` (cuDNN on the card);
+    the nets run NCHW inside. 'auto' stays here until a benchmark routes
+    it from measurements on the card.
+  * 'cuda': every 3×3 stride-1 SAME conv goes to the hand-written kernels
+    of `ops/cuda_conv.py` (JAX's 'pallas'); the stride-2 downsampling convs
+    and the U-net's 1×1 output conv stay on `conv2d`. The nets run
+    channels-last inside, the kernels' layout, so the eligible convs need
+    no permute and the others see a channels-last view.
+'pallas' raises and names 'cuda'. JAX's XLA reformulations 'patches',
+'shifted' and 'im2col' are not ported (ROADMAP queue A) and raise.
 
 Submodules carry flax's auto-names (`Conv_0`, `ConvBlock_3.Conv_1`, …), so
 converting the JAX package's weights is a rename and a transpose
@@ -25,6 +36,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pde_control_tpu_torch.ops import cuda_conv
+
+CONV_IMPLS = ("xla", "auto", "cuda")
+
+
+def _check_conv_impl(conv_impl: str) -> None:
+    if conv_impl == "pallas":
+        raise ValueError("conv_impl='pallas' is the JAX package's name; the "
+                         "port's hand-written conv kernels are conv_impl='cuda'")
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl {conv_impl!r} is not ported; choose from "
+                         f"{CONV_IMPLS}")
+
 
 def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     """(before, after) padding of XLA's 'SAME' along one axis."""
@@ -42,13 +66,17 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator | None) -> None:
 
 
 class Conv(nn.Module):
-    """k×k conv with 'SAME' padding; channels-first inside the nets."""
+    """k×k conv with 'SAME' padding. It takes and returns (B, C, H, W), or
+    (B, H, W, C) under conv_impl='cuda'."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, dtype=torch.float32, zero_init: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 conv_impl: str = "xla"):
         super().__init__()
+        _check_conv_impl(conv_impl)
         self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
+        self.conv_impl = conv_impl
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -58,7 +86,20 @@ class Conv(nn.Module):
             else:
                 _lecun_normal_(self.weight, generator)
 
+    def _shape_eligible(self, x: torch.Tensor) -> bool:
+        """The JAX package's gate: 2D, 3×3, stride 1 (SAME padding, no
+        dilation and no groups hold for every conv of the nets)."""
+        return x.dim() == 4 and self.kernel_size == 3 and self.stride == 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl != "cuda":
+            return self._conv2d(x)
+        if self._shape_eligible(x):
+            return cuda_conv.conv3x3(x, self.weight.permute(2, 3, 1, 0),
+                                     self.bias, dtype=self.dtype)
+        return self._conv2d(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def _conv2d(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size, self.stride
         top, bottom = _same_pads(x.shape[-2], k, s)
         left, right = _same_pads(x.shape[-1], k, s)
@@ -78,10 +119,12 @@ def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
 
 class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 conv_impl: str = "xla"):
         super().__init__()
-        self.Conv_0 = Conv(in_features, features, dtype=dtype, generator=generator)
-        self.Conv_1 = Conv(features, features, dtype=dtype, generator=generator)
+        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl)
+        self.Conv_0 = Conv(in_features, features, **kw)
+        self.Conv_1 = Conv(features, features, **kw)
 
     def forward(self, x):
         return _leaky_relu(self.Conv_1(_leaky_relu(self.Conv_0(x))))
@@ -89,11 +132,24 @@ class ConvBlock(nn.Module):
 
 class _FlaxNamed(nn.Module):
     """Registers submodules under flax's per-class auto-names; the nets
-    keep the names in the order their forward pass uses them."""
+    keep the names in the order their forward pass uses them. Also the
+    layout inside the net: channels-last under conv_impl='cuda', NCHW
+    otherwise."""
 
-    def __init__(self):
+    def __init__(self, dtype, conv_impl: str):
         super().__init__()
         self._counts: dict[str, int] = {}
+        self.dtype = dtype
+        self.channels_last = conv_impl == "cuda"
+        # The channel axis and the two spatial axes inside the net.
+        self._c, self._hw = (3, (1, 2)) if self.channels_last else (1, (2, 3))
+
+    def _enter(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        return x if self.channels_last else x.permute(0, 3, 1, 2)
+
+    def _leave(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        return (x if self.channels_last else x.permute(0, 2, 3, 1)).to(dtype)
 
     def _add(self, module: nn.Module) -> str:
         kind = type(module).__name__
@@ -113,9 +169,10 @@ class UNet(_FlaxNamed):
 
     def __init__(self, in_channels: int, out_channels: int, levels: int = 3,
                  base_features: int = 16, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
-        super().__init__()
-        kw = dict(dtype=dtype, generator=generator)
+                 generator: torch.Generator | None = None,
+                 conv_impl: str = "xla"):
+        super().__init__(dtype, conv_impl)
+        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl)
         self.encoder = []
         cin, feats = in_channels, base_features
         for _ in range(levels):
@@ -131,22 +188,22 @@ class UNet(_FlaxNamed):
             block = self._add(ConvBlock(feats * 2, feats, **kw))
             self.decoder.append((up, block))
         self.out = self._add(Conv(feats, out_channels, kernel_size=1, **kw))
-        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = self._enter(x)
         skips = []
         for block, down in self.encoder:
             x = self.get_submodule(block)(x)
             skips.append(x)
             x = self.get_submodule(down)(x)
         x = self.get_submodule(self.bottom)(x)
+        sy, sx = self._hw
         for (up, block), skip in zip(self.decoder, reversed(skips)):
-            x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            x = x.repeat_interleave(2, dim=sy).repeat_interleave(2, dim=sx)
             x = self.get_submodule(up)(x)
-            x = self.get_submodule(block)(torch.cat([x, skip], dim=1))
-        return self.get_submodule(self.out)(x).permute(0, 2, 3, 1).to(in_dtype)
+            x = self.get_submodule(block)(torch.cat([x, skip], dim=self._c))
+        return self._leave(self.get_submodule(self.out)(x), in_dtype)
 
 
 class CFENet(_FlaxNamed):
@@ -158,20 +215,21 @@ class CFENet(_FlaxNamed):
 
     def __init__(self, in_channels: int, out_channels: int,
                  features: Sequence[int] = (32, 64, 64, 32),
-                 dtype=torch.float32, generator: torch.Generator | None = None):
-        super().__init__()
+                 dtype=torch.float32, generator: torch.Generator | None = None,
+                 conv_impl: str = "xla"):
+        super().__init__(dtype, conv_impl)
         self.hidden = []
         cin = in_channels
         for f in features:
-            self.hidden.append(self._add(
-                Conv(cin, f, dtype=dtype, generator=generator)))
+            self.hidden.append(self._add(Conv(
+                cin, f, dtype=dtype, generator=generator, conv_impl=conv_impl)))
             cin = f
-        self.out = self._add(Conv(cin, out_channels, dtype=dtype, zero_init=True))
-        self.dtype = dtype
+        self.out = self._add(Conv(cin, out_channels, dtype=dtype, zero_init=True,
+                                  conv_impl=conv_impl))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
-        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        x = self._enter(x)
         for name in self.hidden:
             x = _leaky_relu(self.get_submodule(name)(x))
-        return self.get_submodule(self.out)(x).permute(0, 2, 3, 1).to(in_dtype)
+        return self._leave(self.get_submodule(self.out)(x), in_dtype)

@@ -2,10 +2,11 @@
 ctypes.
 
 Every `csrc/*.cu` file goes into one shared library with a plain C
-interface, compiled for Hopper (`sm_90a`). The library's file name carries
-a hash of the sources, so an edited source is rebuilt and a stale binary is
-never loaded. The build goes into `pde_control_tpu_torch/_build/`, which
-git ignores; a process builds at most once.
+interface, compiled for Hopper (`sm_90a`): one `nvcc -c` per source, all
+started together, then one link. The library's file name carries a hash
+of the sources, so an edited source is rebuilt and a stale binary is never
+loaded. The build goes into `pde_control_tpu_torch/_build/`, which git
+ignores; a process builds at most once.
 """
 
 from __future__ import annotations
@@ -23,15 +24,18 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 
 @dataclasses.dataclass
 class BuildInfo:
     path: Path
-    seconds: float      # nvcc wall time; 0.0 when the library was already built
-    log: str            # nvcc's output (ptxas register / shared-memory report)
+    seconds: float      # nvcc wall time (compiles and link); 0.0 when the
+                        # library was already built
+    log: str            # nvcc's output for each source (ptxas register /
+                        # shared-memory report)
 
 
 _lock = threading.Lock()
@@ -68,17 +72,34 @@ def _digest(srcs: list[Path]) -> str:
 
 def _compile(srcs: list[Path], target: Path) -> BuildInfo:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    tmp = BUILD_DIR / f"tmp{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in srcs if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmp / f"{src.stem}.o"), str(src)]
+        jobs.append((src, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, cmd, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(f"-- {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise RuntimeError("\n".join(failed))
+    lib = target.with_suffix(f".tmp{os.getpid()}")
+    cmd = [nvcc, *_ARCH, "-shared", "-o", str(lib),
+           *(str(tmp / f"{src.stem}.o") for src, _, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    shutil.rmtree(tmp, ignore_errors=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, target)  # atomic: a concurrent reader never sees half a file
-    return BuildInfo(target, seconds, log)
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(lib, target)  # atomic: a concurrent reader never sees half a file
+    return BuildInfo(target, time.perf_counter() - t0, "".join(logs))
 
 
 def load() -> tuple[ctypes.CDLL, BuildInfo]:

@@ -172,10 +172,11 @@ def _kernel():
     return fn
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.device != device or t.dtype != torch.float32:
-        raise ValueError(f"{name}: want float32 on {device}, got {t.dtype} on "
-                         f"{t.device}")
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype: torch.dtype = torch.float32) -> None:
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: want {str(dtype).removeprefix('torch.')} on "
+                         f"{device}, got {t.dtype} on {t.device}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: want shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -1,0 +1,255 @@
+"""3×3 SAME stride-1 convolution, channels-last: the Hopper kernels
+(`csrc/conv3x3.cu`) and their plain PyTorch versions.
+
+Counterpart of `pde_control_tpu/ops/pallas_conv.py`. Replaces its TPU
+kernels `_make_conv._run_fwd` (K4, body `_fwd_kernel`: y = im2col(x) @ W
++ b, and the same kernel on the cotangent with the rotated, io-transposed
+weights for dX) and `_make_conv.bwd`'s dW (K5, body `_dw_kernel`: dW =
+Σ over batch and pixels of im2col(x)ᵀ·dY). The kernels are implicit GEMMs
+on the bf16 tensor cores with fp32 accumulators; im2col is gathered into
+shared memory and never stored in device memory. K5 sums each run of
+pixels into an fp32 partial and adds the partials in a fixed order in a
+second pass, so dW is the same in every run.
+
+Rounding points, as in the JAX package: x and W in the compute dtype
+before the product, the bias rounded to it, fp32 sums, and y, dX and dW
+rounded once at the end; db = ΣdY in fp32, rounded once.
+
+`conv3x3` is the public, differentiable function (the JAX package's
+signature and layout: x (B, H, W, Cin), kernel (3, 3, Cin, Cout)). The
+three directions, `conv3x3_forward` (K4), `conv3x3_dx` (K4 on the rotated
+weights) and `conv3x3_dw` (K5), launch their kernel for CUDA tensors and
+run the plain versions below for CPU tensors; a CUDA tensor they cannot
+take (a dtype other than bf16, a shape or layout they do not take) raises.
+`LAUNCHES_FWD`, `LAUNCHES_DX` and `LAUNCHES_DW` count the launches.
+
+There is no fit gate: a block holds one tile of pixels and one slice of K
+whatever the shape, so every 3×3 stride-1 SAME shape runs. The one limit
+is int32 pixel indexing (B·H·W < 2³¹), which raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from pde_control_tpu_torch.ops import cuda_cg
+
+#: Launches of K4 forward, K4 for dX and K5 since import, or since a caller
+#: reset them.
+LAUNCHES_FWD = 0
+LAUNCHES_DX = 0
+LAUNCHES_DW = 0
+
+_BK, _MC = 64, 32           # K5's rows of dW per block and pixels per step
+_DW_TARGET_BLOCKS = 2 * 132  # K5's first pass: about two blocks per SM
+
+
+# --------------------------------------------------------------------------
+# Plain versions: the im2col matmul with the kernels' rounding points.
+# --------------------------------------------------------------------------
+
+
+def _im2col(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) → (B·H·W, 9C) in fp32; taps (dy, dx) row-major, the
+    order of the (3, 3, C, Co) → (9C, Co) weight reshape."""
+    b, h, w, c = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    taps = [xp[:, dy:dy + h, dx:dx + w, :] for dy in range(3) for dx in range(3)]
+    return torch.cat(taps, dim=-1).reshape(b * h * w, 9 * c)
+
+
+def conv3x3_plain(x: torch.Tensor, wflat: torch.Tensor,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """K4's plain version: im2col(x) @ wflat (+ bias) summed in fp32 and
+    rounded to x's dtype. x (B, H, W, Cin), wflat (9·Cin, Cout), bias
+    (Cout,), all in the compute dtype."""
+    b, h, w, _ = x.shape
+    acc = _im2col(x) @ wflat.float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.reshape(b, h, w, -1).to(x.dtype)
+
+
+def rotate_weights(wflat: torch.Tensor) -> torch.Tensor:
+    """(9·Cin, Cout) → (9·Cout, Cin): the window turned 180° with in and out
+    channels swapped (the JAX package's `wback`)."""
+    cin, cout = wflat.shape[0] // 9, wflat.shape[1]
+    return (wflat.reshape(3, 3, cin, cout).flip(0, 1).transpose(2, 3)
+            .reshape(9 * cout, cin))
+
+
+def conv3x3_dw_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5's plain version: im2col(x)ᵀ @ dY over every pixel of the batch in
+    fp32, rounded once to x's dtype."""
+    return (_im2col(x).T @ g.reshape(-1, g.shape[-1]).float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# The kernels' wrappers.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def _kernels():
+    from pde_control_tpu_torch.ops._build import load
+
+    lib, _ = load()
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fwd = lib.conv3x3_fwd_bf16
+    fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    fwd.restype = i32
+    dw = lib.conv3x3_dw_bf16
+    dw.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    dw.restype = i32
+    return fwd, dw
+
+
+def _tile_n(cout: int) -> int:
+    """The output-channel tile of K4 and K5 (`tile_n` in C)."""
+    return 16 if cout <= 16 else 32 if cout <= 32 else 64
+
+
+def dw_splits(m: int, cin: int, cout: int) -> tuple[int, int]:
+    """(S, pixels per split) of K5's first pass over m = B·H·W pixels:
+    enough splits for about two blocks per SM over the (9·Cin, Cout)
+    output tiles, at least 256 pixels each, a multiple of 32 pixels."""
+    tiles = -(-9 * cin // _BK) * -(-cout // _tile_n(cout))
+    splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // 256), 65535))
+    chunk = -(-m // splits)
+    chunk = -(-chunk // _MC) * _MC
+    return -(-m // chunk), chunk
+
+
+def _vec(t: torch.Tensor, channels: int) -> int:
+    """Whether the kernel may load `t` 16 bytes (8 channels) at a time."""
+    return int(channels % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _check_image(name: str, t: torch.Tensor) -> tuple[int, int, int, int]:
+    if t.dim() != 4:
+        raise ValueError(f"{name}: want (B, H, W, C), got {tuple(t.shape)}")
+    cuda_cg._check(name, t, tuple(t.shape), t.device, torch.bfloat16)
+    b, h, w, c = t.shape
+    if b * h * w >= 2**31:
+        raise ValueError(f"{name}: {b * h * w} pixels exceed the kernels' int32 "
+                         "pixel index")
+    return b, h, w, c
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def conv3x3_forward(x: torch.Tensor, wflat: torch.Tensor,
+                    bias: torch.Tensor | None = None) -> torch.Tensor:
+    """K4: y (B, H, W, Cout) = conv3x3(x, W) + bias for x (B, H, W, Cin),
+    wflat (9·Cin, Cout) and bias (Cout,) or None, one dtype (bf16 on the
+    card)."""
+    global LAUNCHES_FWD
+    if cuda_cg._runs_plain(x, "conv3x3_forward"):
+        return conv3x3_plain(x, wflat, bias)
+    b, h, w, cin = _check_image("x", x)
+    cout = wflat.shape[-1]
+    cuda_cg._check("wflat", wflat, (9 * cin, cout), x.device, torch.bfloat16)
+    if bias is not None:
+        cuda_cg._check("bias", bias, (cout,), x.device, torch.bfloat16)
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    rc = _kernels()[0](x.data_ptr(), wflat.data_ptr(),
+                       None if bias is None else bias.data_ptr(), y.data_ptr(),
+                       b, h, w, cin, cout, 0, _vec(x, cin), _vec(wflat, cout),
+                       _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_fwd_bf16 launch failed with cudaError {rc}")
+    LAUNCHES_FWD += 1
+    return y
+
+
+def conv3x3_dx(g: torch.Tensor, wflat: torch.Tensor) -> torch.Tensor:
+    """K4 for the input gradient: dX (B, H, W, Cin) = conv3x3(dY, W rotated
+    180° and io-transposed), no bias, for dY (B, H, W, Cout) and the
+    forward's wflat (9·Cin, Cout). The kernel reads wflat rotated."""
+    global LAUNCHES_DX
+    if cuda_cg._runs_plain(g, "conv3x3_dx"):
+        return conv3x3_plain(g, rotate_weights(wflat))
+    b, h, w, cout = _check_image("g", g)
+    cin = wflat.shape[0] // 9
+    cuda_cg._check("wflat", wflat, (9 * cin, cout), g.device, torch.bfloat16)
+    dx = torch.empty((b, h, w, cin), dtype=g.dtype, device=g.device)
+    rc = _kernels()[0](g.data_ptr(), wflat.data_ptr(), None, dx.data_ptr(),
+                       b, h, w, cout, cin, 1, _vec(g, cout), _vec(wflat, cout),
+                       _stream(g))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_fwd_bf16 (dX) launch failed with cudaError {rc}")
+    LAUNCHES_DX += 1
+    return dx
+
+
+def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5: dW (9·Cin, Cout) = Σ over batch and pixels of im2col(x)ᵀ·dY for
+    x (B, H, W, Cin) and dY (B, H, W, Cout), summed in fp32 and rounded
+    once."""
+    global LAUNCHES_DW
+    if cuda_cg._runs_plain(x, "conv3x3_dw"):
+        return conv3x3_dw_plain(x, g)
+    b, h, w, cin = _check_image("x", x)
+    cout = g.shape[-1]
+    cuda_cg._check("g", g, (b, h, w, cout), x.device, torch.bfloat16)
+    splits, chunk = dw_splits(b * h * w, cin, cout)
+    partial = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty((9 * cin, cout), dtype=x.dtype, device=x.device)
+    rc = _kernels()[1](x.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                       dw.data_ptr(), b, h, w, cin, cout, splits, chunk,
+                       _vec(x, cin), _vec(g, cout), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_dw_bf16 launch failed with cudaError {rc}")
+    LAUNCHES_DW += 1
+    return dw
+
+
+class _Conv3x3(torch.autograd.Function):
+    """(x, wflat, bias) → y by K4; backward: dX by K4 on the rotated
+    weights, dW by K5, db = ΣdY in fp32, each returned in the compute
+    dtype, as the JAX custom VJP returns them. dX is skipped when x needs no
+    gradient (a net's first layer fed by data): the JAX VJP computes it and
+    throws it away."""
+
+    @staticmethod
+    def forward(ctx, x, wflat, bias):
+        ctx.save_for_backward(x, wflat)
+        return conv3x3_forward(x, wflat, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, wflat = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_w, need_b = ctx.needs_input_grad
+        g_x = conv3x3_dx(g, wflat) if need_x else None
+        g_w = conv3x3_dw(x, g) if need_w else None
+        g_b = (torch.sum(g, dim=(0, 1, 2), dtype=torch.float32).to(g.dtype)
+               if need_b else None)
+        return g_x, g_w, g_b
+
+
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+            bias: torch.Tensor | None = None,
+            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """3×3 SAME stride-1 conv, channels-last: x (B, H, W, Cin) × kernel (3,
+    3, Cin, Cout) (+ bias (Cout,)) → (B, H, W, Cout) in `dtype`,
+    differentiable in x, kernel and bias. Operands are cast to `dtype` (the
+    bias too) and summed in fp32. CUDA tensors take bf16 only."""
+    cin = x.shape[-1]
+    if tuple(kernel.shape[:3]) != (3, 3, cin) or kernel.dim() != 4:
+        raise ValueError(f"conv3x3 needs a (3, 3, {cin}, Co) kernel, got "
+                         f"{tuple(kernel.shape)}")
+    cout = kernel.shape[-1]
+    wflat = kernel.to(dtype, memory_format=torch.contiguous_format).reshape(
+        9 * cin, cout)
+    return _Conv3x3.apply(x.to(dtype).contiguous(), wflat,
+                          None if bias is None else bias.to(dtype))

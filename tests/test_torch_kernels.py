@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions, on the card:
-the pressure solve (K1, `ops/cuda_cg.py`) and the fused fluid step's
-forward and backward (K2 and K3, `ops/cuda_fluid.py`).
+the pressure solve (K1, `ops/cuda_cg.py`), the fused fluid step's forward
+and backward (K2 and K3, `ops/cuda_fluid.py`) and the 3×3 conv's forward
+and input gradient (K4) and weight gradient (K5, `ops/cuda_conv.py`).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only the port's dependencies are installed. On a machine with a GPU:
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from pde_control_tpu_torch.grids import Domain2D
-from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+from pde_control_tpu_torch.ops import cuda_cg, cuda_conv, cuda_fluid
 from pde_control_tpu_torch.physics.poisson import solve_pressure
 
 torch.set_num_threads(1)
@@ -288,3 +289,144 @@ def test_fused_cpu_tensors_run_the_plain_version():
     assert (cuda_fluid.LAUNCHES_FWD, cuda_fluid.LAUNCHES_BWD) == before
     for a, b in zip(out + g, ref + g_ref):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- K4 / K5
+
+# (batch, H, W, Cin, Cout): the main path's ragged channel counts (5 → 32,
+# 32 → 1, 3 → 16), its widest layers, and a grid whose pixels leave the
+# last tile part empty.
+_CONV_SHAPES = [(8, 64, 64, 5, 32), (8, 64, 64, 64, 64), (8, 64, 64, 32, 1),
+                (64, 64, 64, 3, 16), (8, 8, 8, 128, 128), (16, 16, 16, 128, 64),
+                (3, 7, 9, 16, 24)]
+
+
+def _conv_inputs(b, h, w, cin, cout, dev, seed=0):
+    """x, wflat, bias and a cotangent in bf16, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(scale * rng.normal(size=shape), dtype=torch.float32,
+                            device=dev).to(torch.bfloat16)
+
+    return (t(b, h, w, cin), t(9 * cin, cout, scale=1 / np.sqrt(9 * cin)),
+            t(cout, scale=0.1), t(b, h, w, cout))
+
+
+def _rel_max(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _conv_counts():
+    return (cuda_conv.LAUNCHES_FWD, cuda_conv.LAUNCHES_DX, cuda_conv.LAUNCHES_DW)
+
+
+@pytest.mark.parametrize("shape", _CONV_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _CONV_SHAPES])
+def test_conv_kernels_match_plain(shape):
+    """y and dX within 1e-2 of the plain version's max|ref| (one bf16 ulp is
+    2^-8 and the fp32 sums run in another order), dW within 2e-2 (it sums
+    2^15..2^18 products) and the same in every run; each launch counts
+    once."""
+    dev = _cuda()
+    x, wflat, bias, g = _conv_inputs(*shape, dev)
+    before = _conv_counts()
+    y = cuda_conv.conv3x3_forward(x, wflat, bias)
+    dx = cuda_conv.conv3x3_dx(g, wflat)
+    dw = cuda_conv.conv3x3_dw(x, g)
+    torch.cuda.synchronize()
+    assert _conv_counts() == tuple(n + 1 for n in before)
+    assert y.shape == g.shape and dx.shape == x.shape and dw.shape == wflat.shape
+    assert _rel_max(y, cuda_conv.conv3x3_plain(x, wflat, bias)) <= 1e-2
+    assert _rel_max(cuda_conv.conv3x3_forward(x, wflat),
+                    cuda_conv.conv3x3_plain(x, wflat)) <= 1e-2
+    assert _rel_max(dx, cuda_conv.conv3x3_plain(
+        g, cuda_conv.rotate_weights(wflat))) <= 1e-2
+    assert _rel_max(dw, cuda_conv.conv3x3_dw_plain(x, g)) <= 2e-2
+    assert torch.equal(cuda_conv.conv3x3_dw(x, g), dw)
+
+
+@pytest.mark.parametrize("needs_x", [True, False])
+def test_conv_autograd_matches_cpu(needs_x):
+    """`conv3x3` on the card against the same call on the CPU (the plain
+    versions): output and the gradients of x, kernel and bias within the
+    limits above; no dX launch when x needs no gradient."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4, 32, 32, 32)).astype(np.float32)
+    k = (rng.normal(size=(3, 3, 32, 16)) / np.sqrt(288)).astype(np.float32)
+    b = (0.1 * rng.normal(size=16)).astype(np.float32)
+    g = rng.normal(size=(4, 32, 32, 16)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        xt = torch.tensor(x, device=d, requires_grad=needs_x)
+        kt = torch.tensor(k, device=d, requires_grad=True)
+        bt = torch.tensor(b, device=d, requires_grad=True)
+        before = _conv_counts()
+        y = cuda_conv.conv3x3(xt, kt, bt)
+        y.backward(torch.tensor(g, device=d).to(torch.bfloat16))
+        launched = tuple(a - n for a, n in zip(_conv_counts(), before))
+        out[str(d)] = (y, xt.grad, kt.grad, bt.grad, launched)
+    cpu, gpu = out["cpu"], out["cuda"]
+    assert cpu[4] == (0, 0, 0) and gpu[4] == (1, int(needs_x), 1)
+    assert _rel_max(gpu[0].cpu(), cpu[0]) <= 1e-2
+    if needs_x:
+        assert _rel_max(gpu[1].cpu(), cpu[1]) <= 1e-2
+    else:
+        assert gpu[1] is None and cpu[1] is None
+    assert _rel_max(gpu[2].cpu(), cpu[2]) <= 2e-2
+    assert _rel_max(gpu[3].cpu(), cpu[3]) <= 2e-2
+
+
+def test_conv_kernels_reject_bad_inputs():
+    dev = _cuda()
+    x, wflat, bias, g = _conv_inputs(2, 8, 8, 16, 16, dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_conv.conv3x3_forward(x.float(), wflat.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_conv.conv3x3_forward(x.transpose(1, 2), wflat)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_conv.conv3x3_forward(x, wflat[:-1])
+    with pytest.raises(ValueError, match="shape"):
+        cuda_conv.conv3x3_forward(x, wflat, bias[:-1])
+    with pytest.raises(ValueError, match="shape"):
+        cuda_conv.conv3x3_dw(x, g[:, :-1])
+    with pytest.raises(ValueError, match=r"\(B, H, W, C\)"):
+        cuda_conv.conv3x3_dx(g[0], wflat)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_conv.conv3x3(x.float(), torch.zeros(3, 3, 16, 4, device=dev),
+                          dtype=torch.float32)
+
+
+def test_conv_wrapper_takes_cpu_and_cuda_only():
+    x = torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16, device="meta")
+    w = torch.zeros(72, 8, dtype=torch.bfloat16, device="meta")
+    for fn, args in ((cuda_conv.conv3x3_forward, (x, w)),
+                     (cuda_conv.conv3x3_dx, (x, w)),
+                     (cuda_conv.conv3x3_dw, (x, x))):
+        with pytest.raises(ValueError, match="CPU or CUDA"):
+            fn(*args)
+
+
+def test_conv_cpu_tensors_run_the_plain_version():
+    x, wflat, bias, g = _conv_inputs(2, 6, 5, 8, 3, "cpu")
+    before = _conv_counts()
+    got = (cuda_conv.conv3x3_forward(x, wflat, bias),
+           cuda_conv.conv3x3_dx(g, wflat), cuda_conv.conv3x3_dw(x, g))
+    want = (cuda_conv.conv3x3_plain(x, wflat, bias),
+            cuda_conv.conv3x3_plain(g, cuda_conv.rotate_weights(wflat)),
+            cuda_conv.conv3x3_dw_plain(x, g))
+    assert _conv_counts() == before  # no kernel on the CPU
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("m,cin,cout", [(32768, 64, 64), (262144, 3, 16),
+                                        (512, 128, 128), (63, 16, 24), (1, 5, 1)])
+def test_dw_splits_cover_the_pixels(m, cin, cout):
+    """K5's splits: whole steps of 32 pixels, every pixel in exactly one
+    split, none empty."""
+    splits, chunk = cuda_conv.dw_splits(m, cin, cout)
+    assert chunk % 32 == 0 and 1 <= splits <= 65535
+    assert (splits - 1) * chunk < m <= splits * chunk
