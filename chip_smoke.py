@@ -8,8 +8,9 @@ prints no result):
      settings (both off);
   2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`
      (one nvcc per source, in parallel), prints each kernel's registers and
-     spills, and checks the kernels' shared-memory counts against the
-     Python gates;
+     spills (a kernel the report does not know, a K5 kernel missing from it
+     or a K5 kernel that spills fails), and checks the kernels'
+     shared-memory counts against the Python gates;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed) and 32² (open, with an obstacle), batch 8,
      warm and cold, at tol 1e-4 / 100 iterations and tol 1e-6 / 500;
@@ -39,8 +40,11 @@ prints no result):
   9. the 3×3 conv's forward and dX (K4) and dW (K5) against their plain
      versions at every conv shape the conv path ran, with db, then their
      device times (CUDA-graph replay) beside the plain versions', cuDNN's
-     and the bound, per launch and summed over one iteration. It runs last
-     because the graphs' memory pools would raise the paths' peak memory.
+     and the bound, per launch and summed over one iteration; K5's bound
+     also with the bytes of its fp32 partials; then K5 alone at the shapes
+     its runs of whole rows could get wrong, checked and timed but not
+     summed. It runs last because the graphs' memory pools would raise the
+     paths' peak memory.
 The line before the last is the kernels' JSON summary; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -66,6 +70,17 @@ SPANS = [N >> i for i in range(N.bit_length() - 1)]  # the OP nets: 16, 8, 4, 2
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+# K5's first-pass instantiations <channel fragments, Cout fragments> and its
+# second pass: each must stand in ptxas's report, without spills.
+K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
+              for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
+# (batch, H, W, Cin, Cout) that the main path does not reach and K5's plan
+# of whole rows could get wrong: rows the runs do not divide, one row, one
+# column, W below a fragment's 16 pixels, one output channel under four
+# channel tiles, blocks whose runs pass from one sample to the next.
+K5_EDGE_SHAPES = [(3, 7, 9, 16, 24), (2, 13, 64, 32, 32), (40, 13, 64, 32, 32),
+                  (4, 1, 16, 32, 16), (4, 16, 1, 16, 16), (8, 8, 8, 64, 128),
+                  (2, 16, 16, 128, 1), (5, 3, 64, 64, 64), (40, 5, 8, 128, 128)]
 
 
 def _phase(name: str) -> None:
@@ -97,22 +112,31 @@ def build_phase() -> None:
     lib, info = _build.load()
     print(info.log.strip())
     print(f"build_seconds {info.seconds:.2f} ({info.path.name})")
+    seen = {}
     for block in info.log.split("Compiling entry function")[1:]:
         name = re.search(r"((?:pcg|fused_fwd|fused_bwd|conv3x3_fwd|"
                          r"conv3x3_dw_reduce|conv3x3_dw)_kernel)"
-                         r"(?:ILi(\d+)E(?:Lb([01])E)?)?", block)
+                         r"(?:ILi(\d+)E(?:L[bi]([0-9]+)E)?)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            block)
         smem = re.search(r"(\d+) bytes smem", block)
-        if name and regs and spills:
-            args = [a for a in (name.group(2), name.group(3)) if a is not None]
-            label = name.group(1) + (f"<{', '.join(args)}>" if args else "")
-            print(f"ptxas {label}: {regs.group(1)} registers, "
-                  f"{spills.group(1)} bytes spill stores, {spills.group(2)} "
-                  f"bytes spill loads"
-                  + (f", {smem.group(1)} bytes static shared memory" if smem
-                     else ""))
+        if not (name and regs and spills):
+            raise AssertionError("ptxas reports a kernel this script does not "
+                                 f"know: {block.splitlines()[0]}")
+        args = [a for a in (name.group(2), name.group(3)) if a is not None]
+        label = name.group(1) + (f"<{', '.join(args)}>" if args else "")
+        seen[label] = int(spills.group(1)) + int(spills.group(2))
+        print(f"ptxas {label}: {regs.group(1)} registers, "
+              f"{spills.group(1)} bytes spill stores, {spills.group(2)} "
+              f"bytes spill loads"
+              + (f", {smem.group(1)} bytes static shared memory" if smem
+                 else ""))
+    if K5_KERNELS - set(seen):
+        raise AssertionError(f"no ptxas report for {sorted(K5_KERNELS - set(seen))}")
+    if any(seen[k] for k in K5_KERNELS):
+        raise AssertionError(f"a K5 kernel spills: "
+                             f"{ {k: seen[k] for k in K5_KERNELS if seen[k]} }")
     for c_name, gate in (("pcg_shared_bytes", cuda_cg.shared_bytes),
                          ("fused_shared_bytes", cuda_fluid.shared_bytes)):
         fn = getattr(lib, c_name)
@@ -121,6 +145,18 @@ def build_phase() -> None:
             raise AssertionError(f"{c_name}: kernel asks {fn(H, H)} bytes, the "
                                  f"gate counts {gate(H, H)}")
         print(f"{c_name}({H}, {H}) = {fn(H, H)} bytes, equal to the gate's count")
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    fn = lib.conv3x3_dw_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+    for rows, w, cin, cout in ((4, 64, 64, 64), (8, 64, 32, 16), (16, 64, 3, 16),
+                               (8, 8, 128, 128), (1, 1, 16, 1)):
+        want = cuda_conv.dw_shared_bytes(rows, w, cin, cout)
+        if fn(rows, w, cin, cout) != want:
+            raise AssertionError(f"conv3x3_dw_shared_bytes({rows}, {w}, {cin}, "
+                                 f"{cout}): kernel asks {fn(rows, w, cin, cout)} "
+                                 f"bytes, the plan counts {want}")
+    print("conv3x3_dw_shared_bytes equal to the plan's count at 5 shapes")
 
 
 def _plate(n: int) -> np.ndarray:
@@ -470,6 +506,14 @@ def _conv_work(b: int, h: int, w: int, cin: int, cout: int) -> tuple[float, dict
         "dw": 2 * (m * cin + m * cout + wts)}
 
 
+def _dw_bound_with_partials(key: tuple, plan) -> float:
+    """K5's bound in ms when the fp32 partials of its plan, written by the
+    first pass and read by the second, are counted with the operands."""
+    flops, nbytes = _conv_work(*key)
+    return 1e3 * max((nbytes["dw"] + 2 * plan.partial_bytes) / PEAK_HBM_BYTES,
+                     flops / PEAK_BF16_TC_FLOPS)
+
+
 def conv_kernel_phase(card: str, shapes: dict) -> dict:
     """K4 (forward and dX) and K5 (dW) against their plain versions, and db
     as `_Conv3x3` computes it, at every conv shape of the conv path's first
@@ -486,11 +530,12 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
     rng = np.random.default_rng(SEED + 2)
     print("limits: y, dX and db max|d|/max|ref| <= 1e-2 (one bf16 ulp is "
           "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
-          "2^15..2^18 products)")
+          "2^15..2^18 products) and the same bits in two calls")
     err = {"K4": 0.0, "K5": 0.0}
     dirs = ("fwd", "dx", "dw")
     sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     t_bytes=0.0, t_ops=0.0, launches=0) for d in dirs}
+    sums["dw"].update(bound_partials_ms=0.0, partial_bytes=0)
     for key in sorted(shapes):
         b, h, w, cin, cout = key
         per_iter = shapes[key]
@@ -517,6 +562,8 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
                        xn, w_oihw.shape, gn, padding=1)}
         got = {d: fn() for d, fn in kernel.items()}
         want = {d: fn() for d, fn in plain.items()}
+        if not torch.equal(kernel["dw"](), got["dw"]):
+            raise AssertionError(f"{key} dw: two calls differ")
         got["db"] = torch.sum(g, dim=(0, 1, 2), dtype=torch.float32).to(g.dtype)
         want["db"] = g.float().reshape(-1, cout).sum(0).to(g.dtype)
         torch.cuda.synchronize()
@@ -550,6 +597,14 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
             times.append(f"{d} {ms:.4f} (plain {plain_ms:.4f}, cuDNN "
                          f"{library_ms:.4f}, bound {bound_ms:.6f} "
                          f"{'bytes' if t_bytes >= t_ops else 'operations'})")
+        plan = cuda_conv.dw_plan(*key)
+        with_partials = _dw_bound_with_partials(key, plan)
+        sums["dw"]["bound_partials_ms"] += per_iter["dw"] * with_partials
+        sums["dw"]["partial_bytes"] += per_iter["dw"] * plan.partial_bytes
+        times.append(f"dW plan rows {plan.rows} x runs {plan.runs_per_block} x "
+                     f"splits {plan.splits}, {plan.shared_bytes} B shared, "
+                     f"{plan.partial_bytes} B partials, bound with partials "
+                     f"{with_partials:.6f}")
         print(f"{b}x{h}x{w} {cin}->{cout}, per iteration fwd {per_iter['fwd']} "
               f"dX {per_iter['dx']} dW {per_iter['dw']}: max|d|/max|ref| "
               + " ".join(f"{k}={v:.2e}" for k, v in rels.items())
@@ -560,6 +615,31 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
         print(f"{d} summed over one iteration ({s['launches']} launches): kernel "
               f"{s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, cuDNN "
               f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms [{card}]")
+    print(f"dw bound with its partials written and read again "
+          f"({sums['dw']['partial_bytes'] / 1e6:.1f} MB per iteration): "
+          f"{sums['dw']['bound_partials_ms']:.4f} ms")
+
+    print("K5 at the shapes its runs of whole rows could get wrong (not in "
+          "the sums): dW max|d|/max|ref| <= 2e-2, the same bits in two calls")
+    for key in K5_EDGE_SHAPES:
+        b, h, w, cin, cout = key
+        x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,
+                             device=dev).to(torch.bfloat16) for c in (cin, cout))
+        got, want = cuda_conv.conv3x3_dw(x, g), cuda_conv.conv3x3_dw_plain(x, g)
+        again = cuda_conv.conv3x3_dw(x, g)
+        torch.cuda.synchronize()
+        rel = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max().clamp_min(1e-30))
+        err["K5"] = max(err["K5"], float((got.float() - want.float()).abs().max()))
+        plan = cuda_conv.dw_plan(*key)
+        ms = _graph_ms(lambda: cuda_conv.conv3x3_dw(x, g), 20)
+        print(f"{b}x{h}x{w} {cin}->{cout}: dW {rel:.2e}, plan rows {plan.rows} x "
+              f"runs {plan.runs_per_block} x splits {plan.splits}, {ms:.4f} ms "
+              f"[{card}]")
+        if not (rel <= 2e-2 and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{key} dw: max|d|/max|ref| {rel:.3e} > 2e-2")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{key} dw: two calls differ")
 
     def summary(parts, name):
         n = sum(sums[d]["launches"] for d in parts)

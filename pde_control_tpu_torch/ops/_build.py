@@ -5,8 +5,10 @@ Every `csrc/*.cu` file goes into one shared library with a plain C
 interface, compiled for Hopper (`sm_90a`): one `nvcc -c` per source, all
 started together, then one link. The library's file name carries a hash
 of the sources, so an edited source is rebuilt and a stale binary is never
-loaded. The build goes into `pde_control_tpu_torch/_build/`, which git
-ignores; a process builds at most once.
+loaded; nvcc's output (ptxas's report of registers, spills and shared
+memory) is kept beside it. The build goes into
+`pde_control_tpu_torch/_build/`, which git ignores; a process builds at most
+once.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ class BuildInfo:
     seconds: float      # nvcc wall time (compiles and link); 0.0 when the
                         # library was already built
     log: str            # nvcc's output for each source (ptxas register /
-                        # shared-memory report)
+                        # shared-memory report), from the build's log file
+                        # when the library was already built
 
 
 _lock = threading.Lock()
@@ -98,6 +101,7 @@ def _compile(srcs: list[Path], target: Path) -> BuildInfo:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}{proc.stderr}")
+    target.with_suffix(".log").write_text("".join(logs))
     os.replace(lib, target)  # atomic: a concurrent reader never sees half a file
     return BuildInfo(target, time.perf_counter() - t0, "".join(logs))
 
@@ -110,6 +114,7 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
             srcs = _sources()
             target = BUILD_DIR / f"libpde_kernels_{_digest(srcs)}.so"
             info = (_compile(srcs, target) if not target.exists()
-                    else BuildInfo(target, 0.0, ""))
+                    else BuildInfo(target, 0.0,
+                                   target.with_suffix(".log").read_text()))
             _loaded = (ctypes.CDLL(str(target)), info)
         return _loaded

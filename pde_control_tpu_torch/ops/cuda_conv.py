@@ -7,9 +7,19 @@ kernels `_make_conv._run_fwd` (K4, body `_fwd_kernel`: y = im2col(x) @ W
 weights for dX) and `_make_conv.bwd`'s dW (K5, body `_dw_kernel`: dW =
 Σ over batch and pixels of im2col(x)ᵀ·dY). The kernels are implicit GEMMs
 on the bf16 tensor cores with fp32 accumulators; im2col is gathered into
-shared memory and never stored in device memory. K5 sums each run of
-pixels into an fp32 partial and adds the partials in a fixed order in a
-second pass, so dW is the same in every run.
+shared memory and never stored in device memory.
+
+K5 is bound on this card neither by its bytes nor by its operations (its
+bound is a tenth of its time) but by latency: blocks that wait for loads
+between a few products, and x gathered once per tap. So a block owns runs
+of whole image rows of one sample, stages each run's x halo tile and dY
+tile in shared memory once, by `cp.async` through a ring of two buffers,
+and reads all nine taps' operands from that one tile at constant pixel
+offsets (`ldmatrix` + `mma.sync`, nine accumulator fragments per warp).
+`dw_plan` cuts the batch into runs, blocks and S splits; each split sums
+into its own fp32 partial and a second pass adds the partials in a fixed
+order (with S = 1 the first pass rounds and writes dW itself), so dW is
+the same in every run.
 
 Rounding points, as in the JAX package: x and W in the compute dtype
 before the product, the bias rounded to it, fp32 sums, and y, dX and dW
@@ -23,15 +33,17 @@ run the plain versions below for CPU tensors; a CUDA tensor they cannot
 take (a dtype other than bf16, a shape or layout they do not take) raises.
 `LAUNCHES_FWD`, `LAUNCHES_DX` and `LAUNCHES_DW` count the launches.
 
-There is no fit gate: a block holds one tile of pixels and one slice of K
-whatever the shape, so every 3×3 stride-1 SAME shape runs. The one limit
-is int32 pixel indexing (B·H·W < 2³¹), which raises.
+K4 has no fit gate: a block holds one tile of pixels and one slice of K
+whatever the shape. K5 holds whole rows, so an image too wide for a run of
+one row in shared memory (W in the thousands) raises, as does B·H·W ≥ 2³¹
+(int32 pixel indexing).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +57,9 @@ LAUNCHES_FWD = 0
 LAUNCHES_DX = 0
 LAUNCHES_DW = 0
 
-_BK, _MC = 64, 32           # K5's rows of dW per block and pixels per step
-_DW_TARGET_BLOCKS = 2 * 132  # K5's first pass: about two blocks per SM
+#: The most dynamic shared memory one block may ask for on this card.
+MAX_SHARED_BYTES = 232448
+_SMS = 132  # the H100's streaming multiprocessors
 
 
 # --------------------------------------------------------------------------
@@ -104,25 +117,72 @@ def _kernels():
     fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
     fwd.restype = i32
     dw = lib.conv3x3_dw_bf16
-    dw.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
+    dw.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     dw.restype = i32
     return fwd, dw
 
 
-def _tile_n(cout: int) -> int:
-    """The output-channel tile of K4 and K5 (`tile_n` in C)."""
-    return 16 if cout <= 16 else 32 if cout <= 32 else 64
+class DwPlan(NamedTuple):
+    """How K5's first pass cuts the batch: runs of `rows` image rows of one
+    sample (the last run of a sample may be shorter), `runs_per_block`
+    consecutive runs per block, `splits` blocks per (channel tile, Cout
+    tile), each with its own fp32 slice of the partial sums."""
+    rows: int
+    runs_per_block: int
+    splits: int
+    shared_bytes: int    # dynamic shared memory of one block
+    partial_bytes: int   # fp32 partials written and read again; 0 at S = 1
 
 
-def dw_splits(m: int, cin: int, cout: int) -> tuple[int, int]:
-    """(S, pixels per split) of K5's first pass over m = B·H·W pixels:
-    enough splits for about two blocks per SM over the (9·Cin, Cout)
-    output tiles, at least 256 pixels each, a multiple of 32 pixels."""
-    tiles = -(-9 * cin // _BK) * -(-cout // _tile_n(cout))
-    splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // 256), 65535))
-    chunk = -(-m // splits)
-    chunk = -(-chunk // _MC) * _MC
-    return -(-m // chunk), chunk
+def _dw_tile(cin: int, cout: int) -> tuple[int, int]:
+    """K5's (channel tile, Cout tile): all of Cin up to 16, else 32 at a
+    time, by the least of 16, 32 and 64 that covers Cout (`dw_frags_c` and
+    `tile_n` in C)."""
+    return 16 if cin <= 16 else 32, 16 if cout <= 16 else 32 if cout <= 32 else 64
+
+
+def dw_shared_bytes(rows: int, w: int, cin: int, cout: int) -> int:
+    """The dynamic shared memory K5's first pass asks for
+    (`conv3x3_dw_shared_bytes` in C): two buffers, each the x halo tile of
+    (rows + 2)·(W + 2) pixels and 24 zero pixels after it by the channel
+    tile + 8, and the padded dY tile of rows·(W + 2) pixels, rounded up to
+    16, by the Cout tile + 8, in bf16; or the fp32 sums that the warps
+    sharing one fragment pair hand over at the end, where that is more."""
+    ct, bn = _dw_tile(cin, cout)
+    wp = w + 2
+    ring = 2 * 2 * (((rows + 2) * wp + 24) * (ct + 8)
+                    + -(-rows * wp // 16) * 16 * (bn + 8))
+    pairs = (ct // 16) * (bn // 16)
+    return max(ring, 4 * (8 - pairs) * 72 * 32)
+
+
+@functools.lru_cache(maxsize=256)  # a net asks for the same few shapes
+def dw_plan(b: int, h: int, w: int, cin: int, cout: int) -> DwPlan:
+    """K5's plan for x (b, h, w, cin) and dY (b, h, w, cout), tuned on one
+    H100 at the 64², n=16 training iteration's shapes. Blocks: one wave, one
+    block per SM over the (channel tile, Cout tile) pairs; more splits cost
+    more in partials, S·9·Cin·Cout·4 bytes written and read again, than
+    they win. Rows per run: a block's share of the batch's rows in one run
+    where the ring fits the card's shared memory, else in two or more; at
+    least 64 padded pixels (four fragments), in runs of equal length, and
+    never past a sample's last row. An image too wide for a run of one row
+    raises."""
+    ct, bn = _dw_tile(cin, cout)
+    tiles = -(-cin // ct) * -(-cout // bn)
+    target = max(1, _SMS // tiles)
+    wanted = max(-(-b * h // target), -(-64 // (w + 2)))
+    rows = -(-h // max(1, h // wanted))
+    while rows > 1 and dw_shared_bytes(rows, w, cin, cout) > MAX_SHARED_BYTES:
+        rows = -(-rows // 2)
+    shared = dw_shared_bytes(rows, w, cin, cout)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"conv3x3_dw: one row of {w} pixels needs {shared} "
+                         f"bytes of shared memory, above {MAX_SHARED_BYTES}")
+    total_runs = b * -(-h // rows)
+    runs_per_block = -(-total_runs // target)
+    splits = -(-total_runs // runs_per_block)
+    return DwPlan(rows, runs_per_block, splits, shared,
+                  splits * 4 * 9 * cin * cout if splits > 1 else 0)
 
 
 def _vec(t: torch.Tensor, channels: int) -> int:
@@ -199,13 +259,15 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = _check_image("x", x)
     cout = g.shape[-1]
     cuda_cg._check("g", g, (b, h, w, cout), x.device, torch.bfloat16)
-    splits, chunk = dw_splits(b * h * w, cin, cout)
-    partial = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
-                          device=x.device)
+    plan = dw_plan(b, h, w, cin, cout)
+    partial = (torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
     dw = torch.empty((9 * cin, cout), dtype=x.dtype, device=x.device)
-    rc = _kernels()[1](x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                       dw.data_ptr(), b, h, w, cin, cout, splits, chunk,
-                       _vec(x, cin), _vec(g, cout), _stream(x))
+    rc = _kernels()[1](x.data_ptr(), g.data_ptr(),
+                       None if partial is None else partial.data_ptr(),
+                       dw.data_ptr(), b, h, w, cin, cout, plan.rows,
+                       plan.runs_per_block, plan.splits, _vec(x, cin),
+                       _vec(g, cout), _stream(x))
     if rc != 0:
         raise RuntimeError(f"conv3x3_dw_bf16 launch failed with cudaError {rc}")
     LAUNCHES_DW += 1

@@ -296,9 +296,17 @@ def test_fused_cpu_tensors_run_the_plain_version():
 # (batch, H, W, Cin, Cout): the main path's ragged channel counts (5 → 32,
 # 32 → 1, 3 → 16), its widest layers, and a grid whose pixels leave the
 # last tile part empty.
-_CONV_SHAPES = [(8, 64, 64, 5, 32), (8, 64, 64, 64, 64), (8, 64, 64, 32, 1),
+_MAIN_SHAPES = [(8, 64, 64, 5, 32), (8, 64, 64, 64, 64), (8, 64, 64, 32, 1),
                 (64, 64, 64, 3, 16), (8, 8, 8, 128, 128), (16, 16, 16, 128, 64),
                 (3, 7, 9, 16, 24)]
+# What K5's runs of whole rows can get wrong: rows that the rows per run do
+# not divide, one row, one column, W below a fragment's 16 pixels, Cin above
+# the channel tile with one output channel, and blocks whose runs pass from
+# one sample to the next.
+_EDGE_SHAPES = [(2, 13, 64, 32, 32), (40, 13, 64, 32, 32), (4, 1, 16, 32, 16),
+                (4, 16, 1, 16, 16), (8, 8, 8, 64, 128), (2, 16, 16, 128, 1),
+                (5, 3, 64, 64, 64), (40, 5, 8, 128, 128)]
+_CONV_SHAPES = _MAIN_SHAPES + _EDGE_SHAPES
 
 
 def _conv_inputs(b, h, w, cin, cout, dev, seed=0):
@@ -422,11 +430,43 @@ def test_conv_cpu_tensors_run_the_plain_version():
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("m,cin,cout", [(32768, 64, 64), (262144, 3, 16),
-                                        (512, 128, 128), (63, 16, 24), (1, 5, 1)])
-def test_dw_splits_cover_the_pixels(m, cin, cout):
-    """K5's splits: whole steps of 32 pixels, every pixel in exactly one
-    split, none empty."""
-    splits, chunk = cuda_conv.dw_splits(m, cin, cout)
-    assert chunk % 32 == 0 and 1 <= splits <= 65535
-    assert (splits - 1) * chunk < m <= splits * chunk
+# The main path's shape families (64²×8 and ×64, 32²×64, 16² and 8² with
+# 128 channels) beside the shapes above.
+_PLAN_SHAPES = _CONV_SHAPES + [(64, 64, 64, 32, 16), (64, 32, 32, 64, 32),
+                               (64, 8, 8, 128, 128), (32, 16, 16, 64, 64),
+                               (1, 1, 1, 5, 1)]
+
+
+@pytest.mark.parametrize("shape", _PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _PLAN_SHAPES])
+def test_dw_splits_cover_the_pixels(shape):
+    """K5's plan: every row of every sample in exactly one run of one block,
+    no run crossing a sample, no block without a run, the shared memory
+    within the card's limit, and the partials' bytes as the splits make
+    them."""
+    b, h, w, cin, cout = shape
+    plan = cuda_conv.dw_plan(*shape)
+    assert 1 <= plan.rows <= h and plan.runs_per_block >= 1
+    assert 1 <= plan.splits <= 132  # one wave of blocks at most
+    runs_per_sample = -(-h // plan.rows)
+    total_runs = b * runs_per_sample
+    assert (plan.splits - 1) * plan.runs_per_block < total_runs
+    assert total_runs <= plan.splits * plan.runs_per_block
+    seen = np.zeros((b, h), int)
+    for split in range(plan.splits):  # the kernel's walk over its runs
+        first = split * plan.runs_per_block
+        for run in range(first, min(total_runs, first + plan.runs_per_block)):
+            sample, r0 = divmod(run, runs_per_sample)
+            r0 *= plan.rows
+            assert r0 < h  # the run lies in its own sample
+            seen[sample, r0:min(h, r0 + plan.rows)] += 1
+    assert (seen == 1).all()
+    assert plan.shared_bytes == cuda_conv.dw_shared_bytes(plan.rows, w, cin, cout)
+    assert plan.shared_bytes <= cuda_conv.MAX_SHARED_BYTES == 232448
+    assert plan.partial_bytes == (plan.splits * 9 * cin * cout * 4
+                                  if plan.splits > 1 else 0)
+
+
+def test_dw_plan_rejects_an_image_too_wide_for_one_row():
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_conv.dw_plan(1, 4, 4096, 64, 64)
