@@ -8,9 +8,9 @@ prints no result):
      settings (both off);
   2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`
      (one nvcc per source, in parallel), prints each kernel's registers and
-     spills (a kernel the report does not know, a K5 kernel missing from it
-     or a K5 kernel that spills fails), and checks the kernels'
-     shared-memory counts against the Python gates;
+     spills (a kernel the report does not know, a K4 or K5 kernel missing
+     from it or a K4 or K5 kernel that spills fails), and checks the
+     kernels' shared-memory counts against the Python gates and plans;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed) and 32² (open, with an obstacle), batch 8,
      warm and cold, at tol 1e-4 / 100 iterations and tol 1e-6 / 500;
@@ -41,10 +41,12 @@ prints no result):
      versions at every conv shape the conv path ran, with db, then their
      device times (CUDA-graph replay) beside the plain versions', cuDNN's
      and the bound, per launch and summed over one iteration; K5's bound
-     also with the bytes of its fp32 partials; then K5 alone at the shapes
-     its runs of whole rows could get wrong, checked and timed but not
-     summed. It runs last because the graphs' memory pools would raise the
-     paths' peak memory.
+     also with the bytes of its fp32 partials; y, dX and dW the same bits
+     in two calls; each shape's K4 and K5 plans. Then K4 alone at the
+     shapes its tiles, segments and splits could get wrong, checked but not
+     timed, and K5 alone at the shapes its runs of whole rows could get
+     wrong, checked and timed; neither is summed. It runs last because the
+     graphs' memory pools would raise the paths' peak memory.
 The line before the last is the kernels' JSON summary; the last line is
 `{"ok": true, "device": {...}}`.
 """
@@ -71,9 +73,19 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # K5's first-pass instantiations <channel fragments, Cout fragments> and its
-# second pass: each must stand in ptxas's report, without spills.
+# second pass: each must stand in ptxas's report, without spills (K4's are
+# listed by `cuda_conv.FWD_TILES` in the build phase).
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
+# (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
+# could get wrong: positions the tiles do not divide, one row, one column,
+# an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
+# (and 1 for dX), Cout 1, partial channel slices and Cout tiles, and
+# shapes where the plan splits K.
+K4_EDGE_SHAPES = [(3, 7, 9, 16, 24), (2, 1, 64, 32, 32), (4, 16, 1, 16, 16),
+                  (1, 1, 1, 5, 1), (2, 9, 700, 16, 64), (1, 3, 4096, 16, 16),
+                  (8, 12, 12, 3, 32), (4, 10, 10, 5, 32), (6, 11, 13, 32, 1),
+                  (3, 5, 6, 40, 72), (2, 4, 4, 128, 64), (40, 5, 8, 128, 128)]
 # (batch, H, W, Cin, Cout) that the main path does not reach and K5's plan
 # of whole rows could get wrong: rows the runs do not divide, one row, one
 # column, W below a fragment's 16 pixels, one output channel under four
@@ -107,16 +119,19 @@ def device_phase() -> str:
 
 def build_phase() -> None:
     _phase("build")
-    from pde_control_tpu_torch.ops import _build, cuda_cg, cuda_fluid
+    from pde_control_tpu_torch.ops import _build, cuda_cg, cuda_conv, cuda_fluid
 
     lib, info = _build.load()
+    k4_kernels = {f"conv3x3_fwd_kernel<{bn}, {fm}, {rot}>"
+                  for bn, fm in cuda_conv.FWD_TILES
+                  for rot in (0, 1)} | {"conv3x3_fwd_reduce_kernel"}
     print(info.log.strip())
     print(f"build_seconds {info.seconds:.2f} ({info.path.name})")
     seen = {}
     for block in info.log.split("Compiling entry function")[1:]:
-        name = re.search(r"((?:pcg|fused_fwd|fused_bwd|conv3x3_fwd|"
-                         r"conv3x3_dw_reduce|conv3x3_dw)_kernel)"
-                         r"(?:ILi(\d+)E(?:L[bi]([0-9]+)E)?)?", block)
+        name = re.search(r"((?:pcg|fused_fwd|fused_bwd|conv3x3_fwd_reduce|"
+                         r"conv3x3_fwd|conv3x3_dw_reduce|conv3x3_dw)_kernel)"
+                         r"(?:I((?:L[a-z]+\d+E)+)E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                            block)
@@ -124,7 +139,7 @@ def build_phase() -> None:
         if not (name and regs and spills):
             raise AssertionError("ptxas reports a kernel this script does not "
                                  f"know: {block.splitlines()[0]}")
-        args = [a for a in (name.group(2), name.group(3)) if a is not None]
+        args = re.findall(r"L[a-z]+(\d+)E", name.group(2) or "")
         label = name.group(1) + (f"<{', '.join(args)}>" if args else "")
         seen[label] = int(spills.group(1)) + int(spills.group(2))
         print(f"ptxas {label}: {regs.group(1)} registers, "
@@ -132,11 +147,12 @@ def build_phase() -> None:
               f"bytes spill loads"
               + (f", {smem.group(1)} bytes static shared memory" if smem
                  else ""))
-    if K5_KERNELS - set(seen):
-        raise AssertionError(f"no ptxas report for {sorted(K5_KERNELS - set(seen))}")
-    if any(seen[k] for k in K5_KERNELS):
-        raise AssertionError(f"a K5 kernel spills: "
-                             f"{ {k: seen[k] for k in K5_KERNELS if seen[k]} }")
+    conv_kernels = k4_kernels | K5_KERNELS
+    if conv_kernels - set(seen):
+        raise AssertionError(f"no ptxas report for {sorted(conv_kernels - set(seen))}")
+    if any(seen[k] for k in conv_kernels):
+        raise AssertionError(f"a K4 or K5 kernel spills: "
+                             f"{ {k: seen[k] for k in conv_kernels if seen[k]} }")
     for c_name, gate in (("pcg_shared_bytes", cuda_cg.shared_bytes),
                          ("fused_shared_bytes", cuda_fluid.shared_bytes)):
         fn = getattr(lib, c_name)
@@ -145,8 +161,17 @@ def build_phase() -> None:
             raise AssertionError(f"{c_name}: kernel asks {fn(H, H)} bytes, the "
                                  f"gate counts {gate(H, H)}")
         print(f"{c_name}({H}, {H}) = {fn(H, H)} bytes, equal to the gate's count")
-    from pde_control_tpu_torch.ops import cuda_conv
-
+    fn = lib.conv3x3_fwd_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+    fwd_cases = [(bn, fm, seg, w) for bn, fm in cuda_conv.FWD_TILES
+                 for seg, w in ((64, 64), (8, 8), (64, 700), (1, 1))]
+    for args in fwd_cases:
+        if fn(*args) != cuda_conv.fwd_shared_bytes(*args):
+            raise AssertionError(f"conv3x3_fwd_shared_bytes{args}: kernel asks "
+                                 f"{fn(*args)} bytes, the plan counts "
+                                 f"{cuda_conv.fwd_shared_bytes(*args)}")
+    print(f"conv3x3_fwd_shared_bytes equal to the plan's count at "
+          f"{len(fwd_cases)} cases")
     fn = lib.conv3x3_dw_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     for rows, w, cin, cout in ((4, 64, 64, 64), (8, 64, 32, 16), (16, 64, 3, 16),
@@ -514,6 +539,12 @@ def _dw_bound_with_partials(key: tuple, plan) -> float:
                      flops / PEAK_BF16_TC_FLOPS)
 
 
+def _fwd_plan_text(plan) -> str:
+    return (f"bn {plan.bn} x fm {plan.fm} x seg {plan.seg} x splits "
+            f"{plan.splits} ({plan.blocks} blocks, {plan.shared_bytes} B "
+            f"shared, {plan.partial_bytes} B partials)")
+
+
 def conv_kernel_phase(card: str, shapes: dict) -> dict:
     """K4 (forward and dX) and K5 (dW) against their plain versions, and db
     as `_Conv3x3` computes it, at every conv shape of the conv path's first
@@ -530,7 +561,7 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
     rng = np.random.default_rng(SEED + 2)
     print("limits: y, dX and db max|d|/max|ref| <= 1e-2 (one bf16 ulp is "
           "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
-          "2^15..2^18 products) and the same bits in two calls")
+          "2^15..2^18 products); y, dX and dW the same bits in two calls")
     err = {"K4": 0.0, "K5": 0.0}
     dirs = ("fwd", "dx", "dw")
     sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
@@ -562,8 +593,9 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
                        xn, w_oihw.shape, gn, padding=1)}
         got = {d: fn() for d, fn in kernel.items()}
         want = {d: fn() for d, fn in plain.items()}
-        if not torch.equal(kernel["dw"](), got["dw"]):
-            raise AssertionError(f"{key} dw: two calls differ")
+        for d, fn in kernel.items():
+            if not torch.equal(fn(), got[d]):
+                raise AssertionError(f"{key} {d}: two calls differ")
         got["db"] = torch.sum(g, dim=(0, 1, 2), dtype=torch.float32).to(g.dtype)
         want["db"] = g.float().reshape(-1, cout).sum(0).to(g.dtype)
         torch.cuda.synchronize()
@@ -597,6 +629,9 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
             times.append(f"{d} {ms:.4f} (plain {plain_ms:.4f}, cuDNN "
                          f"{library_ms:.4f}, bound {bound_ms:.6f} "
                          f"{'bytes' if t_bytes >= t_ops else 'operations'})")
+        times.append("K4 plans " + "; ".join(
+            f"{d} {_fwd_plan_text(cuda_conv.fwd_plan(b, h, w, ci, co))}"
+            for d, ci, co in (("fwd", cin, cout), ("dX", cout, cin))))
         plan = cuda_conv.dw_plan(*key)
         with_partials = _dw_bound_with_partials(key, plan)
         sums["dw"]["bound_partials_ms"] += per_iter["dw"] * with_partials
@@ -618,6 +653,38 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
     print(f"dw bound with its partials written and read again "
           f"({sums['dw']['partial_bytes'] / 1e6:.1f} MB per iteration): "
           f"{sums['dw']['bound_partials_ms']:.4f} ms")
+
+    print("K4 at the shapes its tiles, segments and splits could get wrong "
+          "(not in the sums): y and dX max|d|/max|ref| <= 1e-2, the same bits "
+          "in two calls")
+    for key in K4_EDGE_SHAPES:
+        b, h, w, cin, cout = key
+        x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,
+                             device=dev).to(torch.bfloat16) for c in (cin, cout))
+        wflat = torch.tensor(rng.normal(size=(9 * cin, cout)) / np.sqrt(9 * cin),
+                             dtype=torch.float32, device=dev).to(torch.bfloat16)
+        bias = torch.tensor(0.1 * rng.normal(size=cout), dtype=torch.float32,
+                            device=dev).to(torch.bfloat16)
+        rels = {}
+        for d, fn, ref in (
+                ("fwd", lambda: cuda_conv.conv3x3_forward(x, wflat, bias),
+                 lambda: cuda_conv.conv3x3_plain(x, wflat, bias)),
+                ("dx", lambda: cuda_conv.conv3x3_dx(g, wflat),
+                 lambda: cuda_conv.conv3x3_plain(g, cuda_conv.rotate_weights(wflat)))):
+            got, again, want = fn(), fn(), ref()
+            torch.cuda.synchronize()
+            diff = float((got.float() - want.float()).abs().max())
+            err["K4"] = max(err["K4"], diff)
+            rels[d] = diff / max(float(want.float().abs().max()), 1e-30)
+            if not (got.shape == want.shape and torch.isfinite(got.float()).all()
+                    and rels[d] <= 1e-2):
+                raise AssertionError(f"{key} {d}: max|d|/max|ref| {rels[d]:.3e} "
+                                     "> 1e-2, or a wrong shape or non-finite")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{key} {d}: two calls differ")
+        print(f"{b}x{h}x{w} {cin}->{cout}: y {rels['fwd']:.2e}, dX {rels['dx']:.2e}; "
+              f"plans fwd {_fwd_plan_text(cuda_conv.fwd_plan(*key))}; dX "
+              f"{_fwd_plan_text(cuda_conv.fwd_plan(b, h, w, cout, cin))}")
 
     print("K5 at the shapes its runs of whole rows could get wrong (not in "
           "the sums): dW max|d|/max|ref| <= 2e-2, the same bits in two calls")

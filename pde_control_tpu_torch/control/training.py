@@ -7,9 +7,11 @@ when a gradient is not finite (`optax.apply_if_finite`: the whole update,
 Adam's moments and step count included, is skipped and counted).
 
 `torch.optim.Adam` computes `optax.adam`'s update (same β₁, β₂, ε and bias
-correction). Only trainable networks carry gradients, so the finiteness
-check reads their gradients; in the JAX package it also read the frozen
-networks' gradients, which come from the same loss.
+correction). The finiteness check reads what the JAX package's reads (its
+`apply_if_finite` wraps the whole gradient tree): the trainable networks'
+gradients and, with `skip_nonfinite`, the frozen networks' gradients of
+the same loss, which are computed for the check only, kept out of the
+optimizer and dropped after it.
 """
 
 from __future__ import annotations
@@ -89,8 +91,12 @@ class ControlTraining:
                                  f"have {sorted(self.nets)}")
         self.trainable = [p for name in self.trainable_networks
                           for p in self.nets[name].parameters()]
+        self.frozen = [p for name, net in self.nets.items()
+                       if name not in self.trainable_networks
+                       for p in net.parameters()] if self.skip_nonfinite else []
         for name, net in self.nets.items():
-            net.requires_grad_(name in self.trainable_networks)
+            net.requires_grad_(name in self.trainable_networks
+                               or self.skip_nonfinite)
         self.optimizer = torch.optim.Adam(self.trainable, lr=self.learning_rate)
         self.step_count = 0
         self.notfinite_total = 0
@@ -153,19 +159,26 @@ class ControlTraining:
 
     def compute_gradients(self, batch) -> dict[str, torch.Tensor]:
         """Forward and backward pass; leaves the gradients on the trainable
-        parameters and returns the detached metrics."""
+        parameters (and, with `skip_nonfinite`, on the frozen ones for the
+        finiteness check) and returns the detached metrics."""
         self.optimizer.zero_grad(set_to_none=True)
+        for p in self.frozen:
+            p.grad = None
         loss, metrics = self._loss_fn(batch)
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
     def apply_gradients(self) -> bool:
-        """One Adam update from the gradients in place, skipped (and
-        counted) when any of them is not finite. Returns whether it was
-        applied."""
-        grads = [p.grad for p in self.trainable if p.grad is not None]
+        """One Adam update of the trainable parameters from the gradients
+        in place, skipped (and counted) when any gradient, the frozen
+        networks' included, is not finite. Drops the frozen networks'
+        gradients. Returns whether it was applied."""
+        grads = [p.grad for p in self.trainable + self.frozen
+                 if p.grad is not None]
         finite = (not self.skip_nonfinite or not grads or bool(
             torch.stack([torch.isfinite(g).all() for g in grads]).all()))
+        for p in self.frozen:
+            p.grad = None
         if finite:
             self.optimizer.step()
             self.notfinite_consec = 0

@@ -5,31 +5,22 @@
 //  * K4, _make_conv._run_fwd (body _fwd_kernel): y = im2col(x) @ W + b,
 //    and the same kernel run on the cotangent with the 180-degree rotated,
 //    io-transposed weights for dX (the pallas_call with `wback`).
-//    conv3x3_fwd_kernel<BN, false> reads W as the (9*Cin, Cout) matrix;
-//    conv3x3_fwd_kernel<BN, true> reads the same array rotated by index,
-//    so no rotated copy of the weights is ever built.
+//    conv3x3_fwd_kernel<BN, FM, false> reads W as the (9*Cin, Cout) matrix;
+//    conv3x3_fwd_kernel<BN, FM, true> reads the same array rotated by
+//    index while it stages it, so no rotated copy of the weights is built.
 //  * K5, _make_conv.bwd's dW (body _dw_kernel): dW[9*Cin, Cout] = the sum
 //    over batch and pixels of im2col(x)^T dY.
 //
-// Both are implicit GEMMs on the bf16 tensor cores (nvcuda::wmma 16x16x16
-// fragments, fp32 accumulators). im2col is never stored in device memory:
-// each slice of the A tile is gathered from x straight into shared memory,
-// zero outside the image and past K = 9*Cin, 16 bytes per load where the
-// channel count is a multiple of 8 and one element per load where it is
-// not (Cin = 3 or 5, Cout = 1). K and N are zero-padded to the fragment in
-// shared memory, so every 3x3 stride-1 SAME shape is taken.
-//  * K4: a block computes 64 output pixels x BN output channels (BN = 16, 32
-//    or 64, the least that covers Cout, so Cout = 1 or 16 wastes little of
-//    the tile) over K in slices of 32. The bias, rounded to bf16 by the
-//    caller, is added to the fp32 sum, and the result is rounded to bf16
-//    once: the Pallas kernel's rounding points.
-//  * K5: the Pallas kernel carries the fp32 sum from one grid step to the
-//    next, which works because the TPU grid runs in order. Here blocks run
-//    in parallel, so a block sums its own runs of image rows into slice s
-//    of an fp32 (S, 9*Cin, Cout) scratch that the wrapper allocates, and a
-//    second kernel adds the S slices in order and rounds to bf16 once
-//    (with S = 1 the first pass rounds and writes dW itself). No atomics:
-//    the result is the same in every run.
+// Both are implicit GEMMs on the bf16 tensor cores (mma.sync.m16n8k16,
+// fp32 accumulators). im2col is never stored, not even in shared memory:
+// a block stages the halo tile of x (or dY) that its pixels read, with
+// zeros outside the image, once per slice of channels, and the operand of
+// tap (dy, dx) is that one tile read at a constant pixel offset. Channel
+// counts that are no multiple of 8 (Cin = 3 or 5, Cout = 1) are staged by
+// element loads and zero-padded to the 16-channel fragment in shared
+// memory, so every 3x3 stride-1 SAME shape is taken. The Pallas kernels'
+// rounding points are kept: the bias, rounded to bf16 by the caller, is
+// added to the fp32 sum, and y, dX and dW are rounded to bf16 once.
 //
 // What bounds them on this card at the main path's shapes: the 32..128
 // channel layers do 2*M*N*K operations on about (M*(Cin+Cout) + 9*Cin*Cout)
@@ -37,60 +28,81 @@
 // 989e12 / 3.35e12 = 295, so operations and bytes bound them about equally
 // and the tensor cores are the unit to feed; the 3- and 5-channel first
 // layers and the 1-channel output layer (K = 27 or 45, or N = 1) do a few
-// operations per byte and are bound by bytes. K4 is still the plain
-// version of its design: one buffer of shared memory, loads that wait,
-// wmma.
+// operations per byte and are bound by bytes. Neither kernel is near
+// either bound: what holds a kernel of this size back is latency (blocks
+// that wait for loads between a few products), reading x once per tap, and
+// on the 8^2..16^2 layers too few blocks for 132 SMs. Both designs answer
+// those the same way:
+//  * Pixels are walked in a padded index space in which one 16-pixel
+//    fragment keeps one stride across row ends: a pixel's three taps of a
+//    row are neighbours in shared memory and its rows are wp pixels apart.
+//    Products of the pad pixels are wasted, (wp - W)/wp of them, and
+//    dropped (K4) or multiplied by zero (K5).
+//  * Fragments come by ldmatrix into mma.sync by hand, not wmma: a
+//    one-pixel offset moves the fragment by one shared-memory row, and
+//    ldmatrix wants 16-byte aligned rows where wmma wants 32. Rows are
+//    padded by 8 elements to 48, 80 or 144 bytes, an odd count of 16-byte
+//    chunks, so the eight rows of one 8x8 matrix fall into eight different
+//    chunks of the 128-byte bank line: no bank conflicts.
+//  * The tiles go through a ring of two buffers filled by cp.async (16
+//    bytes, zero-filled for the borders), so slice i+1 loads while slice i
+//    multiplies.
+//  * Blocks run in parallel and in no order (the TPU grid ran in order and
+//    carried sums from step to step): where a block has too little of the
+//    work to fill the card alone, S blocks sum disjoint parts of K into
+//    their own fp32 partials and a second kernel adds the S partials in a
+//    fixed order and rounds once. No atomics: the same bits in every run.
 //
-// K5 is far from either bound; what holds it back is latency (a block that
-// waits for its loads between a few products) and reading x nine times,
-// once per tap. Its design answers both:
-//  * A block owns runs of whole image rows of one sample, a tile of 16 or
-//    32 input channels and a tile of 16..64 output channels, and computes
-//    all nine taps of dW for them. It stages the run's x halo tile,
-//    (R+2) x (W+2) pixels with zeros outside the image, and the dY tile
-//    once; tap (dy, dx)'s operand is the same shared tile read at the
-//    constant pixel offset dy*(W+2) + dx. x and dY leave L2 once per
-//    (channel tile, Cout tile) and no index is divided in the inner loop.
-//  * Pixels are walked in the padded index space q in [0, R*(W+2)), dY
-//    staged in the same layout with zeros in the two pad columns, so a
-//    16-pixel fragment keeps one stride across row ends and the products
-//    of pad pixels are multiplied by zero: 2/(W+2) of the products wasted.
-//  * Fragments are loaded with ldmatrix.trans and multiplied with
-//    mma.sync.m16n8k16 by hand, not wmma: a one-pixel offset moves the
-//    fragment by one shared-memory row, and ldmatrix wants 16-byte aligned
-//    rows where wmma wants 32. Rows are padded by 8 elements to 48, 80 or
-//    144 bytes, an odd count of 16-byte chunks, so the eight rows of one
-//    8x8 matrix fall into eight different chunks of the 128-byte bank
-//    line: no bank conflicts.
+// K4. A block owns BM = 128 * FM consecutive positions of the padded
+// output, one tile of BN output channels (16 or 32) and, with S
+// splits, one run of the 16-channel slices of K. The padded space stacks
+// the batch's images as rows of wp pixels: row 0 is zero, then each
+// sample's H rows and one zero row, so a tap that leaves a sample reads
+// zeros. An image wider than one segment of `seg` columns is cut into
+// strips, each with its own halo columns (wp = seg + 2); one strip needs
+// one halo column only (wp = W + 1: the right halo of a row is the left
+// halo of the next). The block's halo tile is the BM + 2*wp + 2
+// consecutive padded pixels that its taps read. Each of the eight warps
+// keeps 16*FM pixels x BN channels of fp32 sums (FM * BN / 2 registers)
+// and feeds each x fragment to BN / 8 products. For each slice the block
+// stages the halo tile and the slice's weights for all nine taps, and
+// runs nine taps x FM x BN/8 products per warp behind one barrier pair.
+// The epilogue adds the bias and rounds from registers and stores pairs
+// of channels. The wrapper plans BN, FM, the segment and S
+// (ops/cuda_conv.py :: fwd_plan).
+//
+// K5. A block owns runs of whole image rows of one sample, a tile of 16 or
+// 32 input channels and a tile of 16..64 output channels, and computes all
+// nine taps of dW for them. It stages the run's x halo tile, (R+2) x (W+2)
+// pixels with zeros outside the image, and the dY tile once; x and dY
+// leave L2 once per (channel tile, Cout tile) and no index is divided in
+// the inner loop.
+//  * dY is staged in the padded layout with zeros in the two pad columns,
+//    so the products of pad pixels are multiplied by zero.
 //  * Each of the eight warps keeps one 16-channel x 16-Cout fragment pair
 //    of all nine taps (72 fp32 registers) and uses one dY fragment for
 //    nine products. Where the tile has fewer than eight such pairs the
 //    warps share the run's 16-pixel steps and are added, in order, through
 //    shared memory at the end.
-//  * The tiles go through a ring of two buffers filled by cp.async (16
-//    bytes, zero-filled for the borders), so run i+1 loads while run i
-//    multiplies. Channel counts that are no multiple of 8 (Cin = 3, 5;
-//    Cout = 1) are staged by element loads, zero-padded to the fragment.
 //  * The wrapper plans rows per run, runs per block and the splits S
 //    (ops/cuda_conv.py :: dw_plan); a run never crosses a sample.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <climits>
 #include <cstddef>
-#include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
 
-constexpr int kThreads = 128;  // four warps per block
-constexpr int kBM = 64;        // K4: output pixels per block
-constexpr int kKC = 32;        // K4: K slice per step
-constexpr int kPad = 8;        // bf16 row padding in shared memory (16 B)
-constexpr int kOutside = -(1 << 20);  // a row for a pixel past the end
+constexpr int kPad = 8;  // bf16 row padding in shared memory (16 B)
+constexpr int kFwdThreads = 256;  // K4: eight warps per block
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdStages = 2;     // K4: buffers in the ring
+constexpr int kSlice = 16;        // K4: input channels per slice of K
+constexpr int kLdh = kSlice + kPad;  // K4: halo tile row, 48 bytes
 constexpr int kDwThreads = 256;  // K5: eight warps per block
 constexpr int kDwWarps = kDwThreads / 32;
 constexpr int kDwStages = 2;     // K5: buffers in the ring
@@ -98,205 +110,6 @@ constexpr int kDwStages = 2;     // K5: buffers in the ring
 // starts below R*(W+2) rounded up to 16, reads 16 pixels and is shifted by
 // at most 2*(W+2) + 2, so it ends at most 17 pixels past the tile.
 constexpr int kDwSlack = 24;
-
-// Four warps over a 64 x BN output tile, in 16x16 fragments.
-template <int BN>
-struct Tile {
-  static constexpr int kWarpsN = BN == 64 ? 2 : 1;
-  static constexpr int kWarpsM = 4 / kWarpsN;
-  static constexpr int kFragsM = 64 / 16 / kWarpsM;
-  static constexpr int kFragsN = BN / 16 / kWarpsN;
-};
-
-// Element k of pixel m's im2col row: tap = k / cin = 3*dy + dx, channel
-// c = k % cin, read at (h + dy - 1, w + dx - 1), zero outside the image.
-// (ph, pw) is pixel m's position, ph = kOutside for no pixel.
-__device__ __forceinline__ bf16 im2col_at(const bf16* __restrict__ x, int m,
-                                          int ph, int pw, int k, int kdim,
-                                          int h, int w, int cin) {
-  if (k < kdim) {
-    const int tap = k / cin, c = k - tap * cin;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const int yy = ph + dy, xx = pw + dx;
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w)
-      return x[static_cast<size_t>(m + dy * w + dx) * cin + c];
-  }
-  return __float2bfloat16(0.f);
-}
-
-// Elements k .. k+7 of the same row: one tap, eight channels, when
-// cin % 8 == 0 and k % 8 == 0.
-__device__ __forceinline__ uint4 im2col_vec(const bf16* __restrict__ x, int m,
-                                            int ph, int pw, int k, int kdim,
-                                            int h, int w, int cin) {
-  if (k < kdim) {
-    const int tap = k / cin, c = k - tap * cin;
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    const int yy = ph + dy, xx = pw + dx;
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w)
-      return __ldg(reinterpret_cast<const uint4*>(
-          x + static_cast<size_t>(m + dy * w + dx) * cin + c));
-  }
-  return make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Gathers rows m0 .. m0+ROWS-1, columns k0 .. k0+COLS-1 of im2col(x) into
-// tile[r * ld + kk]; (s_h[r], s_w[r]) is row r's pixel.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_im2col(bf16* tile, int ld,
-                                            const bf16* __restrict__ x, int m0,
-                                            int k0, const int* s_h,
-                                            const int* s_w, int kdim, int h,
-                                            int w, int cin, bool vec) {
-  if (vec) {
-    for (int v = threadIdx.x; v < ROWS * COLS / 8; v += kThreads) {
-      const int r = v / (COLS / 8), kk = (v % (COLS / 8)) * 8;
-      *reinterpret_cast<uint4*>(tile + r * ld + kk) =
-          im2col_vec(x, m0 + r, s_h[r], s_w[r], k0 + kk, kdim, h, w, cin);
-    }
-  } else {
-    for (int e = threadIdx.x; e < ROWS * COLS; e += kThreads) {
-      const int r = e / COLS, kk = e % COLS;
-      tile[r * ld + kk] =
-          im2col_at(x, m0 + r, s_h[r], s_w[r], k0 + kk, kdim, h, w, cin);
-    }
-  }
-}
-
-// Rows k0 .. k0+kKC-1, columns n0 .. n0+BN-1 of the GEMM's right operand.
-// Forward: B(k, n) = w[k * cout + n], stored tile[k][n]. Rotated (dX): the
-// operand is the forward weights (9*cout, cin) turned 180 degrees with in
-// and out channels swapped, B(tap * cin + c, n) = w[((8 - tap) * cout + n)
-// * cin + c], stored tile[n][k] (contiguous along c).
-template <int BN, bool kRot>
-__device__ __forceinline__ void load_weights(bf16* tile,
-                                             const bf16* __restrict__ w,
-                                             int k0, int n0, int kdim, int cin,
-                                             int cout, bool vec) {
-  constexpr int ld = kRot ? kKC + kPad : BN + kPad;
-  if (!kRot && vec) {  // cout % 8 == 0
-    for (int v = threadIdx.x; v < kKC * BN / 8; v += kThreads) {
-      const int r = v / (BN / 8), j = (v % (BN / 8)) * 8;
-      const int k = k0 + r, n = n0 + j;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k < kdim && n < cout)
-        val = __ldg(reinterpret_cast<const uint4*>(
-            w + static_cast<size_t>(k) * cout + n));
-      *reinterpret_cast<uint4*>(tile + r * ld + j) = val;
-    }
-  } else if (!kRot) {
-    for (int e = threadIdx.x; e < kKC * BN; e += kThreads) {
-      const int r = e / BN, j = e % BN, k = k0 + r, n = n0 + j;
-      tile[r * ld + j] = k < kdim && n < cout
-                             ? w[static_cast<size_t>(k) * cout + n]
-                             : __float2bfloat16(0.f);
-    }
-  } else if (vec) {  // cin % 8 == 0: eight consecutive k share one tap
-    for (int v = threadIdx.x; v < BN * kKC / 8; v += kThreads) {
-      const int j = v / (kKC / 8), kk = (v % (kKC / 8)) * 8;
-      const int k = k0 + kk, n = n0 + j;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k < kdim && n < cout) {
-        const int tap = k / cin, c = k - tap * cin;
-        val = __ldg(reinterpret_cast<const uint4*>(
-            w + (static_cast<size_t>(8 - tap) * cout + n) * cin + c));
-      }
-      *reinterpret_cast<uint4*>(tile + j * ld + kk) = val;
-    }
-  } else {
-    for (int e = threadIdx.x; e < BN * kKC; e += kThreads) {
-      const int j = e / kKC, kk = e % kKC, k = k0 + kk, n = n0 + j;
-      bf16 val = __float2bfloat16(0.f);
-      if (k < kdim && n < cout) {
-        const int tap = k / cin, c = k - tap * cin;
-        val = w[(static_cast<size_t>(8 - tap) * cout + n) * cin + c];
-      }
-      tile[j * ld + kk] = val;
-    }
-  }
-}
-
-// K4: y[m, n] = bf16(sum_k im2col(x)[m, k] B(k, n) + bias[n]) for the
-// (B*H*W, cout) output; bias may be null (zero).
-template <int BN, bool kRot>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   const bf16* __restrict__ bias, bf16* __restrict__ y,
-                   int m_total, int h, int w_, int cin, int cout, bool vec_a,
-                   bool vec_b) {
-  using T = Tile<BN>;
-  using BLayout = std::conditional_t<kRot, wmma::col_major, wmma::row_major>;
-  constexpr int lda = kKC + kPad;
-  constexpr int ldb = kRot ? kKC + kPad : BN + kPad;
-  constexpr int ldc = BN + 4;
-  __shared__ __align__(128) bf16 a_tile[kBM * lda];
-  __shared__ __align__(128) bf16 b_tile[kRot ? BN * ldb : kKC * ldb];
-  __shared__ __align__(128) float c_tile[kBM * ldc];
-  __shared__ int s_h[kBM], s_w[kBM];
-
-  const int kdim = 9 * cin;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / T::kWarpsN, wn = warp % T::kWarpsN;
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    const int m = m0 + r;
-    s_h[r] = m < m_total ? (m / w_) % h : kOutside;
-    s_w[r] = m < m_total ? m % w_ : 0;
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::kFragsM]
-                                                         [T::kFragsN];
-#pragma unroll
-  for (int i = 0; i < T::kFragsM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kFragsN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  __syncthreads();
-
-  for (int k0 = 0; k0 < kdim; k0 += kKC) {
-    load_im2col<kBM, kKC>(a_tile, lda, x, m0, k0, s_h, s_w, kdim, h, w_, cin,
-                          vec_a);
-    load_weights<BN, kRot>(b_tile, w, k0, n0, kdim, cin, cout, vec_b);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-          a[T::kFragsM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b[T::kFragsN];
-#pragma unroll
-      for (int i = 0; i < T::kFragsM; ++i)
-        wmma::load_matrix_sync(a[i], a_tile + (wm * T::kFragsM + i) * 16 * lda + kk,
-                               lda);
-#pragma unroll
-      for (int j = 0; j < T::kFragsN; ++j) {
-        const int col = (wn * T::kFragsN + j) * 16;
-        wmma::load_matrix_sync(
-            b[j], kRot ? b_tile + col * ldb + kk : b_tile + kk * ldb + col, ldb);
-      }
-#pragma unroll
-      for (int i = 0; i < T::kFragsM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::kFragsN; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < T::kFragsM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::kFragsN; ++j)
-      wmma::store_matrix_sync(
-          c_tile + (wm * T::kFragsM + i) * 16 * ldc + (wn * T::kFragsN + j) * 16,
-          acc[i][j], ldc, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBM * BN; e += kThreads) {
-    const int r = e / BN, j = e % BN, m = m0 + r, n = n0 + j;
-    if (m < m_total && n < cout) {
-      float v = c_tile[r * ldc + j];
-      if (bias != nullptr) v += __bfloat162float(bias[n]);
-      y[static_cast<size_t>(m) * cout + n] = __float2bfloat16_rn(v);
-    }
-  }
-}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -319,9 +132,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bf16 matrices, transposed: lane l gives the address of row l % 8
-// of matrix l / 8; register j holds elements (2 * (lane % 4) + {0, 1},
-// lane / 4) of matrix j.
+// Four 8x8 bf16 matrices: lane l gives the address of row l % 8 of matrix
+// l / 8; register j holds elements (lane / 4, 2 * (lane % 4) + {0, 1}) of
+// matrix j.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The same, transposed: register j holds elements (2 * (lane % 4) + {0,
+// 1}, lane / 4) of matrix j.
 __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
                                                   unsigned addr) {
   asm volatile(
@@ -339,6 +162,359 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// K4's weight tile of one slice, all nine taps. Forward, [tap][k][n]: 16
+// rows of BN + 8, read by ldmatrix.trans. Rotated, [tap][n][k]: BN rows of
+// 16 + 8, contiguous along the input channel as the forward weights are,
+// read by ldmatrix. A stage holds the larger of the two.
+template <int BN>
+struct FwdTile {
+  static constexpr int kLdw = BN + kPad;
+  static constexpr int kWElems =
+      9 * (kSlice * kLdw > BN * kLdh ? kSlice * kLdw : BN * kLdh);
+};
+
+// The padded width: one halo column where one strip holds the whole width.
+__host__ __device__ __forceinline__ int fwd_wp(int seg, int w) {
+  return seg >= w ? seg + 1 : seg + 2;
+}
+
+// The dynamic shared memory of K4's first pass: the ring of (halo tile,
+// weight tile) buffers.
+size_t fwd_shared_bytes(int bn, int fm, int wp) {
+  const size_t halo = static_cast<size_t>(kFwdWarps) * 16 * fm + 2 * wp + 2;
+  const int w_elems = bn == 16 ? FwdTile<16>::kWElems : FwdTile<32>::kWElems;
+  return kFwdStages * sizeof(bf16) * (halo * kLdh + w_elems);
+}
+
+// K4: where a thread's first pixel of the halo tile lies in the padded
+// space (H + 1 rows per sample after row 0, wp columns), and what `step`
+// pixels add, so that staging follows its pixels without dividing.
+struct HaloWalk {
+  int b, rr, pc;  // sample, row in it (0 is the zero row), padded column
+  int db, drr, dpc;
+};
+
+__device__ __forceinline__ HaloWalk halo_walk(long long first, int h, int wp,
+                                              int step, int lead) {
+  const long long p = first + lead;  // >= -1: the pixel before row 1
+  HaloWalk walk;
+  const long long row = p < 0 ? -1 : p / wp;
+  walk.pc = static_cast<int>(p - row * wp);
+  walk.b = row < 0 ? -1 : static_cast<int>(row / (h + 1));
+  walk.rr = static_cast<int>(row - static_cast<long long>(walk.b) * (h + 1));
+  const int drow = step / wp;
+  walk.dpc = step - drow * wp;
+  walk.db = drow / (h + 1);
+  walk.drr = drow - walk.db * (h + 1);
+  return walk;
+}
+
+// K4: stages the halo tile, n_px padded pixels of strip `col0` from the
+// walk's start on, channels c0 .. c0+15 of x (batch, h, w, cin), into
+// dst[p * kLdh + c]. Zero outside the image, in the zero rows and past the
+// last channel. With vec (cin % 8 == 0, 16-byte aligned) by cp.async,
+// else by element loads. A thread takes one 16-byte chunk of a pixel (vec)
+// or one pixel, every `step` pixels.
+__device__ __forceinline__ void stage_halo(bf16* dst,
+                                           const bf16* __restrict__ x,
+                                           HaloWalk walk, int n_px, int batch,
+                                           int h, int w, int cin, int c0,
+                                           int col0, int wp, bool vec) {
+  const int per_px = vec ? kSlice / 8 : 1;
+  const int step = kFwdThreads / per_px;
+  const int j = vec ? (threadIdx.x % per_px) * 8 : 0;
+  const int real = vec ? (c0 + j < cin ? 8 : 0) : min(kSlice, cin - c0);
+  for (int p = threadIdx.x / per_px; p < n_px; p += step) {
+    const int col = col0 + walk.pc - 1;
+    const bool ok = real > 0 && walk.b >= 0 && walk.b < batch &&
+                    walk.rr >= 1 && col >= 0 && col < w;
+    const bf16* from =
+        x + (ok ? ((static_cast<size_t>(walk.b) * h + walk.rr - 1) * w + col) *
+                          cin + c0 + j
+                : 0);
+    bf16* to = dst + p * kLdh + j;
+    if (vec) {
+      cp_async16(to, from, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kSlice; ++c)
+        to[c] = ok && c < real ? from[c] : __float2bfloat16(0.f);
+    }
+    walk.pc += walk.dpc;
+    walk.rr += walk.drr;
+    walk.b += walk.db;
+    if (walk.pc >= wp) {
+      walk.pc -= wp;
+      ++walk.rr;
+    }
+    if (walk.rr > h) {
+      walk.rr -= h + 1;
+      ++walk.b;
+    }
+  }
+}
+
+// K4: stages the nine taps' weights of input channels c0 .. c0+15 and
+// output channels n0 .. n0+BN-1, zero past either end. Forward: B(tap*cin
+// + c, n) = w[(tap*cin + c)*cout + n] at dst[(tap*16 + c)*kLdw + n].
+// Rotated (dX): the operand is the forward weights (9*cout, cin) turned
+// 180 degrees with in and out channels swapped, B(tap*cin + c, n) =
+// w[((8 - tap)*cout + n)*cin + c], at dst[(tap*BN + n)*kLdh + c]. With vec
+// (the contiguous dimension a multiple of 8, 16-byte aligned) by cp.async,
+// else by element loads.
+template <int BN, bool kRot>
+__device__ __forceinline__ void stage_weights(bf16* dst,
+                                              const bf16* __restrict__ w,
+                                              int c0, int n0, int cin,
+                                              int cout, bool vec) {
+  constexpr int kLdw = FwdTile<BN>::kLdw;
+  if (vec && !kRot) {  // chunks of 8 output channels
+    for (int v = threadIdx.x; v < 9 * kSlice * (BN / 8); v += kFwdThreads) {
+      const int n = (v % (BN / 8)) * 8, r = v / (BN / 8);  // r = tap*16 + c
+      const int tap = r / kSlice, c = r % kSlice;
+      const bool ok = c0 + c < cin && n0 + n < cout;
+      const bf16* from =
+          w + (ok ? (static_cast<size_t>(tap) * cin + c0 + c) * cout + n0 + n
+                  : 0);
+      cp_async16(dst + r * kLdw + n, from, ok ? 16 : 0);
+    }
+  } else if (vec) {  // chunks of 8 input channels
+    for (int v = threadIdx.x; v < 9 * BN * 2; v += kFwdThreads) {
+      const int c = (v % 2) * 8, r = v / 2;  // r = tap*BN + n
+      const int tap = r / BN, n = r % BN;
+      const bool ok = c0 + c < cin && n0 + n < cout;
+      const bf16* from =
+          w + (ok ? (static_cast<size_t>(8 - tap) * cout + n0 + n) * cin + c0 +
+                        c
+                  : 0);
+      cp_async16(dst + r * kLdh + c, from, ok ? 16 : 0);
+    }
+  } else if (!kRot) {
+    for (int e = threadIdx.x; e < 9 * kSlice * BN; e += kFwdThreads) {
+      const int n = e % BN, r = e / BN, tap = r / kSlice, c = r % kSlice;
+      dst[r * kLdw + n] =
+          c0 + c < cin && n0 + n < cout
+              ? w[(static_cast<size_t>(tap) * cin + c0 + c) * cout + n0 + n]
+              : __float2bfloat16(0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < 9 * BN * kSlice; e += kFwdThreads) {
+      const int c = e % kSlice, r = e / kSlice, tap = r / BN, n = r % BN;
+      dst[r * kLdh + c] =
+          c0 + c < cin && n0 + n < cout
+              ? w[(static_cast<size_t>(8 - tap) * cout + n0 + n) * cin + c0 + c]
+              : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// K4: two fragments of 8 output channels by 16 input channels from the
+// weight tile (see stage_weights for the layouts).
+template <bool kRot>
+__device__ __forceinline__ void load_weight_pair(unsigned (&r)[4],
+                                                 unsigned addr) {
+  if constexpr (kRot)
+    ldmatrix_x4(r, addr);
+  else
+    ldmatrix_x4_trans(r, addr);
+}
+
+// K4, first pass, for x (batch, h, w, cin) and y (batch, h, w, cout).
+// Block (x, y, z) computes padded positions [wp + t*BM, wp + (t+1)*BM) of
+// strip x / tiles_per_strip (t = x % tiles_per_strip), output channels
+// [y*BN, (y+1)*BN) and slices [z*slices_per_split, ..) of K. With partial
+// null (one split): y = bf16(sum + bias) (bias may be null: zero); else
+// partial[z, pixel, n] = the fp32 sum over its slices.
+template <int BN, int FM, bool kRot>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+conv3x3_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                   const bf16* __restrict__ bias, bf16* __restrict__ y,
+                   float* __restrict__ partial, int batch, int h, int w_,
+                   int cin, int cout, int seg, int tiles_per_strip,
+                   int slices_per_split, bool vec_x, bool vec_w) {
+  constexpr int kBM = kFwdWarps * 16 * FM;
+  constexpr int kLdw = FwdTile<BN>::kLdw;
+  extern __shared__ __align__(128) unsigned char fwd_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(fwd_smem);
+
+  const int wp = fwd_wp(seg, w_);
+  const int halo_px = kBM + 2 * wp + 2;
+  const int halo_elems = halo_px * kLdh;
+  const int stage_elems = halo_elems + FwdTile<BN>::kWElems;
+  const int strip = blockIdx.x / tiles_per_strip;
+  const int col0 = strip * seg;  // the image column of padded column 1
+  const long long q0 =
+      wp + static_cast<long long>(blockIdx.x - strip * tiles_per_strip) * kBM;
+  const long long q_end = static_cast<long long>(batch) * (h + 1) * wp;
+  const int n0 = blockIdx.y * BN;
+  const int slices = (cin + kSlice - 1) / kSlice;
+  const int s_begin = blockIdx.z * slices_per_split;
+  const int s_end = min(slices, s_begin + slices_per_split);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Tap (dy, dx) of position q reads padded pixel q + (dy-1)*wp + (dx-1):
+  // the halo tile starts at q0 - wp - 1.
+  const int per_px = vec_x ? kSlice / 8 : 1;
+  const HaloWalk walk = halo_walk(q0 - wp - 1, h, wp, kFwdThreads / per_px,
+                                  threadIdx.x / per_px);
+  auto stage_slice = [&](int slice, int stage) {
+    bf16* buf = ring + stage * stage_elems;
+    stage_halo(buf, x, walk, halo_px, batch, h, w_, cin, slice * kSlice, col0,
+               wp, vec_x);
+    stage_weights<BN, kRot>(buf + halo_elems, w, slice * kSlice, n0, cin, cout,
+                            vec_w);
+  };
+
+  float acc[FM][BN / 8][4];
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  // Byte offsets of this lane's ldmatrix rows. x (A, pixels x channels):
+  // matrices (pixels 0-7, channels 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+  // 8-15). Weights (B, two fragments of 8 output channels): forward, by
+  // .trans from [k][n], (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15), (8-15,
+  // 8-15); rotated, from [n][k], (n 0-7, k 0-7), (0-7, 8-15), (8-15, 0-7),
+  // (8-15, 8-15).
+  const unsigned a_lane =
+      2 * ((warp * 16 * FM + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdh +
+           (lane >> 4) * 8);
+  const unsigned b_lane =
+      kRot ? 2 * (((lane & 7) + (lane >> 4) * 8) * kLdh + ((lane >> 3) & 1) * 8)
+           : 2 * (((lane & 7) + ((lane >> 3) & 1) * 8) * kLdw + (lane >> 4) * 8);
+  constexpr unsigned kTapBytes = 2 * (kRot ? BN * kLdh : kSlice * kLdw);
+  constexpr unsigned kPairBytes = 2 * (kRot ? 16 * kLdh : 16);
+  const unsigned row_bytes = 2 * kLdh * wp;  // one padded row down (dy)
+
+  if (s_begin < s_end) stage_slice(s_begin, 0);
+  cp_async_commit();
+  for (int slice = s_begin; slice < s_end; ++slice) {
+    const int stage = (slice - s_begin) % kFwdStages;
+    // The other buffer was last read before the barrier that ended the
+    // slice before this one.
+    if (slice + 1 < s_end) stage_slice(slice + 1, (stage + 1) % kFwdStages);
+    cp_async_commit();
+    cp_async_wait<1>();  // all but the newest group: this slice has landed
+    __syncthreads();
+    const unsigned xs = smem_addr(ring + stage * stage_elems);
+    const unsigned ws = xs + 2 * halo_elems + b_lane;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const unsigned a_tap =
+          xs + a_lane + (tap / 3) * row_bytes + (tap % 3) * (2 * kLdh);
+      const unsigned b_tap = ws + tap * kTapBytes;
+      unsigned b[BN / 16][4];
+#pragma unroll
+      for (int jj = 0; jj < BN / 16; ++jj)
+        load_weight_pair<kRot>(b[jj], b_tap + jj * kPairBytes);
+#pragma unroll
+      for (int i = 0; i < FM; ++i) {
+        unsigned a[4];
+        ldmatrix_x4(a, a_tap + i * (16 * 2 * kLdh));
+#pragma unroll
+        for (int jj = 0; jj < BN / 16; ++jj) {
+          mma_bf16(acc[i][2 * jj], a, b[jj][0], b[jj][1]);
+          mma_bf16(acc[i][2 * jj + 1], a, b[jj][2], b[jj][3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  // Registers 2 * half + {0, 1} of fragment (i, j): position q0 + warp's
+  // first + 16 i + lane / 4 + 8 half, output channels 8 j + 2 (lane % 4) +
+  // {0, 1}. Positions in the zero rows, the halo columns or past the image
+  // are dropped.
+  float* out = partial == nullptr
+                   ? nullptr
+                   : partial + blockIdx.z * static_cast<size_t>(batch) * h *
+                                   w_ * cout;
+  const bool pairs = cout % 2 == 0;  // 4- or 8-byte stores
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const long long q = q0 + warp * 16 * FM + i * 16 + lane / 4 + 8 * half;
+      if (q >= q_end) continue;
+      const long long row = q / wp;
+      const int pc = static_cast<int>(q - row * wp);
+      const int b = static_cast<int>(row / (h + 1));
+      const int rr = static_cast<int>(row - static_cast<long long>(b) * (h + 1));
+      const int col = col0 + pc - 1;
+      if (rr < 1 || pc < 1 || pc > seg || col >= w_) continue;
+      const size_t at =
+          ((static_cast<size_t>(b) * h + rr - 1) * w_ + col) * cout;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane % 4);
+        if (n >= cout) continue;
+        float v0 = acc[i][j][2 * half], v1 = acc[i][j][2 * half + 1];
+        if (partial != nullptr) {
+          if (pairs) {
+            *reinterpret_cast<float2*>(out + at + n) = make_float2(v0, v1);
+          } else {
+            out[at + n] = v0;
+            if (n + 1 < cout) out[at + n + 1] = v1;
+          }
+          continue;
+        }
+        if (bias != nullptr) {
+          v0 += __bfloat162float(bias[n]);
+          if (n + 1 < cout) v1 += __bfloat162float(bias[n + 1]);
+        }
+        if (pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(y + at + n) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          y[at + n] = __float2bfloat16_rn(v0);
+          if (n + 1 < cout) y[at + n + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+}
+
+// K4, second pass: y[i] = bf16(sum over s of partial[s, i] + bias[i %
+// cout]) in a fixed order, four values a thread: by 16-byte loads and
+// 8-byte stores where cout % 4 == 0, else one at a time.
+__global__ void __launch_bounds__(256)
+conv3x3_fwd_reduce_kernel(const float* __restrict__ partial,
+                          const bf16* __restrict__ bias, bf16* __restrict__ y,
+                          long long count, int cout, int splits) {
+  const long long i0 = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i0 >= count) return;
+  if (cout % 4 == 0) {
+    float4 s = *reinterpret_cast<const float4*>(partial + i0);
+    for (int p = 1; p < splits; ++p) {
+      const float4 t = *reinterpret_cast<const float4*>(partial + p * count + i0);
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    if (bias != nullptr) {
+      const int n = static_cast<int>(i0 % cout);
+      s.x += __bfloat162float(bias[n]);
+      s.y += __bfloat162float(bias[n + 1]);
+      s.z += __bfloat162float(bias[n + 2]);
+      s.w += __bfloat162float(bias[n + 3]);
+    }
+    __nv_bfloat162* to = reinterpret_cast<__nv_bfloat162*>(y + i0);
+    to[0] = __floats2bfloat162_rn(s.x, s.y);
+    to[1] = __floats2bfloat162_rn(s.z, s.w);
+    return;
+  }
+  for (long long i = i0; i < i0 + 4 && i < count; ++i) {
+    float s = partial[i];
+    for (int p = 1; p < splits; ++p) s += partial[p * count + i];
+    if (bias != nullptr) s += __bfloat162float(bias[i % cout]);
+    y[i] = __float2bfloat16_rn(s);
+  }
 }
 
 // K5: stages n_px pixels x CH channels of one sample's image `src` (h, w,
@@ -608,23 +784,42 @@ conv3x3_dw_reduce_kernel(const float* __restrict__ partial,
 // The least tile width of 16, 32 or 64 that covers n channels (64 above).
 int tile_n(int n) { return n <= 16 ? 16 : n <= 32 ? 32 : 64; }
 
-template <bool kRot>
-void launch_fwd(dim3 grid, cudaStream_t st, const bf16* x, const bf16* w,
-                const bf16* bias, bf16* y, int m, int h, int w_, int cin,
-                int cout, bool vec_a, bool vec_b) {
-  switch (tile_n(cout)) {
-    case 16:
-      conv3x3_fwd_kernel<16, kRot><<<grid, kThreads, 0, st>>>(
-          x, w, bias, y, m, h, w_, cin, cout, vec_a, vec_b);
-      break;
-    case 32:
-      conv3x3_fwd_kernel<32, kRot><<<grid, kThreads, 0, st>>>(
-          x, w, bias, y, m, h, w_, cin, cout, vec_a, vec_b);
-      break;
-    default:
-      conv3x3_fwd_kernel<64, kRot><<<grid, kThreads, 0, st>>>(
-          x, w, bias, y, m, h, w_, cin, cout, vec_a, vec_b);
+template <int BN, int FM, bool kRot>
+cudaError_t launch_fwd(dim3 grid, size_t smem, cudaStream_t st, const bf16* x,
+                       const bf16* w, const bf16* bias, bf16* y,
+                       float* partial, int batch, int h, int w_, int cin,
+                       int cout, int seg, int tiles_per_strip,
+                       int slices_per_split, bool vec_x, bool vec_w) {
+  auto* kernel = conv3x3_fwd_kernel<BN, FM, kRot>;
+  // Above 48 KB shared memory has to be allowed, once per device.
+  static int allowed_on = -1;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device != allowed_on) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (err != cudaSuccess) return err;
+    allowed_on = device;
   }
+  kernel<<<grid, kFwdThreads, smem, st>>>(x, w, bias, y, partial, batch, h, w_,
+                                          cin, cout, seg, tiles_per_strip,
+                                          slices_per_split, vec_x, vec_w);
+  return cudaGetLastError();
+}
+
+using FwdLaunch = decltype(&launch_fwd<16, 1, false>);
+
+// K4's instantiations: BN = 16 or 32 by FM = 1, 2 or 4 (at most 64 fp32
+// sums a thread); null for any other.
+template <bool kRot>
+FwdLaunch fwd_launch(int bn, int fm) {
+  static constexpr FwdLaunch table[2][3] = {
+      {launch_fwd<16, 1, kRot>, launch_fwd<16, 2, kRot>, launch_fwd<16, 4, kRot>},
+      {launch_fwd<32, 1, kRot>, launch_fwd<32, 2, kRot>, launch_fwd<32, 4, kRot>}};
+  const int i = bn == 16 ? 0 : bn == 32 ? 1 : -1;
+  const int j = fm == 1 ? 0 : fm == 2 ? 1 : fm == 4 ? 2 : -1;
+  return i < 0 || j < 0 ? nullptr : table[i][j];
 }
 
 // K5's channel fragments per block: all of cin up to 16, else 32 at a time.
@@ -663,30 +858,60 @@ cudaError_t launch_dw(cudaStream_t st, const bf16* x, const bf16* g,
 
 extern "C" {
 
+// The dynamic shared memory K4's first pass asks for with output-channel
+// tile bn, fm fragments of 16 positions per warp and segments of seg of
+// the w columns; ops/cuda_conv.py :: fwd_shared_bytes counts the same.
+size_t conv3x3_fwd_shared_bytes(int bn, int fm, int seg, int w) {
+  return fwd_shared_bytes(bn, fm, fwd_wp(seg, w));
+}
+
 // K4 on `stream`: y (batch, h, w, cout) = conv3x3(x (batch, h, w, cin), W)
 // + bias, all bf16, channels-last, contiguous. rotated == 0: wgt is W as
 // (9*cin, cout). rotated != 0 (dX): wgt is the forward weights (9*cout,
 // cin) of the conv whose input gradient this is, read rotated. bias may be
-// null. vec_a / vec_b allow 16-byte loads of x / wgt (cin % 8 == 0, and
-// cout % 8 == 0 unrotated or cin % 8 == 0 rotated, with 16-byte aligned
-// pointers). Returns the cudaError_t of the launch.
+// null. The plan (ops/cuda_conv.py :: fwd_plan): output-channel tile bn,
+// fm, segments of seg columns and `splits` runs of the 16-channel slices
+// of K; with splits > 1, partial is fp32 scratch of splits * batch*h*w *
+// cout values (unused, and may be null, with one split). vec_x / vec_w
+// allow 16-byte loads of x / wgt (cin % 8 == 0; cout % 8 == 0 unrotated or
+// cin % 8 == 0 rotated; 16-byte aligned pointers). Two launches, one with
+// one split; returns the first cudaError_t either reports.
 int conv3x3_fwd_bf16(const void* x, const void* wgt, const void* bias, void* y,
-                     int batch, int h, int w, int cin, int cout, int rotated,
-                     int vec_a, int vec_b, void* stream) {
-  const int m = batch * h * w;
-  const int bn = tile_n(cout);
-  const dim3 grid((m + kBM - 1) / kBM, (cout + bn - 1) / bn);
+                     float* partial, int batch, int h, int w, int cin,
+                     int cout, int rotated, int bn, int fm, int seg,
+                     int splits, int vec_x, int vec_w, void* stream) {
+  const FwdLaunch launch =
+      rotated ? fwd_launch<true>(bn, fm) : fwd_launch<false>(bn, fm);
+  const int slices = (cin + kSlice - 1) / kSlice;
+  if (launch == nullptr || batch <= 0 || h <= 0 || w <= 0 || cin <= 0 ||
+      cout <= 0 || seg <= 0 || seg > w || splits <= 0 || splits > slices ||
+      splits > 65535 || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int per_split = (slices + splits - 1) / splits;
+  const int wp = fwd_wp(seg, w);
+  const long long rows = static_cast<long long>(batch) * (h + 1);
+  const long long tiles = ((rows - 1) * wp + kFwdWarps * 16 * fm - 1) /
+                          (kFwdWarps * 16 * fm);
+  const long long strips = (w + seg - 1) / seg;
+  const long long n_tiles = (cout + bn - 1) / bn;
+  if ((slices + per_split - 1) / per_split != splits ||
+      tiles * strips > INT_MAX || n_tiles > 65535 ||
+      fwd_shared_bytes(bn, fm, wp) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* wp = static_cast<const bf16*>(wgt);
   const auto* bp = static_cast<const bf16*>(bias);
   auto* yp = static_cast<bf16*>(y);
-  if (rotated)
-    launch_fwd<true>(grid, st, xp, wp, bp, yp, m, h, w, cin, cout, vec_a != 0,
-                     vec_b != 0);
-  else
-    launch_fwd<false>(grid, st, xp, wp, bp, yp, m, h, w, cin, cout, vec_a != 0,
-                      vec_b != 0);
+  const cudaError_t err = launch(
+      dim3(static_cast<unsigned>(tiles * strips), n_tiles, splits),
+      fwd_shared_bytes(bn, fm, wp), st, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(wgt), bp, yp, splits > 1 ? partial : nullptr,
+      batch, h, w, cin, cout, seg, static_cast<int>(tiles), per_split,
+      vec_x != 0, vec_w != 0);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long count = static_cast<long long>(batch) * h * w * cout;
+  conv3x3_fwd_reduce_kernel<<<static_cast<unsigned>((count + 1023) / 1024),
+                              256, 0, st>>>(partial, bp, yp, count, cout,
+                                            splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,20 +6,26 @@ kernels `_make_conv._run_fwd` (K4, body `_fwd_kernel`: y = im2col(x) @ W
 + b, and the same kernel on the cotangent with the rotated, io-transposed
 weights for dX) and `_make_conv.bwd`'s dW (K5, body `_dw_kernel`: dW =
 Σ over batch and pixels of im2col(x)ᵀ·dY). The kernels are implicit GEMMs
-on the bf16 tensor cores with fp32 accumulators; im2col is gathered into
-shared memory and never stored in device memory.
+on the bf16 tensor cores with fp32 accumulators; im2col is never built.
 
-K5 is bound on this card neither by its bytes nor by its operations (its
-bound is a tenth of its time) but by latency: blocks that wait for loads
-between a few products, and x gathered once per tap. So a block owns runs
-of whole image rows of one sample, stages each run's x halo tile and dY
-tile in shared memory once, by `cp.async` through a ring of two buffers,
-and reads all nine taps' operands from that one tile at constant pixel
-offsets (`ldmatrix` + `mma.sync`, nine accumulator fragments per warp).
-`dw_plan` cuts the batch into runs, blocks and S splits; each split sums
-into its own fp32 partial and a second pass adds the partials in a fixed
-order (with S = 1 the first pass rounds and writes dW itself), so dW is
-the same in every run.
+Neither kernel is bound on this card by its bytes or its operations but
+by latency (blocks that wait for loads between a few products), by x read
+once per tap, and on the 8²–16² layers by too few blocks for 132 SMs. Both
+answer it the same way: a block stages the halo tile of the pixels it
+owns once per slice of channels, by `cp.async` through a ring of two
+buffers, and reads all nine taps' operands from that one tile at constant
+pixel offsets (`ldmatrix` + `mma.sync`). Where too few blocks would run,
+S blocks sum disjoint parts of the reduction into their own fp32 partials
+and a second pass adds the partials in a fixed order and rounds once, so
+results are the same in every run.
+- K4: a block owns a run of output positions in a padded index space that
+  stacks the batch's images (whole rows of the image, or of a segment of
+  its columns for an image too wide for shared memory), one tile of output
+  channels, and a run of the 16-channel slices of K (`fwd_plan`). dX reads
+  the forward weights rotated by index while it stages them.
+- K5: a block owns runs of whole image rows of one sample and stages each
+  run's x halo tile and dY tile (`dw_plan`); with S = 1 the first pass
+  rounds and writes dW itself.
 
 Rounding points, as in the JAX package: x and W in the compute dtype
 before the product, the bias rounded to it, fp32 sums, and y, dX and dW
@@ -33,10 +39,10 @@ run the plain versions below for CPU tensors; a CUDA tensor they cannot
 take (a dtype other than bf16, a shape or layout they do not take) raises.
 `LAUNCHES_FWD`, `LAUNCHES_DX` and `LAUNCHES_DW` count the launches.
 
-K4 has no fit gate: a block holds one tile of pixels and one slice of K
-whatever the shape. K5 holds whole rows, so an image too wide for a run of
-one row in shared memory (W in the thousands) raises, as does B·H·W ≥ 2³¹
-(int32 pixel indexing).
+K4 has no fit gate: an image too wide for shared memory is cut into
+segments of columns. K5 holds whole rows, so an image too wide for a run
+of one row in shared memory (W in the thousands) raises. B·H·W ≥ 2³¹
+raises in both (int32 pixel indexing).
 """
 
 from __future__ import annotations
@@ -60,6 +66,9 @@ LAUNCHES_DW = 0
 #: The most dynamic shared memory one block may ask for on this card.
 MAX_SHARED_BYTES = 232448
 _SMS = 132  # the H100's streaming multiprocessors
+#: The dynamic shared memory of each of two blocks on one SM (228 KB an SM,
+#: 1 KB of it reserved per block).
+_TWO_PER_SM_BYTES = 233472 // 2 - 1024
 
 
 # --------------------------------------------------------------------------
@@ -114,12 +123,88 @@ def _kernels():
     lib, _ = load()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fwd = lib.conv3x3_fwd_bf16
-    fwd.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    fwd.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
     fwd.restype = i32
     dw = lib.conv3x3_dw_bf16
     dw.argtypes = [ptr] * 4 + [i32] * 10 + [ptr]
     dw.restype = i32
     return fwd, dw
+
+
+class FwdPlan(NamedTuple):
+    """How K4's first pass cuts its work: output channels in tiles of `bn`,
+    output positions in tiles of 128·`fm` (eight warps of `fm` 16-position
+    fragments), columns in segments of `seg` (all of W where it fits), and
+    the 16-channel slices of K into `splits` runs, each summed into its own
+    fp32 partial and added by a second pass when there is more than one."""
+    bn: int
+    fm: int
+    seg: int
+    splits: int
+    blocks: int          # blocks of the first pass
+    shared_bytes: int    # dynamic shared memory of one block
+    partial_bytes: int   # fp32 partials written and read again; 0 at S = 1
+
+
+#: K4's instantiations: (output-channel tile, 16-position fragments per
+#: warp), at most 64 fp32 sums per thread. A 64-channel tile was faster
+#: at no shape of the training iteration (`sweep_dw_plan.py fwd` on an
+#: H100) and spilled at two fragments; 64 output channels are two
+#: 32-channel tiles.
+FWD_TILES = tuple((bn, fm) for bn in (16, 32) for fm in (1, 2, 4))
+
+
+def _fwd_wp(seg: int, w: int) -> int:
+    """The padded width: one halo column where one segment holds all of W
+    (the right halo of a row is the left halo of the next), else two."""
+    return seg + 1 if seg >= w else seg + 2
+
+
+def fwd_shared_bytes(bn: int, fm: int, seg: int, w: int) -> int:
+    """The dynamic shared memory K4's first pass asks for
+    (`conv3x3_fwd_shared_bytes` in C): two buffers, each the halo tile of
+    128·fm + 2·wp + 2 padded pixels by 16 + 8 channels and the nine taps'
+    weights of one 16-channel slice, 16 × (bn + 8) or bn × (16 + 8)
+    values, whichever is more, in bf16."""
+    halo = 128 * fm + 2 * _fwd_wp(seg, w) + 2
+    return 2 * 2 * (halo * 24 + 9 * max(16 * (bn + 8), bn * 24))
+
+
+def _fwd_blocks(b: int, h: int, w: int, cout: int, bn: int, fm: int,
+                seg: int) -> int:
+    """Blocks of one split: tiles of the padded positions (the batch's
+    b·(h + 1) rows of wp after a zero row) in each segment, by output
+    channel tiles."""
+    positions = (b * (h + 1) - 1) * _fwd_wp(seg, w)
+    return -(-positions // (128 * fm)) * -(-w // seg) * -(-cout // bn)
+
+
+@functools.lru_cache(maxsize=256)  # a net asks for the same few shapes
+def fwd_plan(b: int, h: int, w: int, cin: int, cout: int) -> FwdPlan:
+    """K4's plan for x (b, h, w, cin) → y (b, h, w, cout); dX asks with
+    dY's channels as cin and dX's as cout. The output channel tile is 16
+    where that covers cout, else 32. The segment is all of W where
+    the ring leaves room for two blocks an SM (the registers allow two),
+    else W halved until it does. Positions per tile: the most that still
+    gives two blocks per SM, else 128. Splits: where one split's blocks
+    fall short of one per SM, enough runs of the slices of K to make up
+    one per SM, as far as the slices go."""
+    bn = 16 if cout <= 16 else 32
+    chosen = None
+    for fm in (fm for tile, fm in FWD_TILES if tile == bn):
+        seg = w
+        while seg > 1 and fwd_shared_bytes(bn, fm, seg, w) > _TWO_PER_SM_BYTES:
+            seg = -(-seg // 2)
+        blocks = _fwd_blocks(b, h, w, cout, bn, fm, seg)
+        if chosen is None or blocks >= 2 * _SMS:
+            chosen = fm, seg, blocks
+    fm, seg, blocks = chosen
+    slices = -(-cin // 16)
+    per_split = -(-slices // min(slices, -(-_SMS // blocks)))
+    splits = -(-slices // per_split)
+    return FwdPlan(bn, fm, seg, splits, blocks,
+                   fwd_shared_bytes(bn, fm, seg, w),
+                   splits * 4 * b * h * w * cout if splits > 1 else 0)
 
 
 class DwPlan(NamedTuple):
@@ -205,26 +290,42 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _fwd_launch(name: str, x: torch.Tensor, wgt: torch.Tensor,
+                bias: torch.Tensor | None, cin: int, cout: int,
+                rotated: bool) -> torch.Tensor:
+    """K4 on x (B, H, W, cin) → (B, H, W, cout) under `fwd_plan`."""
+    b, h, w, _ = x.shape
+    plan = fwd_plan(b, h, w, cin, cout)
+    partial = (torch.empty((plan.splits, b * h * w, cout), dtype=torch.float32,
+                           device=x.device) if plan.splits > 1 else None)
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    rc = _kernels()[0](x.data_ptr(), wgt.data_ptr(),
+                       None if bias is None else bias.data_ptr(), y.data_ptr(),
+                       None if partial is None else partial.data_ptr(),
+                       b, h, w, cin, cout, int(rotated), plan.bn, plan.fm,
+                       plan.seg, plan.splits, _vec(x, cin),
+                       _vec(wgt, cin if rotated else cout), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"conv3x3_fwd_bf16 ({name}) launch failed with "
+                           f"cudaError {rc}")
+    return y
+
+
 def conv3x3_forward(x: torch.Tensor, wflat: torch.Tensor,
                     bias: torch.Tensor | None = None) -> torch.Tensor:
     """K4: y (B, H, W, Cout) = conv3x3(x, W) + bias for x (B, H, W, Cin),
     wflat (9·Cin, Cout) and bias (Cout,) or None, one dtype (bf16 on the
-    card)."""
+    card). The kernel adds the bias, rounded by the caller, to the fp32 sum
+    and rounds y once."""
     global LAUNCHES_FWD
     if cuda_cg._runs_plain(x, "conv3x3_forward"):
         return conv3x3_plain(x, wflat, bias)
-    b, h, w, cin = _check_image("x", x)
+    _, _, _, cin = _check_image("x", x)
     cout = wflat.shape[-1]
     cuda_cg._check("wflat", wflat, (9 * cin, cout), x.device, torch.bfloat16)
     if bias is not None:
         cuda_cg._check("bias", bias, (cout,), x.device, torch.bfloat16)
-    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    rc = _kernels()[0](x.data_ptr(), wflat.data_ptr(),
-                       None if bias is None else bias.data_ptr(), y.data_ptr(),
-                       b, h, w, cin, cout, 0, _vec(x, cin), _vec(wflat, cout),
-                       _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_fwd_bf16 launch failed with cudaError {rc}")
+    y = _fwd_launch("forward", x, wflat, bias, cin, cout, rotated=False)
     LAUNCHES_FWD += 1
     return y
 
@@ -232,19 +333,15 @@ def conv3x3_forward(x: torch.Tensor, wflat: torch.Tensor,
 def conv3x3_dx(g: torch.Tensor, wflat: torch.Tensor) -> torch.Tensor:
     """K4 for the input gradient: dX (B, H, W, Cin) = conv3x3(dY, W rotated
     180° and io-transposed), no bias, for dY (B, H, W, Cout) and the
-    forward's wflat (9·Cin, Cout). The kernel reads wflat rotated."""
+    forward's wflat (9·Cin, Cout). The kernel reads wflat rotated by index
+    as it stages it; no rotated copy is built."""
     global LAUNCHES_DX
     if cuda_cg._runs_plain(g, "conv3x3_dx"):
         return conv3x3_plain(g, rotate_weights(wflat))
-    b, h, w, cout = _check_image("g", g)
+    _, _, _, cout = _check_image("g", g)
     cin = wflat.shape[0] // 9
     cuda_cg._check("wflat", wflat, (9 * cin, cout), g.device, torch.bfloat16)
-    dx = torch.empty((b, h, w, cin), dtype=g.dtype, device=g.device)
-    rc = _kernels()[0](g.data_ptr(), wflat.data_ptr(), None, dx.data_ptr(),
-                       b, h, w, cout, cin, 1, _vec(g, cout), _vec(wflat, cout),
-                       _stream(g))
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_fwd_bf16 (dX) launch failed with cudaError {rc}")
+    dx = _fwd_launch("dX", g, wflat, None, cout, cin, rotated=True)
     LAUNCHES_DX += 1
     return dx
 

@@ -129,23 +129,31 @@ def measure_pressure_iterations(
                   return_iters=True)
 
 
-def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D) -> str:
-    """Resolve 'auto': the exact spectral solve on obstacle-free domains;
-    with obstacles, the kernel for a CUDA tensor and otherwise the plain
-    spectral-preconditioned CG (closed) or plain CG (open)."""
+def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D,
+                  on_cuda: bool | None = None) -> str:
+    """Resolve 'auto', as the JAX package does: the exact spectral solve on
+    obstacle-free domains; with obstacles, the kernel where the field is
+    on the card (`on_cuda`, by default `div.is_cuda`) and the grid fits
+    its shared memory (`cuda_cg.cuda_solve_fits`), and otherwise the
+    spectral-preconditioned CG (closed) or plain CG (open). An explicit
+    'cuda' beyond the fit raises, as the JAX package's 'pallas' does."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown pressure backend {backend!r}; "
                          f"choose from {BACKENDS}")
     if div.dim() != 3:
         raise ValueError(f"2D fields (B, H, W) only, got {tuple(div.shape)}")
+    fits = cuda_cg.cuda_solve_fits(*div.shape[1:])
     if backend != "auto":
+        if backend == "cuda" and not fits:
+            raise ValueError(f"grid {tuple(div.shape)} exceeds the kernel's "
+                             "shared memory; use 'auto' or 'pcg'")
         if backend == "spectral" and domain.has_obstacles:
             raise ValueError("'spectral' is exact only for domains without "
                              "obstacles; use 'pcg'")
         return backend
     if not domain.has_obstacles:
         return "spectral"
-    if div.is_cuda:
+    if (div.is_cuda if on_cuda is None else on_cuda) and fits:
         return "cuda"
     return "pcg" if domain.closed else "jax"
 

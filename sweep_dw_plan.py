@@ -1,22 +1,29 @@
-"""Sweep of K5's plan on one NVIDIA GPU: is `cuda_conv.dw_plan` near the best?
+"""Sweep of the conv kernels' plans on one NVIDIA GPU: are
+`cuda_conv.dw_plan` (K5) and `cuda_conv.fwd_plan` (K4) near the best?
 
-    python3 sweep_dw_plan.py
+    python3 sweep_dw_plan.py          # K5, then K4
+    python3 sweep_dw_plan.py fwd      # K4 only
 
 For each conv shape below (the 64², n=16, batch-8 training iteration's
 shape families) it times K5 (`conv3x3_dw_bf16`, both passes) under every
 plan of rows per run in {1, 2, 4, ..} and about 1, 2, 4, .., 1024 splits
-that fits the card's shared memory, calling the C entry directly, and prints
-the time under `dw_plan`'s plan, cuDNN's time for the same function and the
-five fastest plans. Device times by CUDA-graph replay
-(`chip_smoke._graph_ms`), beside the card's name and power limit. It checks
-nothing: `chip_smoke.py` and `tests/test_torch_kernels.py` hold K5 to its
-plain version.
+that fits the card's shared memory, and K4 (`conv3x3_fwd_bf16`, forward
+and dX, both passes) under every output-channel tile and fragments per
+warp it has and every count of splits of K, calling the C entries
+directly. It prints the time under the plan's choice, cuDNN's time for the
+same function and the five fastest plans. Device times by CUDA-graph
+replay (`chip_smoke._graph_ms`), beside the card's name and power limit.
+It checks nothing: `chip_smoke.py` and `tests/test_torch_kernels.py` hold
+the kernels to their plain versions.
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 from pde_control_tpu_torch.ops import cuda_conv
@@ -49,10 +56,82 @@ def _launcher(shape, x, g, rows: int, runs_per_block: int):
     return call, splits
 
 
+def _fwd_launcher(x, wgt, bias, cin: int, cout: int, rotated: bool, bn: int,
+                  fm: int, seg: int, splits: int):
+    """A call of K4 on x (b, h, w, cin) → (b, h, w, cout) under the given
+    plan."""
+    b, h, w, _ = x.shape
+    partial = torch.empty((splits, b * h * w, cout), dtype=torch.float32,
+                          device=x.device)
+    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    kernel = cuda_conv._kernels()[0]
+    vec_w = cuda_conv._vec(wgt, cin if rotated else cout)
+
+    def call():
+        rc = kernel(x.data_ptr(), wgt.data_ptr(),
+                    None if bias is None else bias.data_ptr(), y.data_ptr(),
+                    partial.data_ptr(), b, h, w, cin, cout, int(rotated), bn,
+                    fm, seg, splits, cuda_conv._vec(x, cin), vec_w,
+                    cuda_conv._stream(x))
+        if rc != 0:
+            raise RuntimeError(f"conv3x3_fwd_bf16 failed with cudaError {rc}")
+
+    return call
+
+
+def sweep_fwd(card: str, rng) -> None:
+    dev = torch.device("cuda")
+    for shape in SHAPES:
+        b, h, w, cin, cout = shape
+        x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,
+                             device=dev).to(torch.bfloat16) for c in (cin, cout))
+        wflat = torch.tensor(rng.normal(size=(9 * cin, cout)) / np.sqrt(9 * cin),
+                             dtype=torch.float32, device=dev).to(torch.bfloat16)
+        bias = torch.zeros(cout, dtype=torch.bfloat16, device=dev)
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        w_oihw = wflat.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        for d, inp, k_in, k_out, rotated, plan_call, library in (
+                ("fwd", x, cin, cout, False,
+                 lambda: cuda_conv.conv3x3_forward(x, wflat, bias),
+                 lambda: F.conv2d(xn, w_oihw, bias, padding=1)),
+                ("dX", g, cout, cin, True, lambda: cuda_conv.conv3x3_dx(g, wflat),
+                 lambda: torch.nn.grad.conv2d_input(xn.shape, w_oihw, gn,
+                                                    padding=1))):
+            plan = cuda_conv.fwd_plan(b, h, w, k_in, k_out)
+            plan_ms = chip_smoke._graph_ms(plan_call, 20)
+            library_ms = chip_smoke._graph_ms(library, 20)
+            slices = -(-k_in // 16)
+            swept = {}
+            for bn, fm in cuda_conv.FWD_TILES:
+                seg = w
+                while (seg > 1 and cuda_conv.fwd_shared_bytes(bn, fm, seg, w)
+                       > cuda_conv.MAX_SHARED_BYTES):
+                    seg = -(-seg // 2)
+                for splits in sorted({-(-slices // p) for p in range(1, slices + 1)}):
+                    call = _fwd_launcher(inp, wflat, None if rotated else bias,
+                                         k_in, k_out, rotated, bn, fm, seg, splits)
+                    swept[bn, fm, splits] = chip_smoke._graph_ms(call, 20)
+            ranked = sorted((ms, key) for key, ms in swept.items())
+            print(f"K4 {d} {b}x{h}x{w} {k_in}->{k_out}: fwd_plan bn {plan.bn} x "
+                  f"fm {plan.fm} x seg {plan.seg} x splits {plan.splits} "
+                  f"{plan_ms:.4f} ms, cuDNN {library_ms:.4f} ms; fastest swept: "
+                  + "; ".join(f"{ms:.4f} ms bn {bn} x fm {fm} x splits {s}"
+                              for ms, (bn, fm, s) in ranked[:5])
+                  + f" [{card}]", flush=True)
+            print("  all swept (ms bn fm splits): " + ", ".join(
+                f"{ms:.4f} {bn} {fm} {s}" for ms, (bn, fm, s) in ranked))
+
+
 def main() -> None:
     card = chip_smoke.device_phase()
-    dev = torch.device("cuda")
     rng = np.random.default_rng(chip_smoke.SEED)
+    if sys.argv[1:] != ["fwd"]:
+        sweep_dw(card, rng)
+    sweep_fwd(card, rng)
+
+
+def sweep_dw(card: str, rng) -> None:
+    dev = torch.device("cuda")
     for shape in SHAPES:
         b, h, w, cin, cout = shape
         x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,

@@ -302,10 +302,16 @@ _MAIN_SHAPES = [(8, 64, 64, 5, 32), (8, 64, 64, 64, 64), (8, 64, 64, 32, 1),
 # What K5's runs of whole rows can get wrong: rows that the rows per run do
 # not divide, one row, one column, W below a fragment's 16 pixels, Cin above
 # the channel tile with one output channel, and blocks whose runs pass from
-# one sample to the next.
+# one sample to the next. What K4's plan can get wrong: positions the tiles
+# do not divide, one pixel, an image cut into segments of columns (W = 300
+# with a 64-channel tile, forward and dX), Cin 3 and 5 (and 1 for dX), Cout
+# 1, partial channel slices and Cout tiles, and splits of K.
 _EDGE_SHAPES = [(2, 13, 64, 32, 32), (40, 13, 64, 32, 32), (4, 1, 16, 32, 16),
                 (4, 16, 1, 16, 16), (8, 8, 8, 64, 128), (2, 16, 16, 128, 1),
-                (5, 3, 64, 64, 64), (40, 5, 8, 128, 128)]
+                (5, 3, 64, 64, 64), (40, 5, 8, 128, 128),
+                (1, 1, 1, 5, 1), (1, 3, 300, 16, 64), (1, 3, 300, 64, 16),
+                (8, 12, 12, 3, 32), (4, 10, 10, 5, 32), (6, 11, 13, 32, 1),
+                (3, 5, 6, 40, 72), (2, 4, 4, 128, 64), (2, 1, 64, 32, 32)]
 _CONV_SHAPES = _MAIN_SHAPES + _EDGE_SHAPES
 
 
@@ -335,8 +341,8 @@ def _conv_counts():
 def test_conv_kernels_match_plain(shape):
     """y and dX within 1e-2 of the plain version's max|ref| (one bf16 ulp is
     2^-8 and the fp32 sums run in another order), dW within 2e-2 (it sums
-    2^15..2^18 products) and the same in every run; each launch counts
-    once."""
+    2^15..2^18 products), all three the same in every run; each launch
+    counts once."""
     dev = _cuda()
     x, wflat, bias, g = _conv_inputs(*shape, dev)
     before = _conv_counts()
@@ -352,6 +358,8 @@ def test_conv_kernels_match_plain(shape):
     assert _rel_max(dx, cuda_conv.conv3x3_plain(
         g, cuda_conv.rotate_weights(wflat))) <= 1e-2
     assert _rel_max(dw, cuda_conv.conv3x3_dw_plain(x, g)) <= 2e-2
+    assert torch.equal(cuda_conv.conv3x3_forward(x, wflat, bias), y)
+    assert torch.equal(cuda_conv.conv3x3_dx(g, wflat), dx)
     assert torch.equal(cuda_conv.conv3x3_dw(x, g), dw)
 
 
@@ -470,3 +478,80 @@ def test_dw_splits_cover_the_pixels(shape):
 def test_dw_plan_rejects_an_image_too_wide_for_one_row():
     with pytest.raises(ValueError, match="shared memory"):
         cuda_conv.dw_plan(1, 4, 4096, 64, 64)
+
+
+def _fwd_coverage(b, h, w, cin, cout, plan):
+    """How often the first pass's blocks (`conv3x3_fwd_kernel`'s index
+    math) write each (split, pixel, output channel), and the slices each
+    split sums."""
+    wp = plan.seg + 1 if plan.seg >= w else plan.seg + 2
+    bm = 128 * plan.fm
+    tiles = -(-((b * (h + 1) - 1) * wp) // bm)
+    strips, n_tiles = -(-w // plan.seg), -(-cout // plan.bn)
+    q_end = b * (h + 1) * wp
+    counts = np.zeros(b * h * w, int)
+    for strip in range(strips):
+        q = wp + np.arange(tiles * bm)
+        q = q[q < q_end]
+        row, pc = np.divmod(q, wp)
+        sample, rr = np.divmod(row, h + 1)
+        col = strip * plan.seg + pc - 1
+        keep = (rr >= 1) & (pc >= 1) & (pc <= plan.seg) & (col < w)
+        np.add.at(counts, ((sample * h + rr - 1) * w + col)[keep], 1)
+    channels = np.zeros(cout, int)
+    for tile in range(n_tiles):
+        channels[tile * plan.bn:(tile + 1) * plan.bn] += 1
+    slices = -(-cin // 16)
+    per_split = -(-slices // plan.splits)
+    runs = [range(z * per_split, min(slices, (z + 1) * per_split))
+            for z in range(plan.splits)]
+    return counts, channels, tiles * strips * n_tiles, runs
+
+
+# K4's edge shapes of `chip_smoke.py` beside the shapes above.
+_FWD_PLAN_SHAPES = _PLAN_SHAPES + [
+    (2, 9, 700, 16, 64), (1, 3, 4096, 16, 16), (1, 4, 4096, 64, 64),
+    (2, 1, 100000, 8, 8), (3, 5, 6, 40, 72), (2, 4, 4, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", _FWD_PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _FWD_PLAN_SHAPES])
+@pytest.mark.parametrize("direction", ["fwd", "dx"])
+def test_fwd_plan_covers_the_output_once(shape, direction):
+    """K4's plan, forward and for dX (dY's channels in, dX's out): every
+    output pixel and channel written by exactly one block of each split,
+    every slice of K in exactly one split and no split empty, a tile the
+    kernel has, shared memory within a block's limit and two blocks'
+    share of an SM, and the partials' bytes as the splits make them.
+    No shape is refused, however wide (the kernel cuts it into segments)."""
+    b, h, w, cin, cout = shape
+    if direction == "dx":
+        cin, cout = cout, cin
+    plan = cuda_conv.fwd_plan(b, h, w, cin, cout)
+    assert (plan.bn, plan.fm) in cuda_conv.FWD_TILES
+    assert plan.bn == (16 if cout <= 16 else 32)
+    assert 1 <= plan.seg <= w and 1 <= plan.splits <= -(-cin // 16)
+    counts, channels, blocks, runs = _fwd_coverage(b, h, w, cin, cout, plan)
+    assert (counts == 1).all() and (channels == 1).all()
+    assert blocks == plan.blocks
+    assert all(len(r) > 0 for r in runs)
+    assert sorted(s for r in runs for s in r) == list(range(-(-cin // 16)))
+    assert plan.shared_bytes == cuda_conv.fwd_shared_bytes(plan.bn, plan.fm,
+                                                           plan.seg, w)
+    assert plan.shared_bytes <= 233472 // 2 - 1024 < cuda_conv.MAX_SHARED_BYTES
+    assert plan.partial_bytes == (plan.splits * 4 * b * h * w * cout
+                                  if plan.splits > 1 else 0)
+
+
+def test_fwd_plan_fills_the_card_and_is_cached():
+    """The 128-channel layers at 8² and 16² (batch 8) split K until they
+    have a block per SM; the 64² layers need no split; one plan object per
+    shape."""
+    for shape in ((8, 8, 8, 128, 128), (8, 16, 16, 128, 64)):
+        plan = cuda_conv.fwd_plan(*shape)
+        assert plan.splits > 1 and plan.blocks * plan.splits >= 66
+    for shape in ((8, 64, 64, 64, 64), (64, 64, 64, 32, 16)):
+        plan = cuda_conv.fwd_plan(*shape)
+        assert plan.splits == 1 and plan.blocks >= 132
+    assert cuda_conv.fwd_plan(8, 8, 8, 128, 128) is cuda_conv.fwd_plan(8, 8, 8,
+                                                                       128, 128)

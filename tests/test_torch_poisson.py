@@ -138,3 +138,23 @@ def test_pick_backend():
         tpoisson._pick_backend("spectral", div, td)
     with pytest.raises(ValueError, match="unknown pressure backend"):
         tpoisson._pick_backend("pallas", div, td)
+    # 'auto' on the card, as the JAX package routes on a TPU: the kernel
+    # only where the grid fits its shared memory (98² the largest square),
+    # else the plain CG of the domain's kind; a CPU field never reaches it.
+    big = np.zeros((128, 128), np.float32)
+    big[64, 32:64] = 1.0
+    for closed, fallback in ((True, "pcg"), (False, "jax")):
+        small = _domains(True, closed)[0]
+        large = TDomain.create(128, 128, obstacle_mask=big, closed=closed,
+                               device="cpu")
+        div_large = torch.zeros(1, 128, 128)
+        assert tpoisson._pick_backend("auto", div, small, on_cuda=True) == "cuda"
+        assert tpoisson._pick_backend("auto", div_large, large,
+                                      on_cuda=True) == fallback
+        assert tpoisson._pick_backend("auto", div, small, on_cuda=False) == fallback
+        assert tpoisson._pick_backend("auto", div_large, large) == fallback
+        with pytest.raises(ValueError, match="shared memory"):
+            tpoisson._pick_backend("cuda", div_large, large)
+    free_large = TDomain.create(128, 128, device="cpu")
+    assert tpoisson._pick_backend("auto", torch.zeros(1, 128, 128), free_large,
+                                  on_cuda=True) == "spectral"

@@ -249,6 +249,58 @@ def test_nonfinite_update_is_skipped():
     assert all(not s for s in tapp.optimizer.state.values())  # no Adam step
 
 
+def test_nonfinite_frozen_gradient_skips_the_update():
+    """A non-finite gradient in a frozen network only: the JAX package's
+    `apply_if_finite` sees the whole gradient tree and skips the step, and
+    so does the port. Both count 1 and leave parameters and Adam's state as
+    they were. The port computes the frozen networks' gradients of the
+    loss for the check and drops them after it."""
+    jpde = JPDE(JDomain.create(H, H, obstacle_mask=jnp.asarray(_plate())),
+                JConfig(**_CFG), dtype=jnp.float32, **_PDE)
+    app_kw = dict(_APP, trainable_networks=("CFE",))
+    japp = JApp(N, jpde, batch_size=B, **app_kw).prepare()
+    params = jax.tree_util.tree_map(np.asarray, jax.device_get(japp.params))
+    rng = np.random.default_rng(7)
+    grads = jax.tree_util.tree_map(
+        lambda a: rng.normal(size=a.shape).astype(np.float32), params)
+    grads["OP4"]["Conv_0"]["kernel"][0, 0, 0, 0] = np.nan
+    updates, state = japp.optimizer.update(
+        jax.tree_util.tree_map(jnp.asarray, grads), japp.opt_state, japp.params)
+    assert int(state.notfinite_count) == 1 and int(state.total_notfinite) == 1
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(optax.apply_updates(params, updates)),
+        jax.tree_util.tree_leaves(params)))
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(state.inner_state),
+        jax.tree_util.tree_leaves(japp.opt_state.inner_state)))
+
+    tpde = IncompressibleFluidPDE(
+        Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"),
+        FluidConfig(**_CFG), dtype=torch.float32, **_PDE)
+    tapp = ControlTraining(N, tpde, **app_kw).prepare()
+    tapp.load_params(params_from_flax(params))
+    before = {n: {k: v.clone() for k, v in tapp.nets[n].state_dict().items()}
+              for n in NETS}
+    tgrads = params_from_flax(grads)
+    for name, net in tapp.nets.items():
+        for key, p in net.named_parameters():
+            p.grad = tgrads[name][key].clone()
+    assert not tapp.apply_gradients()
+    assert tapp.notfinite_total == 1 and tapp.notfinite_consec == 1
+    assert all(not s for s in tapp.optimizer.state.values())  # no Adam step
+    for n in NETS:
+        assert all(torch.equal(v, before[n][k])
+                   for k, v in tapp.nets[n].state_dict().items())
+    frozen = [p for n in ("OP4", "OP2") for p in tapp.nets[n].parameters()]
+    assert all(p.grad is None for p in frozen)
+
+    tapp.compute_gradients(tapp.to_batch(_batch()))
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in frozen)
+    assert tapp.apply_gradients() and tapp.notfinite_consec == 0
+    assert all(p.grad is None for p in frozen)
+
+
 def test_frozen_network_gets_no_update():
     tpde = IncompressibleFluidPDE(
         Domain2D.create(H, H, obstacle_mask=_plate(), device="cpu"), FluidConfig(**_CFG),
