@@ -8,20 +8,25 @@ prints no result):
      settings (both off);
   2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`
      (one nvcc per source, in parallel), prints each kernel's registers and
-     spills (a kernel the report does not know, a K4 or K5 kernel missing
-     from it or a K4 or K5 kernel that spills fails), and checks the
-     kernels' shared-memory counts against the Python gates and plans;
+     spills (a kernel the report does not know, a K3, K4 or K5 kernel
+     missing from it or one that spills fails), checks the kernels'
+     shared-memory counts against the Python gates and plans, and prints
+     K3's plan at 64²×8 and ×64;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed) and 32² (open, with an obstacle), batch 8,
      warm and cold, at tol 1e-4 / 100 iterations and tol 1e-6 / 500;
      residuals, solution error, trip counts, times, and the gradient
      through `solve_pressure` against the plain path;
   4. the fused step's forward (K2) and backward (K3) against their plain
-     versions: 64² and 32², closed with the plate, batch 8, cold and warm,
-     with force, with inflow, at zero velocity (the tie points), and with a
-     NaN and an infinity planted in the velocity (the non-finite cells must
-     be the plain version's), at tol 1e-6 / 500; then their times at
-     64²×8, tol 1e-4 / 100;
+     versions: 64² and 32² (K3 also 32×48 and 8×8), closed with the plate,
+     batch 8, cold and warm, with force, with inflow, at zero velocity (the
+     tie points), and with a NaN and an infinity planted in the velocity
+     (the non-finite cells must be the plain version's), at tol 1e-6 / 500,
+     K3 under `bwd_plan`'s plan and under every plan its launcher takes,
+     each twice for the same bits; both against the JAX package's goldens
+     (`tests/goldens/fused_step_32.npz`); then their times at 64²×8, tol
+     1e-4 / 100, K3's at maxiter 0 (the rest without the CG trips) and at
+     batch 64 beside it;
   5. the first iteration of each training path below, every one with the
      same perturbed CFE output layer, so that every net has a gradient; the
      conv path's run records the shape of every conv its kernels compute;
@@ -77,6 +82,10 @@ PEAK_HBM_BYTES = 3.35e12
 # listed by `cuda_conv.FWD_TILES` in the build phase).
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
+# K3's instantiations <threads, trip profile>: the main path's and the one
+# `fused_bwd_trace` selects; each must stand in ptxas's report, without
+# spills.
+K3_KERNELS = {"fused_bwd_kernel<512, 0>", "fused_bwd_kernel<512, 1>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -147,12 +156,12 @@ def build_phase() -> None:
               f"bytes spill loads"
               + (f", {smem.group(1)} bytes static shared memory" if smem
                  else ""))
-    conv_kernels = k4_kernels | K5_KERNELS
-    if conv_kernels - set(seen):
-        raise AssertionError(f"no ptxas report for {sorted(conv_kernels - set(seen))}")
-    if any(seen[k] for k in conv_kernels):
-        raise AssertionError(f"a K4 or K5 kernel spills: "
-                             f"{ {k: seen[k] for k in conv_kernels if seen[k]} }")
+    checked = k4_kernels | K5_KERNELS | K3_KERNELS
+    if checked - set(seen):
+        raise AssertionError(f"no ptxas report for {sorted(checked - set(seen))}")
+    if any(seen[k] for k in checked):
+        raise AssertionError(f"a K3, K4 or K5 kernel spills: "
+                             f"{ {k: seen[k] for k in checked if seen[k]} }")
     for c_name, gate in (("pcg_shared_bytes", cuda_cg.shared_bytes),
                          ("fused_shared_bytes", cuda_fluid.shared_bytes)):
         fn = getattr(lib, c_name)
@@ -161,6 +170,25 @@ def build_phase() -> None:
             raise AssertionError(f"{c_name}: kernel asks {fn(H, H)} bytes, the "
                                  f"gate counts {gate(H, H)}")
         print(f"{c_name}({H}, {H}) = {fn(H, H)} bytes, equal to the gate's count")
+    fn = lib.fused_bwd_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    bwd_cases = [(h, w, c, cuda_fluid.BWD_THREADS)
+                 for h, w in ((H, H), (32, 32), (32, 48), (8, 8), (84, 84))
+                 for c in cuda_fluid.BWD_CLUSTERS if c <= h]
+    for h, w, c, t in bwd_cases:
+        want = cuda_fluid.bwd_shared_bytes(h, w, c, t, FUSED_STEP["max_shift"])
+        if fn(h, w, c, t, FUSED_STEP["max_shift"]) != want:
+            raise AssertionError(f"fused_bwd_shared_bytes({h}, {w}, {c}, {t}): "
+                                 f"kernel asks {fn(h, w, c, t, 2)} bytes, the "
+                                 f"plan counts {want}")
+    for batch in (BATCH, 64):
+        plan = cuda_fluid.bwd_plan(batch, H, H, FUSED_STEP["max_shift"])
+        if fn(H, H, plan.cluster, plan.threads, 2) != plan.shared_bytes:
+            raise AssertionError(f"bwd_plan {plan}: the kernel asks "
+                                 f"{fn(H, H, plan.cluster, plan.threads, 2)} bytes")
+        print(f"K3 plan at {H}x{H}x{batch}: {_bwd_plan_text(plan)}")
+    print(f"fused_bwd_shared_bytes equal to the plan's count at "
+          f"{len(bwd_cases)} cases")
     fn = lib.conv3x3_fwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     fwd_cases = [(bn, fm, seg, w) for bn, fm in cuda_conv.FWD_TILES
@@ -184,9 +212,10 @@ def build_phase() -> None:
     print("conv3x3_dw_shared_bytes equal to the plan's count at 5 shapes")
 
 
-def _plate(n: int) -> np.ndarray:
-    m = np.zeros((n, n), np.float32)
-    m[n // 2, n // 4:n // 2] = 1.0
+def _plate(h: int, w: int | None = None) -> np.ndarray:
+    w = h if w is None else w
+    m = np.zeros((h, w), np.float32)
+    m[h // 2, w // 4:w // 2] = 1.0
     return m
 
 
@@ -385,7 +414,13 @@ FUSED_CASES = {
 FUSED_STEP = dict(dt=1.0, max_shift=2, buoyancy=0.08, closed=True)
 
 
-def _fused_operands(rng, n, case, domain, dev):
+# K3 is checked under every plan its launcher takes at these grids; K2 at
+# the square ones of the main path's sizes.
+FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (8, 8))
+GOLDENS = "tests/goldens/fused_step_32.npz"
+
+
+def _fused_operands(rng, h, w, case, domain, dev, batch=BATCH):
     """The step's operands and the four output cotangents, from `rng`."""
     from pde_control_tpu_torch.ops import cuda_fluid
 
@@ -396,12 +431,12 @@ def _fused_operands(rng, n, case, domain, dev):
         return torch.tensor(scale * a, dtype=torch.float32, device=dev)
 
     v = 0.0 if zero_v else 0.5
-    yf, xf, c = (BATCH, n + 1, n), (BATCH, n, n + 1), (BATCH, n, n)
+    yf, xf, c = (batch, h + 1, w), (batch, h, w + 1), (batch, h, w)
     ops = dict(vy=t(yf, v), vx=t(xf, v), rho=t(c, uniform=True),
                fy=t(yf, 0.05), fx=t(xf, 0.05))
     if nonfinite:
-        ops["vy"][0, n // 2, n // 3] = float("nan")
-        ops["vx"][1, n // 3, n // 2] = float("inf")
+        ops["vy"][0, h // 2, w // 3] = float("nan")
+        ops["vx"][1, h // 3, w // 2] = float("inf")
     if inflow:
         ops["inflow"] = t(c, 0.05, uniform=True)
     if warm:  # a guess near this step's pressure, as the previous step's is
@@ -413,8 +448,100 @@ def _fused_operands(rng, n, case, domain, dev):
     return ops, [t(yf), t(xf), t(c), t(c)]
 
 
+def _bwd_plan_text(plan) -> str:
+    return (f"cluster {plan.cluster} x {plan.threads} threads, "
+            f"{plan.rows_per_rank} rows a rank, {plan.shared_bytes} B shared")
+
+
+def _agree(label: str, got, want, names, limit: float, nonfinite: bool) -> tuple:
+    """Each output within `limit` of the reference's max|ref| over its
+    finite cells, the non-finite cells exactly the reference's (none unless
+    `nonfinite`), trip counts within 3 when both sides return them. Returns
+    ({name: max|d|/max|ref|}, the largest max|d|, the non-finite cells)."""
+    rels, worst, n_bad = {}, 0.0, 0
+    for name, a, b in zip(names, got, want):
+        if (a is None) != (b is None):
+            raise AssertionError(f"{label} {name}: one side is None")
+        if a is None:
+            continue
+        fin = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), fin):
+            raise AssertionError(f"{label} {name}: non-finite cells differ")
+        n_bad += int((~fin).sum())
+        d = float((a[fin] - b[fin]).abs().max())
+        worst = max(worst, d)
+        rels[name] = d / max(float(b[fin].abs().max()), 1e-30)
+    if (n_bad > 0) != nonfinite:
+        raise AssertionError(f"{label}: {n_bad} non-finite cells")
+    bad = {k: v for k, v in rels.items() if v > limit}
+    if bad:
+        raise AssertionError(f"{label}: {bad} > {limit}")
+    if len(got) > len(names) and len(want) > len(names):
+        dit = int((got[-1] - want[-1]).abs().max())
+        if dit > 3:
+            raise AssertionError(f"{label}: trip counts differ by {dit} > 3")
+    return rels, worst, n_bad
+
+
+def _same_bits(label: str, a: tuple, b: tuple) -> None:
+    for x, y in zip(a, b):
+        if x is not None and not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{label}: two calls differ")
+
+
+def fused_golden_check(dev) -> dict:
+    """K2 and K3 (under `bwd_plan`'s plan and every plan the launcher takes
+    at 32²) against the JAX package's fused step and VJP, from the goldens
+    of `scripts/make_fused_goldens.py`: outputs within 1e-4, cotangents
+    within 1e-3 of the golden's max|ref|."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_fluid
+
+    z = np.load(Path(__file__).resolve().parent / GOLDENS)
+    cfg = json.loads(str(z["config"]))
+    kw = {k: cfg[k] for k in ("dt", "dx", "max_shift", "buoyancy", "closed",
+                              "tol", "maxiter")}
+
+    def t(key):
+        return torch.tensor(z[key].astype(np.float32), device=dev)
+
+    geom = tuple(t(k) for k in ("acc_y", "acc_x", "fluid"))
+    cots = [t(k) for k in ("g_vy4", "g_vx4", "g_rho1", "g_p")]
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for case in ("warm-force-inflow", "zero-velocity"):
+        zero_v = case == "zero-velocity"
+        vy, vx = (torch.zeros_like(t(k)) if zero_v else t(k) for k in ("vy", "vx"))
+        rho, fy, fx = t("rho"), t("fy"), t("fx")
+        inflow, x0 = (None, None) if zero_v else (t("inflow"), t("x0"))
+        names_f = ("vy4", "vx4", "rho1", "p")
+        out = cuda_fluid.fused_step_forward(vy, vx, rho, *geom, fy=fy, fx=fx,
+                                            inflow=inflow, x0=x0, **kw)
+        want = [t(f"{case}/{n}") for n in names_f]
+        rels, worst, _ = _agree(f"golden {case} fwd", out[:4], want, names_f,
+                                1e-4, False)
+        err["fwd"] = max(err["fwd"], worst)
+        names_b = ("vy", "vx", "rho", "fy", "fx", "inflow")
+        want = [None if zero_v and n == "inflow" else t(f"{case}/d_{n}")
+                for n in names_b]
+        rel_b = 0.0
+        for plan in [None] + cuda_fluid.bwd_plans(32, 32):
+            got = cuda_fluid._launch_backward(vy, vx, rho, *cots, *geom, plan,
+                                              has_force=True, has_inflow=not zero_v,
+                                              **kw)
+            rels_b, worst, _ = _agree(f"golden {case} bwd {plan}", got[:6], want,
+                                      names_b, 1e-3, False)
+            err["bwd"] = max(err["bwd"], worst)
+            rel_b = max(rel_b, max(rels_b.values()))
+        print(f"golden 32x32x2 {case} (JAX interpret-mode kernels): K2 "
+              + " ".join(f"{k}={v:.2e}" for k, v in rels.items())
+              + f"; K3 worst max|d|/max|ref| over its plan and "
+              f"{len(cuda_fluid.bwd_plans(32, 32))} others {rel_b:.2e}")
+    return err
+
+
 def fused_kernel_phase(card: str) -> dict:
-    _phase("K2 / K3 (fused step forward / backward) against plain")
+    _phase("K2 / K3 (fused step forward / backward) against plain and JAX")
     from pde_control_tpu_torch.grids import Domain2D
     from pde_control_tpu_torch.ops import cuda_fluid
 
@@ -422,75 +549,86 @@ def fused_kernel_phase(card: str) -> dict:
     rng = np.random.default_rng(SEED + 1)
     print("limits at tol 1e-6 / maxiter 500: each K2 output max|d|/max|ref| "
           "<= 1e-4, trip counts within 3; each K3 cotangent max|d|/max|ref| "
-          "<= 1e-3, trip counts within 3; non-finite cells exactly the "
-          "plain version's (none but in the non-finite case), errors over "
-          "the finite cells")
+          "<= 1e-3, trip counts within 3, under bwd_plan's plan and under "
+          "every plan the launcher takes, the same bits in two calls; "
+          "non-finite cells exactly the plain version's (none but in the "
+          "non-finite case), errors over the finite cells")
     names_f = ("vy4", "vx4", "rho1", "p")
     names_b = ("g_vy", "g_vx", "g_rho", "g_fy", "g_fx", "g_inflow")
     err = {"fwd": 0.0, "bwd": 0.0}
-    for n in (H, 32):
-        domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
+    for h, w in FUSED_SHAPES:
+        domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), device=dev)
         geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+        plans = cuda_fluid.bwd_plans(h, w)
         for case in FUSED_CASES:
-            ops, cots = _fused_operands(rng, n, case, domain, dev)
+            label = f"{h}x{w} {case}"
+            nonfinite = case == "non-finite"
+            ops, cots = _fused_operands(rng, h, w, case, domain, dev)
             kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-6, maxiter=500)
             state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
-            out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
-            out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops, **kw)
+            if h == w:
+                out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
+                out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
+                                                            **kw)
+                rels, worst, n_bad = _agree(f"{label} fwd", out_k, out_p,
+                                            names_f, 1e-4, nonfinite)
+                err["fwd"] = max(err["fwd"], worst)
+                print(f"{label} fwd: " + " ".join(f"{k}={v:.2e}" for k, v in
+                                                  rels.items())
+                      + f" | non-finite cells {n_bad} | iters kernel="
+                      f"{out_k[-1].tolist()} plain={out_p[-1].tolist()}")
             flags = dict(has_force=True, has_inflow="inflow" in ops)
-            g_k = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags, **kw)
             g_p = cuda_fluid.fused_step_plain_backward(*state, *cots, *geom,
                                                        **flags, **kw)
-            torch.cuda.synchronize()
-            for where, got, want, names, limit in (
-                    ("fwd", out_k, out_p, names_f, 1e-4),
-                    ("bwd", g_k, g_p, names_b, 1e-3)):
-                rels, n_bad = {}, 0
-                for name, a, b in zip(names, got, want):
-                    if (a is None) != (b is None):
-                        raise AssertionError(f"{where} {name}: one side is None")
-                    if a is None:
-                        continue
-                    fin = torch.isfinite(b)
-                    if not torch.equal(torch.isfinite(a), fin):
-                        raise AssertionError(f"{n}x{n} {case} {where} {name}: "
-                                             "non-finite cells differ from plain")
-                    n_bad += int((~fin).sum())
-                    d = float((a[fin] - b[fin]).abs().max())
-                    err[where] = max(err[where], d)
-                    rels[name] = d / max(float(b[fin].abs().max()), 1e-30)
-                if (n_bad > 0) != (case == "non-finite"):
-                    raise AssertionError(f"{n}x{n} {case} {where}: {n_bad} "
-                                         "non-finite cells")
-                dit = int((got[-1] - want[-1]).abs().max())
-                print(f"{n}x{n} {case} {where}: " + " ".join(
-                    f"{k}={v:.2e}" for k, v in rels.items())
-                    + f" | non-finite cells {n_bad}"
-                    + f" | iters kernel={got[-1].tolist()} plain={want[-1].tolist()}")
-                bad = {k: v for k, v in rels.items() if v > limit}
-                if bad:
-                    raise AssertionError(f"{n}x{n} {case} {where}: {bad} > {limit}")
-                if dit > 3:
-                    raise AssertionError(f"{n}x{n} {case} {where}: trip counts "
-                                         f"differ by {dit} > 3")
+            g_k = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags,
+                                                 **kw)
+            rels, worst, n_bad = _agree(f"{label} bwd", g_k, g_p, names_b, 1e-3,
+                                        nonfinite)
+            err["bwd"] = max(err["bwd"], worst)
+            worst_rel, trips = 0.0, set()
+            for plan in plans:
+                got = cuda_fluid._launch_backward(*state, *cots, *geom, plan,
+                                                  **flags, **kw)
+                again = cuda_fluid._launch_backward(*state, *cots, *geom, plan,
+                                                    **flags, **kw)
+                r, d, _ = _agree(f"{label} bwd {plan}", got, g_p, names_b, 1e-3,
+                                 nonfinite)
+                _same_bits(f"{label} bwd {plan}", got, again)
+                err["bwd"] = max(err["bwd"], d)
+                worst_rel = max(worst_rel, max(r.values()))
+                trips.add(tuple(got[-1].tolist()))
+            plan = cuda_fluid.bwd_plan(BATCH, h, w, FUSED_STEP["max_shift"])
+            print(f"{label} bwd ({_bwd_plan_text(plan)}): " + " ".join(
+                f"{k}={v:.2e}" for k, v in rels.items())
+                + f" | non-finite cells {n_bad} | iters kernel="
+                f"{g_k[-1].tolist()} plain={g_p[-1].tolist()} | {len(plans)} "
+                f"plans: worst {worst_rel:.2e}, {len(trips)} distinct trip "
+                "counts, each the same bits in two calls")
+    golden = fused_golden_check(dev)
+    for key in err:
+        err[key] = max(err[key], golden[key])
 
-    # Times at the main path's settings: 64², force, warm start, tol 1e-4.
+    # Times at the main path's settings: 64², force, warm start, tol 1e-4;
+    # K3 also at maxiter 0 (the rest without the CG trips) and at batch 64.
     domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device=dev)
     geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
-    ops, cots = _fused_operands(rng, H, "warm", domain, dev)
+    ops, cots = _fused_operands(rng, H, H, "warm", domain, dev)
     kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-4, maxiter=100)
     state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
     flags = dict(has_force=True, has_inflow=False)
     out = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
     grads = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags, **kw)
+
+    def bwd(maxiter=100, args=(state, cots)):
+        return cuda_fluid.fused_step_backward(*args[0], *args[1], *geom, **flags,
+                                              **dict(kw, maxiter=maxiter))
+
     timed = {
         "fwd": (lambda: cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw),
                 lambda: cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
                                                             **kw)),
-        "bwd": (lambda: cuda_fluid.fused_step_backward(*state, *cots, *geom,
-                                                       **flags, **kw),
-                lambda: cuda_fluid.fused_step_plain_backward(*state, *cots, *geom,
-                                                             **flags, **kw)),
+        "bwd": (bwd, lambda: cuda_fluid.fused_step_plain_backward(
+            *state, *cots, *geom, **flags, **kw)),
     }
     cells = _window_cells(BATCH, H, H)
     work = {
@@ -503,16 +641,36 @@ def fused_kernel_phase(card: str) -> dict:
     }
     summary = {}
     for where, (kernel, plain) in timed.items():
+        # Events over a host loop: the yardstick of every recorded K1-K3
+        # time. K3's graph replay, which leaves the host out, beside it.
         kernel_ms, plain_ms = _time_ms(kernel, 50), _time_ms(plain, 5)
+        graph_ms = _graph_ms(kernel, 20) if where == "bwd" else None
         nbytes, flops = work[where]
         bound_ms, bound_by = _bound(nbytes + _geom_bytes(H, H), flops)
         iters = (out if where == "fwd" else grads)[-1]
         print(f"  time per {where} launch {H}x{H}x{BATCH} warm, tol 1e-4 "
-              f"(trips {iters.tolist()}): kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; "
+              f"(trips {iters.tolist()}): kernel {kernel_ms:.4f} ms"
+              + (f" (graph replay {graph_ms:.4f})" if graph_ms else "")
+              + f", plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}; "
               f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB) [{card}]")
         summary[where] = dict(err=err[where], ms=kernel_ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by)
+        if graph_ms:
+            summary[where]["graph_ms"] = graph_ms
+    plan = cuda_fluid.bwd_plan(BATCH, H, H, FUSED_STEP["max_shift"])
+    rest_ms = _time_ms(lambda: bwd(0), 50)
+    ops64, cots64 = _fused_operands(rng, H, H, "cold", domain, dev, batch=64)
+    state64 = (ops64.pop("vy"), ops64.pop("vx"), ops64.pop("rho"))
+    plan64 = cuda_fluid.bwd_plan(64, H, H, FUSED_STEP["max_shift"])
+    ms64 = _time_ms(lambda: bwd(args=(state64, cots64)), 50)
+    trips64 = bwd(args=(state64, cots64))[-1]
+    print(f"  K3 plan at {H}x{H}x{BATCH}: {_bwd_plan_text(plan)}; at maxiter 0 "
+          f"(no CG trip) {rest_ms:.4f} ms, so the trips take "
+          f"{summary['bwd']['ms'] - rest_ms:.4f} ms [{card}]")
+    print(f"  K3 at {H}x{H}x64 ({_bwd_plan_text(plan64)}; trips mean "
+          f"{float(trips64.float().mean()):.2f}): {ms64:.4f} ms per launch "
+          f"[{card}]")
+    summary["bwd"]["plan"] = dict(plan._asdict(), batch=BATCH)
     return summary
 
 
@@ -1019,7 +1177,8 @@ def main() -> None:
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": s["err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": s["bound_by"], "library_ms": s.get("library_ms")}
+                "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
+                **{k: s[k] for k in ("graph_ms", "plan") if k in s}}
 
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
                   for key in ("ms", "plain_ms", "bound_ms")}

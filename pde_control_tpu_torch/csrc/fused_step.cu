@@ -2,54 +2,66 @@
 //
 // Replaces the TPU kernels pde_control_tpu/ops/pallas_fluid.py ::
 // _make_fused_step._forward (body _fwd_kernel) and ._backward (body
-// _bwd_kernel), and computes what they compute, one batch sample per
-// thread block:
+// _bwd_kernel), and computes what they compute for each batch sample:
 //
-//   fused_fwd_kernel (K2): shift advection of the density and of both MAC
-//     velocity components (the clipped, edge-clamped (2k+2)^2 hat window of
-//     _advect_window), inflow, force, buoyancy, the wall and obstacle
-//     masks, the divergence, the warm or cold PCG pressure solve
-//     (pcg_core.cuh), and the closed-wall pressure-gradient correction;
-//   fused_bwd_kernel (K3): the hand-written VJP: a cold transpose solve on
-//     the pressure cotangent, the stencil and face/centre adjoints, and the
-//     three window adjoints with JAX's tie rules (d|x|/dx = +1 at x = 0,
-//     the hat's and the clip's derivatives 0.5 at their kinks). The
+//   fused_fwd_kernel (K2, one thread block per sample): shift advection of
+//     the density and of both MAC velocity components (the clipped,
+//     edge-clamped (2k+2)^2 hat window of _advect_window), inflow, force,
+//     buoyancy, the wall and obstacle masks, the divergence, the warm or
+//     cold PCG pressure solve (pcg_core.cuh), and the closed-wall
+//     pressure-gradient correction;
+//   fused_bwd_kernel (K3, one thread-block cluster of C blocks per sample):
+//     the hand-written VJP: a cold transpose solve on the pressure
+//     cotangent (pcg_cluster.cuh), the stencil and face/centre adjoints,
+//     and the three window adjoints with JAX's tie rules (d|x|/dx = +1 at
+//     x = 0, the hat's and the clip's derivatives 0.5 at their kinks). The
 //     displacements are recomputed from the step's inputs; nothing else is
 //     saved between the directions.
 //
-// Design for the card. All intermediates live in shared memory: seven
-// field-sized slots and the preconditioner's basis (133,376 bytes at 64^2,
-// fused_shared_bytes below; ops/cuda_fluid.py :: shared_bytes counts the
-// same). The step's inputs are read-only for the whole launch and are read
-// from global memory through L1 (__ldg), with clamped indices standing in
-// for the edge padding; everything the kernel computes itself (the
-// divergence, the masked velocity, the pressure, the cotangents) is read
-// with plain loads after a barrier, never through the read-only path. The
-// window adjoint's field cotangent is a gather: each thread owns its target
-// cells and sums, in a fixed order, every window term whose clamped source
-// is that cell, which folds the edge padding in as well. No atomics, so the
-// result is deterministic. Window terms whose hat weight is exactly zero
-// are skipped: for finite fields they add exact zeros in the plain version,
-// and at most 2 of the 2k+2 offsets per axis carry weight (3 for the hat's
-// derivative at an integer displacement).
+// Design for the card. All intermediates live in shared memory: K2 holds
+// seven field-sized slots and the preconditioner's basis (133,376 bytes at
+// 64^2, fused_shared_bytes below; ops/cuda_fluid.py :: shared_bytes counts
+// the same). K3's rank c of C owns a band of rows (pcg_cluster.cuh :: Band)
+// and holds the basis, three whole-field copies for the solve (the
+// residual, the scaled spectrum, A d), its band's iterates, and for the
+// window adjoints its band widened by k + 1 rows (bwd_layout below; 94,208
+// bytes at 64^2 and C = 8, the plan at batch 8; ops/cuda_fluid.py ::
+// bwd_shared_bytes). The step's inputs are read-only
+// for the whole launch and are read from global memory through L1 (__ldg),
+// with clamped indices standing in for the edge padding; everything the
+// kernels compute themselves (the divergence, the masked velocity, the
+// pressure, the cotangents) is read with plain loads after a barrier, never
+// through the read-only path. The window adjoint's field cotangent is a
+// gather: each thread owns its target cells and sums, in a fixed order,
+// every window term whose clamped source is that cell, which folds the edge
+// padding in as well. Each source cell's taps (the floor offsets of its
+// clipped displacement and the hat weights there) are computed once, so a
+// candidate is an integer compare; the displacement cotangents run over the
+// four offsets per axis where the hat or its derivative can be nonzero. No
+// atomics, so the result is deterministic. Window terms whose weight is
+// exactly zero are skipped: for finite fields they add exact zeros in the
+// plain version.
 //
 // Non-finite values. The plain version multiplies every tap, so a NaN or
 // an infinity anywhere in a window (0 * inf is NaN) makes the window's
 // result NaN. A sample whose inputs or window cotangents hold a non-finite
-// value therefore sums every tap (`dense`, one block-wide vote), and the
-// clip and the hat pass NaN through as torch.clamp does. The non-finite
-// cells of the outputs are then the plain version's, so a diverged state
-// still gives non-finite gradients and the training step skips its update.
+// value therefore sums every tap (`dense`, one vote over the block or the
+// cluster), and the clip and the hat pass NaN through as torch.clamp does.
+// The non-finite cells of the outputs are then the plain version's, so a
+// diverged state still gives non-finite gradients and the training step
+// skips its update.
 //
-// What bounds it: latency, as for the standalone solve. B blocks occupy B
-// of the card's 132 SMs, and the solve is a chain of about ten barriers
-// per CG trip around four 64x64x64 fp32 basis products; the advection and
-// its adjoint add a dozen barrier-separated passes. The design keeps all of
-// it in one launch per direction with no host round trip; splitting a
-// sample across a thread-block cluster is the next step. The shared memory
-// allows one block per SM anyway, and the launch bounds say so, which
-// leaves each thread up to 128 registers (with the thread bound alone,
-// ptxas held K3 to 64 and spilled).
+// What bounds them: latency. K2 keeps one block per sample, B of the card's
+// 132 SMs, and its solve is a chain of about ten barriers per CG trip
+// around four 64x64x64 fp32 basis products (ROADMAP B-next 3 moves it onto
+// the cluster core). K3 spreads a sample over C SMs (C up to 16, chosen by
+// ops/cuda_fluid.py :: bwd_plan to fill the card): a CG trip's products and
+// stencil are 1/C of the work, around three cluster barriers, and the window
+// adjoints run on C SMs with no exchange after the solve but one pull of the
+// solution's neighbouring rows. Each kernel is one launch per direction
+// with no host round trip. The launch bounds allow one block per SM, which
+// leaves each thread of a 512-thread block up to 128 registers (with the
+// thread bound alone, ptxas held the old K3 to 64 and spilled).
 //
 // Floating-point contraction. nvcc contracts a*b+c into an FMA by default,
 // which rounds once instead of twice. A displacement that moved by one
@@ -60,11 +72,12 @@
 // for bit, and so are the hat weights and the tie tests. FMAs do form in
 // the sums that follow; they move results by rounding only.
 
-#include "pcg_core.cuh"
+#include "pcg_cluster.cuh"
 
 namespace {
 
-constexpr int kSlots = 7;  // field-sized shared slots before the basis
+constexpr int kSlots = 7;  // K2's field-sized shared slots before the basis
+constexpr size_t kMaxSharedBytes = 232448;  // a block's on the H100
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -168,42 +181,103 @@ __device__ float window(const float* f, int m, int n, int i, int j, float dy,
 }
 
 // The displacement cotangents of _advect_window_T at one cell, for output
-// cotangent g: hat-derivative windows chained through the clip.
+// cotangent g: hat-derivative windows chained through the clip. For a
+// finite clipped displacement dc with f = floor(dc), the hat is nonzero only
+// at offsets f and f + 1, and its derivative only at f - 1 .. f + 2 (three
+// of them where fl(dc - oy) is +-1, as at an integer dc), so the sums run
+// over those four offsets per axis, in the plain version's order and with
+// its weights; taps where both weights are zero add exact zeros and are
+// skipped. `dense` sums every tap of the (2k+2)^2 window.
 __device__ void window_disp_T(const float* f, int m, int n, int i, int j,
                               float g, float dy, float dx, int k, bool dense,
                               float& g_dy, float& g_dx) {
   const float kf = static_cast<float>(k);
   const float dyc = clip(dy, kf), dxc = clip(dx, kf);
   float s_dy = 0.f, s_dx = 0.f;
-  for (int oy = -k; oy <= k + 1; ++oy) {
-    const float wy = hat(dyc - oy), wyp = hat_grad(dyc - oy);
-    if (wy == 0.f && wyp == 0.f && !dense) continue;
-    const float* row = f + clampi(i + oy, 0, m - 1) * n;
-    float ady = 0.f, adx = 0.f;
-    for (int ox = -k; ox <= k + 1; ++ox) {
-      const float wx = hat(dxc - ox), wxp = hat_grad(dxc - ox);
-      if (wx == 0.f && wxp == 0.f && !dense) continue;
-      const float val = __ldg(row + clampi(j + ox, 0, n - 1));
-      ady += val * (g * wx);
-      adx += val * (g * wxp);
+  if (dense) {
+    for (int oy = -k; oy <= k + 1; ++oy) {
+      const float wy = hat(dyc - oy), wyp = hat_grad(dyc - oy);
+      const float* row = f + clampi(i + oy, 0, m - 1) * n;
+      float ady = 0.f, adx = 0.f;
+      for (int ox = -k; ox <= k + 1; ++ox) {
+        const float wx = hat(dxc - ox), wxp = hat_grad(dxc - ox);
+        const float val = __ldg(row + clampi(j + ox, 0, n - 1));
+        ady += val * (g * wx);
+        adx += val * (g * wxp);
+      }
+      s_dy += ady * wyp;
+      s_dx += adx * wy;
     }
-    s_dy += ady * wyp;
-    s_dx += adx * wy;
+  } else {
+    const int fy = static_cast<int>(floorf(dyc)) - 1;
+    const int fx = static_cast<int>(floorf(dxc)) - 1;
+    float wx[4], wxp[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int ox = fx + t;
+      const bool in_x = ox >= -k && ox <= k + 1;
+      wx[t] = in_x ? hat(dxc - ox) : 0.f;
+      wxp[t] = in_x ? hat_grad(dxc - ox) : 0.f;
+    }
+    for (int oy = fy; oy < fy + 4; ++oy) {
+      const bool in_y = oy >= -k && oy <= k + 1;
+      const float wy = in_y ? hat(dyc - oy) : 0.f;
+      const float wyp = in_y ? hat_grad(dyc - oy) : 0.f;
+      if (wy == 0.f && wyp == 0.f) continue;
+      const float* row = f + clampi(i + oy, 0, m - 1) * n;
+      float ady = 0.f, adx = 0.f;
+#pragma unroll
+      for (int tx = 0; tx < 4; ++tx) {
+        if (wx[tx] == 0.f && wxp[tx] == 0.f) continue;
+        const float val = __ldg(row + clampi(j + fx + tx, 0, n - 1));
+        ady += val * (g * wx[tx]);
+        adx += val * (g * wxp[tx]);
+      }
+      s_dy += ady * wyp;
+      s_dx += adx * wy;
+    }
   }
   g_dy = s_dy * clip_grad(dy, kf);
   g_dx = s_dx * clip_grad(dx, kf);
 }
 
+// The taps of one cell's window for the field cotangent: the offsets
+// f = floor(dc) per axis, packed as (fy << 16) | (fx & 0xffff), and the hat
+// weights at f and f + 1, computed as the plain version computes
+// hat(dc - oy). `dense` keeps the clipped displacements instead (in w0).
+struct Taps {
+  int* off;
+  float *wy0, *wy1, *wx0, *wx1;
+
+  __device__ void store(int idx, float dy, float dx, int k, bool dense) const {
+    const float kf = static_cast<float>(k);
+    const float dyc = clip(dy, kf), dxc = clip(dx, kf);
+    if (dense) {
+      wy0[idx] = dyc;
+      wx0[idx] = dxc;
+      return;
+    }
+    const float fy = floorf(dyc), fx = floorf(dxc);
+    off[idx] = (static_cast<int>(fy) << 16) | (static_cast<int>(fx) & 0xffff);
+    wy0[idx] = hat(dyc - fy);
+    wy1[idx] = hat(dyc - (fy + 1.f));
+    wx0[idx] = hat(dxc - fx);
+    wx1[idx] = hat(dxc - (fx + 1.f));
+  }
+};
+
 // The field cotangent of _advect_window_T at source cell (r, c) of an
 // m x n field: every window term (cell (i, j), offset (oy, ox)) whose
 // clamped source clamp(i+oy), clamp(j+ox) is (r, c) contributes
-// g * hat(dxc - ox) * hat(dyc - oy). g and the clipped displacements are
-// per-cell shared arrays, complete before the call. For an interior row
-// the only source row is r - oy; the edge rows also collect the rows that
-// the edge padding clamps onto them (the fold of _edge_pad2_T).
-__device__ float window_field_T(const float* g, const float* dyc,
-                                const float* dxc, int m, int n, int r, int c,
-                                int k, bool dense) {
+// g * hat(dxc - ox) * hat(dyc - oy). g and the taps are per-cell shared
+// arrays, complete before the call; `base` is the row the arrays start at.
+// For an interior row the only source row is r - oy; the edge rows also
+// collect the rows that the edge padding clamps onto them (the fold of
+// _edge_pad2_T). A candidate is tested by an integer compare of its offset
+// with the stored one and weighed by the stored weights; `dense` evaluates
+// the hat at every offset from the clipped displacements.
+__device__ float window_field_T(const float* g, const Taps& tp, int base,
+                                int m, int n, int r, int c, int k, bool dense) {
   float acc = 0.f;
   for (int oy = -k; oy <= k + 1; ++oy) {
     const int ilo = max(r == 0 ? 0 : r - oy, 0);
@@ -213,11 +287,21 @@ __device__ float window_field_T(const float* g, const float* dyc,
         const int jlo = max(c == 0 ? 0 : c - ox, 0);
         const int jhi = min(c == n - 1 ? n - 1 : c - ox, n - 1);
         for (int j = jlo; j <= jhi; ++j) {
-          const int idx = i * n + j;
-          const float wy = hat(dyc[idx] - oy);
-          if (wy == 0.f && !dense) continue;
-          const float wx = hat(dxc[idx] - ox);
-          if (wx == 0.f && !dense) continue;
+          const int idx = (i - base) * n + j;
+          float wy, wx;
+          if (dense) {
+            wy = hat(tp.wy0[idx] - oy);
+            wx = hat(tp.wx0[idx] - ox);
+          } else {
+            const int o = tp.off[idx];
+            const int ey = oy - (o >> 16), ex = ox - static_cast<short>(o);
+            if (static_cast<unsigned>(ey) > 1u || static_cast<unsigned>(ex) > 1u)
+              continue;
+            wy = ey ? tp.wy1[idx] : tp.wy0[idx];
+            if (wy == 0.f) continue;
+            wx = ex ? tp.wx1[idx] : tp.wx0[idx];
+            if (wx == 0.f) continue;
+          }
           acc += (g[idx] * wx) * wy;
         }
       }
@@ -227,25 +311,27 @@ __device__ float window_field_T(const float* g, const float* dyc,
 }
 
 // Adjoints of _to_y_faces / _to_x_faces at cell (i, j): a (H+1, W) or
-// (H, W+1) face field g (shared, complete) back onto the (H, W) cells.
-__device__ __forceinline__ float to_y_faces_T(const float* g, int i, int j,
-                                              int h, int w) {
-  float v = 0.5f * (g[i * w + j] + g[(i + 1) * w + j]);
-  if (i == 0) v += 0.5f * g[j];
-  if (i == h - 1) v += 0.5f * g[h * w + j];
+// (H, W+1) face field g (shared, complete) back onto the (H, W) cells. The
+// arrays start at face row `base`.
+__device__ __forceinline__ float to_y_faces_T(const float* g, int base, int i,
+                                              int j, int h, int w) {
+  const float* row = g + (i - base) * w + j;
+  float v = 0.5f * (row[0] + row[w]);
+  if (i == 0) v += 0.5f * row[0];
+  if (i == h - 1) v += 0.5f * row[w];
   return v;
 }
 
-__device__ __forceinline__ float to_x_faces_T(const float* g, int i, int j,
-                                              int w) {
-  const float* row = g + i * (w + 1);
+__device__ __forceinline__ float to_x_faces_T(const float* g, int base, int i,
+                                              int j, int w) {
+  const float* row = g + (i - base) * (w + 1);
   float v = 0.5f * (row[j] + row[j + 1]);
   if (j == 0) v += 0.5f * row[0];
   if (j == w - 1) v += 0.5f * row[w];
   return v;
 }
 
-// Floats of one field-sized slot: the larger face grid.
+// Floats of one field-sized slot of K2: the larger face grid.
 __host__ __device__ inline int slot_floats(int h, int w) {
   return (h + 1) * w > h * (w + 1) ? (h + 1) * w : h * (w + 1);
 }
@@ -256,9 +342,7 @@ struct Layout {
   float* reduce;
 };
 
-// Both kernels: slots 0-4 are the CG's x, r, d, z, t; slots 5 and 6 and the
-// basis region are the kernel's own. The basis region holds at least one
-// slot, which K3 takes as an eighth slot once the solve is done.
+// K2: slots 0-4 are the CG's x, r, d, z, t; slots 5 and 6 are the kernel's.
 __device__ Layout make_layout(float* smem, int h, int w) {
   Layout l;
   const int len = slot_floats(h, w);
@@ -267,6 +351,60 @@ __device__ Layout make_layout(float* smem, int h, int w) {
                    l.slot[kSlots],
                    h == w ? l.slot[kSlots] : l.slot[kSlots] + h * (h + 1)};
   l.reduce = l.slot[kSlots] + basis_floats(h, w);
+  return l;
+}
+
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
+// Offsets (floats) into one rank's shared memory in K3, for H x W cells,
+// cluster size C, kT threads and max_shift k. A band has at most
+// R = ceil(H / C) rows; the window adjoints read E = k + 1 rows beyond it.
+// The reduction area and the best iterate persist; the solve's buffers
+// and, once the solve is done, the window phase's share the rest.
+// ops/cuda_fluid.py :: bwd_shared_bytes counts the same.
+struct BwdLayout {
+  int red, best;                                   // persistent
+  int qy, g1, g2, ga, x, d, z, t, zh, part;        // the solve
+  int gdiv, gvy2, gvx2, grho, off, wy0, wy1, wx0, wx1, gvyc, gvxc, tmp;
+  int total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
+                                                int k) {
+  BwdLayout l;
+  const int R = (h + C - 1) / C, E = k + 1;
+  int o = 0;
+  auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
+  l.red = take(kRedFloats);
+  l.best = take(R * w);
+  const int shared = o;
+  l.qy = take(basis_floats(h, w));
+  l.g1 = take(h * w);
+  l.g2 = take(h * w);
+  l.ga = take(h * w);
+  l.x = take(R * w);
+  l.d = take((R + 2) * w);
+  l.z = take(R * w);
+  l.t = take(R * w);
+  l.zh = take(2 * w);
+  l.part = take(8 * T);
+  const int solve_end = o;
+  o = shared;
+  l.gdiv = take(imin(R + 2 * E + 2, h) * w);
+  l.gvy2 = take(imin(R + 2 * E + 1, h + 1) * w);
+  l.gvx2 = take(imin(R + 2 * E, h) * (w + 1));
+  l.grho = take(imin(R + 2 * E, h) * w);
+  const int taps = imin(R + 2 * E + 1, h + 1) * (w + 1);
+  l.off = take(taps);
+  l.wy0 = take(taps);
+  l.wy1 = take(taps);
+  l.wx0 = take(taps);
+  l.wx1 = take(taps);
+  l.gvyc = take(imin(R + 1, h) * w);
+  l.gvxc = take(imin(R + 1, h) * w);
+  l.tmp = take(imin(R + 1, h + 1) * (w + 1));
+  l.total = imax(o, solve_end);
   return l;
 }
 
@@ -354,7 +492,64 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   if (threadIdx.x == 0) iters[b] = trips;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// K3's rhs and transpose solve on this rank's band: returns the trip count
+// and leaves the best iterate's band at bwd_layout's `best`, the reducer's
+// parity in `parity`. A function of its own (not inlined), so that the
+// registers of the solve and of the window phase are allocated apart.
+template <int kT, bool kTrace>
+__device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
+                                      const float* q_x, const float* g_vy4,
+                                      const float* g_vx4, const float* g_p,
+                                      float dx, int k, float tol, int maxiter,
+                                      int& parity) {
+  extern __shared__ __align__(16) float smem_bwd[];
+  float* smem = smem_bwd;
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int h = g.h, w = g.w;
+  const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
+  const size_t b = blockIdx.x / C;
+  g_vy4 += b * (h + 1) * w;
+  g_vx4 += b * h * (w + 1);
+  g_p += b * h * w;
+  ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
+                         reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
+  const BwdLayout L = bwd_layout(h, w, C, kT, k);
+  const ClusterCg cgb{smem + L.g1, smem + L.g2, smem + L.ga, smem + L.x,
+                      smem + L.d,  smem + L.z,  smem + L.t,  smem + L.zh,
+                      smem + L.part, smem + L.qy,
+                      h == w ? smem + L.qy : smem + L.qy + h * (h + 1)};
+  load_basis_t<kT>(cgb, q_y, q_x, h, w);
+  // Projection backward: cot_p = g_p + div(acc * g_v4); the transpose solve
+  // runs cold on -cot_p, so its `div` is -cot_p.
+  for (int t = threadIdx.x; t < bd.rows() * w; t += kT) {
+    const int idx = bd.a * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    const int fx_ = i * (w + 1) + j;
+    const float dvy = g_vy4[idx + w] * __ldg(g.acc_y + idx + w) -
+                      g_vy4[idx] * __ldg(g.acc_y + idx);
+    const float dvx = g_vx4[fx_ + 1] * __ldg(g.acc_x + fx_ + 1) -
+                      g_vx4[fx_] * __ldg(g.acc_x + fx_);
+    cgb.g1[idx] = -(g_p[idx] + (dvy + dvx) / dx);
+  }
+  const int trips =
+      pcg_cluster<kT, kTrace>(cgb, g, bd, smem + L.best, tol, maxiter, red);
+  parity = red.parity;
+  return trips;
+}
+
+// K3 for one sample on a cluster of C blocks (the launch's cluster size);
+// rank c owns the rows of Band. After the solve (pcg_cluster.cuh) each rank
+// pulls the rows of g_div around its band that the window adjoints reach
+// (E + 1 = k + 2 rows each side, from whichever ranks own them) and then
+// computes the face cotangents, the density cotangent and each window's
+// taps on its band widened by E rows, and the displacement cotangents on
+// its band and one more row, without further exchange: a row outside the
+// band comes out as the same bits its owner computes. Each rank writes its
+// own rows of the outputs. kTrace: with the CG trip's profile
+// (pcg_cluster.cuh :: TripClock), for fused_bwd_trace only.
+template <int kT, bool kTrace>
+__global__ void __launch_bounds__(kT, 1)
 fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ q_x,
                  const float* __restrict__ g_vy4,
@@ -363,185 +558,285 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ g_p, float* g_vy, float* g_vx,
                  float* g_rho, float* g_fy, float* g_fx, float* g_inflow,
                  int* iters, float tol, int maxiter) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem_bwd[];
+  float* smem = smem_bwd;
+  int parity = 0;
+  const int trips = bwd_solve<kT, kTrace>(g, q_y, q_x, g_vy4, g_vx4, g_p, st.dx, st.k,
+                                  tol, maxiter, parity);
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
   const int h = g.h, w = g.w, hw = h * w;
   const int ny = (h + 1) * w, nx = h * (w + 1);
-  const size_t b = blockIdx.x;
+  const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
+  const int a = bd.a, b1 = bd.b, R = bd.rows(), yb = bd.yb();
+  const int k = st.k, E = k + 1;
+  const size_t b = blockIdx.x / C;
   st.vy += b * ny;
   st.vx += b * nx;
   st.rho += b * hw;
   g_vy4 += b * ny;
   g_vx4 += b * nx;
   g_rho1 += b * hw;
-  g_p += b * hw;
   g_vy += b * ny;
   g_vx += b * nx;
   g_rho += b * hw;
-  Layout l = make_layout(smem, h, w);
-  Reducer red{l.reduce};
-  // Slots after the solve (K3's eighth slot is the basis region):
-  float* xt = l.slot[5];    // the transpose solution, then g_div
-  float* gvy2 = l.slot[0];  // cotangent of the forced, unmasked velocity
-  float* gvx2 = l.slot[1];
-  float* grho = l.slot[2];  // total cotangent of the advected density
-  float* dyc = l.slot[3];   // clipped displacements of the current window
-  float* dxc = l.slot[4];
-  float* tmp = l.slot[5];   // s * the cross-component displacement cotangent
-  float* gvyc = l.slot[6];  // cotangents of the centred velocity
-  float* gvxc = l.slot[7];
-  load_basis(l.cg, q_y, q_x, h, w);
-  // Every window sums all taps when an input is not finite, and, from the
-  // field cotangents on, when a window cotangent is not.
-  bool dense = __syncthreads_or(any_nonfinite(st.vy, ny) ||
-                                any_nonfinite(st.vx, nx) ||
-                                any_nonfinite(st.rho, hw));
-  bool bad = false;  // a non-finite window cotangent in this thread's cells
-
-  // Projection backward: cot_p = g_p + div(acc * g_v4); the transpose solve
-  // runs cold on -cot_p, so its `div` is -cot_p.
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
-    const int fx_ = i * (w + 1) + j;
-    const float dvy = g_vy4[idx + w] * __ldg(g.acc_y + idx + w) -
-                      g_vy4[idx] * __ldg(g.acc_y + idx);
-    const float dvx = g_vx4[fx_ + 1] * __ldg(g.acc_x + fx_ + 1) -
-                      g_vx4[fx_] * __ldg(g.acc_x + fx_);
-    l.cg.r[idx] = -(g_p[idx] + (dvy + dvx) / st.dx);
-  }
-  const int trips = pcg_core(l.cg, g, nullptr, xt, tol, maxiter, true, red);
-  __syncthreads();  // xt complete
-  // The closed domain's mean projection of xt, then g_div = -M(P(xt)).
+  ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
+                         reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
+                         parity};
+  const BwdLayout L = bwd_layout(h, w, C, kT, k);
+  const float* best = smem + L.best;
+  // A non-finite input or window cotangent anywhere in the sample makes
+  // every window sum all its taps (one vote over the cluster, below).
+  bool bad = false;
+  for (int t = threadIdx.x; t < (yb - a) * w; t += kT)
+    bad |= !isfinite(__ldg(st.vy + a * w + t));
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT)
+    bad |= !isfinite(__ldg(st.vx + a * (w + 1) + t));
+  for (int t = threadIdx.x; t < R * w; t += kT)
+    bad |= !isfinite(__ldg(st.rho + a * w + t));
+  // The closed domain's mean projection of the solution, then
+  // g_div = -M(P(xt)) on the band. No rank pushes into the solve's buffers
+  // after the loop's last barrier, so the window phase may take them.
   float mean = 0.f;
   if (g.closed) {
     float part_x = 0.f, part_f = 0.f;
-    for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-      const float f = __ldg(g.fluid + idx);
-      part_x += xt[idx] * f;
+    for (int t = threadIdx.x; t < R * w; t += kT) {
+      const float f = __ldg(g.fluid + a * w + t);
+      part_x += best[t] * f;
       part_f += f;
     }
     float sum_x, sum_f;
-    red.sum2(part_x, part_f, sum_x, sum_f);
+    red.sum2(bd, part_x, part_f, sum_x, sum_f);
     mean = sum_x / fmaxf(sum_f, 1.f);
   }
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-    const bool fluid = __ldg(g.fluid + idx) > 0.f;
-    const float v = g.closed && fluid ? xt[idx] - mean : xt[idx];
-    xt[idx] = fluid ? -v : 0.f;
+  float* gdiv = smem + L.gdiv;  // cell rows [gd0, gd1)
+  const int gd0 = imax(a - E - 1, 0), gd1 = imin(b1 + E + 1, h);
+  for (int t = threadIdx.x; t < R * w; t += kT) {
+    const bool fluid = __ldg(g.fluid + a * w + t) > 0.f;
+    const float v = g.closed && fluid ? best[t] - mean : best[t];
+    gdiv[(a - gd0) * w + t] = fluid ? -v : 0.f;
+  }
+  cluster.sync();  // every rank's g_div rows
+  {
+    const int above = a - gd0, rows = above + (gd1 - b1);
+    for (int t = threadIdx.x; t < rows * w; t += kT) {
+      const int rr = t / w, j = t - (t / w) * w;
+      const int i = rr < above ? gd0 + rr : b1 + (rr - above);
+      const int o = bd.owner(i);
+      const int o0 = imax(bd.row0(o) - E - 1, 0);
+      gdiv[(i - gd0) * w + j] = cluster.map_shared_rank(gdiv, o)[(i - o0) * w + j];
+    }
   }
   __syncthreads();
-  // _divergence_T, the masks, and the force cotangents.
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
-    const int i = idx / w;
-    const float lo = i > 0 ? xt[idx - w] : 0.f;
-    const float hi = i < h ? xt[idx] : 0.f;
+  // _divergence_T, the masks and the force cotangents: y-faces [Y0, Y1),
+  // x-faces [X0, X1); the outputs on the band's rows.
+  const int Y0 = imax(a - E, 0), Y1 = imin(b1 + E + 1, h + 1);
+  const int X0 = imax(a - E, 0), X1 = imin(b1 + E, h);
+  float* gvy2 = smem + L.gvy2;  // cotangent of the forced, unmasked velocity
+  float* gvx2 = smem + L.gvx2;
+  for (int t = threadIdx.x; t < (Y1 - Y0) * w; t += kT) {
+    const int idx = Y0 * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    const float lo = i > 0 ? gdiv[(i - 1 - gd0) * w + j] : 0.f;
+    const float hi = i < h ? gdiv[(i - gd0) * w + j] : 0.f;
     const float v = (g_vy4[idx] + (lo - hi) / st.dx) * __ldg(g.acc_y + idx);
-    gvy2[idx] = v;
-    bad |= !isfinite(v);
-    if (g_fy != nullptr) g_fy[b * ny + idx] = st.dt * v;
+    gvy2[t] = v;
+    if (i >= a && i < yb) {
+      bad |= !isfinite(v);
+      if (g_fy != nullptr) g_fy[b * ny + idx] = st.dt * v;
+    }
   }
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
+  for (int t = threadIdx.x; t < (X1 - X0) * (w + 1); t += kT) {
+    const int idx = X0 * (w + 1) + t;
     const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
-    const float lo = j > 0 ? xt[i * w + j - 1] : 0.f;
-    const float hi = j < w ? xt[i * w + j] : 0.f;
+    const float lo = j > 0 ? gdiv[(i - gd0) * w + j - 1] : 0.f;
+    const float hi = j < w ? gdiv[(i - gd0) * w + j] : 0.f;
     const float v = (g_vx4[idx] + (lo - hi) / st.dx) * __ldg(g.acc_x + idx);
-    gvx2[idx] = v;
-    bad |= !isfinite(v);
-    if (g_fx != nullptr) g_fx[b * nx + idx] = st.dt * v;
+    gvx2[t] = v;
+    if (i >= a && i < b1) {
+      bad |= !isfinite(v);
+      if (g_fx != nullptr) g_fx[b * nx + idx] = st.dt * v;
+    }
   }
   __syncthreads();
-  // Buoyancy backward onto the advected density, and the inflow cotangent;
-  // then the density window's displacement cotangents, which start the
-  // centred-velocity cotangents.
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
+  // Buoyancy backward onto the advected density, and the inflow cotangent:
+  // cell rows [X0, X1).
+  float* grho = smem + L.grho;  // total cotangent of the advected density
+  for (int t = threadIdx.x; t < (X1 - X0) * w; t += kT) {
+    const int idx = X0 * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
     float v = g_rho1[idx];
-    if (st.buoy) v += st.dt_buoy * to_y_faces_T(gvy2, i, j, h, w);
-    grho[idx] = v;
-    bad |= !isfinite(v);
-    if (g_inflow != nullptr) g_inflow[b * hw + idx] = st.dt * v;
+    if (st.buoy) v += st.dt_buoy * to_y_faces_T(gvy2, Y0, i, j, h, w);
+    grho[t] = v;
+    if (i >= a && i < b1) {
+      bad |= !isfinite(v);
+      if (g_inflow != nullptr) g_inflow[b * hw + idx] = st.dt * v;
+    }
+  }
+  const bool dense = red.sum(bd, bad ? 1.f : 0.f) > 0.f;
+
+  const Taps taps{reinterpret_cast<int*>(smem + L.off), smem + L.wy0,
+                  smem + L.wy1, smem + L.wx0, smem + L.wx1};
+  const int C0 = imax(a - 1, 0);  // the centred cotangents' first row
+  float* gvyc = smem + L.gvyc;    // cotangents of the centred velocity
+  float* gvxc = smem + L.gvxc;
+  float* tmp = smem + L.tmp;  // s * the cross-component displacement cotangent
+  // Density window: taps on [X0, X1); displacement cotangents on [C0, b1),
+  // which start the centred-velocity cotangents; the field cotangent.
+  for (int t = threadIdx.x; t < (X1 - X0) * w; t += kT) {
+    const int idx = X0 * w + t;
     float dy, dx;
+    st.disp_rho(idx / w, idx - (idx / w) * w, dy, dx);
+    taps.store(t, dy, dx, k, dense);
+  }
+  for (int t = threadIdx.x; t < (b1 - C0) * w; t += kT) {
+    const int idx = C0 * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    float dy, dx, gdy, gdx;
     st.disp_rho(i, j, dy, dx);
-    const float kf = static_cast<float>(st.k);
-    dyc[idx] = clip(dy, kf);
-    dxc[idx] = clip(dx, kf);
-    float gdy, gdx;
-    window_disp_T(st.rho, h, w, i, j, v, dy, dx, st.k, dense, gdy, gdx);
-    gvyc[idx] = st.s * gdy;
-    gvxc[idx] = st.s * gdx;
-  }
-  dense = __syncthreads_or(dense || bad);
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
-    g_rho[idx] = window_field_T(grho, dyc, dxc, h, w, i, j, st.k, dense);
+    window_disp_T(st.rho, h, w, i, j, grho[(i - X0) * w + j], dy, dx, k, dense,
+                  gdy, gdx);
+    gvyc[t] = st.s * gdy;
+    gvxc[t] = st.s * gdx;
   }
   __syncthreads();
-  // vy self-advection: vy1 = W(vy; s vy, s Y(vx_c)).
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
+  for (int t = threadIdx.x; t < R * w; t += kT) {
+    const int idx = a * w + t;
+    g_rho[idx] = window_field_T(grho, taps, X0, h, w, idx / w,
+                                idx - (idx / w) * w, k, dense);
+  }
+  __syncthreads();
+  // vy self-advection, vy1 = W(vy; s vy, s Y(vx_c)): taps on [Y0, VY1),
+  // displacement cotangents on [a, b1 + 1).
+  const int VY1 = imin(yb + E, h + 1);
+  for (int t = threadIdx.x; t < (VY1 - Y0) * w; t += kT) {
+    const int idx = Y0 * w + t;
     float dy, dx;
+    st.disp_vy(idx / w, idx - (idx / w) * w, dy, dx);
+    taps.store(t, dy, dx, k, dense);
+  }
+  for (int t = threadIdx.x; t < (b1 + 1 - a) * w; t += kT) {
+    const int idx = a * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    float dy, dx, gdy, gdx;
     st.disp_vy(i, j, dy, dx);
-    const float kf = static_cast<float>(st.k);
-    dyc[idx] = clip(dy, kf);
-    dxc[idx] = clip(dx, kf);
-    float gdy, gdx;
-    window_disp_T(st.vy, h + 1, w, i, j, gvy2[idx], dy, dx, st.k, dense, gdy,
-                  gdx);
-    g_vy[idx] = st.s * gdy;
-    tmp[idx] = st.s * gdx;
+    window_disp_T(st.vy, h + 1, w, i, j, gvy2[(i - Y0) * w + j], dy, dx, k,
+                  dense, gdy, gdx);
+    if (i < yb) g_vy[idx] = st.s * gdy;
+    tmp[t] = st.s * gdx;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
+  for (int t = threadIdx.x; t < R * w; t += kT) {
+    const int idx = a * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
-    gvxc[idx] += to_y_faces_T(tmp, i, j, h, w);
+    gvxc[(i - C0) * w + j] += to_y_faces_T(tmp, a, i, j, h, w);
   }
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
-    g_vy[idx] =
-        window_field_T(gvy2, dyc, dxc, h + 1, w, i, j, st.k, dense) + g_vy[idx];
+  for (int t = threadIdx.x; t < (yb - a) * w; t += kT) {
+    const int idx = a * w + t;
+    g_vy[idx] = window_field_T(gvy2, taps, Y0, h + 1, w, idx / w,
+                               idx - (idx / w) * w, k, dense) + g_vy[idx];
   }
   __syncthreads();
-  // vx self-advection: vx1 = W(vx; s X(vy_c), s vx).
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
-    const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
+  // vx self-advection, vx1 = W(vx; s X(vy_c), s vx): taps on [X0, X1),
+  // displacement cotangents on [C0, b1).
+  for (int t = threadIdx.x; t < (X1 - X0) * (w + 1); t += kT) {
+    const int idx = X0 * (w + 1) + t;
     float dy, dx;
+    st.disp_vx(idx / (w + 1), idx - (idx / (w + 1)) * (w + 1), dy, dx);
+    taps.store(t, dy, dx, k, dense);
+  }
+  for (int t = threadIdx.x; t < (b1 - C0) * (w + 1); t += kT) {
+    const int idx = C0 * (w + 1) + t;
+    const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
+    float dy, dx, gdy, gdx;
     st.disp_vx(i, j, dy, dx);
-    const float kf = static_cast<float>(st.k);
-    dyc[idx] = clip(dy, kf);
-    dxc[idx] = clip(dx, kf);
-    float gdy, gdx;
-    window_disp_T(st.vx, h, w + 1, i, j, gvx2[idx], dy, dx, st.k, dense, gdy,
-                  gdx);
-    g_vx[idx] = st.s * gdx;
-    tmp[idx] = st.s * gdy;
+    window_disp_T(st.vx, h, w + 1, i, j, gvx2[(i - X0) * (w + 1) + j], dy, dx,
+                  k, dense, gdy, gdx);
+    if (i >= a) g_vx[idx] = st.s * gdx;
+    tmp[t] = st.s * gdy;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
-    gvyc[idx] += to_x_faces_T(tmp, i, j, w);
+  for (int t = threadIdx.x; t < (b1 - C0) * w; t += kT) {
+    const int idx = C0 * w + t;
+    gvyc[t] += to_x_faces_T(tmp, C0, idx / w, idx - (idx / w) * w, w);
   }
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
-    const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
-    g_vx[idx] =
-        window_field_T(gvx2, dyc, dxc, h, w + 1, i, j, st.k, dense) + g_vx[idx];
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT) {
+    const int idx = a * (w + 1) + t;
+    g_vx[idx] = window_field_T(gvx2, taps, X0, h, w + 1, idx / (w + 1),
+                               idx - (idx / (w + 1)) * (w + 1), k, dense) +
+                g_vx[idx];
   }
   __syncthreads();
   // Centres backward (_centers_y_T, _centers_x_T).
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
-    const int i = idx / w;
-    g_vy[idx] += 0.5f * ((i > 0 ? gvyc[idx - w] : 0.f) + (i < h ? gvyc[idx] : 0.f));
+  for (int t = threadIdx.x; t < (yb - a) * w; t += kT) {
+    const int idx = a * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    g_vy[idx] += 0.5f * ((i > 0 ? gvyc[(i - 1 - C0) * w + j] : 0.f) +
+                         (i < h ? gvyc[(i - C0) * w + j] : 0.f));
   }
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT) {
+    const int idx = a * (w + 1) + t;
     const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
-    const float* row = gvxc + i * w;
+    const float* row = gvxc + (i - C0) * w;
     g_vx[idx] += 0.5f * ((j > 0 ? row[j - 1] : 0.f) + (j < w ? row[j] : 0.f));
   }
-  if (threadIdx.x == 0) iters[b] = trips;
+  if (bd.rank == 0 && threadIdx.x == 0) iters[b] = trips;
+  cluster.sync();  // no rank leaves while a peer may still read its rows
 }
 
 Step make_step(const float* vy, const float* vx, const float* rho, int h,
                int w, float dx, float s, float dt, float dt_buoy, int buoy,
                int k) {
   return Step{vy, vx, rho, h, w, s, dt, dx, dt_buoy, buoy != 0, k};
+}
+
+// K3's threads per block: the only count the launcher takes (256 was slower
+// at every cluster size, PERF.md).
+constexpr int kBwdThreads = 512;
+// Whether K3 launches run the instantiation with the CG trip's profile
+// (fused_bwd_trace).
+bool bwd_traced = false;
+
+// The launch of K3 for a plan: the kernel, its attributes set, and the configuration (grid batch x cluster, the cluster dimension,
+// the shared memory). cudaErrorInvalidValue for a plan it cannot run.
+cudaError_t bwd_config(int batch, int h, int w, int k, int cluster,
+                       int threads, void* stream, cudaLaunchConfig_t& cfg,
+                       cudaLaunchAttribute& attr,
+                       void (*&kernel)(Step, Geometry, const float*,
+                                       const float*, const float*,
+                                       const float*, const float*,
+                                       const float*, float*, float*, float*,
+                                       float*, float*, float*, int*, float,
+                                       int)) {
+  const bool size_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
+                       cluster == 8 || cluster == 16;
+  const size_t bytes =
+      static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
+      sizeof(float);
+  if (!size_ok || cluster > kMaxCluster || cluster > h || batch < 1 || k < 0 ||
+      threads != kBwdThreads || bytes > kMaxSharedBytes)
+    return cudaErrorInvalidValue;
+  kernel = bwd_traced ? fused_bwd_kernel<kBwdThreads, true>
+                      : fused_bwd_kernel<kBwdThreads, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -580,8 +875,49 @@ int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 for `batch` samples on `stream`. g_fy/g_fx and g_inflow may be null
-// (not wanted). Returns the cudaError_t of the launch.
+// Turns the profile of K3's CG trip on (clocks: kTripPhases counters in
+// device memory, which the next launches add their cycles to; they run the
+// kernel instantiated with the profile) or off (null: the main path's
+// kernel again); see pcg_cluster.cuh :: TripClock. Returns the
+// cudaError_t.
+int fused_bwd_trace(unsigned long long* clocks) {
+  bwd_traced = clocks != nullptr;
+  return static_cast<int>(
+      cudaMemcpyToSymbol(trip_clocks, &clocks, sizeof(clocks)));
+}
+
+// Bytes of dynamic shared memory one rank of K3 needs (bwd_layout).
+// ops/cuda_fluid.py :: bwd_shared_bytes mirrors this count.
+size_t fused_bwd_shared_bytes(int h, int w, int cluster, int threads, int k) {
+  return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
+         sizeof(float);
+}
+
+// How many clusters of K3 under this plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
+// or of a plan the launcher would refuse.
+int fused_bwd_max_clusters(int h, int w, int cluster, int threads, int k) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  void (*kernel)(Step, Geometry, const float*, const float*, const float*,
+                 const float*, const float*, const float*, float*, float*,
+                 float*, float*, float*, float*, int*, float, int);
+  cudaError_t err = bwd_config(1, h, w, k, cluster, threads, nullptr, cfg,
+                               attr, kernel);
+  if (err == cudaSuccess) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err == cudaSuccess) return n;
+  }
+  return -static_cast<int>(err);
+}
+
+// K3 for `batch` samples on `stream`, one cluster of `cluster` blocks of
+// `threads` threads per sample. g_fy/g_fx and g_inflow may be null (not
+// wanted). Returns the cudaError_t of the launch: cudaErrorInvalidValue,
+// with nothing launched, for a plan the kernel cannot run (a cluster size
+// other than 1, 2, 4, 8, 16 or above H, a thread count other than 512, or
+// more shared memory than a block may have).
 int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* g_vy4, const float* g_vx4,
                        const float* g_rho1, const float* g_p,
@@ -591,17 +927,22 @@ int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
                        float* g_rho, float* g_fy, float* g_fx, float* g_inflow,
                        int* iters, int batch, int h, int w, float dx, float s,
                        float dt, float dt_buoy, int buoy, int k, int closed,
-                       float tol, int maxiter, void* stream) {
-  const size_t bytes = fused_shared_bytes(h, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+                       float tol, int maxiter, int cluster, int threads,
+                       void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  void (*kernel)(Step, Geometry, const float*, const float*, const float*,
+                 const float*, const float*, const float*, float*, float*,
+                 float*, float*, float*, float*, int*, float, int);
+  cudaError_t err = bwd_config(batch, h, w, k, cluster, threads, stream, cfg,
+                               attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
-  fused_bwd_kernel<<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k), g, q_y, q_x,
-      g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho, g_fy, g_fx, g_inflow,
-      iters, tol, maxiter);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
+      g, q_y, q_x, g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho, g_fy, g_fx,
+      g_inflow, iters, tol, maxiter);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

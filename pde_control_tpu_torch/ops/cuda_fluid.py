@@ -8,21 +8,26 @@ for each batch sample in one thread block: shift advection of the density
 and both MAC velocity components, inflow, force, buoyancy, the masks, the
 divergence, the spectrally preconditioned CG solve (`csrc/pcg_core.cuh`,
 the loop K1 runs) and the pressure-gradient correction. K3 is the
-hand-written VJP of K2: a cold transpose solve on the pressure cotangent,
-the stencil and face/centre adjoints, and the three advection-window
-adjoints with JAX's tie rules. The displacements are recomputed from the
-step's inputs, which are all that is saved between the two directions.
+hand-written VJP of K2 for each sample on a thread-block cluster of C
+blocks, each owning a band of rows: a cold transpose solve on the pressure
+cotangent (`csrc/pcg_cluster.cuh`), the stencil and face/centre adjoints,
+and the three advection-window adjoints with JAX's tie rules. The
+displacements are recomputed from the step's inputs, which are all that is
+saved between the two directions.
 
-What bounds them on this card: latency, as for K1. B samples occupy B of
-the H100's 132 SMs, and each CG trip is a chain of about ten block-wide
-barriers; the advection and its adjoint add a dozen barrier-separated
-passes over shared memory. The design keeps the whole step in one launch
-per direction with no host round trip.
+What bounds them on this card: latency, as for K1. K2's B samples occupy B
+of the H100's 132 SMs, and each CG trip is a chain of about ten
+block-wide barriers; K3 runs each sample on C SMs (`bwd_plan`: the
+smallest C up to 16 that fills the card, if that many clusters can be
+resident), so a trip is 1/C of the work around three cluster barriers. The
+design keeps the whole step in one launch per direction with no host
+round trip.
 
 `fused_step_forward` / `fused_step_backward` launch K2 / K3 for CUDA
 tensors and run the plain versions below for CPU tensors; a CUDA tensor
 they cannot take (dtype, shape, layout, a grid whose state does not fit in
-one block's shared memory) raises. `LAUNCHES_FWD` and `LAUNCHES_BWD` count
+one block's shared memory) raises, and so does a K3 launch that fails under
+its plan: nothing falls back. `LAUNCHES_FWD` and `LAUNCHES_BWD` count
 the launches. `fused_fluid_step` is the differentiable step (`_FusedStep`).
 """
 
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -65,6 +71,94 @@ def fused_step_fits(h: int, w: int) -> bool:
     """Whether one sample's step fits in a block's shared memory (84² is
     the largest square grid)."""
     return shared_bytes(h, w) <= cuda_cg.SMEM_LIMIT_BYTES
+
+
+# K3's cluster sizes and its threads per block (the launcher refuses others).
+BWD_CLUSTERS = (1, 2, 4, 8, 16)
+BWD_THREADS = 512
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
+                     max_shift: int) -> int:
+    """Shared memory one rank of K3 needs: the reduction area and the best
+    iterate's band, then the larger of the solve's buffers (the basis, three
+    whole fields, the band's iterates, the products' slices) and the window
+    phase's (the band widened by max_shift + 1 rows) — the count
+    `fused_bwd_shared_bytes` makes in C."""
+    r, e = -(-h // cluster), max_shift + 1
+    red = 2 * 4 * 16 + 4 * 16
+    persistent = _align4(red) + _align4(r * w)
+    basis = h * (h + 1) + (0 if h == w else w * (w + 1))
+    solve = sum(_align4(n) for n in (
+        basis, h * w, h * w, h * w, r * w, (r + 2) * w, r * w, r * w, 2 * w,
+        8 * threads))
+    taps = min(r + 2 * e + 1, h + 1) * (w + 1)
+    window = sum(_align4(n) for n in (
+        min(r + 2 * e + 2, h) * w, min(r + 2 * e + 1, h + 1) * w,
+        min(r + 2 * e, h) * (w + 1), min(r + 2 * e, h) * w, taps, taps, taps,
+        taps, taps, min(r + 1, h) * w, min(r + 1, h) * w,
+        min(r + 1, h + 1) * (w + 1)))
+    return 4 * (persistent + max(solve, window))
+
+
+class BwdPlan(NamedTuple):
+    """How K3 runs one batch: a cluster of `cluster` blocks of `threads`
+    threads per sample, each rank owning at most `rows_per_rank` rows, with
+    `shared_bytes` of shared memory a block."""
+    cluster: int
+    threads: int
+    rows_per_rank: int
+    shared_bytes: int
+
+
+def bwd_plans(h: int, w: int, max_shift: int = 2) -> list[BwdPlan]:
+    """Every plan the K3 launcher takes at H x W: each cluster size up to H
+    whose shared memory fits a block."""
+    return [BwdPlan(c, BWD_THREADS, -(-h // c), nbytes)
+            for c in BWD_CLUSTERS
+            if c <= h and (nbytes := bwd_shared_bytes(
+                h, w, c, BWD_THREADS, max_shift)) <= cuda_cg.SMEM_LIMIT_BYTES]
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(batch: int, h: int, w: int, max_shift: int = 2, *,
+             sm_count: int | None = None,
+             max_clusters: Callable[[int, int, int], int] | None = None
+             ) -> BwdPlan:
+    """K3's plan for `batch` samples of H x W: the smallest cluster size C
+    (a power of two, at most 16 and at most H) with batch·C at least the
+    card's SM count (or the largest that fits), among those whose shared
+    memory fits a block; then the next smaller C while fewer than `batch`
+    clusters can be resident at once. `sm_count` and `max_clusters(cluster,
+    threads, shared_bytes)` default to the current card's (its SM count and
+    `cudaOccupancyMaxActiveClusters`). Raises if no cluster size fits."""
+    if sm_count is None:
+        sm_count = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    if max_clusters is None:
+        query = _kernels()[2]
+
+        def max_clusters(cluster, threads, _shared_bytes):
+            n = query(h, w, cluster, threads, max_shift)
+            if n < 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed "
+                                   f"with cudaError {-n}")
+            return n
+
+    plans = bwd_plans(h, w, max_shift)
+    if not plans:
+        raise ValueError(f"no cluster size fits K3's {h}x{w} step in a block's "
+                         f"shared memory ({cuda_cg.SMEM_LIMIT_BYTES} bytes)")
+    i = next((i for i, p in enumerate(plans) if batch * p.cluster >= sm_count),
+             len(plans) - 1)
+    while i > 0 and max_clusters(plans[i].cluster, plans[i].threads,
+                                 plans[i].shared_bytes) < batch:
+        i -= 1
+    return plans[i]
 
 
 # --------------------------------------------------------------------------
@@ -298,9 +392,12 @@ def _kernels():
     fwd.argtypes = [ptr] * 18 + tail
     fwd.restype = i32
     bwd = lib.fused_step_bwd_f32
-    bwd.argtypes = [ptr] * 20 + tail
+    bwd.argtypes = [ptr] * 20 + tail[:-1] + [i32, i32, ptr]
     bwd.restype = i32
-    return fwd, bwd
+    clusters = lib.fused_bwd_max_clusters
+    clusters.argtypes = [i32] * 5
+    clusters.restype = i32
+    return fwd, bwd, clusters
 
 
 def _ptr(t):
@@ -374,20 +471,34 @@ def fused_step_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
                         buoyancy: float, closed: bool, tol: float,
                         maxiter: int, has_force: bool, has_inflow: bool):
     """K3: the VJP of K2 from its inputs and the cotangents of (vy4, vx4,
-    rho1, p). Returns the cotangents of (vy, vx, rho, fy, fx, inflow),
-    None for an operand the step did not take, and the transpose solve's
-    trip counts (B,) int32."""
-    global LAUNCHES_BWD
+    rho1, p), one thread-block cluster per sample under `bwd_plan`. Returns
+    the cotangents of (vy, vx, rho, fy, fx, inflow), None for an operand the
+    step did not take, and the transpose solve's trip counts (B,) int32."""
     kw = dict(dt=dt, dx=dx, max_shift=max_shift, buoyancy=buoyancy,
               closed=closed, tol=tol, maxiter=maxiter)
     if cuda_cg._runs_plain(rho, "fused_step_backward"):
         return fused_step_plain_backward(
             vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x, fluid,
             has_force=has_force, has_inflow=has_inflow, **kw)
+    return _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y,
+                            acc_x, fluid, None, has_force=has_force,
+                            has_inflow=has_inflow, **kw)
+
+
+def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
+                     fluid, plan: BwdPlan | None, *, has_force: bool,
+                     has_inflow: bool, **kw):
+    """Launches K3 on CUDA tensors under `plan` (None: `bwd_plan`'s). The
+    tests and `sweep_dw_plan.py bwd` pass other plans; a plan the launcher
+    refuses raises."""
+    global LAUNCHES_BWD
     b, h, w = _check_cuda(
         vy, vx, rho, dict(g_vy4=g_vy4, g_vx4=g_vx4, g_rho1=g_rho1, g_p=g_p),
         (acc_y, acc_x, fluid))
-    qy, qx, inv_lam = cuda_cg._tables(h, w, float(dx), bool(closed), rho.device)
+    if plan is None:
+        plan = bwd_plan(b, h, w, int(kw["max_shift"]))
+    qy, qx, inv_lam = cuda_cg._tables(h, w, float(kw["dx"]), bool(kw["closed"]),
+                                      rho.device)
     g_vy, g_vx, g_rho = (torch.empty_like(t) for t in (vy, vx, rho))
     g_fy = torch.empty_like(vy) if has_force else None
     g_fx = torch.empty_like(vx) if has_force else None
@@ -397,10 +508,11 @@ def fused_step_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
         *map(_ptr, (vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
                     fluid, qy, qx, inv_lam, g_vy, g_vx, g_rho, g_fy, g_fx,
                     g_inflow, iters)),
-        b, h, w, *_statics(**kw),
+        b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_step_bwd_f32 launch failed with cudaError {rc}")
+        raise RuntimeError(f"fused_step_bwd_f32 launch failed with cudaError "
+                           f"{rc} under {plan}")
     LAUNCHES_BWD += 1
     return g_vy, g_vx, g_rho, g_fy, g_fx, g_inflow, iters
 

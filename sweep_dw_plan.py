@@ -1,8 +1,10 @@
-"""Sweep of the conv kernels' plans on one NVIDIA GPU: are
-`cuda_conv.dw_plan` (K5) and `cuda_conv.fwd_plan` (K4) near the best?
+"""Sweep of the kernels' plans on one NVIDIA GPU: are `cuda_conv.dw_plan`
+(K5), `cuda_conv.fwd_plan` (K4) and `cuda_fluid.bwd_plan` (K3) near the
+best?
 
     python3 sweep_dw_plan.py          # K5, then K4
     python3 sweep_dw_plan.py fwd      # K4 only
+    python3 sweep_dw_plan.py bwd      # K3 only
 
 For each conv shape below (the 64², n=16, batch-8 training iteration's
 shape families) it times K5 (`conv3x3_dw_bf16`, both passes) under every
@@ -10,9 +12,15 @@ plan of rows per run in {1, 2, 4, ..} and about 1, 2, 4, .., 1024 splits
 that fits the card's shared memory, and K4 (`conv3x3_fwd_bf16`, forward
 and dX, both passes) under every output-channel tile and fragments per
 warp it has and every count of splits of K, calling the C entries
-directly. It prints the time under the plan's choice, cuDNN's time for the
-same function and the five fastest plans. Device times by CUDA-graph
-replay (`chip_smoke._graph_ms`), beside the card's name and power limit.
+directly; and K3 (`fused_step_bwd_f32`, the fused step's backward) under
+every cluster size its launcher takes (512 threads a block) at 64²×8 and
+64²×64 (the main path's step, tol 1e-4 / maxiter 100, and maxiter 0: the
+rest without the CG trips). It prints the time under the plan's choice,
+cuDNN's time for the same function (none for K3) and the five fastest
+plans, or for K3 every plan with its time per trip and, at the plan's
+choice, the SM cycles of each phase of a CG trip (`fused_bwd_trace`).
+Device times by CUDA-graph replay (`chip_smoke._graph_ms`), beside the
+card's name and power limit.
 It checks nothing: `chip_smoke.py` and `tests/test_torch_kernels.py` hold
 the kernels to their plain versions.
 """
@@ -26,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 import chip_smoke
-from pde_control_tpu_torch.ops import cuda_conv
+from pde_control_tpu_torch.ops import cuda_conv, cuda_fluid
 
 # (batch, H, W, Cin, Cout)
 SHAPES = [(8, 64, 64, 64, 64), (8, 64, 64, 32, 64), (8, 64, 64, 64, 32),
@@ -122,9 +130,82 @@ def sweep_fwd(card: str, rng) -> None:
                 f"{ms:.4f} {bn} {fm} {s}" for ms, (bn, fm, s) in ranked))
 
 
+def sweep_bwd(card: str, rng) -> None:
+    """K3 under every plan at 64²×8 and ×64: the time per launch, the time
+    at maxiter 0 (everything but the CG trips) and so the time per trip."""
+    from pde_control_tpu_torch.grids import Domain2D
+
+    dev = torch.device("cuda")
+    h = chip_smoke.H
+    domain = Domain2D.create(h, h, obstacle_mask=chip_smoke._plate(h), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    kw = dict(chip_smoke.FUSED_STEP, dx=domain.dx, tol=1e-4)
+    for batch in (chip_smoke.BATCH, 64):
+        ops, cots = chip_smoke._fused_operands(rng, h, h, "cold", domain, dev,
+                                               batch=batch)
+        state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
+        plan = cuda_fluid.bwd_plan(batch, h, h, kw["max_shift"])
+        swept = []
+        for p in cuda_fluid.bwd_plans(h, h):
+            def call(p=p, maxiter=100):
+                return cuda_fluid._launch_backward(*state, *cots, *geom, p,
+                                                   has_force=True,
+                                                   has_inflow=False,
+                                                   maxiter=maxiter, **kw)
+            trips = float(call()[-1].float().mean())
+            ms, rest = (chip_smoke._graph_ms(call, 20),
+                        chip_smoke._graph_ms(lambda: call(maxiter=0), 20))
+            swept.append((ms, rest, 1e3 * (ms - rest) / trips, p))
+        plan_ms = next(ms for ms, _, _, p in swept if p == plan)
+        print(f"K3 {h}x{h}x{batch}: bwd_plan {chip_smoke._bwd_plan_text(plan)} "
+              f"{plan_ms:.4f} ms; swept (ms, ms at maxiter 0, us per trip, "
+              "cluster, threads): " + ", ".join(
+                  f"{ms:.4f} {rest:.4f} {us:.2f} {p.cluster} {p.threads}"
+                  for ms, rest, us, p in sorted(swept, key=lambda x: x[0]))
+              + f" [{card}]", flush=True)
+        _trip_profile(lambda: cuda_fluid._launch_backward(
+            *state, *cots, *geom, plan, has_force=True, has_inflow=False,
+            maxiter=100, **kw), f"{h}x{h}x{batch}", card)
+
+
+# The phases of `TripClock` in csrc/pcg_cluster.cuh.
+TRIP_PHASES = ("A d, d.Ad sum, push of A d", "residual update", "Qy r",
+               "(.) Qx^T * 1/lam", "push of the spectrum", "Qy^T (.)",
+               "(.) Qx", "r.z, r.r sum, projection, d update")
+
+
+def _trip_profile(launch, label: str, card: str) -> None:
+    """SM clock cycles per CG trip of each phase, as the first block of one
+    K3 launch (rank 0 of sample 0) records them with the profile on."""
+    import ctypes
+
+    from pde_control_tpu_torch.ops import _build
+
+    trace = _build.load()[0].fused_bwd_trace
+    trace.argtypes, trace.restype = [ctypes.c_void_p], ctypes.c_int
+    clocks = torch.zeros(len(TRIP_PHASES), dtype=torch.int64, device="cuda")
+    if trace(clocks.data_ptr()) != 0:
+        raise RuntimeError("fused_bwd_trace failed")
+    try:
+        trips = int(launch()[-1][0])
+        torch.cuda.synchronize()
+    finally:
+        trace(None)
+    cycles = [c / trips for c in clocks.tolist()]
+    total = sum(cycles)
+    print(f"K3 {label} trip profile (rank 0 of sample 0, {trips} trips, "
+          f"{total:.0f} SM cycles a trip): " + "; ".join(
+              f"{name} {c:.0f} ({100 * c / total:.1f}%)"
+              for name, c in zip(TRIP_PHASES, cycles)) + f" [{card}]",
+          flush=True)
+
+
 def main() -> None:
     card = chip_smoke.device_phase()
     rng = np.random.default_rng(chip_smoke.SEED)
+    if sys.argv[1:] == ["bwd"]:
+        sweep_bwd(card, rng)
+        return
     if sys.argv[1:] != ["fwd"]:
         sweep_dw(card, rng)
     sweep_fwd(card, rng)

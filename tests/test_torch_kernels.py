@@ -142,30 +142,32 @@ _FUSED_CASES = {"cold-force": (False, True, False, False, False),
                 "non-finite": (False, True, False, False, True)}
 
 
-def _fused_inputs(n, case, dev, batch=8, seed=0):
-    """The step's operands and the four cotangents, from a numpy seed."""
+def _fused_inputs(n, case, dev, batch=8, seed=0, w=None):
+    """The step's operands and the four cotangents on an n x w grid (w = n
+    by default), from a numpy seed."""
     warm, force, inflow, zero_v, nonfinite = _FUSED_CASES[case]
     rng = np.random.default_rng(seed)
+    h, w = n, n if w is None else w
 
     def t(*shape, scale=1.0, uniform=False):
         a = rng.uniform(0, 1, shape) if uniform else rng.normal(size=shape)
         return torch.tensor(scale * a, dtype=torch.float32, device=dev)
 
     v = 0.0 if zero_v else 0.5
-    ops = dict(vy=t(batch, n + 1, n, scale=v), vx=t(batch, n, n + 1, scale=v),
-               rho=t(batch, n, n, uniform=True))
+    ops = dict(vy=t(batch, h + 1, w, scale=v), vx=t(batch, h, w + 1, scale=v),
+               rho=t(batch, h, w, uniform=True))
     if nonfinite:
-        ops["vy"][0, n // 2, n // 3] = float("nan")
-        ops["vx"][1, n // 3, n // 2] = float("inf")
+        ops["vy"][0, h // 2, w // 3] = float("nan")
+        ops["vx"][1, h // 3, w // 2] = float("inf")
     if force:
-        ops.update(fy=t(batch, n + 1, n, scale=0.05),
-                   fx=t(batch, n, n + 1, scale=0.05))
+        ops.update(fy=t(batch, h + 1, w, scale=0.05),
+                   fx=t(batch, h, w + 1, scale=0.05))
     if inflow:
-        ops["inflow"] = t(batch, n, n, scale=0.05, uniform=True)
+        ops["inflow"] = t(batch, h, w, scale=0.05, uniform=True)
     if warm:
-        ops["x0"] = t(batch, n, n, scale=0.5)
-    cots = [t(batch, n + 1, n), t(batch, n, n + 1), t(batch, n, n),
-            t(batch, n, n)]
+        ops["x0"] = t(batch, h, w, scale=0.5)
+    cots = [t(batch, h + 1, w), t(batch, h, w + 1), t(batch, h, w),
+            t(batch, h, w)]
     return ops, cots
 
 
@@ -182,12 +184,39 @@ def _agree(a, b, limit, nonfinite):
     assert _rel(a[fin], b[fin]) < limit
 
 
+def _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, want):
+    """K3 under every plan the launcher takes (every cluster size up to H
+    at these grids): each cotangent within 1e-3 of the
+    plain version's scale with its non-finite cells, trip counts within 3,
+    the same bits in two calls; each launch counts once."""
+    h, w = rho.shape[1:]
+    plans = cuda_fluid.bwd_plans(h, w)
+    assert {p.cluster for p in plans} == {c for c in cuda_fluid.BWD_CLUSTERS
+                                          if c <= h}
+    for plan in plans:
+        before = cuda_fluid.LAUNCHES_BWD
+        got, again = (cuda_fluid._launch_backward(vy, vx, rho, *cots, *geom,
+                                                  plan, **flags, **_FUSED)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        assert cuda_fluid.LAUNCHES_BWD == before + 2, plan
+        for a, b, c in zip(got[:6], want[:6], again[:6]):
+            assert (a is None) == (b is None), plan
+            if a is not None:
+                _agree(a, b, 1e-3, nonfinite)
+                assert torch.equal(a.view(torch.int32), c.view(torch.int32)), plan
+        assert int((got[6] - want[6]).abs().max()) <= 3, plan
+        assert torch.equal(got[6], again[6]), plan
+
+
 @pytest.mark.parametrize("n", [64, 32])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
 def test_fused_kernels_match_plain(n, case):
     """K2's outputs within 1e-4 of the plain version's scale and its trip
-    counts within 3; K3's cotangents within 1e-3; non-finite cells where
-    the plain version has them. Each launch counts once."""
+    counts within 3; K3's cotangents within 1e-3, under `bwd_plan`'s plan
+    and under every cluster size the launcher takes, the
+    same bits in two calls; non-finite cells where the plain version has
+    them. Each launch counts once."""
     nonfinite = _FUSED_CASES[case][4]
     dev = _cuda()
     domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
@@ -216,18 +245,115 @@ def test_fused_kernels_match_plain(n, case):
         if a is not None:
             _agree(a, b, 1e-3, nonfinite)
     assert int((g_k[6] - g_p[6]).abs().max()) <= 3
+    _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, g_p)
+
+
+@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30)])
+@pytest.mark.parametrize("case", list(_FUSED_CASES))
+def test_fused_backward_plans_match_plain(h, w, case):
+    """K3 at a grid that is not square, at one smaller than a 16-rank
+    cluster's halo, and at a width that is not a multiple of 4 (the bands
+    are pushed by scalars, not float4), under every plan the launcher
+    takes, against the plain version (limits as above)."""
+    dev = _cuda()
+    plate = np.zeros((h, w), np.float32)
+    plate[h // 2, w // 4:w // 2] = 1.0
+    domain = Domain2D.create(h, w, obstacle_mask=plate, device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    ops, cots = _fused_inputs(h, case, dev, w=w)
+    vy, vx, rho = ops.pop("vy"), ops.pop("vx"), ops.pop("rho")
+    flags = dict(has_force="fy" in ops, has_inflow="inflow" in ops)
+    want = cuda_fluid.fused_step_plain_backward(vy, vx, rho, *cots, *geom,
+                                                **flags, **_FUSED)
+    _check_backward_plans(vy, vx, rho, cots, geom, flags, _FUSED_CASES[case][4],
+                          want)
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48)])
 def test_fused_shared_memory_count_matches_source(h, w):
+    """K2's gate and K3's plans count the bytes the kernels' source asks
+    for: `fused_shared_bytes` and, under every plan the K3 launcher takes
+    and under `bwd_plan`'s, `fused_bwd_shared_bytes`."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
 
     _cuda()
-    fn = _build.load()[0].fused_shared_bytes
+    lib = _build.load()[0]
+    fn = lib.fused_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
     assert fn(h, w) == cuda_fluid.shared_bytes(h, w)
+    fn = lib.fused_bwd_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    for plan in cuda_fluid.bwd_plans(h, w) + [cuda_fluid.bwd_plan(8, h, w)]:
+        assert fn(h, w, plan.cluster, plan.threads, 2) == plan.shared_bytes
+
+
+# A stand-in for cudaOccupancyMaxActiveClusters on a 132-SM card that holds
+# one block an SM.
+def _resident_clusters(cluster, threads, shared_bytes):
+    return 132 // cluster
+
+
+def _no_resident_16(cluster, threads, shared_bytes):
+    return 7 if cluster == 16 else _resident_clusters(cluster, threads,
+                                                      shared_bytes)
+
+
+_BWD_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
+                    (8, 84, 84), (2, 8, 8)]
+
+
+@pytest.mark.parametrize("batch,h,w", _BWD_PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _BWD_PLAN_SHAPES])
+def test_bwd_plan_covers_the_rows_once(batch, h, w):
+    """K3's plan: a cluster size the launcher takes, shared memory within a
+    block's limit and equal to `bwd_shared_bytes`; and under it and every
+    other cluster size that fits, the ranks' bands (pcg_cluster.cuh ::
+    Band: rank c owns cell and x-face rows [cH/C, (c+1)H/C), the last rank
+    also y-face row H) cover each row of the cell, y-face and x-face fields
+    exactly once, none is empty, none is longer than `rows_per_rank`, and
+    each row's owner is found from the row alone."""
+    plan = cuda_fluid.bwd_plan(batch, h, w, sm_count=132,
+                               max_clusters=_resident_clusters)
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.cluster <= h
+    assert plan.threads == cuda_fluid.BWD_THREADS
+    assert plan.shared_bytes == cuda_fluid.bwd_shared_bytes(
+        h, w, plan.cluster, plan.threads, 2) <= cuda_cg.SMEM_LIMIT_BYTES
+    plans = cuda_fluid.bwd_plans(h, w)
+    assert plan in plans
+    for p in plans:
+        c = p.cluster
+        cells, y_faces = np.zeros(h, int), np.zeros(h + 1, int)
+        for rank in range(c):
+            a, b = rank * h // c, (rank + 1) * h // c
+            assert 1 <= b - a <= p.rows_per_rank == -(-h // c)
+            cells[a:b] += 1
+            y_faces[a:h + 1 if rank == c - 1 else b] += 1
+            for r in range(a, b):
+                assert min(((r + 1) * c - 1) // h, c - 1) == rank
+        assert (cells == 1).all() and (y_faces == 1).all()  # x-faces: cells
+
+
+def test_bwd_plan_fills_the_card_and_is_cached():
+    """The smallest cluster size whose clusters fill a 132-SM card (16 at
+    batch 8 and below, capped at H rows), the next smaller one while the
+    card cannot hold `batch` clusters at once (8 when only 7 clusters of 16
+    fit; 2 at batch 64), the smallest that fits shared memory at large
+    batch; one plan object per shape."""
+    def plan(batch, h, w, limit=_resident_clusters):
+        return cuda_fluid.bwd_plan(batch, h, w, sm_count=132, max_clusters=limit)
+
+    assert plan(8, 64, 64).cluster == 16
+    assert plan(1, 8, 8).cluster == 8
+    assert plan(8, 64, 64, _no_resident_16).cluster == 8
+    assert plan(64, 64, 64).cluster == 2
+    assert plan(132, 64, 64).cluster == 1
+    assert plan(200, 84, 84).cluster == 2  # one block per sample does not fit
+    assert plan(8, 84, 84).cluster == 16
+    assert plan(8, 64, 64) is plan(8, 64, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(1, 8, 4096)
 
 
 def test_fused_kernels_reject_bad_inputs():
