@@ -13,20 +13,23 @@ prints no result):
      shared-memory counts against the Python gates and plans, and prints
      K3's plan at 64²×8 and ×64;
   3. the pressure solve (K1) against its plain torch version on the card:
-     64² (bench plate, closed) and 32² (open, with an obstacle), batch 8,
-     warm and cold, at tol 1e-4 / 100 iterations and tol 1e-6 / 500;
-     residuals, solution error, trip counts, times, and the gradient
-     through `solve_pressure` against the plain path;
+     64² (bench plate, closed), 32² (open, with an obstacle), 48² and 96²
+     (closed), batch 8, warm and cold, at tol 1e-4 / 100 iterations and
+     tol 1e-6 / 500, under `solve_plan`'s plan and every plan its launcher
+     takes; residuals, solution error, trip counts, the gradient through
+     `solve_pressure` against the plain path; against the JAX package's
+     goldens (`tests/goldens/pcg_32.npz`); times at 64²×8 and ×64, tol
+     1e-4 / 100, and the plans;
   4. the fused step's forward (K2) and backward (K3) against their plain
-     versions: 64² and 32² (K3 also 32×48 and 8×8), closed with the plate,
+     versions: 64², 32², 32×48, 24×30 and 8×8, closed with the plate,
      batch 8, cold and warm, with force, with inflow, at zero velocity (the
      tie points), and with a NaN and an infinity planted in the velocity
      (the non-finite cells must be the plain version's), at tol 1e-6 / 500,
-     K3 under `bwd_plan`'s plan and under every plan its launcher takes,
-     each twice for the same bits; both against the JAX package's goldens
-     (`tests/goldens/fused_step_32.npz`); then their times at 64²×8, tol
-     1e-4 / 100, K3's at maxiter 0 (the rest without the CG trips) and at
-     batch 64 beside it;
+     each under its plan (`fwd_plan`, `bwd_plan`) and under every plan its
+     launcher takes, each twice for the same bits; both against the JAX
+     package's goldens (`tests/goldens/fused_step_32.npz`); then their
+     times at 64²×8, tol 1e-4 / 100, at maxiter 0 (the rest without the CG
+     trips) and at batch 64, and their plans;
   5. the first iteration of each training path below, every one with the
      same perturbed CFE output layer, so that every net has a gradient; the
      conv path's run records the shape of every conv its kernels compute;
@@ -83,9 +86,10 @@ PEAK_HBM_BYTES = 3.35e12
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
 # K3's instantiations <threads, trip profile>: the main path's and the one
-# `fused_bwd_trace` selects; each must stand in ptxas's report, without
-# spills.
+# `fused_bwd_trace` selects; and K1's and K2's (512 threads). Each must
+# stand in ptxas's report, without spills.
 K3_KERNELS = {"fused_bwd_kernel<512, 0>", "fused_bwd_kernel<512, 1>"}
+K1_K2_KERNELS = {"pcg_cluster_kernel<512>", "fused_fwd_kernel<512>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -138,7 +142,7 @@ def build_phase() -> None:
     print(f"build_seconds {info.seconds:.2f} ({info.path.name})")
     seen = {}
     for block in info.log.split("Compiling entry function")[1:]:
-        name = re.search(r"((?:pcg|fused_fwd|fused_bwd|conv3x3_fwd_reduce|"
+        name = re.search(r"((?:pcg_cluster|fused_fwd|fused_bwd|conv3x3_fwd_reduce|"
                          r"conv3x3_fwd|conv3x3_dw_reduce|conv3x3_dw)_kernel)"
                          r"(?:I((?:L[a-z]+\d+E)+)E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
@@ -156,20 +160,43 @@ def build_phase() -> None:
               f"bytes spill loads"
               + (f", {smem.group(1)} bytes static shared memory" if smem
                  else ""))
-    checked = k4_kernels | K5_KERNELS | K3_KERNELS
+        # Device functions the kernel calls and does not inline (K3's
+        # solve) report spills of their own; printed, not held.
+        for callee, stores, loads in re.findall(
+                r"Function properties for \S*?([a-z]{3}_solve)I\S*\n\s+\d+ bytes "
+                r"stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                block):
+            print(f"  called by {label}, not inlined: {callee}: {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads")
+    checked = k4_kernels | K5_KERNELS | K3_KERNELS | K1_K2_KERNELS
     if checked - set(seen):
         raise AssertionError(f"no ptxas report for {sorted(checked - set(seen))}")
     if any(seen[k] for k in checked):
-        raise AssertionError(f"a K3, K4 or K5 kernel spills: "
+        raise AssertionError(f"a kernel spills: "
                              f"{ {k: seen[k] for k in checked if seen[k]} }")
-    for c_name, gate in (("pcg_shared_bytes", cuda_cg.shared_bytes),
-                         ("fused_shared_bytes", cuda_fluid.shared_bytes)):
+    shapes = ((H, H), (32, 32), (48, 48), (96, 96), (32, 48), (24, 30), (8, 8))
+    for name, c_name, plans, plan, query in (
+            ("K1", "pcg_shared_bytes", cuda_cg.solve_plans, cuda_cg.solve_plan,
+             cuda_cg._kernel()[1]),
+            ("K2", "fused_fwd_shared_bytes", cuda_fluid.fwd_plans,
+             cuda_fluid.fwd_plan, cuda_fluid._kernels()[3])):
         fn = getattr(lib, c_name)
-        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
-        if fn(H, H) != gate(H, H):
-            raise AssertionError(f"{c_name}: kernel asks {fn(H, H)} bytes, the "
-                                 f"gate counts {gate(H, H)}")
-        print(f"{c_name}({H}, {H}) = {fn(H, H)} bytes, equal to the gate's count")
+        fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+        cases = [(h, w, p) for h, w in shapes for p in plans(h, w)]
+        for h, w, p in cases:
+            if fn(h, w, p.cluster, p.threads) != p.shared_bytes:
+                raise AssertionError(f"{c_name}({h}, {w}, {p.cluster}, "
+                                     f"{p.threads}): kernel asks "
+                                     f"{fn(h, w, p.cluster, p.threads)} bytes, "
+                                     f"the plan counts {p.shared_bytes}")
+        print(f"{c_name} equal to the plan's count at {len(cases)} cases")
+        for batch in (BATCH, 64):
+            print(f"{name} plan at {H}x{H}x{batch}: "
+                  f"{_plan_text(plan(batch, H, H))}")
+        print(f"{name} clusters resident at once at {H}x{H} "
+              "(cudaOccupancyMaxActiveClusters): " + ", ".join(
+                  f"C={p.cluster}: {query(H, H, p.cluster, p.threads)}"
+                  for p in plans(H, H)))
     fn = lib.fused_bwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     bwd_cases = [(h, w, c, cuda_fluid.BWD_THREADS)
@@ -186,7 +213,7 @@ def build_phase() -> None:
         if fn(H, H, plan.cluster, plan.threads, 2) != plan.shared_bytes:
             raise AssertionError(f"bwd_plan {plan}: the kernel asks "
                                  f"{fn(H, H, plan.cluster, plan.threads, 2)} bytes")
-        print(f"K3 plan at {H}x{H}x{batch}: {_bwd_plan_text(plan)}")
+        print(f"K3 plan at {H}x{H}x{batch}: {_plan_text(plan)}")
     print(f"fused_bwd_shared_bytes equal to the plan's count at "
           f"{len(bwd_cases)} cases")
     fn = lib.conv3x3_fwd_shared_bytes
@@ -306,8 +333,51 @@ def _nbytes(*tensors) -> int:
 # ---------------------------------------------------------------- phase 3
 
 
+# K1's grids: (n, closed). The main path's, an open box, a grid its bands
+# do not divide evenly and the largest its gate holds to plain.
+K1_SHAPES = ((H, True), (32, False), (48, True), (96, True))
+CG_GOLDENS = "tests/goldens/pcg_32.npz"
+
+
+def cg_golden_check(dev) -> float:
+    """K1 under its plan and every plan its launcher takes against the JAX
+    package's solve, from the goldens of `scripts/make_cg_goldens.py`
+    (32², batch 2, closed cold and warm, open cold): the pressure within
+    1e-4 of the golden's max|p|. Returns the largest max|dp|."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    z = np.load(Path(__file__).resolve().parent / CG_GOLDENS)
+    kw = json.loads(str(z["config"]))
+
+    def t(key):
+        return torch.tensor(z[key].astype(np.float32), device=dev)
+
+    worst = 0.0
+    for case in ("closed-cold", "closed-warm", "open-cold"):
+        closed = case.startswith("closed")
+        box = "closed" if closed else "open"
+        geom = [t(f"{box}/{k}") for k in ("acc_y", "acc_x", "fluid")]
+        x0 = t("x0") if case.endswith("warm") else None
+        want = t(f"{case}/p")
+        rel = 0.0
+        plans = cuda_cg.solve_plans(32, 32)
+        for plan in [None] + plans:
+            p, _ = cuda_cg._launch_solve(t("div"), *geom, x0, plan,
+                                         closed=closed, precond=True, **kw)
+            d = float((p - want).abs().max())
+            worst, rel = max(worst, d), max(rel, d / float(want.abs().max()))
+        print(f"golden 32x32x2 {case} (JAX interpret-mode kernel): K1 worst "
+              f"max|dp|/max|p| over its plan and {len(plans)} others {rel:.2e}")
+        if rel > 1e-4:
+            raise AssertionError(f"K1 differs from the JAX golden {case}: "
+                                 f"{rel:.3e} > 1e-4")
+    return worst
+
+
 def kernel_phase(card: str) -> dict:
-    _phase("K1 (pressure solve) against plain")
+    _phase("K1 (pressure solve) against plain and JAX")
     from pde_control_tpu_torch.grids import Domain2D
     from pde_control_tpu_torch.ops import cuda_cg
     from pde_control_tpu_torch.physics.poisson import (
@@ -319,10 +389,11 @@ def kernel_phase(card: str) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     summary = {}
-    print("limits: kernel residual <= max(2*tol, 2*plain residual); "
+    print("limits, under solve_plan's plan and under every plan the launcher "
+          "takes: kernel residual <= max(2*tol, 2*plain residual); "
           "max|dp|/max|p| <= 100*tol; trip counts within 3 of plain; "
           "gradient max|dg|/max|g| <= 1e-3")
-    for n, closed in ((H, True), (32, False)):
+    for n, closed in K1_SHAPES:
         domain = Domain2D.create(n, n, obstacle_mask=_plate(n), closed=closed,
                                  device=dev)
         geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
@@ -337,6 +408,7 @@ def kernel_phase(card: str) -> dict:
         noise = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
                              device=dev)
         x0 = (p_prev + 0.05 * p_prev.std() * noise).contiguous()
+        plans = cuda_cg.solve_plans(n, n)
 
         def rel_res(p):
             r = torch.where(fluid, b - masked_laplace_spd(p, domain), 0.0)
@@ -346,40 +418,58 @@ def kernel_phase(card: str) -> dict:
             for start, guess in (("cold", None), ("warm", x0)):
                 args = dict(x0=guess, dx=domain.dx, closed=closed, tol=tol,
                             maxiter=maxiter)
-                p_k, it_k = cuda_cg.pressure_solve(div, *geom, **args)
                 p_p, it_p = cuda_cg.pcg_plain(div, *geom, **args)
-                torch.cuda.synchronize()
-                err = float((p_k - p_p).abs().max())
-                rel = err / float(p_p.abs().max())
-                res_k, res_p = rel_res(p_k), rel_res(p_p)
-                dit = int((it_k - it_p).abs().max())
-                print(f"{n}x{n} {'closed' if closed else 'open'} {start} "
-                      f"tol={tol:g}: rel_residual kernel={res_k:.3e} "
-                      f"plain={res_p:.3e} | max|dp|/max|p|={rel:.3e} | "
-                      f"iters kernel={it_k.tolist()} plain={it_p.tolist()}")
-                if not torch.isfinite(p_k).all():
-                    raise AssertionError("kernel returned non-finite values")
-                if res_k > max(2.0 * tol, 2.0 * res_p):
-                    raise AssertionError(f"kernel residual {res_k:.3e} above "
-                                         f"tol {tol:g}")
-                if rel > 100 * tol:
-                    raise AssertionError(f"kernel differs from plain by {rel:.3e}")
-                if dit > 3:
-                    raise AssertionError(f"trip counts differ by {dit} > 3")
+                res_p = rel_res(p_p)
+                label = f"{n}x{n} {'closed' if closed else 'open'} {start} tol={tol:g}"
+                worst = {}
+                for plan in [None] + plans:
+                    if plan is None:
+                        p_k, it_k = cuda_cg.pressure_solve(div, *geom, **args)
+                    else:
+                        p_k, it_k = cuda_cg._launch_solve(
+                            div, *geom, guess, plan, precond=True,
+                            **{k: v for k, v in args.items() if k != "x0"})
+                    torch.cuda.synchronize()
+                    err = float((p_k - p_p).abs().max())
+                    rel = err / float(p_p.abs().max())
+                    res_k = rel_res(p_k)
+                    dit = int((it_k - it_p).abs().max())
+                    if plan is None:
+                        print(f"{label}: rel_residual kernel={res_k:.3e} "
+                              f"plain={res_p:.3e} | max|dp|/max|p|={rel:.3e} | "
+                              f"iters kernel={it_k.tolist()} plain={it_p.tolist()}")
+                        p_main = p_k
+                    if not torch.isfinite(p_k).all():
+                        raise AssertionError(f"{label} {plan}: non-finite values")
+                    if res_k > max(2.0 * tol, 2.0 * res_p):
+                        raise AssertionError(f"{label} {plan}: kernel residual "
+                                             f"{res_k:.3e} above tol {tol:g}")
+                    if rel > 100 * tol:
+                        raise AssertionError(f"{label} {plan}: kernel differs "
+                                             f"from plain by {rel:.3e}")
+                    if dit > 3:
+                        raise AssertionError(f"{label} {plan}: trip counts "
+                                             f"differ by {dit} > 3")
+                    for key, v in (("rel", rel), ("res", res_k), ("dit", dit)):
+                        worst[key] = max(worst.get(key, 0), v)
+                print(f"  {len(plans)} plans: worst max|dp|/max|p| "
+                      f"{worst['rel']:.2e}, residual {worst['res']:.2e}, trip "
+                      f"counts within {worst['dit']}")
                 if n == H and tol == 1e-4:
                     kernel_ms = _time_ms(
                         lambda: cuda_cg.pressure_solve(div, *geom, **args), 50)
                     plain_ms = _time_ms(
                         lambda: cuda_cg.pcg_plain(div, *geom, **args), 5)
-                    nbytes = (_nbytes(div, guess, p_k) + 4 * BATCH
+                    it_k = cuda_cg.pressure_solve(div, *geom, **args)[1]
+                    nbytes = (_nbytes(div, guess, p_main) + 4 * BATCH
                               + _geom_bytes(n, n))
                     bound_ms, bound_by = _bound(nbytes, _cg_flops(n, n, it_k))
                     print(f"  time per solve {n}x{n}x{BATCH} {start}: kernel "
                           f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                           f"{bound_ms:.6f} ms ({bound_by}) [{card}]")
-                    summary[start] = dict(err=err, ms=kernel_ms,
-                                          plain_ms=plain_ms, bound_ms=bound_ms,
-                                          bound_by=bound_by)
+                    summary[start] = dict(err=float((p_main - p_p).abs().max()),
+                                          ms=kernel_ms, plain_ms=plain_ms,
+                                          bound_ms=bound_ms, bound_by=bound_by)
 
         # The gradient of sum(w * p) through the solve, kernel against plain.
         w = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
@@ -397,6 +487,29 @@ def kernel_phase(card: str) -> dict:
               f"{g_err:.3e}")
         if g_err > 1e-3:
             raise AssertionError(f"gradient through the kernel differs: {g_err:.3e}")
+    golden = cg_golden_check(dev)
+    summary["cold"]["err"] = max(summary["cold"]["err"], golden)
+
+    # Times at batch 64 (the main path's step, tol 1e-4 / maxiter 100), and
+    # each batch's plan.
+    domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    div = torch.tensor(rng.normal(size=(64, H, H)), dtype=torch.float32,
+                       device=dev)
+    p64 = cuda_cg.pcg_plain(div, *geom, tol=1e-6, maxiter=500)[0]
+    x64 = (p64 + 0.05 * p64.std() * torch.tensor(
+        rng.normal(size=(64, H, H)), dtype=torch.float32, device=dev)).contiguous()
+    for start, guess in (("cold", None), ("warm", x64)):
+        args = dict(x0=guess, dx=domain.dx, closed=True, tol=1e-4, maxiter=100)
+        ms64 = _time_ms(lambda: cuda_cg.pressure_solve(div, *geom, **args), 50)
+        trips = cuda_cg.pressure_solve(div, *geom, **args)[1]
+        print(f"  time per solve {H}x{H}x64 {start} (trips mean "
+              f"{float(trips.float().mean()):.2f}): kernel {ms64:.4f} ms [{card}]")
+    for batch in (BATCH, 64):
+        print(f"  K1 plan at {H}x{H}x{batch}: "
+              f"{_plan_text(cuda_cg.solve_plan(batch, H, H))}")
+    summary["cold"]["plan"] = dict(cuda_cg.solve_plan(BATCH, H, H)._asdict(),
+                                   batch=BATCH)
     return summary
 
 
@@ -414,9 +527,10 @@ FUSED_CASES = {
 FUSED_STEP = dict(dt=1.0, max_shift=2, buoyancy=0.08, closed=True)
 
 
-# K3 is checked under every plan its launcher takes at these grids; K2 at
-# the square ones of the main path's sizes.
-FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (8, 8))
+# K2 and K3 are checked under every plan their launchers take at these
+# grids: the main path's, a smaller square, two that are not square (one of
+# a width that is not a multiple of 4) and one row a rank under C = 8.
+FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (24, 30), (8, 8))
 GOLDENS = "tests/goldens/fused_step_32.npz"
 
 
@@ -448,7 +562,7 @@ def _fused_operands(rng, h, w, case, domain, dev, batch=BATCH):
     return ops, [t(yf), t(xf), t(c), t(c)]
 
 
-def _bwd_plan_text(plan) -> str:
+def _plan_text(plan) -> str:
     return (f"cluster {plan.cluster} x {plan.threads} threads, "
             f"{plan.rows_per_rank} rows a rank, {plan.shared_bytes} B shared")
 
@@ -490,8 +604,8 @@ def _same_bits(label: str, a: tuple, b: tuple) -> None:
 
 
 def fused_golden_check(dev) -> dict:
-    """K2 and K3 (under `bwd_plan`'s plan and every plan the launcher takes
-    at 32²) against the JAX package's fused step and VJP, from the goldens
+    """K2 and K3 (each under its plan and every plan its launcher takes at
+    32²) against the JAX package's fused step and VJP, from the goldens
     of `scripts/make_fused_goldens.py`: outputs within 1e-4, cotangents
     within 1e-3 of the golden's max|ref|."""
     from pathlib import Path
@@ -515,12 +629,15 @@ def fused_golden_check(dev) -> dict:
         rho, fy, fx = t("rho"), t("fy"), t("fx")
         inflow, x0 = (None, None) if zero_v else (t("inflow"), t("x0"))
         names_f = ("vy4", "vx4", "rho1", "p")
-        out = cuda_fluid.fused_step_forward(vy, vx, rho, *geom, fy=fy, fx=fx,
-                                            inflow=inflow, x0=x0, **kw)
         want = [t(f"{case}/{n}") for n in names_f]
-        rels, worst, _ = _agree(f"golden {case} fwd", out[:4], want, names_f,
-                                1e-4, False)
-        err["fwd"] = max(err["fwd"], worst)
+        rel_f = 0.0
+        for plan in [None] + cuda_fluid.fwd_plans(32, 32):
+            out = cuda_fluid._launch_forward(vy, vx, rho, *geom, fy, fx, inflow,
+                                             x0, plan, **kw)
+            rels, worst, _ = _agree(f"golden {case} fwd {plan}", out[:4], want,
+                                    names_f, 1e-4, False)
+            err["fwd"] = max(err["fwd"], worst)
+            rel_f = max(rel_f, max(rels.values()))
         names_b = ("vy", "vx", "rho", "fy", "fx", "inflow")
         want = [None if zero_v and n == "inflow" else t(f"{case}/d_{n}")
                 for n in names_b]
@@ -533,10 +650,10 @@ def fused_golden_check(dev) -> dict:
                                       names_b, 1e-3, False)
             err["bwd"] = max(err["bwd"], worst)
             rel_b = max(rel_b, max(rels_b.values()))
-        print(f"golden 32x32x2 {case} (JAX interpret-mode kernels): K2 "
-              + " ".join(f"{k}={v:.2e}" for k, v in rels.items())
-              + f"; K3 worst max|d|/max|ref| over its plan and "
-              f"{len(cuda_fluid.bwd_plans(32, 32))} others {rel_b:.2e}")
+        print(f"golden 32x32x2 {case} (JAX interpret-mode kernels): worst "
+              f"max|d|/max|ref| over the plan and every other: K2 {rel_f:.2e} "
+              f"({len(cuda_fluid.fwd_plans(32, 32))} plans), K3 {rel_b:.2e} "
+              f"({len(cuda_fluid.bwd_plans(32, 32))} plans)")
     return err
 
 
@@ -549,8 +666,8 @@ def fused_kernel_phase(card: str) -> dict:
     rng = np.random.default_rng(SEED + 1)
     print("limits at tol 1e-6 / maxiter 500: each K2 output max|d|/max|ref| "
           "<= 1e-4, trip counts within 3; each K3 cotangent max|d|/max|ref| "
-          "<= 1e-3, trip counts within 3, under bwd_plan's plan and under "
-          "every plan the launcher takes, the same bits in two calls; "
+          "<= 1e-3, trip counts within 3; each under its plan and under "
+          "every plan its launcher takes, the same bits in two calls; "
           "non-finite cells exactly the plain version's (none but in the "
           "non-finite case), errors over the finite cells")
     names_f = ("vy4", "vx4", "rho1", "p")
@@ -560,23 +677,37 @@ def fused_kernel_phase(card: str) -> dict:
         domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), device=dev)
         geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
         plans = cuda_fluid.bwd_plans(h, w)
+        fwd_plans = cuda_fluid.fwd_plans(h, w)
         for case in FUSED_CASES:
             label = f"{h}x{w} {case}"
             nonfinite = case == "non-finite"
             ops, cots = _fused_operands(rng, h, w, case, domain, dev)
             kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-6, maxiter=500)
             state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
-            if h == w:
-                out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
-                out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
-                                                            **kw)
-                rels, worst, n_bad = _agree(f"{label} fwd", out_k, out_p,
-                                            names_f, 1e-4, nonfinite)
-                err["fwd"] = max(err["fwd"], worst)
-                print(f"{label} fwd: " + " ".join(f"{k}={v:.2e}" for k, v in
-                                                  rels.items())
-                      + f" | non-finite cells {n_bad} | iters kernel="
-                      f"{out_k[-1].tolist()} plain={out_p[-1].tolist()}")
+            out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
+            out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
+                                                        **kw)
+            rels, worst, n_bad = _agree(f"{label} fwd", out_k, out_p, names_f,
+                                        1e-4, nonfinite)
+            err["fwd"] = max(err["fwd"], worst)
+            worst_rel, trips = 0.0, set()
+            step_ops = [ops.get(k) for k in ("fy", "fx", "inflow", "x0")]
+            for plan in fwd_plans:
+                got, again = (cuda_fluid._launch_forward(
+                    *state, *geom, *step_ops, plan, **kw) for _ in range(2))
+                r, d, _ = _agree(f"{label} fwd {plan}", got, out_p, names_f,
+                                 1e-4, nonfinite)
+                _same_bits(f"{label} fwd {plan}", got, again)
+                err["fwd"] = max(err["fwd"], d)
+                worst_rel = max(worst_rel, max(r.values()))
+                trips.add(tuple(got[-1].tolist()))
+            plan = cuda_fluid.fwd_plan(BATCH, h, w)
+            print(f"{label} fwd ({_plan_text(plan)}): " + " ".join(
+                f"{k}={v:.2e}" for k, v in rels.items())
+                + f" | non-finite cells {n_bad} | iters kernel="
+                f"{out_k[-1].tolist()} plain={out_p[-1].tolist()} | "
+                f"{len(fwd_plans)} plans: worst {worst_rel:.2e}, {len(trips)} "
+                "distinct trip counts, each the same bits in two calls")
             flags = dict(has_force=True, has_inflow="inflow" in ops)
             g_p = cuda_fluid.fused_step_plain_backward(*state, *cots, *geom,
                                                        **flags, **kw)
@@ -598,7 +729,7 @@ def fused_kernel_phase(card: str) -> dict:
                 worst_rel = max(worst_rel, max(r.values()))
                 trips.add(tuple(got[-1].tolist()))
             plan = cuda_fluid.bwd_plan(BATCH, h, w, FUSED_STEP["max_shift"])
-            print(f"{label} bwd ({_bwd_plan_text(plan)}): " + " ".join(
+            print(f"{label} bwd ({_plan_text(plan)}): " + " ".join(
                 f"{k}={v:.2e}" for k, v in rels.items())
                 + f" | non-finite cells {n_bad} | iters kernel="
                 f"{g_k[-1].tolist()} plain={g_p[-1].tolist()} | {len(plans)} "
@@ -609,7 +740,7 @@ def fused_kernel_phase(card: str) -> dict:
         err[key] = max(err[key], golden[key])
 
     # Times at the main path's settings: 64², force, warm start, tol 1e-4;
-    # K3 also at maxiter 0 (the rest without the CG trips) and at batch 64.
+    # also at maxiter 0 (the rest without the CG trips) and at batch 64.
     domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device=dev)
     geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
     ops, cots = _fused_operands(rng, H, H, "warm", domain, dev)
@@ -623,10 +754,13 @@ def fused_kernel_phase(card: str) -> dict:
         return cuda_fluid.fused_step_backward(*args[0], *args[1], *geom, **flags,
                                               **dict(kw, maxiter=maxiter))
 
+    def fwd(maxiter=100, args=(state, ops)):
+        return cuda_fluid.fused_step_forward(*args[0], *geom, **args[1],
+                                             **dict(kw, maxiter=maxiter))
+
     timed = {
-        "fwd": (lambda: cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw),
-                lambda: cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
-                                                            **kw)),
+        "fwd": (fwd, lambda: cuda_fluid.fused_step_plain_forward(
+            *state, *geom, **ops, **kw)),
         "bwd": (bwd, lambda: cuda_fluid.fused_step_plain_backward(
             *state, *cots, *geom, **flags, **kw)),
     }
@@ -642,9 +776,9 @@ def fused_kernel_phase(card: str) -> dict:
     summary = {}
     for where, (kernel, plain) in timed.items():
         # Events over a host loop: the yardstick of every recorded K1-K3
-        # time. K3's graph replay, which leaves the host out, beside it.
+        # time. Graph replay, which leaves the host out, beside it.
         kernel_ms, plain_ms = _time_ms(kernel, 50), _time_ms(plain, 5)
-        graph_ms = _graph_ms(kernel, 20) if where == "bwd" else None
+        graph_ms = _graph_ms(kernel, 20)
         nbytes, flops = work[where]
         bound_ms, bound_by = _bound(nbytes + _geom_bytes(H, H), flops)
         iters = (out if where == "fwd" else grads)[-1]
@@ -657,20 +791,24 @@ def fused_kernel_phase(card: str) -> dict:
                               bound_ms=bound_ms, bound_by=bound_by)
         if graph_ms:
             summary[where]["graph_ms"] = graph_ms
-    plan = cuda_fluid.bwd_plan(BATCH, H, H, FUSED_STEP["max_shift"])
-    rest_ms = _time_ms(lambda: bwd(0), 50)
-    ops64, cots64 = _fused_operands(rng, H, H, "cold", domain, dev, batch=64)
+    ops64, cots64 = _fused_operands(rng, H, H, "warm", domain, dev, batch=64)
     state64 = (ops64.pop("vy"), ops64.pop("vx"), ops64.pop("rho"))
-    plan64 = cuda_fluid.bwd_plan(64, H, H, FUSED_STEP["max_shift"])
-    ms64 = _time_ms(lambda: bwd(args=(state64, cots64)), 50)
-    trips64 = bwd(args=(state64, cots64))[-1]
-    print(f"  K3 plan at {H}x{H}x{BATCH}: {_bwd_plan_text(plan)}; at maxiter 0 "
-          f"(no CG trip) {rest_ms:.4f} ms, so the trips take "
-          f"{summary['bwd']['ms'] - rest_ms:.4f} ms [{card}]")
-    print(f"  K3 at {H}x{H}x64 ({_bwd_plan_text(plan64)}; trips mean "
-          f"{float(trips64.float().mean()):.2f}): {ms64:.4f} ms per launch "
-          f"[{card}]")
-    summary["bwd"]["plan"] = dict(plan._asdict(), batch=BATCH)
+    for name, where, fn, args64, plan_of in (
+            ("K2", "fwd", fwd, (state64, ops64), cuda_fluid.fwd_plan),
+            ("K3", "bwd", bwd, (state64, cots64),
+             lambda b, h, w: cuda_fluid.bwd_plan(b, h, w, FUSED_STEP["max_shift"]))):
+        plan = plan_of(BATCH, H, H)
+        # By graph replay: at maxiter 0 a host loop times the enqueue.
+        rest_ms = _graph_ms(lambda: fn(0), 20)
+        ms64 = _time_ms(lambda: fn(args=args64), 50)
+        trips64 = fn(args=args64)[-1]
+        print(f"  {name} plan at {H}x{H}x{BATCH}: {_plan_text(plan)}; at maxiter "
+              f"0 (no CG trip) {rest_ms:.4f} ms by graph replay, so the trips "
+              f"take {summary[where]['graph_ms'] - rest_ms:.4f} ms [{card}]")
+        print(f"  {name} at {H}x{H}x64 ({_plan_text(plan_of(64, H, H))}; trips "
+              f"mean {float(trips64.float().mean()):.2f}): {ms64:.4f} ms per "
+              f"launch [{card}]")
+        summary[where]["plan"] = dict(plan._asdict(), batch=BATCH)
     return summary
 
 
@@ -1183,7 +1321,7 @@ def main() -> None:
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
                   for key in ("ms", "plain_ms", "bound_ms")}
     k1_summary.update(err=max(s["err"] for s in k1.values()),
-                      bound_by=k1["warm"]["bound_by"])
+                      bound_by=k1["warm"]["bound_by"], plan=k1["cold"]["plan"])
     kernels = [
         entry("pcg_pressure_solve", "pde_control_tpu_torch/csrc/pcg.cu",
               "pde_control_tpu/ops/pallas_cg.py:180", unfused_launches["K1"],

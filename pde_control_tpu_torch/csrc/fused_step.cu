@@ -2,31 +2,30 @@
 //
 // Replaces the TPU kernels pde_control_tpu/ops/pallas_fluid.py ::
 // _make_fused_step._forward (body _fwd_kernel) and ._backward (body
-// _bwd_kernel), and computes what they compute for each batch sample:
+// _bwd_kernel), and computes what they compute for each batch sample, on
+// one thread-block cluster of C blocks per sample:
 //
-//   fused_fwd_kernel (K2, one thread block per sample): shift advection of
-//     the density and of both MAC velocity components (the clipped,
-//     edge-clamped (2k+2)^2 hat window of _advect_window), inflow, force,
-//     buoyancy, the wall and obstacle masks, the divergence, the warm or
-//     cold PCG pressure solve (pcg_core.cuh), and the closed-wall
-//     pressure-gradient correction;
-//   fused_bwd_kernel (K3, one thread-block cluster of C blocks per sample):
-//     the hand-written VJP: a cold transpose solve on the pressure
-//     cotangent (pcg_cluster.cuh), the stencil and face/centre adjoints,
-//     and the three window adjoints with JAX's tie rules (d|x|/dx = +1 at
-//     x = 0, the hat's and the clip's derivatives 0.5 at their kinks). The
-//     displacements are recomputed from the step's inputs; nothing else is
-//     saved between the directions.
+//   fused_fwd_kernel (K2): shift advection of the density and of both MAC
+//     velocity components (the clipped, edge-clamped (2k+2)^2 hat window of
+//     _advect_window), inflow, force, buoyancy, the wall and obstacle
+//     masks, the divergence, the warm or cold PCG pressure solve
+//     (pcg_cluster.cuh), and the closed-wall pressure-gradient correction;
+//   fused_bwd_kernel (K3): the hand-written VJP: a cold transpose solve on
+//     the pressure cotangent (pcg_cluster.cuh), the stencil and face/centre
+//     adjoints, and the three window adjoints with JAX's tie rules (d|x|/dx
+//     = +1 at x = 0, the hat's and the clip's derivatives 0.5 at their
+//     kinks). The displacements are recomputed from the step's inputs;
+//     nothing else is saved between the directions.
 //
-// Design for the card. All intermediates live in shared memory: K2 holds
-// seven field-sized slots and the preconditioner's basis (133,376 bytes at
-// 64^2, fused_shared_bytes below; ops/cuda_fluid.py :: shared_bytes counts
-// the same). K3's rank c of C owns a band of rows (pcg_cluster.cuh :: Band)
-// and holds the basis, three whole-field copies for the solve (the
-// residual, the scaled spectrum, A d), its band's iterates, and for the
-// window adjoints its band widened by k + 1 rows (bwd_layout below; 94,208
-// bytes at 64^2 and C = 8, the plan at batch 8; ops/cuda_fluid.py ::
-// bwd_shared_bytes). The step's inputs are read-only
+// Design for the card. Rank c of C owns a band of rows (pcg_cluster.cuh ::
+// Band) and keeps everything in shared memory: the basis, three whole-field
+// copies for the solve (the residual, the scaled spectrum, A d) and its
+// band's iterates; K2 also its band's advected velocities, the density one
+// row beyond the band each side and the row of the pressure above it
+// (fwd_layout below; 99,360 bytes at 64^2 and C = 8, the plan at batch 8;
+// ops/cuda_fluid.py :: fwd_shared_bytes); K3 for the window adjoints its
+// band widened by k + 1 rows (bwd_layout; 94,208 bytes at 64^2 and C = 8;
+// ops/cuda_fluid.py :: bwd_shared_bytes). The step's inputs are read-only
 // for the whole launch and are read from global memory through L1 (__ldg),
 // with clamped indices standing in for the edge padding; everything the
 // kernels compute themselves (the divergence, the masked velocity, the
@@ -45,23 +44,22 @@
 // Non-finite values. The plain version multiplies every tap, so a NaN or
 // an infinity anywhere in a window (0 * inf is NaN) makes the window's
 // result NaN. A sample whose inputs or window cotangents hold a non-finite
-// value therefore sums every tap (`dense`, one vote over the block or the
-// cluster), and the clip and the hat pass NaN through as torch.clamp does.
-// The non-finite cells of the outputs are then the plain version's, so a
+// value therefore sums every tap (`dense`, one vote over the cluster), and
+// the clip and the hat pass NaN through as torch.clamp does. The
+// non-finite cells of the outputs are then the plain version's, so a
 // diverged state still gives non-finite gradients and the training step
 // skips its update.
 //
-// What bounds them: latency. K2 keeps one block per sample, B of the card's
-// 132 SMs, and its solve is a chain of about ten barriers per CG trip
-// around four 64x64x64 fp32 basis products (ROADMAP B-next 3 moves it onto
-// the cluster core). K3 spreads a sample over C SMs (C up to 16, chosen by
-// ops/cuda_fluid.py :: bwd_plan to fill the card): a CG trip's products and
-// stencil are 1/C of the work, around three cluster barriers, and the window
-// adjoints run on C SMs with no exchange after the solve but one pull of the
-// solution's neighbouring rows. Each kernel is one launch per direction
-// with no host round trip. The launch bounds allow one block per SM, which
-// leaves each thread of a 512-thread block up to 128 registers (with the
-// thread bound alone, ptxas held the old K3 to 64 and spilled).
+// What bounds them: latency. A sample spreads over C SMs (C up to 16,
+// chosen by ops/cuda_fluid.py :: fwd_plan and bwd_plan to fill the card):
+// a CG trip's products and stencil are 1/C of the work, around three
+// cluster barriers, and the windows and their adjoints run on C SMs with no
+// exchange but one push of the pressure's edge row (K2) or one pull of the
+// solution's neighbouring rows (K3). Each kernel is one launch per
+// direction with no host round trip. The launch bounds allow one block per
+// SM, which leaves each thread of a 512-thread block up to 128 registers;
+// K3's solve is a function of its own (not inlined), so that its registers
+// and the window adjoints' are allocated apart.
 //
 // Floating-point contraction. nvcc contracts a*b+c into an FMA by default,
 // which rounds once instead of twice. A displacement that moved by one
@@ -75,9 +73,6 @@
 #include "pcg_cluster.cuh"
 
 namespace {
-
-constexpr int kSlots = 7;  // K2's field-sized shared slots before the basis
-constexpr size_t kMaxSharedBytes = 232448;  // a block's on the H100
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
@@ -146,14 +141,6 @@ struct Step {
     dx = __fmul_rn(s, __ldg(vx + i * (w + 1) + j));
   }
 };
-
-// Whether any of the n values at p (global, read-only) is not finite, over
-// the entries this thread owns.
-__device__ bool any_nonfinite(const float* p, int n) {
-  bool bad = false;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) bad |= !isfinite(__ldg(p + idx));
-  return bad;
-}
 
 // _advect_window at one output cell (i, j) of an m x n field f (global,
 // read-only): sum over oy, ox in [-k, k+1] of
@@ -331,29 +318,6 @@ __device__ __forceinline__ float to_x_faces_T(const float* g, int base, int i,
   return v;
 }
 
-// Floats of one field-sized slot of K2: the larger face grid.
-__host__ __device__ inline int slot_floats(int h, int w) {
-  return (h + 1) * w > h * (w + 1) ? (h + 1) * w : h * (w + 1);
-}
-
-struct Layout {
-  float* slot[kSlots + 1];  // slot[kSlots] starts the basis region
-  CgBuffers cg;
-  float* reduce;
-};
-
-// K2: slots 0-4 are the CG's x, r, d, z, t; slots 5 and 6 are the kernel's.
-__device__ Layout make_layout(float* smem, int h, int w) {
-  Layout l;
-  const int len = slot_floats(h, w);
-  for (int i = 0; i <= kSlots; ++i) l.slot[i] = smem + i * len;
-  l.cg = CgBuffers{l.slot[0], l.slot[1], l.slot[2], l.slot[3], l.slot[4],
-                   l.slot[kSlots],
-                   h == w ? l.slot[kSlots] : l.slot[kSlots] + h * (h + 1)};
-  l.reduce = l.slot[kSlots] + basis_floats(h, w);
-  return l;
-}
-
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
@@ -364,8 +328,8 @@ __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 // and, once the solve is done, the window phase's share the rest.
 // ops/cuda_fluid.py :: bwd_shared_bytes counts the same.
 struct BwdLayout {
-  int red, best;                                   // persistent
-  int qy, g1, g2, ga, x, d, z, t, zh, part;        // the solve
+  int red, best;  // persistent
+  CgOffsets cg;   // the solve
   int gdiv, gvy2, gvx2, grho, off, wy0, wy1, wx0, wx1, gvyc, gvxc, tmp;
   int total;
 };
@@ -379,16 +343,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
   l.red = take(kRedFloats);
   l.best = take(R * w);
   const int shared = o;
-  l.qy = take(basis_floats(h, w));
-  l.g1 = take(h * w);
-  l.g2 = take(h * w);
-  l.ga = take(h * w);
-  l.x = take(R * w);
-  l.d = take((R + 2) * w);
-  l.z = take(R * w);
-  l.t = take(R * w);
-  l.zh = take(2 * w);
-  l.part = take(8 * T);
+  l.cg = take_cg(o, h, w, R, T);
   const int solve_end = o;
   o = shared;
   l.gdiv = take(imin(R + 2 * E + 2, h) * w);
@@ -408,7 +363,115 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
   return l;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// Offsets (floats) into one rank's shared memory in K2, for H x W cells,
+// cluster size C and T threads: the reduction area, the solve's buffers
+// (take_cg), then the step's fields on the band: vy3 on y-faces [a, b + 1),
+// vx3 on rows [a, b), rho1 on rows [a - 1, b + 1) clipped to the grid, and
+// the row of p above the band. A band has at most R = ceil(H / C) rows.
+// ops/cuda_fluid.py :: fwd_shared_bytes counts the same.
+struct FwdLayout {
+  CgOffsets cg;
+  int vy3, vx3, rho1, ph;
+  int total;
+};
+
+__host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T) {
+  FwdLayout l;
+  const int R = (h + C - 1) / C;
+  int o = align4(kRedFloats);
+  l.cg = take_cg(o, h, w, R, T);
+  auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
+  l.vy3 = take((R + 1) * w);
+  l.vx3 = take(R * (w + 1));
+  l.rho1 = take(imin(R + 2, h) * w);
+  l.ph = take(w);
+  l.total = o;
+  return l;
+}
+
+// K2's warm solve on this rank's band, the divergence in its rows of the
+// residual buffer: returns the trip count, leaves the best iterate's band
+// in p (global, the sample's (H, W) field) and the reducer's parity in
+// `parity`.
+template <int kT>
+__device__ __forceinline__ int fwd_solve(const Geometry g, const float* x0,
+                                      float* p, float tol, int maxiter,
+                                      int& parity) {
+  extern __shared__ __align__(16) float smem_fwd[];
+  float* smem = smem_fwd;
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const Band bd(static_cast<int>(cluster.block_rank()), C, g.h, g.w);
+  ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
+                         reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
+                         parity};
+  const ClusterCg cg =
+      cluster_cg(smem, fwd_layout(g.h, g.w, C, kT).cg, g.h, g.w);
+  const int trips = pcg_cluster<kT, false>(cg, g, bd, x0, p + bd.a * g.w, tol,
+                                           maxiter, true, red);
+  parity = red.parity;
+  return trips;
+}
+
+// K2's pressure correction on this rank's band, after the solve left the
+// best iterate's band in p_out: the rank pushes the last row of its p to
+// the rank below, whose first y-face needs it, and after one cluster
+// barrier corrects its own faces (_pgrad_closed: v4 = v3 - acc * grad p,
+// zero on the walls). It finds its band again from the launch, so that
+// nothing of the windows stays live across the solve: with those values
+// kept live the kernel spilled.
+template <int kT>
+__device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
+                                         float* vy4, float* vx4,
+                                         float* p_out) {
+  extern __shared__ __align__(16) float smem_fwd[];
+  float* smem = smem_fwd;
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int h = g.h, w = g.w;
+  const int ny = (h + 1) * w, nx = h * (w + 1);
+  const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
+  const int a = bd.a, b1 = bd.b, R = bd.rows(), yb = bd.yb();
+  const size_t b = blockIdx.x / C;
+  const FwdLayout L = fwd_layout(h, w, C, kT);
+  const float* vy3 = smem + L.vy3;  // y-faces [a, b1 + 1)
+  const float* vx3 = smem + L.vx3;  // rows [a, b1)
+  const float* p = p_out + b * h * w;
+  float* ph = smem + L.ph;  // the row of p above the band
+  __syncthreads();  // the best iterate's band complete in p
+  if (bd.rank < C - 1)
+    for (int j = threadIdx.x; j < w; j += kT)
+      cluster.map_shared_rank(ph, bd.rank + 1)[j] = p[(b1 - 1) * w + j];
+  cluster.sync();
+  for (int t = threadIdx.x; t < (yb - a) * w; t += kT) {
+    const int idx = a * w + t;
+    const int i = idx / w, j = idx - (idx / w) * w;
+    float gy = 0.f;
+    if (i > 0 && i < h) gy = (p[idx] - (i == a ? ph[j] : p[idx - w])) / dx;
+    vy4[b * ny + idx] = vy3[t] - gy * __ldg(g.acc_y + idx);
+  }
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT) {
+    const int idx = a * (w + 1) + t;
+    const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
+    const float gx =
+        (j > 0 && j < w) ? (p[i * w + j] - p[i * w + j - 1]) / dx : 0.f;
+    vx4[b * nx + idx] = vx3[t] - gx * __ldg(g.acc_x + idx);
+  }
+}
+
+// K2 for one sample on a cluster of C blocks (the launch's cluster size);
+// rank c owns the rows of Band. The windows read only the step's inputs,
+// so each rank computes what its band needs without exchange: rho1 on its
+// rows and one more each side (buoyancy on y-face i reads rho1 at rows
+// i - 1 and i), vy3 on y-faces [a, b + 1) (the divergence of row b - 1
+// reads face b), vx3 on its rows; a row outside the band comes out as the
+// same bits its owner computes. After the solve each rank pushes the last
+// row of its p to the rank below, whose first y-face needs it, and after
+// one cluster barrier corrects its own faces. Each rank writes its own rows
+// of the outputs. The solve and the correction are inlined: with either as
+// a function of its own, as K3's solve is, the kernel spilled.
+template <int kT>
+__global__ void __launch_bounds__(kT, 1)
 fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ q_x, const float* __restrict__ fy,
                  const float* __restrict__ fx,
@@ -416,80 +479,86 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ x0, float* vy4, float* vx4,
                  float* rho1_out, float* p_out, int* iters, float tol,
                  int maxiter) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem_fwd[];
+  float* smem = smem_fwd;
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
   const int h = g.h, w = g.w, hw = h * w;
   const int ny = (h + 1) * w, nx = h * (w + 1);
-  const size_t b = blockIdx.x;
+  const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
+  const int a = bd.a, b1 = bd.b, R = bd.rows(), yb = bd.yb();
+  const size_t b = blockIdx.x / C;
   st.vy += b * ny;
   st.vx += b * nx;
   st.rho += b * hw;
-  Layout l = make_layout(smem, h, w);
-  Reducer red{l.reduce};
-  float* rho1 = l.slot[0];  // until the solve claims it as x
-  float* vy3 = l.slot[5];
-  float* vx3 = l.slot[6];
-  float* p = p_out + b * hw;
-  load_basis(l.cg, q_y, q_x, h, w);
-  const bool dense = __syncthreads_or(any_nonfinite(st.vy, ny) ||
-                                      any_nonfinite(st.vx, nx) ||
-                                      any_nonfinite(st.rho, hw));
+  const FwdLayout L = fwd_layout(h, w, C, kT);
+  load_basis_t<kT>(cluster_cg(smem, L.cg, h, w), q_y, q_x, h, w);
+  ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
+                         reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
+  // A non-finite input anywhere in the sample makes every window sum all
+  // its taps: one vote over the cluster.
+  bool bad = false;
+  for (int t = threadIdx.x; t < (yb - a) * w; t += kT)
+    bad |= !isfinite(__ldg(st.vy + a * w + t));
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT)
+    bad |= !isfinite(__ldg(st.vx + a * (w + 1) + t));
+  for (int t = threadIdx.x; t < R * w; t += kT)
+    bad |= !isfinite(__ldg(st.rho + a * w + t));
+  const bool dense = red.sum(bd, bad ? 1.f : 0.f) > 0.f;
 
-  // Phase A (_phase_a): density advected by the centred velocity.
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
+  // Phase A (_phase_a): density advected by the centred velocity, on cell
+  // rows [r0, r1).
+  float* rho1 = smem + L.rho1;
+  const int r0 = imax(a - 1, 0), r1 = imin(b1 + 1, h);
+  for (int t = threadIdx.x; t < (r1 - r0) * w; t += kT) {
+    const int idx = r0 * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
     float dy, dx;
     st.disp_rho(i, j, dy, dx);
     float v = window(st.rho, h, w, i, j, dy, dx, st.k, dense);
     if (inflow != nullptr) v += st.dt * __ldg(inflow + b * hw + idx);
-    rho1[idx] = v;
-    rho1_out[b * hw + idx] = v;
+    rho1[t] = v;
+    if (i >= a && i < b1) rho1_out[b * hw + idx] = v;
   }
   __syncthreads();
   // Self-advection of each velocity component, force, buoyancy, masks.
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
+  float* vy3 = smem + L.vy3;  // y-faces [a, b1 + 1)
+  for (int t = threadIdx.x; t < (R + 1) * w; t += kT) {
+    const int idx = a * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
     float dy, dx;
     st.disp_vy(i, j, dy, dx);
     float v = window(st.vy, h + 1, w, i, j, dy, dx, st.k, dense);
     if (fy != nullptr) v += st.dt * __ldg(fy + b * ny + idx);
     if (st.buoy)
-      v += st.dt_buoy *
-           (0.5f * (rho1[max(i - 1, 0) * w + j] + rho1[min(i, h - 1) * w + j]));
-    vy3[idx] = v * __ldg(g.acc_y + idx);
+      v += st.dt_buoy * (0.5f * (rho1[(imax(i - 1, 0) - r0) * w + j] +
+                                 rho1[(imin(i, h - 1) - r0) * w + j]));
+    vy3[t] = v * __ldg(g.acc_y + idx);
   }
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
+  float* vx3 = smem + L.vx3;  // rows [a, b1)
+  for (int t = threadIdx.x; t < R * (w + 1); t += kT) {
+    const int idx = a * (w + 1) + t;
     const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
     float dy, dx;
     st.disp_vx(i, j, dy, dx);
     float v = window(st.vx, h, w + 1, i, j, dy, dx, st.k, dense);
     if (fx != nullptr) v += st.dt * __ldg(fx + b * nx + idx);
-    vx3[idx] = v * __ldg(g.acc_x + idx);
+    vx3[t] = v * __ldg(g.acc_x + idx);
   }
   __syncthreads();
-  // The divergence is the solve's `div`, in r.
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads) {
-    const int i = idx / w, j = idx - (idx / w) * w;
-    const float* row = vx3 + i * (w + 1) + j;
-    l.cg.r[idx] =
-        ((vy3[idx + w] - vy3[idx]) + (row[1] - row[0])) / st.dx;
+  // The divergence is the solve's `div`, in the band of its residual
+  // buffer; the solve reads each entry in the thread that wrote it.
+  float* div = smem + L.cg.g1 + a * w;
+  for (int t = threadIdx.x; t < R * w; t += kT) {
+    const float* row = vx3 + (t / w) * (w + 1) + (t - (t / w) * w);
+    div[t] = ((vy3[t + w] - vy3[t]) + (row[1] - row[0])) / st.dx;
   }
-  const int trips = pcg_core(l.cg, g, x0 == nullptr ? nullptr : x0 + b * hw,
-                             p, tol, maxiter, true, red);
-  __syncthreads();  // p complete
-  // _pgrad_closed: v4 = v3 - acc * grad p, zero on the walls.
-  for (int idx = threadIdx.x; idx < ny; idx += kThreads) {
-    const int i = idx / w;
-    const float gy = (i > 0 && i < h) ? (p[idx] - p[idx - w]) / st.dx : 0.f;
-    vy4[b * ny + idx] = vy3[idx] - gy * __ldg(g.acc_y + idx);
-  }
-  for (int idx = threadIdx.x; idx < nx; idx += kThreads) {
-    const int i = idx / (w + 1), j = idx - (idx / (w + 1)) * (w + 1);
-    const float gx = (j > 0 && j < w)
-                         ? (p[i * w + j] - p[i * w + j - 1]) / st.dx
-                         : 0.f;
-    vx4[b * nx + idx] = vx3[idx] - gx * __ldg(g.acc_x + idx);
-  }
-  if (threadIdx.x == 0) iters[b] = trips;
+  int parity = red.parity;
+  const int trips = fwd_solve<kT>(g, x0 == nullptr ? nullptr : x0 + b * hw,
+                                  p_out + b * hw, tol, maxiter, parity);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0)
+    iters[blockIdx.x / C] = trips;
+  fwd_correct<kT>(g, st.dx, vy4, vx4, p_out);
 }
 
 // K3's rhs and transpose solve on this rank's band: returns the trip count
@@ -515,10 +584,7 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
   const BwdLayout L = bwd_layout(h, w, C, kT, k);
-  const ClusterCg cgb{smem + L.g1, smem + L.g2, smem + L.ga, smem + L.x,
-                      smem + L.d,  smem + L.z,  smem + L.t,  smem + L.zh,
-                      smem + L.part, smem + L.qy,
-                      h == w ? smem + L.qy : smem + L.qy + h * (h + 1)};
+  const ClusterCg cgb = cluster_cg(smem, L.cg, h, w);
   load_basis_t<kT>(cgb, q_y, q_x, h, w);
   // Projection backward: cot_p = g_p + div(acc * g_v4); the transpose solve
   // runs cold on -cot_p, so its `div` is -cot_p.
@@ -532,8 +598,8 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
                       g_vx4[fx_] * __ldg(g.acc_x + fx_);
     cgb.g1[idx] = -(g_p[idx] + (dvy + dvx) / dx);
   }
-  const int trips =
-      pcg_cluster<kT, kTrace>(cgb, g, bd, smem + L.best, tol, maxiter, red);
+  const int trips = pcg_cluster<kT, kTrace>(cgb, g, bd, nullptr, smem + L.best,
+                                            tol, maxiter, true, red);
   parity = red.parity;
   return trips;
 }
@@ -790,70 +856,63 @@ Step make_step(const float* vy, const float* vx, const float* rho, int h,
   return Step{vy, vx, rho, h, w, s, dt, dx, dt_buoy, buoy != 0, k};
 }
 
-// K3's threads per block: the only count the launcher takes (256 was slower
-// at every cluster size, PERF.md).
-constexpr int kBwdThreads = 512;
 // Whether K3 launches run the instantiation with the CG trip's profile
 // (fused_bwd_trace).
 bool bwd_traced = false;
 
-// The launch of K3 for a plan: the kernel, its attributes set, and the configuration (grid batch x cluster, the cluster dimension,
-// the shared memory). cudaErrorInvalidValue for a plan it cannot run.
-cudaError_t bwd_config(int batch, int h, int w, int k, int cluster,
-                       int threads, void* stream, cudaLaunchConfig_t& cfg,
-                       cudaLaunchAttribute& attr,
-                       void (*&kernel)(Step, Geometry, const float*,
-                                       const float*, const float*,
-                                       const float*, const float*,
-                                       const float*, float*, float*, float*,
-                                       float*, float*, float*, int*, float,
-                                       int)) {
-  const bool size_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
-                       cluster == 8 || cluster == 16;
-  const size_t bytes =
-      static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
-      sizeof(float);
-  if (!size_ok || cluster > kMaxCluster || cluster > h || batch < 1 || k < 0 ||
-      threads != kBwdThreads || bytes > kMaxSharedBytes)
-    return cudaErrorInvalidValue;
-  kernel = bwd_traced ? fused_bwd_kernel<kBwdThreads, true>
-                      : fused_bwd_kernel<kBwdThreads, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(batch * cluster);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaSuccess;
+using BwdKernel = void (*)(Step, Geometry, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, float*, float*, float*, float*,
+                           float*, float*, int*, float, int);
+
+BwdKernel bwd_kernel() {
+  return bwd_traced ? fused_bwd_kernel<kClusterThreads, true>
+                    : fused_bwd_kernel<kClusterThreads, false>;
+}
+
+using FwdKernel = void (*)(Step, Geometry, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const float*, float*, float*, float*, float*, int*,
+                           float, int);
+
+// K2's kernel: 512 threads a block.
+FwdKernel fwd_kernel() { return fused_fwd_kernel<kClusterThreads>; }
+
+size_t fwd_bytes(int h, int w, int cluster, int threads) {
+  return static_cast<size_t>(fwd_layout(h, w, cluster, threads).total) *
+         sizeof(float);
+}
+
+size_t bwd_bytes(int h, int w, int cluster, int threads, int k) {
+  return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
+         sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block of either kernel needs: seven
-// field-sized slots, the basis region and the reduction slots.
-// ops/cuda_fluid.py :: shared_bytes mirrors this count.
-size_t fused_shared_bytes(int h, int w) {
-  const size_t floats = static_cast<size_t>(kSlots) * slot_floats(h, w) +
-                        basis_floats(h, w) + kSlotFloats;
-  return floats * sizeof(float);
+// Bytes of dynamic shared memory one rank of K2 needs (fwd_layout).
+// ops/cuda_fluid.py :: fwd_shared_bytes mirrors this count.
+size_t fused_fwd_shared_bytes(int h, int w, int cluster, int threads) {
+  return fwd_bytes(h, w, cluster, threads);
 }
 
-// K2 for `batch` samples on `stream`. fy/fx, inflow and x0 may be null
-// (no force, no inflow, cold solve). Returns the cudaError_t of the launch.
+// How many clusters of K2 under this plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
+// or of a plan the launcher would refuse.
+int fused_fwd_max_clusters(int h, int w, int cluster, int threads) {
+  return max_active_clusters(fwd_kernel(), h, cluster, threads,
+                             fwd_bytes(h, w, cluster, threads));
+}
+
+// K2 for `batch` samples on `stream`, one cluster of `cluster` blocks of
+// `threads` threads per sample. fy/fx, inflow and x0 may be null (no
+// force, no inflow, cold solve). Returns the cudaError_t of the launch:
+// cudaErrorInvalidValue, with nothing launched, for a plan the kernel
+// cannot run (a cluster size other than 1, 2, 4, 8, 16 or above H, a
+// thread count other than 512, or more shared memory than a block may
+// have).
 int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* fy, const float* fx, const float* inflow,
                        const float* x0, const float* acc_y, const float* acc_x,
@@ -862,16 +921,20 @@ int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
                        float* rho1, float* p, int* iters, int batch, int h,
                        int w, float dx, float s, float dt, float dt_buoy,
                        int buoy, int k, int closed, float tol, int maxiter,
-                       void* stream) {
-  const size_t bytes = fused_shared_bytes(h, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+                       int cluster, int threads, void* stream) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const FwdKernel kernel = fwd_kernel();
+  cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
+                                   fwd_bytes(h, w, cluster, threads), stream,
+                                   cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
-  fused_fwd_kernel<<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k), g, q_y, q_x,
-      fy, fx, inflow, x0, vy4, vx4, rho1, p, iters, tol, maxiter);
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
+      g, q_y, q_x, fy, fx, inflow, x0, vy4, vx4, rho1, p, iters, tol, maxiter);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -889,27 +952,16 @@ int fused_bwd_trace(unsigned long long* clocks) {
 // Bytes of dynamic shared memory one rank of K3 needs (bwd_layout).
 // ops/cuda_fluid.py :: bwd_shared_bytes mirrors this count.
 size_t fused_bwd_shared_bytes(int h, int w, int cluster, int threads, int k) {
-  return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
-         sizeof(float);
+  return bwd_bytes(h, w, cluster, threads, k);
 }
 
 // How many clusters of K3 under this plan the card can hold at once
 // (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
 // or of a plan the launcher would refuse.
 int fused_bwd_max_clusters(int h, int w, int cluster, int threads, int k) {
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  void (*kernel)(Step, Geometry, const float*, const float*, const float*,
-                 const float*, const float*, const float*, float*, float*,
-                 float*, float*, float*, float*, int*, float, int);
-  cudaError_t err = bwd_config(1, h, w, k, cluster, threads, nullptr, cfg,
-                               attr, kernel);
-  if (err == cudaSuccess) {
-    int n = 0;
-    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-    if (err == cudaSuccess) return n;
-  }
-  return -static_cast<int>(err);
+  if (k < 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_active_clusters(bwd_kernel(), h, cluster, threads,
+                             bwd_bytes(h, w, cluster, threads, k));
 }
 
 // K3 for `batch` samples on `stream`, one cluster of `cluster` blocks of
@@ -929,13 +981,13 @@ int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
                        float dt, float dt_buoy, int buoy, int k, int closed,
                        float tol, int maxiter, int cluster, int threads,
                        void* stream) {
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  void (*kernel)(Step, Geometry, const float*, const float*, const float*,
-                 const float*, const float*, const float*, float*, float*,
-                 float*, float*, float*, float*, int*, float, int);
-  cudaError_t err = bwd_config(batch, h, w, k, cluster, threads, stream, cfg,
-                               attr, kernel);
+  const BwdKernel kernel = bwd_kernel();
+  cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
+                                   bwd_bytes(h, w, cluster, threads, k),
+                                   stream, cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
   err = cudaLaunchKernelEx(

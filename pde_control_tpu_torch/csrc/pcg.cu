@@ -2,89 +2,128 @@
 //
 // Replaces the TPU kernel pde_control_tpu/ops/pallas_cg.py ::
 // pallas_pressure_solve (body _pcg_kernel -> pcg_core) and computes what
-// pcg_core computes, for one (H, W) system per batch sample. The loop itself
-// is pcg_core.cuh :: pcg_core, which the fused fluid-step kernels share;
-// its header states the operator, the preconditioner and the exit rule.
+// pcg_core computes, for one (H, W) system per batch sample: the CG loop of
+// pcg_cluster.cuh, whose header states the operator, the preconditioner,
+// the warm start and the exit rule.
 //
-// Design for the card. One thread block solves one sample and runs the
-// whole CG loop, so there is no host synchronisation and no launch per
-// iteration. All CG state lives in shared memory: x, r, d, one buffer
-// shared by A d and z, one buffer for the intermediate of the basis
-// products, and the basis Q (one copy when H == W; Q^T is read by index
-// from a row stride of n+1, which keeps the transposed reads free of bank
-// conflicts). Masks and 1/lambda are read from global memory through L1,
-// and the best iterate is written straight to the output whenever the
-// residual improves. At 64^2 that is 98,816 bytes of shared memory per
-// block (cuda_solve_fits in ops/cuda_cg.py computes the same count).
+// Design for the card. One thread-block cluster of C blocks solves one
+// sample (ops/cuda_cg.py :: solve_plan picks C, up to 16, to fill the
+// card), so a batch of 8 runs on 8C SMs and not on 8. Rank c owns a band
+// of rows (pcg_cluster.cuh :: Band) and holds the basis, three whole-field
+// copies (the residual, the scaled spectrum, A d) and its band's iterates
+// in shared memory (solve_layout below; 92,160 bytes at 64^2 and C = 8;
+// ops/cuda_cg.py :: solve_shared_bytes counts the same). The whole loop,
+// its per-sample exit included, runs on the card: no host round trip and
+// no launch per trip. The best iterate's band goes straight to the output
+// whenever the residual improves.
 //
-// What bounds it: latency. B blocks occupy B of the card's 132 SMs, and
-// one iteration is a chain of about ten block-wide barriers around four
-// 64x64x64 fp32 basis products, which each SM runs from shared memory at
-// its load bandwidth (each thread computes a 4x2 tile of outputs, six
-// shared loads per eight FMAs). Splitting a sample across a thread-block
-// cluster, or packing several samples per block at large batch, are the
-// next steps; this version is the plain one.
+// What bounds it: latency. A trip is four fp32 basis products of 1/C of
+// the work and the stencil around three cluster barriers; at 64^2 it is
+// far below the card's operation and byte rates (PERF.md).
 //
 // The products run in fp32 FMA (the TPU kernel fed bf16 to its MXU), so
 // trip counts match the fp32 'pcg' path of the port.
 
-#include "pcg_core.cuh"
+#include "pcg_cluster.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
-pcg_kernel(const float* __restrict__ div, const float* __restrict__ x0,
-           Geometry g, const float* __restrict__ q_y,
-           const float* __restrict__ q_x, float* __restrict__ out,
-           int* __restrict__ iters, float tol, int maxiter, bool precond) {
-  extern __shared__ float smem[];
-  const int h = g.h, w = g.w, hw = h * w;
-  CgBuffers cg;
-  cg.x = smem;
-  cg.r = cg.x + hw;
-  cg.d = cg.r + hw;
-  cg.z = cg.d + hw;
-  cg.t = cg.z + hw;
-  cg.qy = cg.t + hw;
-  cg.qx = h == w ? cg.qy : cg.qy + h * (h + 1);
-  Reducer red{cg.qy + basis_floats(h, w)};
+// Offsets (floats) into one rank's shared memory: the reduction area, then
+// the solve's buffers for bands of at most ceil(H / C) rows.
+struct SolveLayout {
+  CgOffsets cg;
+  int total;
+};
 
-  const size_t off = static_cast<size_t>(blockIdx.x) * hw;
-  if (precond) load_basis(cg, q_y, q_x, h, w);
-  for (int idx = threadIdx.x; idx < hw; idx += kThreads)
-    cg.r[idx] = __ldg(div + off + idx);
-  const int k = pcg_core(cg, g, x0 == nullptr ? nullptr : x0 + off, out + off,
-                         tol, maxiter, precond, red);
-  if (threadIdx.x == 0) iters[blockIdx.x] = k;
+__host__ __device__ inline SolveLayout solve_layout(int h, int w, int C,
+                                                    int T) {
+  SolveLayout l;
+  int o = align4(kRedFloats);
+  l.cg = take_cg(o, h, w, (h + C - 1) / C, T);
+  l.total = o;
+  return l;
+}
+
+// K1 for one sample on a cluster of C blocks (the launch's cluster size).
+template <int kT>
+__global__ void __launch_bounds__(kT, 1)
+pcg_cluster_kernel(const float* __restrict__ div, const float* __restrict__ x0,
+                   Geometry g, const float* __restrict__ q_y,
+                   const float* __restrict__ q_x, float* __restrict__ out,
+                   int* __restrict__ iters, float tol, int maxiter,
+                   bool precond) {
+  extern __shared__ __align__(16) float smem_pcg[];
+  float* smem = smem_pcg;
+  auto cluster = cgrp::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int h = g.h, w = g.w;
+  const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
+  const size_t off = static_cast<size_t>(blockIdx.x / C) * h * w;
+  ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
+                         reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
+  const ClusterCg cg = cluster_cg(smem, solve_layout(h, w, C, kT).cg, h, w);
+  if (precond) load_basis_t<kT>(cg, q_y, q_x, h, w);
+  for (int t = threadIdx.x; t < bd.rows() * w; t += kT)
+    cg.g1[bd.a * w + t] = __ldg(div + off + bd.a * w + t);
+  const int k = pcg_cluster<kT, false>(cg, g, bd,
+                                       x0 == nullptr ? nullptr : x0 + off,
+                                       out + off + bd.a * w, tol, maxiter,
+                                       precond, red);
+  if (bd.rank == 0 && threadIdx.x == 0) iters[blockIdx.x / C] = k;
+}
+
+using PcgKernel = void (*)(const float*, const float*, Geometry, const float*,
+                           const float*, float*, int*, float, int, bool);
+
+// The kernel of every launch: 512 threads a block.
+PcgKernel pcg_kernel() { return pcg_cluster_kernel<kClusterThreads>; }
+
+size_t solve_bytes(int h, int w, int cluster, int threads) {
+  return static_cast<size_t>(solve_layout(h, w, cluster, threads).total) *
+         sizeof(float);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs; ops/cuda_cg.py ::
-// cuda_solve_fits mirrors this count.
-size_t pcg_shared_bytes(int h, int w) {
-  const size_t floats = 5 * static_cast<size_t>(h) * w + basis_floats(h, w) +
-                        kSlotFloats;
-  return floats * sizeof(float);
+// Bytes of dynamic shared memory one rank of K1 needs (solve_layout);
+// ops/cuda_cg.py :: solve_shared_bytes mirrors this count.
+size_t pcg_shared_bytes(int h, int w, int cluster, int threads) {
+  return solve_bytes(h, w, cluster, threads);
 }
 
-// Solves `batch` systems on `stream`. x0 may be null (cold start: x0 is
-// never read). Returns the cudaError_t of the launch.
+// How many clusters of K1 under this plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
+// or of a plan the launcher would refuse.
+int pcg_max_clusters(int h, int w, int cluster, int threads) {
+  return max_active_clusters(pcg_kernel(), h, cluster, threads,
+                             solve_bytes(h, w, cluster, threads));
+}
+
+// Solves `batch` systems on `stream`, one cluster of `cluster` blocks of
+// `threads` threads per system. x0 may be null (cold start: x0 is never
+// read). Returns the cudaError_t of the launch: cudaErrorInvalidValue, with
+// nothing launched, for a plan the kernel cannot run (a cluster size other
+// than 1, 2, 4, 8, 16 or above H, a thread count other than 512, or more
+// shared memory than a block may have).
 int pcg_solve_f32(const float* div, const float* x0, const float* acc_y,
                   const float* acc_x, const float* fluid, const float* q_y,
                   const float* q_x, const float* inv_lam, float* out,
                   int* iters, int batch, int h, int w, float dx, int closed,
-                  float tol, int maxiter, int precond, void* stream) {
-  const size_t bytes = pcg_shared_bytes(h, w);
-  cudaError_t err = cudaFuncSetAttribute(
-      pcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+                  float tol, int maxiter, int precond, int cluster,
+                  int threads, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const PcgKernel kernel = pcg_kernel();
+  cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
+                                   solve_bytes(h, w, cluster, threads), stream,
+                                   cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
-  pcg_kernel<<<batch, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      div, x0, g, q_y, q_x, out, iters, tol, maxiter, precond != 0);
+  err = cudaLaunchKernelEx(&cfg, kernel, div, x0, g, q_y, q_x, out, iters, tol,
+                           maxiter, precond != 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,22 @@
-// The masked, spectrally preconditioned CG loop of pcg_core.cuh, for one
-// system split over the C blocks (CTAs) of a thread-block cluster. K3
-// (fused_step.cu) runs its transpose solve on it; K1 and K2 still run
-// pcg_core.cuh, one block per system.
+// The masked, spectrally preconditioned CG loop of ops/pallas_cg.py ::
+// pcg_core, for one system split over the C blocks (CTAs) of a
+// thread-block cluster. K1 (pcg.cu) runs its solves on it, K2 and K3
+// (fused_step.cu) the step's warm solve and the transpose solve.
 //
-// It computes what pcg_core computes for a cold start (see that header):
-// the same operator, preconditioner, projection, per-system exit and best
-// iterate. The work is split by rows:
+// What it computes, for one (H, W) system per cluster:
+//
+//   A p = -div(acc * grad p) / dx^2 on fluid cells, p on solid cells;
+//   b   = project(where(fluid, -div, 0)), where project() removes the fluid
+//         mean on a closed domain (the operator's nullspace) and is the
+//         identity on an open one;
+//   M r = project(Q^T ((Q r Q^T) * inv_lam) Q), the exact inverse of the
+//         obstacle-free operator (DCT-II basis closed, DST-I open), or the
+//         identity without the preconditioner;
+//   x starts at project(where(fluid, x0, 0)) for a warm start, else 0;
+//   per-system exit at |r|^2/|b|^2 <= tol^2, a stop when |r|^2 reaches 4x
+//   the best seen, and the best iterate as the result.
+//
+// The work is split by rows:
 //
 //   Bands. Rank c owns cell rows [c*H/C, (c+1)*H/C) of every field; every
 //   rank owns at least one row (C <= H). Elementwise passes, the stencil
@@ -34,6 +45,8 @@
 //   by the owner of a row and by the neighbour that keeps it as a halo row,
 //   from the same operands (the projection of z applied to both alike), so
 //   both hold the same bits and the stencil needs no barrier of its own.
+//   The warm start's halo rows of x are read from x0 in global memory and
+//   projected with the same mean by owner and neighbour alike.
 //
 // A trip has three cluster barriers: d.Ad with the push of A d, the push of
 // the scaled spectrum, and r.z, r.r with the sums the projection of z
@@ -42,19 +55,43 @@
 // The products are fp32 on the CUDA cores (no TF32): each CTA holds the
 // whole basis and computes its band's rows, with K split over the threads
 // when the band is short and the slices added in order.
+//
+// Read-only loads (__ldg) are used only for what no kernel writes: the
+// geometry, the basis and the warm start. Everything the solve computes is
+// read with plain loads.
 
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "pcg_core.cuh"
-
 namespace {
 
 namespace cgrp = cooperative_groups;
 
+// The threads of a block of every cluster kernel (K1, K2, K3), the largest
+// cluster, and the shared memory a block may have on the H100.
+constexpr int kClusterThreads = 512;
 constexpr int kMaxCluster = 16;
+constexpr size_t kMaxSharedBytes = 232448;
+
+struct Geometry {
+  const float* acc_y;    // (H+1, W)
+  const float* acc_x;    // (H, W+1)
+  const float* fluid;    // (H, W)
+  const float* inv_lam;  // (H, W)
+  int h, w;
+  float inv_dx2;
+  bool closed;
+};
+
+// Floats of the basis: Q with a row stride of H+1 (Q^T is read by index;
+// the pad keeps transposed reads free of bank conflicts) and, when H != W,
+// the second basis with a row stride of W+1.
+__host__ __device__ inline int basis_floats(int h, int w) {
+  return h * (h + 1) + (h == w ? 0 : w * (w + 1));
+}
+
 // Floats of the reduction area at the start of a block's shared memory:
 // two slot sets of kMaxCluster float4 and a float4 per warp (16 warps).
 constexpr int kRedFloats = 2 * 4 * kMaxCluster + 4 * 16;
@@ -279,12 +316,45 @@ struct ClusterCg {
   float* t;     // (R, W)
   float* zh;    // (2, W): the neighbours' rows of z above and below the band
   float* part;  // 8 kT floats: the band products' slices
-  float* qy;    // the basis, padded rows, as CgBuffers holds it
+  float* qy;    // the basis, padded rows (basis_floats)
   float* qx;
 };
 
-// Copies the bases into the padded shared layout of load_basis, with this
-// block's threads. No barrier: the solve's first reduction provides one.
+// Offsets (floats) of ClusterCg's buffers in a rank's shared memory.
+struct CgOffsets {
+  int qy, g1, g2, ga, x, d, z, t, zh, part;
+};
+
+// Takes ClusterCg's buffers from offset o on (o is advanced past them),
+// each 16-byte aligned, for H x W cells, bands of at most R rows and T
+// threads. ops/cuda_cg.py :: _cg_floats counts the same.
+__host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
+                                             int T) {
+  auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
+  CgOffsets c;
+  c.qy = take(basis_floats(h, w));
+  c.g1 = take(h * w);
+  c.g2 = take(h * w);
+  c.ga = take(h * w);
+  c.x = take(R * w);
+  c.d = take((R + 2) * w);
+  c.z = take(R * w);
+  c.t = take(R * w);
+  c.zh = take(2 * w);
+  c.part = take(8 * T);
+  return c;
+}
+
+__device__ inline ClusterCg cluster_cg(float* smem, const CgOffsets& c, int h,
+                                       int w) {
+  return ClusterCg{smem + c.g1, smem + c.g2, smem + c.ga, smem + c.x,
+                   smem + c.d,  smem + c.z,  smem + c.t,  smem + c.zh,
+                   smem + c.part, smem + c.qy,
+                   h == w ? smem + c.qy : smem + c.qy + h * (h + 1)};
+}
+
+// Copies the bases into the padded shared layout, with this block's
+// threads. No barrier: the solve's first reduction provides one.
 template <int kT>
 __device__ void load_basis_t(const ClusterCg& cg, const float* __restrict__ q_y,
                              const float* __restrict__ q_x, int h, int w) {
@@ -319,8 +389,8 @@ __device__ void apply_a_band(const float* p, float* out, const Geometry& g,
   }
 }
 
-// z = Q^T ((Q r Q^T) * 1/lam) Q on the band (pcg_core.cuh's apply_m before
-// its projection), the residual whole in g1; the band's first and last rows
+// z = Q^T ((Q r Q^T) * 1/lam) Q on the band (M before its projection), the
+// residual whole in g1; the band's first and last rows
 // of z are pushed to the neighbours' halo rows, for the next cluster
 // barrier to publish. Ends with a block barrier.
 template <int kT, bool kTrace>
@@ -354,13 +424,29 @@ __device__ void apply_m_band(const ClusterCg& cg, const Geometry& g,
   }
 }
 
-// The projection of z (closed domains: the fluid mean mu removed on fluid
-// cells) and the scalars of one CG step, from one cluster reduction of
-// r.z, r.r, fluid.z and fluid.r over the bands: r.z' = r.z - mu fluid.r.
-// Projects the band and its halo rows in place. Returns (r.z', r.r).
+// z = r without the preconditioner: the band from the whole residual in g1,
+// and the halo rows zh from it too (every rank holds the same bits of r).
+// Each thread writes the entries it reads back later, so no barrier.
+template <int kT>
+__device__ void copy_r_band(const ClusterCg& cg, const Geometry& g,
+                            const Band& bd) {
+  const int w = g.w, n = bd.rows() * w;
+  const float* r = cg.g1 + bd.a * w;
+  for (int idx = threadIdx.x; idx < n; idx += kT) cg.z[idx] = r[idx];
+  for (int j = threadIdx.x; j < w; j += kT) {
+    if (bd.a > 0) cg.zh[j] = cg.g1[(bd.a - 1) * w + j];
+    if (bd.b < g.h) cg.zh[w + j] = cg.g1[bd.b * w + j];
+  }
+}
+
+// The projection of z (closed domains with the preconditioner: the fluid
+// mean mu removed on fluid cells) and the scalars of one CG step, from one
+// cluster reduction of r.z, r.r, fluid.z and fluid.r over the bands:
+// r.z' = r.z - mu fluid.r. Projects the band and its halo rows in place.
+// Returns (r.z', r.r).
 template <int kT>
 __device__ float2 project_and_dot(const ClusterCg& cg, const Geometry& g,
-                                  const Band& bd, float n_fluid,
+                                  const Band& bd, float n_fluid, bool precond,
                                   ClusterReducer<kT>& red) {
   const int w = g.w, n = bd.rows() * w;
   const float* r = cg.g1 + bd.a * w;
@@ -374,7 +460,7 @@ __device__ float2 project_and_dot(const ClusterCg& cg, const Geometry& g,
     part.w += f * r[idx];
   }
   const float4 s = red.sum4(bd, part);
-  if (!g.closed) return make_float2(s.x, s.y);
+  if (!g.closed || !precond) return make_float2(s.x, s.y);
   const float mu = s.z / n_fluid;
   for (int idx = threadIdx.x; idx < n; idx += kT)
     if (__ldg(fluid + idx) > 0.f) cg.z[idx] -= mu;
@@ -385,21 +471,38 @@ __device__ float2 project_and_dot(const ClusterCg& cg, const Geometry& g,
   return make_float2(s.x - mu * s.w, s.y);
 }
 
-// The cold CG loop of pcg_core for this cluster's system. On entry the
-// band's rows of cg.g1 hold `div` (the rhs is project(where(fluid, -div,
-// 0))) and the basis is loading. The best iterate's band is written to
-// `best` (R x W) whenever the residual improves. Returns the trip count,
-// the same in every thread of every rank.
+// The warm start at one cell: where(fluid, x0, 0), less the fluid mean mx
+// on a closed domain (mx = 0 on an open one). Owner and neighbour compute a
+// halo row's entries by this same expression.
+__device__ __forceinline__ float warm_x(const float* __restrict__ x0,
+                                        const Geometry& g, int idx, float mx) {
+  const bool fl = __ldg(g.fluid + idx) > 0.f;
+  const float v = fl ? __ldg(x0 + idx) : 0.f;
+  return g.closed && fl ? v - mx : v;
+}
+
+// The CG loop of ops/pallas_cg.py :: pcg_core for this cluster's system.
+// On entry the band's rows of cg.g1 hold `div` (the rhs is
+// project(where(fluid, -div, 0))) and, with the preconditioner, the basis
+// is loading. x0 (global, read-only, the system's (H, W) field) is the
+// warm start, or null for a cold start, which reads nothing. The best
+// iterate's band is written to `best` (R x W, shared or global memory)
+// whenever the residual improves. Returns the trip count, the same in
+// every thread of every rank.
 //
 // Every rank keeps the whole residual: each pushes its band of A d, and
 // after the barrier of the d.Ad reduction all update every row of r by the
 // same operations, so they hold the same bits. The projection of z is
 // folded into the reduction of r.z and r.r. A trip has three cluster
 // barriers: d.Ad with the push of A d, the push of the scaled spectrum,
-// and r.z, r.r with the projection's sums.
+// and r.z, r.r with the projection's sums. A warm start adds no barrier:
+// the fluid sum of x0 rides on the first reduction, and A x0 is taken from
+// the band and halo rows of x before the reduction of |b|^2, whose barrier
+// publishes the residual's band.
 template <int kT, bool kTrace>
 __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
-                           const Band& bd, float* best, float tol, int maxiter,
+                           const Band& bd, const float* __restrict__ x0,
+                           float* best, float tol, int maxiter, bool precond,
                            ClusterReducer<kT>& red) {
   const int w = g.w, n = bd.rows() * w, hw = g.h * w;
   const float* fluid = g.fluid + bd.a * w;
@@ -409,29 +512,51 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
   float* d = cg.d + w;  // the band's first row; d[-w..] and d[n..] are halo
   float* z = cg.z;
 
-  float part_f = 0.f, part_b = 0.f;
+  float part_f = 0.f, part_b = 0.f, part_x = 0.f;
   for (int idx = threadIdx.x; idx < n; idx += kT) {
     const float f = __ldg(fluid + idx);
     const float v = f > 0.f ? -r[idx] : 0.f;  // b
     r[idx] = v;
     part_f += f;
     part_b += f * v;
-    x[idx] = 0.f;
+    if (x0 != nullptr) {
+      const float xv = f > 0.f ? __ldg(x0 + bd.a * w + idx) : 0.f;
+      x[idx] = xv;
+      part_x += f * xv;
+    } else {
+      x[idx] = 0.f;
+    }
   }
-  float sum_f, sum_b;
-  red.sum2(bd, part_f, part_b, sum_f, sum_b);
-  const float n_fluid = fmaxf(sum_f, 1.f);
+  const float4 sums = red.sum4(bd, make_float4(part_f, part_b, part_x, 0.f));
+  const float n_fluid = fmaxf(sums.x, 1.f);
   if (g.closed) {
-    const float mean = sum_b / n_fluid;
+    const float mean = sums.y / n_fluid;
     for (int idx = threadIdx.x; idx < n; idx += kT)
       if (__ldg(fluid + idx) > 0.f) r[idx] -= mean;
   }
   float part = 0.f;
   for (int idx = threadIdx.x; idx < n; idx += kT) part += r[idx] * r[idx];
+  if (x0 != nullptr) {  // r = b - A x, x and its halo rows in d's layout
+    const float mx = sums.z / n_fluid;
+    for (int idx = threadIdx.x; idx < n; idx += kT) {
+      x[idx] = warm_x(x0, g, bd.a * w + idx, mx);
+      d[idx] = x[idx];
+    }
+    for (int j = threadIdx.x; j < w; j += kT) {
+      if (bd.a > 0) d[j - w] = warm_x(x0, g, (bd.a - 1) * w + j, mx);
+      if (bd.b < g.h) d[n + j] = warm_x(x0, g, bd.b * w + j, mx);
+    }
+    __syncthreads();
+    apply_a_band<kT>(cg.d, z, g, bd);
+    for (int idx = threadIdx.x; idx < n; idx += kT) r[idx] -= z[idx];
+  }
   const float b2 = fmaxf(red.sum(bd, part, [&] { push_band<kT>(cg.g1, bd); }),
                          1e-30f);
-  apply_m_band<kT, kTrace>(cg, g, bd, TripClock<kTrace>{});
-  float2 dots = project_and_dot<kT>(cg, g, bd, n_fluid, red);
+  if (precond)
+    apply_m_band<kT, kTrace>(cg, g, bd, TripClock<kTrace>{});
+  else
+    copy_r_band<kT>(cg, g, bd);
+  float2 dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);
   float rz = dots.x, rs = dots.y;
   for (int idx = threadIdx.x; idx < n; idx += kT) {
     d[idx] = z[idx];
@@ -460,8 +585,11 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
       cg.g1[idx] = __fmaf_rn(-alpha, cg.ga[idx], cg.g1[idx]);
     __syncthreads();  // r whole
     clk.mark(1);
-    apply_m_band<kT, kTrace>(cg, g, bd, clk);
-    dots = project_and_dot<kT>(cg, g, bd, n_fluid, red);
+    if (precond)
+      apply_m_band<kT, kTrace>(cg, g, bd, clk);
+    else
+      copy_r_band<kT>(cg, g, bd);
+    dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);
     const float rz_new = dots.x, rs_new = dots.y;
     const float beta = ok ? rz_new / (rz != 0.f ? rz : 1.f) : 0.f;
     const bool better = rs_new < rs_best;
@@ -481,6 +609,62 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
   }
   clk.finish();
   return k;
+}
+
+// The launch of `kernel` for `batch` systems, one cluster of `cluster`
+// blocks of `threads` threads per system, each block with `bytes` of
+// dynamic shared memory: the kernel's attributes set and cfg and attr
+// filled in (grid batch x cluster, the cluster dimension).
+// cudaErrorInvalidValue, with nothing set, for a plan the cluster kernels
+// cannot run: a cluster size other than 1, 2, 4, 8 or 16 or above H, a
+// thread count other than kClusterThreads, or more shared memory than a
+// block may have.
+template <class Kernel>
+cudaError_t cluster_config(Kernel kernel, int batch, int h, int cluster,
+                           int threads, size_t bytes, void* stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  const bool size_ok = cluster == 1 || cluster == 2 || cluster == 4 ||
+                       cluster == 8 || cluster == 16;
+  if (!size_ok || cluster > h || batch < 1 || threads != kClusterThreads ||
+      bytes > kMaxSharedBytes)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(batch * cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of `kernel` under a plan the card can hold at once
+// (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
+// or of a plan cluster_config refuses.
+template <class Kernel>
+int max_active_clusters(Kernel kernel, int h, int cluster, int threads,
+                        size_t bytes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cluster_config(kernel, 1, h, cluster, threads, bytes, nullptr, cfg, attr);
+  if (err == cudaSuccess) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (err == cudaSuccess) return n;
+  }
+  return -static_cast<int>(err);
 }
 
 }  // namespace

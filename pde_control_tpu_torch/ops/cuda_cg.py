@@ -2,29 +2,33 @@
 (`csrc/pcg.cu`) and its plain PyTorch version.
 
 Replaces the TPU kernel `pde_control_tpu/ops/pallas_cg.py ::
-pallas_pressure_solve` (body `_pcg_kernel` → `pcg_core`). One thread block
-solves one sample's masked pressure-Poisson system and runs the whole CG
-loop on the card, with every iterate in shared memory; the source's header
-gives the layout.
+pallas_pressure_solve` (body `_pcg_kernel` → `pcg_core`). One thread-block
+cluster solves one sample's masked pressure-Poisson system and runs the
+whole CG loop on the card: its C blocks each own a band of rows, with the
+iterates in shared memory (`csrc/pcg_cluster.cuh`, the loop K2 and K3 run
+too; the source's header gives the layout). `solve_plan` picks C.
 
-What bounds it on this card: latency, not bytes or FLOPs. A batch of B
-samples occupies B of the H100's 132 SMs, and each iteration is a chain of
-about ten block-wide barriers around four small fp32 basis products. The
-design answers with no host round trip and no launch per iteration (the
-loop and its per-sample exit live in the block) and with a lean
-shared-memory layout; splitting a sample across a thread-block cluster or
-packing samples per block are left for later.
+What bounds it on this card: latency, not bytes or FLOPs. Each trip is a
+chain of cluster barriers around four small fp32 basis products; the
+cluster spreads a batch of B samples over B·C of the H100's 132 SMs, so
+each block computes 1/C of every product, and the loop and its per-sample
+exit live on the card (no host round trip, no launch per trip).
 
 `pressure_solve` launches the kernel for CUDA tensors and runs `pcg_plain`,
 a transcription of `pcg_core` in torch, for CPU tensors; a CUDA tensor it
-cannot take (dtype, shape, layout, a grid whose state does not fit in one
-block's shared memory) raises. `LAUNCHES` counts the kernel's launches.
+cannot take (dtype, shape, layout, a grid `cuda_solve_fits` refuses)
+raises, and so does a launch that fails under its plan: nothing falls
+back. `LAUNCHES` counts the kernel's launches.
+
+`pick_plan` is the rule by which all three cluster kernels (K1 here, K2
+and K3 in `cuda_fluid`) choose their cluster size.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -40,20 +44,115 @@ LAUNCHES = 0
 
 # Shared memory one H100 block may use (opt-in above 48 KB).
 SMEM_LIMIT_BYTES = 232_448
-_THREADS = 512
+# The cluster kernels' cluster sizes and threads per block (their launchers
+# refuse others).
+CLUSTERS = (1, 2, 4, 8, 16)
+CLUSTER_THREADS = 512
+# The largest side of a grid that K1 takes: its parity with the plain
+# version is held up to 96² on the card. A larger grid waits for a parity
+# test at its size.
+MAX_SIDE = 98
+_RED_FLOATS = 2 * 4 * 16 + 4 * 16  # the cluster reduction's slots
 
 
-def shared_bytes(h: int, w: int) -> int:
-    """Shared memory one block needs: five (H, W) fields, the basis (one
-    copy when H == W, rows padded by one) and the reduction slots — the
-    count `pcg_shared_bytes` makes in C."""
-    floats = 5 * h * w + h * (h + 1) + (0 if h == w else w * (w + 1))
-    return 4 * (floats + 4 * (_THREADS // 32))
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _cg_floats(h: int, w: int, rows: int, threads: int) -> int:
+    """Floats of one rank's cluster-solve buffers (`pcg_cluster.cuh ::
+    take_cg`): the basis, three whole fields, the band's iterates with d's
+    halo rows, z's halo rows and the products' slices, each 16-byte
+    aligned."""
+    basis = h * (h + 1) + (0 if h == w else w * (w + 1))
+    return sum(_align4(n) for n in (
+        basis, h * w, h * w, h * w, rows * w, (rows + 2) * w, rows * w,
+        rows * w, 2 * w, 8 * threads))
+
+
+def solve_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
+    """Shared memory one rank of K1 needs: the reduction area and the
+    solve's buffers for bands of ceil(H / cluster) rows — the count
+    `pcg_shared_bytes` makes in C."""
+    return 4 * (_align4(_RED_FLOATS)
+                + _cg_floats(h, w, -(-h // cluster), threads))
+
+
+class ClusterPlan(NamedTuple):
+    """How a cluster kernel runs one batch: a cluster of `cluster` blocks
+    of `threads` threads per sample, each rank owning at most
+    `rows_per_rank` rows, with `shared_bytes` of shared memory a block."""
+    cluster: int
+    threads: int
+    rows_per_rank: int
+    shared_bytes: int
+
+
+def cluster_plans(h: int, count: Callable[[int], int]) -> list[ClusterPlan]:
+    """Every plan a cluster launcher takes at H rows: each cluster size up
+    to H whose shared memory, `count(cluster)` bytes, fits a block."""
+    return [ClusterPlan(c, CLUSTER_THREADS, -(-h // c), nbytes)
+            for c in CLUSTERS
+            if c <= h and (nbytes := count(c)) <= SMEM_LIMIT_BYTES]
+
+
+def pick_plan(batch: int, plans: list[ClusterPlan],
+              max_clusters: Callable[[int, int, int], int],
+              sm_count: int | None = None) -> ClusterPlan:
+    """The rule of K1's, K2's and K3's plans: among `plans` (ascending
+    cluster sizes), the smallest C with batch·C at least the card's SM
+    count (or the largest), then the next smaller C while fewer than
+    `batch` clusters can be resident at once (`max_clusters(cluster,
+    threads, shared_bytes)`, the card's `cudaOccupancyMaxActiveClusters`
+    for the kernel). `sm_count` defaults to the current card's."""
+    if sm_count is None:
+        sm_count = torch.cuda.get_device_properties(
+            torch.cuda.current_device()).multi_processor_count
+    i = next((i for i, p in enumerate(plans) if batch * p.cluster >= sm_count),
+             len(plans) - 1)
+    while i > 0 and max_clusters(plans[i].cluster, plans[i].threads,
+                                 plans[i].shared_bytes) < batch:
+        i -= 1
+    return plans[i]
+
+
+def card_max_clusters(query: Callable[..., int], *args) -> Callable:
+    """`max_clusters` for `pick_plan` from a C entry `query(*args, cluster,
+    threads)` that returns the resident clusters or minus a cudaError_t."""
+    def max_clusters(cluster, threads, _shared_bytes):
+        n = query(*args, cluster, threads)
+        if n < 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with "
+                               f"cudaError {-n}")
+        return n
+    return max_clusters
+
+
+def solve_plans(h: int, w: int) -> list[ClusterPlan]:
+    """Every plan the K1 launcher takes at H x W."""
+    return cluster_plans(h, lambda c: solve_shared_bytes(h, w, c,
+                                                         CLUSTER_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def solve_plan(batch: int, h: int, w: int, *, sm_count: int | None = None,
+               max_clusters: Callable[[int, int, int], int] | None = None
+               ) -> ClusterPlan:
+    """K1's plan for `batch` samples of H x W, by `pick_plan`. Raises if
+    no cluster size fits."""
+    plans = solve_plans(h, w)
+    if not plans:
+        raise ValueError(f"no cluster size fits K1's {h}x{w} solve in a block's "
+                         f"shared memory ({SMEM_LIMIT_BYTES} bytes)")
+    if max_clusters is None:
+        max_clusters = card_max_clusters(_kernel()[1], h, w)
+    return pick_plan(batch, plans, max_clusters, sm_count)
 
 
 def cuda_solve_fits(h: int, w: int) -> bool:
-    """Whether one sample's CG state fits in a block's shared memory."""
-    return shared_bytes(h, w) <= SMEM_LIMIT_BYTES
+    """Whether K1 takes an H x W grid: no side above `MAX_SIDE` and some
+    cluster plan fits shared memory."""
+    return max(h, w) <= MAX_SIDE and bool(solve_plans(h, w))
 
 
 @functools.lru_cache(maxsize=16)
@@ -160,16 +259,19 @@ def pcg_plain(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
 
 @functools.lru_cache(maxsize=1)
 def _kernel():
+    """The C entries: the solve's launch and its resident-cluster query."""
     from pde_control_tpu_torch.ops._build import load
 
     lib, _ = load()
     fn = lib.pcg_solve_f32
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr] * 10 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, ptr]
-    fn.restype = ctypes.c_int
-    return fn
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 10 + [i32] * 3 + [
+        ctypes.c_float, i32, ctypes.c_float, i32, i32, i32, i32, ptr]
+    fn.restype = i32
+    clusters = lib.pcg_max_clusters
+    clusters.argtypes = [i32] * 4
+    clusters.restype = i32
+    return fn, clusters
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, device,
@@ -207,10 +309,19 @@ def pressure_solve(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
     Returns: (p (B, H, W), trip counts (B,) int32); p has zero fluid mean
     on a closed domain.
     """
-    global LAUNCHES
+    kw = dict(dx=dx, closed=closed, tol=tol, maxiter=maxiter, precond=precond)
     if _runs_plain(div, "pressure_solve"):
-        return pcg_plain(div, acc_y, acc_x, fluid, x0, dx=dx, closed=closed,
-                         tol=tol, maxiter=maxiter, precond=precond)
+        return pcg_plain(div, acc_y, acc_x, fluid, x0, **kw)
+    return _launch_solve(div, acc_y, acc_x, fluid, x0, None, **kw)
+
+
+def _launch_solve(div, acc_y, acc_x, fluid, x0, plan: ClusterPlan | None, *,
+                  dx: float, closed: bool, tol: float, maxiter: int,
+                  precond: bool):
+    """Launches K1 on CUDA tensors under `plan` (None: `solve_plan`'s).
+    The tests and `sweep_dw_plan.py cg` pass other plans; a plan the
+    launcher refuses raises."""
+    global LAUNCHES
     if div.dim() != 3:
         raise ValueError(f"div: want (B, H, W), got {tuple(div.shape)}")
     b, h, w = div.shape
@@ -222,18 +333,23 @@ def pressure_solve(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
     if x0 is not None:
         _check("x0", x0, (b, h, w), dev)
     if not cuda_solve_fits(h, w):
-        raise ValueError(f"a {h}x{w} solve does not fit in one block's shared "
-                         f"memory ({SMEM_LIMIT_BYTES} bytes)")
+        raise ValueError(f"a {h}x{w} solve is beyond K1's grids (sides up to "
+                         f"{MAX_SIDE}, a cluster's shared memory up to "
+                         f"{SMEM_LIMIT_BYTES} bytes a block)")
+    if plan is None:
+        plan = solve_plan(b, h, w)
     qy, qx, inv_lam = _tables(h, w, float(dx), bool(closed), dev)
     out = torch.empty_like(div)
     iters = torch.empty(b, dtype=torch.int32, device=dev)
-    rc = _kernel()(
+    rc = _kernel()[0](
         div.data_ptr(), None if x0 is None else x0.data_ptr(),
         acc_y.data_ptr(), acc_x.data_ptr(), fluid.data_ptr(), qy.data_ptr(),
         qx.data_ptr(), inv_lam.data_ptr(), out.data_ptr(), iters.data_ptr(),
         b, h, w, float(dx), int(closed), float(tol), int(maxiter),
-        int(precond), torch.cuda.current_stream(dev).cuda_stream)
+        int(precond), plan.cluster, plan.threads,
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"pcg_solve_f32 launch failed with cudaError {rc}")
+        raise RuntimeError(f"pcg_solve_f32 launch failed with cudaError {rc} "
+                           f"under {plan}")
     LAUNCHES += 1
     return out, iters

@@ -3,32 +3,31 @@
 
 Replaces the TPU kernels `pde_control_tpu/ops/pallas_fluid.py ::
 _make_fused_step._forward` (K2, body `_fwd_kernel`) and `._backward` (K3,
-body `_bwd_kernel`). K2 runs one step of the closed-domain smoke physics
-for each batch sample in one thread block: shift advection of the density
-and both MAC velocity components, inflow, force, buoyancy, the masks, the
-divergence, the spectrally preconditioned CG solve (`csrc/pcg_core.cuh`,
-the loop K1 runs) and the pressure-gradient correction. K3 is the
-hand-written VJP of K2 for each sample on a thread-block cluster of C
-blocks, each owning a band of rows: a cold transpose solve on the pressure
-cotangent (`csrc/pcg_cluster.cuh`), the stencil and face/centre adjoints,
-and the three advection-window adjoints with JAX's tie rules. The
-displacements are recomputed from the step's inputs, which are all that is
-saved between the two directions.
+body `_bwd_kernel`). Each runs a batch sample on a thread-block cluster of
+C blocks, each owning a band of rows. K2 runs one step of the
+closed-domain smoke physics: shift advection of the density and both MAC
+velocity components, inflow, force, buoyancy, the masks, the divergence,
+the spectrally preconditioned CG solve warm-started from the previous
+pressure (`csrc/pcg_cluster.cuh`, the loop K1 and K3 run) and the
+pressure-gradient correction. K3 is the hand-written VJP of K2: a cold
+transpose solve on the pressure cotangent, the stencil and face/centre
+adjoints, and the three advection-window adjoints with JAX's tie rules.
+The displacements are recomputed from the step's inputs, which are all
+that is saved between the two directions.
 
-What bounds them on this card: latency, as for K1. K2's B samples occupy B
-of the H100's 132 SMs, and each CG trip is a chain of about ten
-block-wide barriers; K3 runs each sample on C SMs (`bwd_plan`: the
-smallest C up to 16 that fills the card, if that many clusters can be
-resident), so a trip is 1/C of the work around three cluster barriers. The
-design keeps the whole step in one launch per direction with no host
-round trip.
+What bounds them on this card: latency, as for K1. Each CG trip is a
+chain of cluster barriers around four small basis products; `fwd_plan`
+and `bwd_plan` pick C by `cuda_cg.pick_plan` (the smallest C up to 16
+that fills the card, if that many clusters can be resident), so a trip
+and the windows are 1/C of the work on each SM. The design keeps the
+whole step in one launch per direction with no host round trip.
 
 `fused_step_forward` / `fused_step_backward` launch K2 / K3 for CUDA
 tensors and run the plain versions below for CPU tensors; a CUDA tensor
-they cannot take (dtype, shape, layout, a grid whose state does not fit in
-one block's shared memory) raises, and so does a K3 launch that fails under
-its plan: nothing falls back. `LAUNCHES_FWD` and `LAUNCHES_BWD` count
-the launches. `fused_fluid_step` is the differentiable step (`_FusedStep`).
+they cannot take (dtype, shape, layout, a grid `fused_step_fits` refuses)
+raises, and so does a launch that fails under its plan: nothing falls
+back. `LAUNCHES_FWD` and `LAUNCHES_BWD` count the launches.
+`fused_fluid_step` is the differentiable step (`_FusedStep`).
 """
 
 from __future__ import annotations
@@ -54,32 +53,55 @@ from pde_control_tpu_torch.ops.interp import (
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
-_SLOTS = 7  # field-sized shared-memory slots of either kernel
+# The largest side of a grid the fused step takes: K2 and K3 are held to
+# their plain versions up to it. A larger grid waits for a parity test at
+# its size.
+FUSED_MAX_SIDE = 84
 
 
-def shared_bytes(h: int, w: int) -> int:
-    """Shared memory one block of K2 or K3 needs: seven slots the size of
-    the larger face grid, the basis region (one copy when H == W, rows
-    padded by one) and the reduction slots — the count `fused_shared_bytes`
-    makes in C."""
-    slot = max((h + 1) * w, h * (w + 1))
-    basis = h * (h + 1) + (0 if h == w else w * (w + 1))
-    return 4 * (_SLOTS * slot + basis + 4 * (cuda_cg._THREADS // 32))
+def fwd_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
+    """Shared memory one rank of K2 needs: the reduction area, the solve's
+    buffers, then the band's vy3 (one more y-face), vx3, rho1 (one more row
+    each side, clipped to the grid) and the row of p above the band — the
+    count `fused_fwd_shared_bytes` makes in C."""
+    r, align4 = -(-h // cluster), cuda_cg._align4
+    return 4 * (align4(cuda_cg._RED_FLOATS) + cuda_cg._cg_floats(h, w, r, threads)
+                + align4((r + 1) * w) + align4(r * (w + 1))
+                + align4(min(r + 2, h) * w) + align4(w))
+
+
+def fwd_plans(h: int, w: int) -> list[cuda_cg.ClusterPlan]:
+    """Every plan the K2 launcher takes at H x W."""
+    return cuda_cg.cluster_plans(h, lambda c: fwd_shared_bytes(
+        h, w, c, cuda_cg.CLUSTER_THREADS))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(batch: int, h: int, w: int, *, sm_count: int | None = None,
+             max_clusters: Callable[[int, int, int], int] | None = None
+             ) -> cuda_cg.ClusterPlan:
+    """K2's plan for `batch` samples of H x W, by `cuda_cg.pick_plan`.
+    Raises if no cluster size fits."""
+    plans = fwd_plans(h, w)
+    if not plans:
+        raise ValueError(f"no cluster size fits K2's {h}x{w} step in a block's "
+                         f"shared memory ({cuda_cg.SMEM_LIMIT_BYTES} bytes)")
+    if max_clusters is None:
+        max_clusters = cuda_cg.card_max_clusters(_kernels()[3], h, w)
+    return cuda_cg.pick_plan(batch, plans, max_clusters, sm_count)
 
 
 def fused_step_fits(h: int, w: int) -> bool:
-    """Whether one sample's step fits in a block's shared memory (84² is
-    the largest square grid)."""
-    return shared_bytes(h, w) <= cuda_cg.SMEM_LIMIT_BYTES
+    """Whether the fused step takes an H x W grid: no side above
+    `FUSED_MAX_SIDE`, and both K2 and K3 have a plan that fits shared
+    memory."""
+    return (max(h, w) <= FUSED_MAX_SIDE and bool(fwd_plans(h, w))
+            and bool(bwd_plans(h, w)))
 
 
 # K3's cluster sizes and its threads per block (the launcher refuses others).
-BWD_CLUSTERS = (1, 2, 4, 8, 16)
-BWD_THREADS = 512
-
-
-def _align4(n: int) -> int:
-    return (n + 3) & ~3
+BWD_CLUSTERS = cuda_cg.CLUSTERS
+BWD_THREADS = cuda_cg.CLUSTER_THREADS
 
 
 def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
@@ -90,14 +112,11 @@ def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
     phase's (the band widened by max_shift + 1 rows) — the count
     `fused_bwd_shared_bytes` makes in C."""
     r, e = -(-h // cluster), max_shift + 1
-    red = 2 * 4 * 16 + 4 * 16
-    persistent = _align4(red) + _align4(r * w)
-    basis = h * (h + 1) + (0 if h == w else w * (w + 1))
-    solve = sum(_align4(n) for n in (
-        basis, h * w, h * w, h * w, r * w, (r + 2) * w, r * w, r * w, 2 * w,
-        8 * threads))
+    align4 = cuda_cg._align4
+    persistent = align4(cuda_cg._RED_FLOATS) + align4(r * w)
+    solve = cuda_cg._cg_floats(h, w, r, threads)
     taps = min(r + 2 * e + 1, h + 1) * (w + 1)
-    window = sum(_align4(n) for n in (
+    window = sum(align4(n) for n in (
         min(r + 2 * e + 2, h) * w, min(r + 2 * e + 1, h + 1) * w,
         min(r + 2 * e, h) * (w + 1), min(r + 2 * e, h) * w, taps, taps, taps,
         taps, taps, min(r + 1, h) * w, min(r + 1, h) * w,
@@ -105,60 +124,36 @@ def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
     return 4 * (persistent + max(solve, window))
 
 
-class BwdPlan(NamedTuple):
-    """How K3 runs one batch: a cluster of `cluster` blocks of `threads`
-    threads per sample, each rank owning at most `rows_per_rank` rows, with
-    `shared_bytes` of shared memory a block."""
-    cluster: int
-    threads: int
-    rows_per_rank: int
-    shared_bytes: int
-
-
-def bwd_plans(h: int, w: int, max_shift: int = 2) -> list[BwdPlan]:
+def bwd_plans(h: int, w: int,
+              max_shift: int = 2) -> list[cuda_cg.ClusterPlan]:
     """Every plan the K3 launcher takes at H x W: each cluster size up to H
     whose shared memory fits a block."""
-    return [BwdPlan(c, BWD_THREADS, -(-h // c), nbytes)
-            for c in BWD_CLUSTERS
-            if c <= h and (nbytes := bwd_shared_bytes(
-                h, w, c, BWD_THREADS, max_shift)) <= cuda_cg.SMEM_LIMIT_BYTES]
+    return cuda_cg.cluster_plans(h, lambda c: bwd_shared_bytes(
+        h, w, c, BWD_THREADS, max_shift))
 
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(batch: int, h: int, w: int, max_shift: int = 2, *,
              sm_count: int | None = None,
              max_clusters: Callable[[int, int, int], int] | None = None
-             ) -> BwdPlan:
-    """K3's plan for `batch` samples of H x W: the smallest cluster size C
-    (a power of two, at most 16 and at most H) with batch·C at least the
-    card's SM count (or the largest that fits), among those whose shared
-    memory fits a block; then the next smaller C while fewer than `batch`
-    clusters can be resident at once. `sm_count` and `max_clusters(cluster,
-    threads, shared_bytes)` default to the current card's (its SM count and
-    `cudaOccupancyMaxActiveClusters`). Raises if no cluster size fits."""
-    if sm_count is None:
-        sm_count = torch.cuda.get_device_properties(
-            torch.cuda.current_device()).multi_processor_count
-    if max_clusters is None:
-        query = _kernels()[2]
-
-        def max_clusters(cluster, threads, _shared_bytes):
-            n = query(h, w, cluster, threads, max_shift)
-            if n < 0:
-                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed "
-                                   f"with cudaError {-n}")
-            return n
-
+             ) -> cuda_cg.ClusterPlan:
+    """K3's plan for `batch` samples of H x W, by `cuda_cg.pick_plan`: the
+    smallest cluster size C (a power of two, at most 16 and at most H) with
+    batch·C at least the card's SM count (or the largest that fits), among
+    those whose shared memory fits a block; then the next smaller C while
+    fewer than `batch` clusters can be resident at once. `sm_count` and
+    `max_clusters(cluster, threads, shared_bytes)` default to the current
+    card's (its SM count and `cudaOccupancyMaxActiveClusters`). Raises if
+    no cluster size fits."""
     plans = bwd_plans(h, w, max_shift)
     if not plans:
         raise ValueError(f"no cluster size fits K3's {h}x{w} step in a block's "
                          f"shared memory ({cuda_cg.SMEM_LIMIT_BYTES} bytes)")
-    i = next((i for i, p in enumerate(plans) if batch * p.cluster >= sm_count),
-             len(plans) - 1)
-    while i > 0 and max_clusters(plans[i].cluster, plans[i].threads,
-                                 plans[i].shared_bytes) < batch:
-        i -= 1
-    return plans[i]
+    if max_clusters is None:
+        query = _kernels()[2]
+        max_clusters = cuda_cg.card_max_clusters(
+            lambda c, t: query(h, w, c, t, max_shift))
+    return cuda_cg.pick_plan(batch, plans, max_clusters, sm_count)
 
 
 # --------------------------------------------------------------------------
@@ -387,17 +382,20 @@ def _kernels():
 
     lib, _ = load()
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tail = [i32] * 3 + [f32] * 4 + [i32] * 3 + [f32, i32, ptr]
+    tail = [i32] * 3 + [f32] * 4 + [i32] * 3 + [f32, i32, i32, i32, ptr]
     fwd = lib.fused_step_fwd_f32
     fwd.argtypes = [ptr] * 18 + tail
     fwd.restype = i32
     bwd = lib.fused_step_bwd_f32
-    bwd.argtypes = [ptr] * 20 + tail[:-1] + [i32, i32, ptr]
+    bwd.argtypes = [ptr] * 20 + tail
     bwd.restype = i32
-    clusters = lib.fused_bwd_max_clusters
-    clusters.argtypes = [i32] * 5
-    clusters.restype = i32
-    return fwd, bwd, clusters
+    bwd_clusters = lib.fused_bwd_max_clusters
+    bwd_clusters.argtypes = [i32] * 5
+    bwd_clusters.restype = i32
+    fwd_clusters = lib.fused_fwd_max_clusters
+    fwd_clusters.argtypes = [i32] * 4
+    fwd_clusters.restype = i32
+    return fwd, bwd, bwd_clusters, fwd_clusters
 
 
 def _ptr(t):
@@ -422,8 +420,9 @@ def _check_cuda(vy, vx, rho, fields: dict, geom) -> tuple[int, int, int]:
     cuda_cg._check("acc_x", acc_x, (h, w + 1), dev)
     cuda_cg._check("fluid", fluid, (h, w), dev)
     if not fused_step_fits(h, w):
-        raise ValueError(f"a {h}x{w} fused step does not fit in one block's "
-                         f"shared memory ({cuda_cg.SMEM_LIMIT_BYTES} bytes)")
+        raise ValueError(f"a {h}x{w} fused step is beyond its grids (sides up "
+                         f"to {FUSED_MAX_SIDE}, a cluster's shared memory up to "
+                         f"{cuda_cg.SMEM_LIMIT_BYTES} bytes a block)")
     return b, h, w
 
 
@@ -438,30 +437,43 @@ def fused_step_forward(vy, vx, rho, acc_y, acc_x, fluid, fy=None, fx=None,
                        inflow=None, x0=None, *, dt: float, dx: float,
                        max_shift: int, buoyancy: float, closed: bool,
                        tol: float, maxiter: int):
-    """K2: one fluid step per sample. vy (B, H+1, W), vx (B, H, W+1), rho
-    (B, H, W), optional fy/fx like vy/vx, inflow and x0 like rho, float32.
-    Returns (vy4, vx4, rho1, p, trip counts (B,) int32)."""
-    global LAUNCHES_FWD
+    """K2: one fluid step per sample, one thread-block cluster per sample
+    under `fwd_plan`. vy (B, H+1, W), vx (B, H, W+1), rho (B, H, W),
+    optional fy/fx like vy/vx, inflow and x0 like rho, float32. Returns
+    (vy4, vx4, rho1, p, trip counts (B,) int32)."""
     kw = dict(dt=dt, dx=dx, max_shift=max_shift, buoyancy=buoyancy,
               closed=closed, tol=tol, maxiter=maxiter)
     if cuda_cg._runs_plain(rho, "fused_step_forward"):
         return fused_step_plain_forward(vy, vx, rho, acc_y, acc_x, fluid, fy,
                                         fx, inflow, x0, **kw)
+    return _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow,
+                           x0, None, **kw)
+
+
+def _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow, x0,
+                    plan: cuda_cg.ClusterPlan | None, **kw):
+    """Launches K2 on CUDA tensors under `plan` (None: `fwd_plan`'s). The
+    tests pass other plans; a plan the launcher refuses raises."""
+    global LAUNCHES_FWD
     if (fy is None) != (fx is None):
         raise ValueError("fy and fx go together")
     b, h, w = _check_cuda(vy, vx, rho, dict(fy=fy, fx=fx, inflow=inflow, x0=x0),
                           (acc_y, acc_x, fluid))
-    qy, qx, inv_lam = cuda_cg._tables(h, w, float(dx), bool(closed), rho.device)
+    if plan is None:
+        plan = fwd_plan(b, h, w)
+    qy, qx, inv_lam = cuda_cg._tables(h, w, float(kw["dx"]), bool(kw["closed"]),
+                                      rho.device)
     vy4, vx4 = torch.empty_like(vy), torch.empty_like(vx)
     rho1, p = torch.empty_like(rho), torch.empty_like(rho)
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
     rc = _kernels()[0](
         *map(_ptr, (vy, vx, rho, fy, fx, inflow, x0, acc_y, acc_x, fluid, qy,
                     qx, inv_lam, vy4, vx4, rho1, p, iters)),
-        b, h, w, *_statics(**kw),
+        b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"fused_step_fwd_f32 launch failed with cudaError {rc}")
+        raise RuntimeError(f"fused_step_fwd_f32 launch failed with cudaError "
+                           f"{rc} under {plan}")
     LAUNCHES_FWD += 1
     return vy4, vx4, rho1, p, iters
 
@@ -486,8 +498,8 @@ def fused_step_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
 
 
 def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
-                     fluid, plan: BwdPlan | None, *, has_force: bool,
-                     has_inflow: bool, **kw):
+                     fluid, plan: cuda_cg.ClusterPlan | None, *,
+                     has_force: bool, has_inflow: bool, **kw):
     """Launches K3 on CUDA tensors under `plan` (None: `bwd_plan`'s). The
     tests and `sweep_dw_plan.py bwd` pass other plans; a plan the launcher
     refuses raises."""

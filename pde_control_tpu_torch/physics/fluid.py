@@ -97,8 +97,8 @@ def _fused_applicable(state: FluidState, domain: Domain2D, cfg: FluidConfig,
         raise ValueError(
             "FluidConfig.fused='cuda' but this configuration is not supported "
             "by the fused kernel (needs 2D closed domain, shift advection, "
-            "viscosity=0, static buoyancy, grid within one block's shared "
-            "memory)")
+            "viscosity=0, static buoyancy, a grid fused_step_fits takes: "
+            "sides up to 84)")
     if not domain.has_obstacles and cfg.pressure_backend in ("auto", "spectral"):
         # The unfused step would take the exact spectral solve here; the
         # fused kernel always runs tol-bounded PCG.

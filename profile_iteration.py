@@ -16,7 +16,9 @@ prints:
     device operations' intervals) and its share, the device time of the
     convolutions (the port's conv kernels, and cuDNN's kernels with their
     layout transforms), and the top items by device time and by host
-    time, as tables.
+    time, as tables; and the device time and launches of the solve and
+    step kernels, K1 (`pcg_cluster_kernel`), K2 (`fused_fwd_kernel`) and
+    K3 (`fused_bwd_kernel`).
 Every line names the card and its power limit.
 """
 
@@ -58,6 +60,20 @@ def _busy_us(events) -> float:
 _CONV_KERNELS = {"conv3x3 (K4/K5)": ("conv3x3_",),
                  "cuDNN conv": ("xmma", "cudnn", "implicit_gemm", "fprop",
                                 "dgrad", "wgrad", "convolve", "nhwc", "nchw")}
+
+
+# Substrings of the device kernels of the pressure solve and the fused step.
+_STEP_KERNELS = {"K1": "pcg_cluster_kernel", "K2": "fused_fwd_kernel",
+                 "K3": "fused_bwd_kernel"}
+
+
+def _step_device_ms(device) -> str:
+    out = []
+    for name, key in _STEP_KERNELS.items():
+        hits = [e for e in device if key in e.name]
+        ms = sum(e.time_range.end - e.time_range.start for e in hits) / 1e3
+        out.append(f"{name} {ms:.3f} ms over {len(hits)} launches")
+    return ", ".join(out)
 
 
 def _conv_device_ms(device) -> str:
@@ -113,6 +129,8 @@ def profile_path(fused: str, conv_impl: str, card: str, batch: dict) -> None:
           f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% of the "
           f"profiled wall time) [{card}]")
     print(f"{label} convolution device time: {_conv_device_ms(device)} [{card}]")
+    print(f"{label} solve and step kernels' device time: "
+          f"{_step_device_ms(device)} [{card}]")
     table = prof.key_averages()
     print(table.table(sort_by="self_device_time_total", row_limit=12))
     print(table.table(sort_by="self_cpu_time_total", row_limit=12))

@@ -1,5 +1,6 @@
 """Times the fluid-step kernels of one or more trees of the PyTorch port on
-one NVIDIA GPU, in turns, for an A/B of K3 (the fused step's backward).
+one NVIDIA GPU, in turns, for an A/B of K1 (the pressure solve), K2 and
+K3 (the fused step's forward and backward).
 
     python3 scripts/ab_fused_bwd.py TREE [TREE ...]
 
@@ -9,16 +10,20 @@ its own, in the order given. The operands, the step and the timers are
 this repo's `chip_smoke.py`'s (`_fused_operands`, `FUSED_STEP`, `_time_ms`,
 `_graph_ms`), so every tree gets the same inputs from the same seed: the
 64² closed box with the plate obstacle, warm operands with a force. For
-each tree:
-  * K3 at batch 8, tol 1e-4 / maxiter 100 (the main path's settings);
-  * K3 at batch 8, maxiter 0: one preconditioner application and no CG
-    trip, so the difference to the line above is the transpose solve;
-  * K3 at batch 64, tol 1e-4 / maxiter 100;
-  * K2 at batch 8, tol 1e-4 / maxiter 100, warm start;
-  * K1 cold at batch 8, tol 1e-4 / maxiter 100.
+each tree, at batch 8 and at batch 64, tol 1e-4 / maxiter 100 (the main
+path's settings) and at maxiter 0 (one preconditioner application and no
+CG trip, so that the difference is the solve's trips):
+  * K3, the cold transpose solve on the operands' cotangents;
+  * K2, warm-started from the operands' guess;
+  * K1 cold on the pressure cotangent as `div`, and K1 warm from the plain
+    solution of that `div` (tol 1e-6) with 5% noise, as `chip_smoke.py`
+    makes its guess.
 Time per launch by CUDA events over a host loop of 50 launches (`ms`,
 chip_smoke's yardstick for K1-K3) and by CUDA-graph replay of 20 launches
-(`graph_ms`, the host left out); the trip counts; the card's name and
+(`graph_ms`, the host left out); the mean trip count; at tol 1e-4 the
+split into µs a trip, (graph_ms − graph_ms at maxiter 0) / mean trips,
+and the rest (the time at maxiter 0; graph replay, since at maxiter 0 a
+host loop of events reads the wrapper's enqueue); the card's name and
 power limit. It checks nothing: `chip_smoke.py` and
 `tests/test_torch_kernels.py` hold the kernels to their plain versions.
 One JSON line per tree.
@@ -61,28 +66,38 @@ def _one(tree: str) -> dict:
         ops, cots = smoke._fused_operands(rng, h, h, "warm", domain, dev,
                                           batch=batch)
         state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
-        runs = [("K3", 100)] + ([("K3 maxiter 0", 0), ("K2", 100),
-                                 ("K1 cold", 100)] if batch == 8 else [])
-        for name, maxiter in runs:
-            kw = dict(smoke.FUSED_STEP, dx=domain.dx, tol=1e-4, maxiter=maxiter)
-            if name.startswith("K3"):
-                def fn(kw=kw):
-                    return cuda_fluid.fused_step_backward(*state, *cots, *geom,
-                                                          **flags, **kw)
-            elif name == "K2":
-                def fn(kw=kw):
-                    return cuda_fluid.fused_step_forward(*state, *geom, **ops,
-                                                         **kw)
-            else:
-                def fn():
-                    return cuda_cg.pressure_solve(cots[3], *geom, dx=domain.dx,
-                                                  closed=True, tol=1e-4,
-                                                  maxiter=100)
-            trips = fn()[-1]
-            out[f"{name} b{batch}"] = dict(
-                ms=smoke._time_ms(fn, 50), graph_ms=smoke._graph_ms(fn, 20),
-                trips=trips.tolist() if batch == 8 else
-                float(trips.float().mean()))
+        div = cots[3]
+        p = cuda_cg.pcg_plain(div, *geom, dx=domain.dx, closed=True, tol=1e-6,
+                              maxiter=500)[0]
+        noise = torch.tensor(rng.normal(size=tuple(div.shape)),
+                             dtype=torch.float32, device=dev)
+        guess = {"K1 cold": None,
+                 "K1 warm": (p + 0.05 * p.std() * noise).contiguous()}
+        for name in ("K3", "K2", "K1 cold", "K1 warm"):
+            for maxiter in (100, 0):
+                kw = dict(smoke.FUSED_STEP, dx=domain.dx, tol=1e-4,
+                          maxiter=maxiter)
+                if name == "K3":
+                    def fn(kw=kw):
+                        return cuda_fluid.fused_step_backward(
+                            *state, *cots, *geom, **flags, **kw)
+                elif name == "K2":
+                    def fn(kw=kw):
+                        return cuda_fluid.fused_step_forward(*state, *geom,
+                                                             **ops, **kw)
+                else:
+                    def fn(x0=guess[name], maxiter=maxiter):
+                        return cuda_cg.pressure_solve(
+                            div, *geom, x0=x0, dx=domain.dx, closed=True,
+                            tol=1e-4, maxiter=maxiter)
+                trips = fn()[-1]
+                label = f"{name} b{batch}" + (" maxiter 0" if not maxiter else "")
+                out[label] = dict(
+                    ms=smoke._time_ms(fn, 50), graph_ms=smoke._graph_ms(fn, 20),
+                    trips=float(trips.float().mean()))
+            full, rest = out[f"{name} b{batch}"], out[f"{name} b{batch} maxiter 0"]
+            full["us_per_trip"] = (1e3 * (full["graph_ms"] - rest["graph_ms"])
+                                   / full["trips"])
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -1,10 +1,11 @@
 """Sweep of the kernels' plans on one NVIDIA GPU: are `cuda_conv.dw_plan`
-(K5), `cuda_conv.fwd_plan` (K4) and `cuda_fluid.bwd_plan` (K3) near the
-best?
+(K5), `cuda_conv.fwd_plan` (K4), `cuda_fluid.bwd_plan` (K3) and
+`cuda_cg.solve_plan` (K1) near the best?
 
     python3 sweep_dw_plan.py          # K5, then K4
     python3 sweep_dw_plan.py fwd      # K4 only
     python3 sweep_dw_plan.py bwd      # K3 only
+    python3 sweep_dw_plan.py cg       # K1 and K2 only
 
 For each conv shape below (the 64², n=16, batch-8 training iteration's
 shape families) it times K5 (`conv3x3_dw_bf16`, both passes) under every
@@ -15,7 +16,8 @@ warp it has and every count of splits of K, calling the C entries
 directly; and K3 (`fused_step_bwd_f32`, the fused step's backward) under
 every cluster size its launcher takes (512 threads a block) at 64²×8 and
 64²×64 (the main path's step, tol 1e-4 / maxiter 100, and maxiter 0: the
-rest without the CG trips). It prints the time under the plan's choice,
+rest without the CG trips), and K1 (`pcg_solve_f32`, cold and warm) and
+K2 (`fused_step_fwd_f32`) the same way. It prints the time under the plan's choice,
 cuDNN's time for the same function (none for K3) and the five fastest
 plans, or for K3 every plan with its time per trip and, at the plan's
 choice, the SM cycles of each phase of a CG trip (`fused_bwd_trace`).
@@ -157,7 +159,7 @@ def sweep_bwd(card: str, rng) -> None:
                         chip_smoke._graph_ms(lambda: call(maxiter=0), 20))
             swept.append((ms, rest, 1e3 * (ms - rest) / trips, p))
         plan_ms = next(ms for ms, _, _, p in swept if p == plan)
-        print(f"K3 {h}x{h}x{batch}: bwd_plan {chip_smoke._bwd_plan_text(plan)} "
+        print(f"K3 {h}x{h}x{batch}: bwd_plan {chip_smoke._plan_text(plan)} "
               f"{plan_ms:.4f} ms; swept (ms, ms at maxiter 0, us per trip, "
               "cluster, threads): " + ", ".join(
                   f"{ms:.4f} {rest:.4f} {us:.2f} {p.cluster} {p.threads}"
@@ -200,11 +202,75 @@ def _trip_profile(launch, label: str, card: str) -> None:
           flush=True)
 
 
+def sweep_cg(card: str, rng) -> None:
+    """K1 (cold, and warm from the plain solution with 5% noise) and K2 (on
+    chip_smoke's warm operands) under every plan at 64²×8 and ×64: the time
+    per launch, the time at maxiter 0 (no trip) and so the time per
+    trip."""
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    dev = torch.device("cuda")
+    h = chip_smoke.H
+    domain = Domain2D.create(h, h, obstacle_mask=chip_smoke._plate(h), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    for batch in (chip_smoke.BATCH, 64):
+        div = torch.tensor(rng.normal(size=(batch, h, h)), dtype=torch.float32,
+                           device=dev)
+        p = cuda_cg.pcg_plain(div, *geom, tol=1e-6, maxiter=500)[0]
+        noise = torch.tensor(rng.normal(size=(batch, h, h)), dtype=torch.float32,
+                             device=dev)
+        plan = cuda_cg.solve_plan(batch, h, h)
+        for start, x0 in (("cold", None),
+                          ("warm", (p + 0.05 * p.std() * noise).contiguous())):
+            swept = []
+            for pl in cuda_cg.solve_plans(h, h):
+                def call(pl=pl, x0=x0, maxiter=100):
+                    return cuda_cg._launch_solve(div, *geom, x0, pl, dx=1.0,
+                                                 closed=True, tol=1e-4,
+                                                 maxiter=maxiter, precond=True)
+                trips = float(call()[-1].float().mean())
+                ms, rest = (chip_smoke._graph_ms(call, 20),
+                            chip_smoke._graph_ms(lambda: call(maxiter=0), 20))
+                swept.append((ms, rest, 1e3 * (ms - rest) / trips, pl))
+            plan_ms = next(ms for ms, _, _, pl in swept if pl == plan)
+            _print_swept(f"K1 {start} {h}x{h}x{batch}: solve_plan", plan,
+                         plan_ms, swept, card)
+        ops, _ = chip_smoke._fused_operands(rng, h, h, "warm", domain, dev,
+                                            batch=batch)
+        state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
+        step_ops = [ops.get(k) for k in ("fy", "fx", "inflow", "x0")]
+        kw = dict(chip_smoke.FUSED_STEP, dx=domain.dx, tol=1e-4)
+        plan = cuda_fluid.fwd_plan(batch, h, h)
+        swept = []
+        for pl in cuda_fluid.fwd_plans(h, h):
+            def call(pl=pl, maxiter=100):
+                return cuda_fluid._launch_forward(*state, *geom, *step_ops, pl,
+                                                  maxiter=maxiter, **kw)
+            trips = float(call()[-1].float().mean())
+            ms, rest = (chip_smoke._graph_ms(call, 20),
+                        chip_smoke._graph_ms(lambda: call(maxiter=0), 20))
+            swept.append((ms, rest, 1e3 * (ms - rest) / trips, pl))
+        plan_ms = next(ms for ms, _, _, pl in swept if pl == plan)
+        _print_swept(f"K2 {h}x{h}x{batch}: fwd_plan", plan, plan_ms, swept, card)
+
+
+def _print_swept(label: str, plan, plan_ms: float, swept: list, card: str):
+    print(f"{label} {chip_smoke._plan_text(plan)} {plan_ms:.4f} ms; swept (ms, "
+          "ms at maxiter 0, us per trip, cluster): " + ", ".join(
+              f"{ms:.4f} {rest:.4f} {us:.2f} {pl.cluster}"
+              for ms, rest, us, pl in sorted(swept, key=lambda x: x[0]))
+          + f" [{card}]", flush=True)
+
+
 def main() -> None:
     card = chip_smoke.device_phase()
     rng = np.random.default_rng(chip_smoke.SEED)
     if sys.argv[1:] == ["bwd"]:
         sweep_bwd(card, rng)
+        return
+    if sys.argv[1:] == ["cg"]:
+        sweep_cg(card, rng)
         return
     if sys.argv[1:] != ["fwd"]:
         sweep_dw(card, rng)

@@ -312,4 +312,4 @@ def test_fused_spectral_conflict_accepts_explicit_pcg():
                                       (128, 128, False)])
 def test_fused_fits_gate(h, w, fits):
     assert tcf.fused_step_fits(h, w) is fits
-    assert tcf.shared_bytes(64, 64) == 133_376
+    assert tcf.fwd_shared_bytes(64, 64, 8, 512) == 99_360

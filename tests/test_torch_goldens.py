@@ -1,19 +1,26 @@
-"""The fused fluid step (K2 forward, K3 backward) against the JAX package's,
-through the goldens that `scripts/make_fused_goldens.py` wrote from
-`pde_control_tpu/ops/pallas_fluid.py :: fused_fluid_step(interpret=True)`
-and its VJP (32×32 closed box with the plate, batch 2, tol 1e-7 /
-maxiter 500; a warm start with force and inflow, and zero velocity).
+"""The fused fluid step (K2 forward, K3 backward) and the pressure solve
+(K1) against the JAX package's, through goldens:
+`scripts/make_fused_goldens.py` wrote `tests/goldens/fused_step_32.npz`
+from `pde_control_tpu/ops/pallas_fluid.py :: fused_fluid_step
+(interpret=True)` and its VJP (32×32 closed box with the plate, batch 2,
+tol 1e-7 / maxiter 500; a warm start with force and inflow, and zero
+velocity); `scripts/make_cg_goldens.py` wrote `tests/goldens/pcg_32.npz`
+from `pde_control_tpu/ops/pallas_cg.py :: pallas_pressure_solve
+(interpret=True)` (the same box closed, cold and warm, and open, cold).
 
 This file imports neither JAX nor the JAX package. On the CPU it holds the
 plain versions to the goldens with the tolerances of
 `tests/test_torch_cuda_fluid.py` (forward atol 5e-6 / rtol 1e-5, the VJP
-3e-5 of each cotangent's largest entry). On a machine with a GPU:
+3e-5 of each cotangent's largest entry) and, for the solve, 5e-6 of the
+pressure's largest entry (fp32 CG to tol 1e-7, sums in another order).
+On a machine with a GPU:
 
     python -m pytest tests/test_torch_goldens.py --noconftest -q
 
 also holds the kernels to them: outputs within 1e-4 and cotangents within
-1e-3 of the golden's largest entry (fp32 sums in another order), K3 under
-`bwd_plan`'s plan and under every plan its launcher takes.
+1e-3 of the golden's largest entry (fp32 sums in another order), K1, K2
+and K3 under their plan and under every plan their launchers take; and
+K3's cold solve to the bits it gave before K1 and K2 moved onto its core.
 """
 
 import json
@@ -23,11 +30,15 @@ import numpy as np
 import pytest
 import torch
 
-from pde_control_tpu_torch.ops import cuda_fluid
+from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
 
 torch.set_num_threads(1)
 
 GOLDENS = Path(__file__).resolve().parent / "goldens" / "fused_step_32.npz"
+CG_GOLDENS = GOLDENS.with_name("pcg_32.npz")
+# (closed, warm) per case of the solve's goldens.
+CG_CASES = {"closed-cold": (True, False), "closed-warm": (True, True),
+            "open-cold": (False, False)}
 CASES = ("warm-force-inflow", "zero-velocity")
 OUTS = ("vy4", "vx4", "rho1", "p")
 GRADS = ("vy", "vx", "rho", "fy", "fx", "inflow")
@@ -53,6 +64,26 @@ def _case(case: str, dev):
     grads = [None if zero_v and n == "inflow" else z[f"{case}/d_{n}"]
              for n in GRADS]
     return state, ops, geom, cots, cfg, outs, grads
+
+
+def _k3_digests(dev) -> dict:
+    """SHA-256 (first 16 hex digits) of K3's cotangents and trip counts on
+    the goldens' operands of each case, under every plan at 32²."""
+    import hashlib
+
+    out = {}
+    for case in CASES:
+        state, ops, geom, cots, cfg, _, _ = _case(case, dev)
+        for plan in cuda_fluid.bwd_plans(32, 32):
+            got = cuda_fluid._launch_backward(
+                *state, *cots, *geom, plan, has_force=True,
+                has_inflow=ops["inflow"] is not None, **cfg)
+            digest = hashlib.sha256()
+            for a in got:
+                if a is not None:
+                    digest.update(a.cpu().numpy().tobytes())
+            out[f"{case} C{plan.cluster}"] = digest.hexdigest()[:16]
+    return out
 
 
 def _within_scale(got, want, limit, label):
@@ -96,14 +127,17 @@ def test_goldens_are_small_and_whole():
 
 @pytest.mark.parametrize("case", CASES)
 def test_kernels_match_goldens(case):
-    """K2, and K3 under every plan, on the card against the JAX package."""
+    """K2 and K3, each under its plan and every plan its launcher takes, on
+    the card against the JAX package."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     state, ops, geom, cots, cfg, outs, grads = _case(case, dev)
-    out = cuda_fluid.fused_step_forward(*state, *geom, **ops, **cfg)
-    for name, got, want in zip(OUTS, out, outs):
-        _within_scale(got, want, 1e-4, name)
+    for plan in [None] + cuda_fluid.fwd_plans(32, 32):
+        out = cuda_fluid._launch_forward(*state, *geom, ops["fy"], ops["fx"],
+                                         ops["inflow"], ops["x0"], plan, **cfg)
+        for name, got, want in zip(OUTS, out, outs):
+            _within_scale(got, want, 1e-4, f"{name} {plan}")
     for plan in [None] + cuda_fluid.bwd_plans(32, 32):
         got = cuda_fluid._launch_backward(*state, *cots, *geom, plan,
                                           has_force=True,
@@ -113,3 +147,81 @@ def test_kernels_match_goldens(case):
             assert (a is None) == (want is None), (name, plan)
             if a is not None:
                 _within_scale(a, want, 1e-3, f"{name} {plan}")
+
+
+def _cg_case(case: str, dev):
+    """The solve goldens' operands, settings and pressure for `case`."""
+    z = np.load(CG_GOLDENS)
+    closed, warm = CG_CASES[case]
+    box = "closed" if closed else "open"
+
+    def t(key):
+        return torch.tensor(z[key].astype(np.float32), device=dev)
+
+    geom = tuple(t(f"{box}/{k}") for k in ("acc_y", "acc_x", "fluid"))
+    kw = dict(json.loads(str(z["config"])), closed=closed)
+    return t("div"), geom, t("x0") if warm else None, kw, z[f"{case}/p"]
+
+
+@pytest.mark.parametrize("case", CG_CASES)
+def test_plain_solve_matches_goldens(case):
+    """The plain K1 on CPU tensors against the JAX package's solve."""
+    div, geom, x0, kw, want = _cg_case(case, "cpu")
+    p, iters = cuda_cg.pressure_solve(div, *geom, x0, **kw)
+    _within_scale(p, want, 5e-6, case)
+    assert (iters > 0).all() and (iters < kw["maxiter"]).all()
+
+
+def test_cg_goldens_are_small_and_whole():
+    """The solve's goldens stay small, hold every array the tests read,
+    and their geometry is the plate's in a closed and an open box."""
+    assert CG_GOLDENS.stat().st_size <= 64 * 1024
+    z = np.load(CG_GOLDENS)
+    for box in ("closed", "open"):
+        fluid = z[f"{box}/fluid"]
+        assert fluid.shape == (32, 32) and fluid[16, 8:16].sum() == 0
+        assert fluid.sum() == 32 * 32 - 8
+    assert not np.array_equal(z["closed/acc_y"], z["open/acc_y"])
+    for case in CG_CASES:
+        p = z[f"{case}/p"]
+        assert p.dtype == np.float32 and p.shape == z["div"].shape
+        assert np.isfinite(p).all()
+
+
+@pytest.mark.parametrize("case", CG_CASES)
+def test_solve_kernel_matches_goldens(case):
+    """K1 on the card, under its plan and every plan its launcher takes,
+    against the JAX package's solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    div, geom, x0, kw, want = _cg_case(case, dev)
+    for plan in [None] + cuda_cg.solve_plans(32, 32):
+        p, _ = cuda_cg._launch_solve(div, *geom, x0, plan, precond=True, **kw)
+        _within_scale(p, want, 1e-4, f"{case} {plan}")
+
+
+# K3's cotangents and trip counts on the fused goldens' operands, as
+# `_k3_digests` hashes them, from the kernel before the cluster core took
+# the warm start (NVIDIA H100 80GB HBM3).
+K3_DIGESTS = {
+    "warm-force-inflow C1": "6b7b1d14547b6168",
+    "warm-force-inflow C2": "d49ecec80dfd7ab3",
+    "warm-force-inflow C4": "74d1cd2e9537699b",
+    "warm-force-inflow C8": "11cfd06a9aa98cac",
+    "warm-force-inflow C16": "c602a0fceaeeda34",
+    "zero-velocity C1": "aea80461023e6142",
+    "zero-velocity C2": "924a9a54deac2c15",
+    "zero-velocity C4": "5f27f85c9372b282",
+    "zero-velocity C8": "2979bc0e3a7755d4",
+    "zero-velocity C16": "5a1ad77172681b95",
+}
+
+
+def test_k3_cold_solve_keeps_its_bits():
+    """The cold path of the cluster CG core computes what it computed
+    before the warm start and the unpreconditioned path joined it: K3 gives
+    the same bits under every plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    assert _k3_digests(torch.device("cuda")) == K3_DIGESTS

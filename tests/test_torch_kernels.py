@@ -59,6 +59,61 @@ def test_kernel_matches_plain(n, closed, warm):
     assert int((it_k - it_p).abs().max()) <= 3
 
 
+# (n, closed, preconditioned) of the K1 plan sweep: the main path's grid,
+# an open box, a grid the bands do not divide evenly, the largest grid the
+# gate holds to plain, and the unpreconditioned loop closed and open.
+_SOLVE_PLAN_CASES = [(64, True, True), (32, False, True), (48, True, True),
+                     (96, True, True), (32, True, False), (32, False, False)]
+
+
+@pytest.mark.parametrize("n,closed,precond", _SOLVE_PLAN_CASES)
+@pytest.mark.parametrize("warm", [False, True])
+def test_kernel_plans_match_plain(n, closed, precond, warm):
+    """K1 under every plan its launcher takes: the solution within 1e-3 of
+    the plain version's scale at tol 1e-6, trip counts within 3, the same
+    bits in two calls; each launch counts once."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    domain = Domain2D.create(n, n, obstacle_mask=_plate(n), closed=closed,
+                             device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    div = torch.tensor(rng.normal(size=(4, n, n)), dtype=torch.float32, device=dev)
+    x0 = (torch.tensor(rng.normal(size=(4, n, n)), dtype=torch.float32,
+                       device=dev) if warm else None)
+    kw = dict(dx=1.0, closed=closed, tol=1e-6, maxiter=500, precond=precond)
+    p_p, it_p = cuda_cg.pcg_plain(div, *geom, x0, **kw)
+    plans = cuda_cg.solve_plans(n, n)
+    assert plans and cuda_cg.solve_plan(4, n, n) in plans
+    for plan in plans:
+        before = cuda_cg.LAUNCHES
+        (p_k, it_k), (again, it_again) = (
+            cuda_cg._launch_solve(div, *geom, x0, plan, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        assert cuda_cg.LAUNCHES == before + 2, plan
+        assert float((p_k - p_p).abs().max() / p_p.abs().max()) < 1e-3, plan
+        assert int((it_k - it_p).abs().max()) <= 3, plan
+        assert torch.equal(p_k.view(torch.int32), again.view(torch.int32)), plan
+        assert torch.equal(it_k, it_again), plan
+
+
+def test_solve_launcher_refuses_a_plan_it_cannot_run():
+    """A cluster size the launcher does not take, or one above H, raises
+    and launches nothing."""
+    dev = _cuda()
+    domain = Domain2D.create(8, 8, device=dev)
+    div = torch.zeros(2, 8, 8, device=dev)
+    before = cuda_cg.LAUNCHES
+    for plan in (cuda_cg.ClusterPlan(3, 512, 3, 4096),
+                 cuda_cg.ClusterPlan(16, 512, 1, 4096),
+                 cuda_cg.ClusterPlan(2, 256, 4, 4096)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            cuda_cg._launch_solve(div, domain.acc_y, domain.acc_x,
+                                  domain.fluid_mask, None, plan, dx=1.0,
+                                  closed=True, tol=1e-5, maxiter=10,
+                                  precond=True)
+    assert cuda_cg.LAUNCHES == before
+
+
 def test_kernel_gradient_matches_plain():
     dev = _cuda()
     rng = np.random.default_rng(1)
@@ -75,15 +130,17 @@ def test_kernel_gradient_matches_plain():
 
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48)])
 def test_shared_memory_count_matches_source(h, w):
-    """The Python gate counts the bytes the kernel's source asks for."""
+    """K1's plans count the bytes the kernel's source asks for, under every
+    plan its launcher takes and under `solve_plan`'s."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
 
     _cuda()
     fn = _build.load()[0].pcg_shared_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
-    assert fn(h, w) == cuda_cg.shared_bytes(h, w)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+    for plan in cuda_cg.solve_plans(h, w) + [cuda_cg.solve_plan(8, h, w)]:
+        assert fn(h, w, plan.cluster, plan.threads) == plan.shared_bytes
 
 
 def test_kernel_rejects_bad_inputs():
@@ -209,14 +266,35 @@ def _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, want):
         assert torch.equal(got[6], again[6]), plan
 
 
+def _check_forward_plans(vy, vx, rho, ops, geom, nonfinite, want):
+    """K2 under every plan the launcher takes: each output within 1e-4 of
+    the plain version's scale with its non-finite cells, trip counts within
+    3, the same bits in two calls; each launch counts once."""
+    h = rho.shape[1]
+    plans = cuda_fluid.fwd_plans(h, rho.shape[2])
+    assert {p.cluster for p in plans} == {c for c in cuda_cg.CLUSTERS if c <= h}
+    for plan in plans:
+        before = cuda_fluid.LAUNCHES_FWD
+        got, again = (cuda_fluid._launch_forward(
+            vy, vx, rho, *geom, ops.get("fy"), ops.get("fx"), ops.get("inflow"),
+            ops.get("x0"), plan, **_FUSED) for _ in range(2))
+        torch.cuda.synchronize()
+        assert cuda_fluid.LAUNCHES_FWD == before + 2, plan
+        for a, b, c in zip(got[:4], want[:4], again[:4]):
+            _agree(a, b, 1e-4, nonfinite)
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32)), plan
+        assert int((got[4] - want[4]).abs().max()) <= 3, plan
+        assert torch.equal(got[4], again[4]), plan
+
+
 @pytest.mark.parametrize("n", [64, 32])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
 def test_fused_kernels_match_plain(n, case):
     """K2's outputs within 1e-4 of the plain version's scale and its trip
-    counts within 3; K3's cotangents within 1e-3, under `bwd_plan`'s plan
-    and under every cluster size the launcher takes, the
-    same bits in two calls; non-finite cells where the plain version has
-    them. Each launch counts once."""
+    counts within 3; K3's cotangents within 1e-3; each under its plan
+    (`fwd_plan`, `bwd_plan`) and under every cluster size its launcher
+    takes, the same bits in two calls; non-finite cells where the plain
+    version has them. Each launch counts once."""
     nonfinite = _FUSED_CASES[case][4]
     dev = _cuda()
     domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
@@ -232,6 +310,7 @@ def test_fused_kernels_match_plain(n, case):
     for a, b in zip(out_k[:4], out_p[:4]):
         _agree(a, b, 1e-4, nonfinite)
     assert int((out_k[4] - out_p[4]).abs().max()) <= 3
+    _check_forward_plans(vy, vx, rho, ops, geom, nonfinite, out_p)
     flags = dict(has_force="fy" in ops, has_inflow="inflow" in ops)
     before = cuda_fluid.LAUNCHES_BWD
     g_k = cuda_fluid.fused_step_backward(vy, vx, rho, *cots, *geom, **flags,
@@ -269,20 +348,40 @@ def test_fused_backward_plans_match_plain(h, w, case):
                           want)
 
 
+@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30)])
+@pytest.mark.parametrize("case", list(_FUSED_CASES))
+def test_fused_forward_plans_match_plain(h, w, case):
+    """K2 at a grid that is not square, at one row a rank under a cluster
+    of 8 (the windows reach past the neighbours' bands) and at a width that
+    is not a multiple of 4, under every plan the launcher takes, against
+    the plain version (limits as above)."""
+    dev = _cuda()
+    plate = np.zeros((h, w), np.float32)
+    plate[h // 2, w // 4:w // 2] = 1.0
+    domain = Domain2D.create(h, w, obstacle_mask=plate, device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    ops, _ = _fused_inputs(h, case, dev, w=w)
+    vy, vx, rho = ops.pop("vy"), ops.pop("vx"), ops.pop("rho")
+    want = cuda_fluid.fused_step_plain_forward(vy, vx, rho, *geom, **ops,
+                                               **_FUSED)
+    _check_forward_plans(vy, vx, rho, ops, geom, _FUSED_CASES[case][4], want)
+
+
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48)])
 def test_fused_shared_memory_count_matches_source(h, w):
-    """K2's gate and K3's plans count the bytes the kernels' source asks
-    for: `fused_shared_bytes` and, under every plan the K3 launcher takes
-    and under `bwd_plan`'s, `fused_bwd_shared_bytes`."""
+    """K2's and K3's plans count the bytes the kernels' source asks for,
+    under every plan their launchers take and under their plan at batch 8:
+    `fused_fwd_shared_bytes` and `fused_bwd_shared_bytes`."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
 
     _cuda()
     lib = _build.load()[0]
-    fn = lib.fused_shared_bytes
-    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_size_t
-    assert fn(h, w) == cuda_fluid.shared_bytes(h, w)
+    fn = lib.fused_fwd_shared_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+    for plan in cuda_fluid.fwd_plans(h, w) + [cuda_fluid.fwd_plan(8, h, w)]:
+        assert fn(h, w, plan.cluster, plan.threads) == plan.shared_bytes
     fn = lib.fused_bwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     for plan in cuda_fluid.bwd_plans(h, w) + [cuda_fluid.bwd_plan(8, h, w)]:
@@ -304,6 +403,25 @@ _BWD_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
                     (8, 84, 84), (2, 8, 8)]
 
 
+def _check_bands(plans, h):
+    """Under every plan, the ranks' bands (pcg_cluster.cuh :: Band: rank c
+    owns cell and x-face rows [cH/C, (c+1)H/C), the last rank also y-face
+    row H) cover each row of the cell, y-face and x-face fields exactly
+    once, none is empty, none is longer than `rows_per_rank`, and each
+    row's owner is found from the row alone."""
+    for p in plans:
+        c = p.cluster
+        cells, y_faces = np.zeros(h, int), np.zeros(h + 1, int)
+        for rank in range(c):
+            a, b = rank * h // c, (rank + 1) * h // c
+            assert 1 <= b - a <= p.rows_per_rank == -(-h // c)
+            cells[a:b] += 1
+            y_faces[a:h + 1 if rank == c - 1 else b] += 1
+            for r in range(a, b):
+                assert min(((r + 1) * c - 1) // h, c - 1) == rank
+        assert (cells == 1).all() and (y_faces == 1).all()  # x-faces: cells
+
+
 @pytest.mark.parametrize("batch,h,w", _BWD_PLAN_SHAPES,
                          ids=["x".join(map(str, s)) for s in _BWD_PLAN_SHAPES])
 def test_bwd_plan_covers_the_rows_once(batch, h, w):
@@ -322,17 +440,7 @@ def test_bwd_plan_covers_the_rows_once(batch, h, w):
         h, w, plan.cluster, plan.threads, 2) <= cuda_cg.SMEM_LIMIT_BYTES
     plans = cuda_fluid.bwd_plans(h, w)
     assert plan in plans
-    for p in plans:
-        c = p.cluster
-        cells, y_faces = np.zeros(h, int), np.zeros(h + 1, int)
-        for rank in range(c):
-            a, b = rank * h // c, (rank + 1) * h // c
-            assert 1 <= b - a <= p.rows_per_rank == -(-h // c)
-            cells[a:b] += 1
-            y_faces[a:h + 1 if rank == c - 1 else b] += 1
-            for r in range(a, b):
-                assert min(((r + 1) * c - 1) // h, c - 1) == rank
-        assert (cells == 1).all() and (y_faces == 1).all()  # x-faces: cells
+    _check_bands(plans, h)
 
 
 def test_bwd_plan_fills_the_card_and_is_cached():
@@ -354,6 +462,108 @@ def test_bwd_plan_fills_the_card_and_is_cached():
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
         plan(1, 8, 4096)
+
+
+_SOLVE_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
+                      (8, 96, 96), (2, 8, 8), (200, 96, 96)]
+
+
+@pytest.mark.parametrize("batch,h,w", _SOLVE_PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _SOLVE_PLAN_SHAPES])
+def test_solve_plan_covers_the_rows_once(batch, h, w):
+    """K1's plan: a cluster size the launcher takes, 512 threads, shared
+    memory within a block's limit and equal to `solve_shared_bytes`; and
+    under it and every other plan, bands as `_check_bands` holds them."""
+    plan = cuda_cg.solve_plan(batch, h, w, sm_count=132,
+                              max_clusters=_resident_clusters)
+    assert plan.cluster in cuda_cg.CLUSTERS and plan.cluster <= h
+    assert plan.threads == cuda_cg.CLUSTER_THREADS
+    assert plan.shared_bytes == cuda_cg.solve_shared_bytes(
+        h, w, plan.cluster, plan.threads) <= cuda_cg.SMEM_LIMIT_BYTES
+    plans = cuda_cg.solve_plans(h, w)
+    assert plan in plans
+    _check_bands(plans, h)
+
+
+def test_solve_plan_fills_the_card_and_is_cached():
+    """K1's plan by the rule of K3's (`cuda_cg.pick_plan`): 16 at 64²×8
+    where 8 clusters of 16 fit, else 8; 2 at batch 64; 1 at batch 132; the
+    smallest that fits shared memory at a large batch (4 at 96²); capped at
+    H rows; one plan object per shape; no plan beyond shared memory."""
+    def plan(batch, h, w, limit=_resident_clusters):
+        return cuda_cg.solve_plan(batch, h, w, sm_count=132, max_clusters=limit)
+
+    assert plan(8, 64, 64).cluster == 16
+    assert plan(8, 64, 64, _no_resident_16).cluster == 8
+    assert plan(64, 64, 64).cluster == 2
+    assert plan(132, 64, 64).cluster == 1
+    assert plan(1, 8, 8).cluster == 8
+    assert plan(200, 96, 96).cluster == 4
+    assert plan(8, 64, 64) is plan(8, 64, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(1, 128, 128)
+
+
+@pytest.mark.parametrize("batch,h,w", _BWD_PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _BWD_PLAN_SHAPES])
+def test_fwd_plan_covers_the_rows_once(batch, h, w):
+    """K2's plan: a cluster size the launcher takes, 512 threads, shared
+    memory within a block's limit and equal to `fwd_shared_bytes`; and
+    under it and every other plan, bands as `_check_bands` holds them."""
+    plan = cuda_fluid.fwd_plan(batch, h, w, sm_count=132,
+                               max_clusters=_resident_clusters)
+    assert plan.cluster in cuda_cg.CLUSTERS and plan.cluster <= h
+    assert plan.threads == cuda_cg.CLUSTER_THREADS
+    assert plan.shared_bytes == cuda_fluid.fwd_shared_bytes(
+        h, w, plan.cluster, plan.threads) <= cuda_cg.SMEM_LIMIT_BYTES
+    plans = cuda_fluid.fwd_plans(h, w)
+    assert plan in plans
+    _check_bands(plans, h)
+
+
+def test_fwd_plan_fills_the_card_and_is_cached():
+    """K2's plan by the rule of K1's and K3's: 16 at 64²×8 where 8 clusters
+    of 16 fit, else 8; 2 at batch 64; 1 at batch 132; capped at H rows; the
+    smallest that fits at a large batch at 84² (2); one plan object per
+    shape; no plan beyond shared memory."""
+    def plan(batch, h, w, limit=_resident_clusters):
+        return cuda_fluid.fwd_plan(batch, h, w, sm_count=132, max_clusters=limit)
+
+    assert plan(8, 64, 64).cluster == 16
+    assert plan(8, 64, 64, _no_resident_16).cluster == 8
+    assert plan(64, 64, 64).cluster == 2
+    assert plan(132, 64, 64).cluster == 1
+    assert plan(1, 8, 8).cluster == 8
+    assert plan(200, 84, 84).cluster == 2
+    assert plan(8, 64, 64) is plan(8, 64, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(1, 8, 4096)
+
+
+# Grids around the gates' edges: where K1 and the fused step take a grid,
+# every batch has a plan of each kernel that runs there.
+_GATE_SHAPES = [(8, 8), (24, 30), (32, 48), (64, 64), (84, 84), (85, 85),
+                (96, 96), (98, 98), (99, 99), (64, 128), (128, 128)]
+
+
+@pytest.mark.parametrize("h,w", _GATE_SHAPES,
+                         ids=["x".join(map(str, s)) for s in _GATE_SHAPES])
+def test_plans_exist_where_the_gates_say_yes(h, w):
+    """Wherever `cuda_solve_fits` says yes, K1 has a plan at every batch;
+    wherever `fused_step_fits` says yes, K2 and K3 do."""
+    batches = (1, 2, 8, 64, 132, 1000)
+    if cuda_cg.cuda_solve_fits(h, w):
+        for b in batches:
+            assert cuda_cg.solve_plan(b, h, w, sm_count=132,
+                                      max_clusters=_resident_clusters)
+    if cuda_fluid.fused_step_fits(h, w):
+        for b in batches:
+            assert cuda_fluid.fwd_plan(b, h, w, sm_count=132,
+                                       max_clusters=_resident_clusters)
+            assert cuda_fluid.bwd_plan(b, h, w, sm_count=132,
+                                       max_clusters=_resident_clusters)
+    assert cuda_cg.cuda_solve_fits(h, w) is (max(h, w) <= 98)
+    assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 84)
 
 
 def test_fused_kernels_reject_bad_inputs():
