@@ -45,7 +45,18 @@ prints no result):
      (`conv_impl='cuda'`): the first iteration against the fused cuDNN
      path, 2 warm-up and 5 timed iterations, the launches of all five
      kernels;
-  9. the 3×3 conv's forward and dX (K4) and dW (K5) against their plain
+  9. the rest of the training step, on the 'refined' class (every net
+     trainable, grad clip 1.0, cosine over 100 updates): its first
+     iteration on the conv path against K1 with cuDNN; one op_supervised
+     step on the conv path; `progress_multi` (K = 8 replays of one CUDA
+     graph of the step) against 8 `progress` calls from the same state;
+     both timed on the three paths (CUDA events and the host clock over
+     the K steps, steps/s, peak memory, launches a step: counted by the
+     wrappers for eager steps, the captured step's times K for replays);
+     a NaN batch inside a replay, skipped;
+ 10. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
+     package's goldens (`tests/goldens/conv3x3_32.npz`) under every plan
+     their launchers take, and against their plain
      versions at every conv shape the conv path ran, with db, then their
      device times (CUDA-graph replay) beside the plain versions', cuDNN's
      and the bound, per launch and summed over one iteration; K5's bound
@@ -812,7 +823,7 @@ def fused_kernel_phase(card: str) -> dict:
     return summary
 
 
-# ---------------------------------------------------------------- phase 9
+# --------------------------------------------------------------- phase 10
 
 
 def _conv_work(b: int, h: int, w: int, cin: int, cout: int) -> tuple[float, dict]:
@@ -841,6 +852,61 @@ def _fwd_plan_text(plan) -> str:
             f"shared, {plan.partial_bytes} B partials)")
 
 
+CONV_GOLDENS = "tests/goldens/conv3x3_32.npz"
+
+
+def conv_golden_check(dev) -> dict:
+    """K4 (forward, dX) and K5 under the wrappers' plans and every plan
+    their launchers take (`fwd_plans`, `dw_plans`) against the JAX
+    package's bf16 conv and VJP, from the goldens of
+    `scripts/make_conv_goldens.py` (32², batch 2, with a bias: 5 → 32,
+    64 → 64, 16 → 16, 32 → 16): each within 1e-2 of the golden's max|ref|.
+    Returns the largest max|d| of K4 and of K5."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    z = np.load(Path(__file__).resolve().parent / CONV_GOLDENS)
+    worst = {"K4": 0.0, "K5": 0.0}
+    for case in ("5-32", "64-64", "16-16", "32-16"):
+        cin, cout = map(int, case.split("-"))
+        x, k, b, g = (torch.tensor(z[f"{case}/{n}"].astype(np.float32),
+                                   device=dev).to(torch.bfloat16) for n in "xkbg")
+        wflat = k.reshape(9 * cin, cout)
+        want = {n: torch.from_numpy(z[f"{case}/{n}"].view(np.int16)).view(
+            torch.bfloat16).float().to(dev) for n in ("y", "dx", "dw")}
+
+        def launch(d, plan):
+            if d == "y":
+                return cuda_conv._fwd_launch("forward", x, wflat, b, cin, cout,
+                                             False, plan)
+            if d == "dx":
+                return cuda_conv._fwd_launch("dX", g, wflat, None, cout, cin,
+                                             True, plan)
+            return cuda_conv._dw_launch(x, g, plan or cuda_conv.dw_plan(
+                2, 32, 32, cin, cout)).reshape(k.shape)
+
+        plans = {"y": cuda_conv.fwd_plans(2, 32, 32, cin, cout),
+                 "dx": cuda_conv.fwd_plans(2, 32, 32, cout, cin),
+                 "dw": cuda_conv.dw_plans(2, 32, 32, cin, cout)}
+        rel = dict.fromkeys(plans, 0.0)
+        for d, others in plans.items():
+            scale = float(want[d].abs().max())
+            for plan in [None] + others:
+                diff = float((launch(d, plan).float() - want[d]).abs().max())
+                kernel = "K5" if d == "dw" else "K4"
+                worst[kernel] = max(worst[kernel], diff)
+                rel[d] = max(rel[d], diff / scale)
+                if diff > 1e-2 * scale:
+                    raise AssertionError(f"conv golden {case} {d} {plan}: max|d|/"
+                                         f"max|ref| {diff / scale:.3e} > 1e-2")
+        print(f"golden 32x32x2 {case} (JAX interpret-mode kernels): worst "
+              f"max|d|/max|ref| over the wrappers' plan and every other: "
+              + ", ".join(f"{d} {rel[d]:.2e} ({len(plans[d]) + 1} plans)"
+                          for d in plans))
+    return worst
+
+
 def conv_kernel_phase(card: str, shapes: dict) -> dict:
     """K4 (forward and dX) and K5 (dW) against their plain versions, and db
     as `_Conv3x3` computes it, at every conv shape of the conv path's first
@@ -848,7 +914,7 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
     version's, cuDNN's (timed as a yardstick; the port never calls it on
     this path) and its bound, and the sums over one iteration. Times are
     device times (`_graph_ms`)."""
-    _phase("K4 / K5 (3x3 conv forward, dX, dW) against plain")
+    _phase("K4 / K5 (3x3 conv forward, dX, dW) against plain and JAX")
     import torch.nn.functional as F
 
     from pde_control_tpu_torch.ops import cuda_conv
@@ -858,7 +924,7 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
     print("limits: y, dX and db max|d|/max|ref| <= 1e-2 (one bf16 ulp is "
           "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
           "2^15..2^18 products); y, dX and dW the same bits in two calls")
-    err = {"K4": 0.0, "K5": 0.0}
+    err = conv_golden_check(dev)
     dirs = ("fwd", "dx", "dw")
     sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     t_bytes=0.0, t_ops=0.0, launches=0) for d in dirs}
@@ -1020,10 +1086,12 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
 # ------------------------------------------------------------ phases 5 to 8
 
 
-def make_app(backend: str = "auto", fused: str = "auto", conv_impl: str = "xla"):
+def make_app(backend: str = "auto", fused: str = "auto", conv_impl: str = "xla",
+             sequence_class: str = "staggered", **train):
     """The port's counterpart of `__graft_entry__._make_app(64, 16, 8)`
     (`fused='cuda'`: of `_make_app(64, 16, 8, fused='pallas')`;
-    `conv_impl='cuda'`: of its `conv_impl='pallas'`)."""
+    `conv_impl='cuda'`: of its `conv_impl='pallas'`); `sequence_class` and
+    `train` (grad_clip, lr_schedule, …) go to `ControlTraining`."""
     from pde_control_tpu_torch import (
         ControlTraining,
         Domain2D,
@@ -1043,7 +1111,8 @@ def make_app(backend: str = "auto", fused: str = "auto", conv_impl: str = "xla")
     return ControlTraining(
         N, pde,
         trainable_networks=("CFE",) + tuple(f"OP{s}" for s in SPANS),
-        sequence_class="staggered", obs_loss_frames=(N,), seed=SEED).prepare()
+        sequence_class=sequence_class, obs_loss_frames=(N,), seed=SEED,
+        **train).prepare()
 
 
 def make_batch(seed: int = SEED) -> dict:
@@ -1101,11 +1170,11 @@ def _record_conv_shapes(shapes: dict):
 
 
 def _first_iteration(batch, backend: str, fused: str, conv_impl: str = "xla",
-                     shapes: dict | None = None) -> tuple[float, dict]:
+                     shapes: dict | None = None, **app_kw) -> tuple[float, dict]:
     """Loss and gradient norms of one iteration with the CFE perturbed."""
     from pde_control_tpu_torch.ops import cuda_conv
 
-    app = make_app(backend, fused, conv_impl)
+    app = make_app(backend, fused, conv_impl, **app_kw)
     perturb_cfe(app)
     originals = _record_conv_shapes(shapes) if shapes is not None else {}
     try:
@@ -1152,11 +1221,9 @@ def _zero_counts() -> None:
 
 
 def _counts() -> dict:
-    from pde_control_tpu_torch.ops import cuda_cg, cuda_conv, cuda_fluid
+    from pde_control_tpu_torch.ops import launch_counts
 
-    return {"K1": cuda_cg.LAUNCHES, "K2": cuda_fluid.LAUNCHES_FWD,
-            "K3": cuda_fluid.LAUNCHES_BWD, "K4 fwd": cuda_conv.LAUNCHES_FWD,
-            "K4 dX": cuda_conv.LAUNCHES_DX, "K5": cuda_conv.LAUNCHES_DW}
+    return launch_counts()
 
 
 def conv_launches_per_iteration() -> dict:
@@ -1292,6 +1359,188 @@ def conv_path_phase(card: str, batch: dict, first: dict, shapes: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+
+# The refined path: every net trainable, the e2e stages' grad clip 1.0, a
+# cosine schedule over 100 updates.
+REFINED = dict(sequence_class="refined", grad_clip=1.0, lr_schedule="cosine",
+               decay_steps=100)
+# (pressure backend, fused, conv_impl) of the three paths.
+PATHS = {"unfused": ("auto", "auto", "xla"), "fused": ("auto", "cuda", "xla"),
+         "conv": ("auto", "cuda", "cuda")}
+K_MULTI = 8
+
+
+def refined_launches_per_iteration(path: str) -> dict:
+    """A 'refined' iteration's launches: n CFE calls of len(CFE_FEATURES) +
+    1 convs and n − 1 U-net calls, each on the batch alone, of 5·levels + 2
+    eligible convs, forward and dW, and dX for all but the first OP call's
+    first conv (fed by data); K2 and K3 once a step; on the unfused path K1
+    n times warm forward and n − 1 times cold backward."""
+    fwd = N * (len(CFE_FEATURES) + 1) + (N - 1) * (5 * UNET_LEVELS + 2)
+    per_iter = dict.fromkeys(("K1", "K2", "K3", "K4 fwd", "K4 dX", "K5"), 0)
+    if path == "unfused":
+        return {**per_iter, "K1": 2 * N - 1}
+    per_iter.update(K2=N, K3=N)
+    if path == "conv":
+        per_iter.update({"K4 fwd": fwd, "K4 dX": fwd - 1, "K5": fwd})
+    return per_iter
+
+
+def _device_batches(k: int, seed: int) -> dict:
+    """`make_batch` for seeds seed … seed + k − 1, stacked on a leading K
+    axis, on the card."""
+    batches = [make_batch(seed + i) for i in range(k)]
+    return {key: torch.tensor(np.stack([b[key] for b in batches]), device="cuda")
+            for key in batches[0]}
+
+
+def _state_diffs(a, b) -> dict:
+    """max|d| between two apps' parameters and first and second moments,
+    each moment's beside its largest entry, and whether the count and the
+    counters are equal."""
+    sa, sb = a._state(), b._state()
+    n = len(a.trainable)
+    out = {"params": max(float((x - y).abs().max()) for x, y in zip(sa[:n], sb[:n]))}
+    for name, x, y in (("mu", sa[n], sb[n]), ("nu", sa[n + 1], sb[n + 1])):
+        out[name], out[name + "_max"] = (float((x - y).abs().max()),
+                                         float(x.abs().max()))
+    out["counts_equal"] = all(torch.equal(x, y) for x, y in zip(sa[n + 2:], sb[n + 2:]))
+    out["bitwise"] = all(torch.equal(x, y) for x, y in zip(sa, sb))
+    return out
+
+
+def _timed_steps(label: str, app, batches: dict, card: str, graph: bool) -> dict:
+    """K_MULTI steps, eager `progress` calls or one `progress_multi` call,
+    after the caller's warm-up: CUDA events over the K steps and the host
+    clock, steps/s, peak memory and memory reserved (a graph's pool
+    included), and the launches: counted by the wrappers for eager steps,
+    the captured step's launches times K for replays (a replay runs no
+    wrapper)."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    if graph:
+        losses = app.progress_multi(batches)["loss"]
+    else:
+        losses = torch.stack([app.progress({k: v[i] for k, v in batches.items()})
+                              ["loss"] for i in range(K_MULTI)])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ms = start.elapsed_time(end)
+    counted = _counts()
+    if graph:
+        if any(counted.values()):
+            raise AssertionError(f"{label}: a replay ran a wrapper: {counted}")
+        counted = {k: K_MULTI * v for k, v in app.graph_launches.items()}
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"{label}: non-finite loss {losses.tolist()}")
+    steps = N * BATCH * K_MULTI
+    print(f"{label}: {K_MULTI} steps {ms:.3f} ms by CUDA events ({ms / K_MULTI:.3f} "
+          f"a step), host clock {1e3 * wall:.3f} ms; steps/s {steps / (ms / 1e3):.1f} "
+          f"(host clock {steps / wall:.1f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB; launches a step "
+          f"{ {k: v // K_MULTI for k, v in counted.items()} } [{card}]")
+    return dict(ms=ms / K_MULTI, wall_ms=1e3 * wall / K_MULTI,
+                steps_per_s=steps / (ms / 1e3), launches=counted)
+
+
+def training_phase(card: str, batch: dict) -> dict:
+    """The rest of the training step on the card: the refined path's first
+    iteration against a reference, one op_supervised step, progress_multi
+    against progress calls, the graph's and eager steps' times on the three
+    paths, and a non-finite batch inside a replay. Returns each path's
+    launches per step under the graph."""
+    _phase("training classes and progress_multi")
+    print("limits: refined first iteration as the paths' (loss 1e-3 relative, "
+          "grad norms nonzero and within 2e-2); progress_multi against "
+          "progress calls with cuDNN deterministic: counts and counters equal, "
+          "parameters max|d| <= 1e-5 (1% of one step at lr 1e-3), each moment "
+          "buffer max|d| <= 1e-2 of its largest entry (bits equal expected: "
+          "K2-K5 and cuDNN deterministic)")
+    _compare_first("refined conv", _first_iteration(batch, *PATHS["conv"], **REFINED),
+                   _first_iteration(batch, *PATHS["unfused"], **REFINED))
+
+    app = make_app(*PATHS["conv"], sequence_class="op_supervised", grad_clip=1.0)
+    before = {k: v.clone() for k, v in app.nets.state_dict().items()}
+    _zero_counts()
+    loss = float(app.progress(batch)["loss"])
+    launches = _counts()
+    changed = sorted({k.split(".")[0] for k, v in app.nets.state_dict().items()
+                      if not torch.equal(v, before[k])})
+    print(f"op_supervised conv path, one step: loss {loss:.7e}, nets changed "
+          f"{changed}, launches {launches}")
+    ops = 5 * UNET_LEVELS + 2
+    if not (np.isfinite(loss) and changed == sorted(f"OP{s}" for s in SPANS)):
+        raise AssertionError("op_supervised: non-finite loss or wrong nets changed")
+    _expect("op_supervised", launches, {
+        "K1": 0, "K2": 0, "K3": 0, "K4 fwd": (N - 1) * ops,
+        "K4 dX": (N - 1) * (ops - 1), "K5": (N - 1) * ops}, iters=1)
+    del app
+
+    batches = _device_batches(K_MULTI, SEED + 10)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        eager, graph = (make_app(*PATHS["conv"], **REFINED) for _ in range(2))
+        for app in (eager, graph):
+            perturb_cfe(app)
+        for i in range(K_MULTI):
+            eager.progress({k: v[i] for k, v in batches.items()})
+        graph.progress_multi(batches)
+    d = _state_diffs(eager, graph)
+    print(f"progress_multi({K_MULTI}) against {K_MULTI} progress calls, refined conv "
+          f"path: {d}")
+    if not (d["counts_equal"] and d["params"] <= 1e-5
+            and d["mu"] <= 1e-2 * d["mu_max"] and d["nu"] <= 1e-2 * d["nu_max"]):
+        raise AssertionError("progress_multi differs from progress calls")
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    per_step = {}
+    for path, config in PATHS.items():
+        app = make_app(*config, **REFINED)
+        app.progress({k: v[0] for k, v in batches.items()})  # warm-up steps
+        app.progress({k: v[1] for k, v in batches.items()})
+        torch.cuda.reset_peak_memory_stats()
+        eager = _timed_steps(f"refined {path} eager", app, batches, card, False)
+        _expect(f"refined {path} eager", eager["launches"],
+                refined_launches_per_iteration(path), iters=K_MULTI)
+        del app
+        torch.cuda.empty_cache()
+        app = make_app(*config, **REFINED)
+        torch.cuda.reset_peak_memory_stats()
+        app.progress_multi(batches)  # warm-up, capture and K replays
+        graph = _timed_steps(f"refined {path} graph", app, batches, card, True)
+        _expect(f"refined {path} graph", graph["launches"],
+                refined_launches_per_iteration(path), iters=K_MULTI)
+        print(f"refined {path}: graph {graph['ms']:.3f} ms a step against eager "
+              f"{eager['ms']:.3f} ({eager['ms'] / graph['ms']:.2f}x) by CUDA "
+              f"events [{card}]")
+        per_step[path] = app.graph_launches
+        if path == "conv":
+            state = [t.clone() for t in app._state()]
+            bad = _device_batches(1, SEED + 20)
+            bad["obs"][0, 1, -1, H // 2, H // 3, 0] = float("nan")
+            m = app.progress_multi(bad)
+            kept = all(torch.equal(a, b) for a, b in
+                       zip(app._state()[:-2], state[:-2]))
+            print(f"a NaN batch in one replay: loss {float(m['loss'][0])}, "
+                  f"counters {int(m['notfinite_total'][0])} total "
+                  f"{int(m['notfinite_consec'][0])} consecutive (before: "
+                  f"{int(state[-2])}, {int(state[-1])}), parameters, moments "
+                  f"and count kept: {kept}")
+            if not (kept and int(app.notfinite_total) == int(state[-2]) + 1
+                    and int(app.notfinite_consec) == int(state[-1]) + 1):
+                raise AssertionError("the non-finite replay was not skipped")
+        del app
+        torch.cuda.empty_cache()
+    return per_step
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -1307,6 +1556,7 @@ def main() -> None:
     unfused_launches = main_path_phase(card, batch, first)
     fused_launches = fused_path_phase(card, batch, first)
     conv_launches = conv_path_phase(card, batch, first, shapes)
+    training_phase(card, batch)
     # Last, so that its CUDA graphs' memory stays out of the paths' peaks.
     conv = conv_kernel_phase(card, shapes)
 

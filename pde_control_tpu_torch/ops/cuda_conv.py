@@ -201,10 +201,31 @@ def fwd_plan(b: int, h: int, w: int, cin: int, cout: int) -> FwdPlan:
     fm, seg, blocks = chosen
     slices = -(-cin // 16)
     per_split = -(-slices // min(slices, -(-_SMS // blocks)))
-    splits = -(-slices // per_split)
-    return FwdPlan(bn, fm, seg, splits, blocks,
+    return _fwd_plan(b, h, w, cout, bn, fm, seg, -(-slices // per_split))
+
+
+def _fwd_plan(b: int, h: int, w: int, cout: int, bn: int, fm: int, seg: int,
+              splits: int) -> FwdPlan:
+    return FwdPlan(bn, fm, seg, splits, _fwd_blocks(b, h, w, cout, bn, fm, seg),
                    fwd_shared_bytes(bn, fm, seg, w),
                    splits * 4 * b * h * w * cout if splits > 1 else 0)
+
+
+def fwd_plans(b: int, h: int, w: int, cin: int, cout: int) -> list[FwdPlan]:
+    """Every plan K4's launcher takes for x (b, h, w, cin) → (b, h, w,
+    cout): each tile of `FWD_TILES` with the widest segment whose ring fits
+    a block's shared memory, by each distinct number of splits of the
+    16-channel slices of K. `fwd_plan` picks one of them or one with a
+    narrower segment."""
+    slices = -(-cin // 16)
+    plans = []
+    for bn, fm in FWD_TILES:
+        seg = w
+        while seg > 1 and fwd_shared_bytes(bn, fm, seg, w) > MAX_SHARED_BYTES:
+            seg = -(-seg // 2)
+        plans += [_fwd_plan(b, h, w, cout, bn, fm, seg, splits) for splits in
+                  sorted({-(-slices // p) for p in range(1, slices + 1)})]
+    return plans
 
 
 class DwPlan(NamedTuple):
@@ -264,10 +285,32 @@ def dw_plan(b: int, h: int, w: int, cin: int, cout: int) -> DwPlan:
         raise ValueError(f"conv3x3_dw: one row of {w} pixels needs {shared} "
                          f"bytes of shared memory, above {MAX_SHARED_BYTES}")
     total_runs = b * -(-h // rows)
-    runs_per_block = -(-total_runs // target)
-    splits = -(-total_runs // runs_per_block)
+    return _dw_plan(b, h, cin, cout, rows, -(-total_runs // target), shared)
+
+
+def _dw_plan(b: int, h: int, cin: int, cout: int, rows: int,
+             runs_per_block: int, shared: int) -> DwPlan:
+    splits = -(-(b * -(-h // rows)) // runs_per_block)
     return DwPlan(rows, runs_per_block, splits, shared,
                   splits * 4 * 9 * cin * cout if splits > 1 else 0)
+
+
+def dw_plans(b: int, h: int, w: int, cin: int, cout: int) -> list[DwPlan]:
+    """Every plan K5's launcher takes for x (b, h, w, cin) and dY (b, h, w,
+    cout): runs of 1, 2, 4, … rows up to H whose ring fits a block's shared
+    memory, each with one plan for each distinct number of splits that a
+    power-of-two count of blocks gives."""
+    plans = {}
+    for rows in (2 ** i for i in range(h.bit_length())):
+        shared = dw_shared_bytes(rows, w, cin, cout)
+        if shared > MAX_SHARED_BYTES:
+            continue
+        total_runs = b * -(-h // rows)
+        for target in (2 ** i for i in range(total_runs.bit_length())):
+            plan = _dw_plan(b, h, cin, cout, rows, -(-total_runs // target),
+                            shared)
+            plans.setdefault((rows, plan.splits), plan)
+    return list(plans.values())
 
 
 def _vec(t: torch.Tensor, channels: int) -> int:
@@ -292,10 +335,12 @@ def _stream(t: torch.Tensor) -> int:
 
 def _fwd_launch(name: str, x: torch.Tensor, wgt: torch.Tensor,
                 bias: torch.Tensor | None, cin: int, cout: int,
-                rotated: bool) -> torch.Tensor:
-    """K4 on x (B, H, W, cin) → (B, H, W, cout) under `fwd_plan`."""
+                rotated: bool, plan: FwdPlan | None = None) -> torch.Tensor:
+    """K4 on x (B, H, W, cin) → (B, H, W, cout) under `plan` (None:
+    `fwd_plan`'s; the tests pass the others of `fwd_plans`)."""
     b, h, w, _ = x.shape
-    plan = fwd_plan(b, h, w, cin, cout)
+    if plan is None:
+        plan = fwd_plan(b, h, w, cin, cout)
     partial = (torch.empty((plan.splits, b * h * w, cout), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
@@ -356,7 +401,16 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     b, h, w, cin = _check_image("x", x)
     cout = g.shape[-1]
     cuda_cg._check("g", g, (b, h, w, cout), x.device, torch.bfloat16)
-    plan = dw_plan(b, h, w, cin, cout)
+    dw = _dw_launch(x, g, dw_plan(b, h, w, cin, cout))
+    LAUNCHES_DW += 1
+    return dw
+
+
+def _dw_launch(x: torch.Tensor, g: torch.Tensor, plan: DwPlan) -> torch.Tensor:
+    """K5 on checked operands under `plan` (the tests pass each of
+    `dw_plans`)."""
+    b, h, w, cin = x.shape
+    cout = g.shape[-1]
     partial = (torch.empty((plan.splits, 9 * cin, cout), dtype=torch.float32,
                            device=x.device) if plan.splits > 1 else None)
     dw = torch.empty((9 * cin, cout), dtype=x.dtype, device=x.device)
@@ -366,8 +420,8 @@ def conv3x3_dw(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                        plan.runs_per_block, plan.splits, _vec(x, cin),
                        _vec(g, cout), _stream(x))
     if rc != 0:
-        raise RuntimeError(f"conv3x3_dw_bf16 launch failed with cudaError {rc}")
-    LAUNCHES_DW += 1
+        raise RuntimeError(f"conv3x3_dw_bf16 launch failed with cudaError {rc} "
+                           f"under {plan}")
     return dw
 
 

@@ -19,6 +19,11 @@ prints:
     time, as tables; and the device time and launches of the solve and
     step kernels, K1 (`pcg_cluster_kernel`), K2 (`fused_fwd_kernel`) and
     K3 (`fused_bwd_kernel`).
+Then, for each path on the 'refined' class (`chip_smoke.REFINED`), one
+`progress_multi` call of K = 8 replays of the captured step under the
+profiler: the wall time, the device operations, the launches and the
+device's busy time and share, and the device time of the conv kernels
+and of K1–K3.
 Every line names the card and its power limit.
 """
 
@@ -100,7 +105,8 @@ def profile_path(fused: str, conv_impl: str, card: str, batch: dict) -> None:
             staggered_targets(app._op, gt0, gtn, app.n)
 
     def forward():
-        app.optimizer.zero_grad(set_to_none=True)
+        for p in app.trainable + app.frozen:
+            p.grad = None
         app._loss_fn(tb)
 
     split = {
@@ -136,11 +142,39 @@ def profile_path(fused: str, conv_impl: str, card: str, batch: dict) -> None:
     print(table.table(sort_by="self_cpu_time_total", row_limit=12))
 
 
+def profile_graph(path: str, card: str) -> None:
+    """K replays of the refined path's captured step under the profiler."""
+    app = chip_smoke.make_app(*chip_smoke.PATHS[path], **chip_smoke.REFINED)
+    batches = chip_smoke._device_batches(chip_smoke.K_MULTI, chip_smoke.SEED)
+    app.progress_multi(batches)  # warm-up and capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        app.progress_multi(batches)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = _busy_us(device) / 1e3
+    k = chip_smoke.K_MULTI
+    label = f"refined {path} graph, {k} replays"
+    print(f"{label}: wall {wall_ms:.3f} ms under the profiler ({wall_ms / k:.3f} "
+          f"a step), {len(device)} device operations, "
+          f"{sum(e.name == 'cudaLaunchKernel' for e in events)} cudaLaunchKernel "
+          f"calls, device busy {busy_ms:.3f} ms ({busy_ms / k:.3f} a step, "
+          f"{100 * busy_ms / wall_ms:.1f}% of the profiled wall time) [{card}]")
+    print(f"{label} convolution device time: {_conv_device_ms(device)} [{card}]")
+    print(f"{label} solve and step kernels' device time: "
+          f"{_step_device_ms(device)} [{card}]")
+
+
 def main() -> None:
     card = chip_smoke.device_phase()
     batch = chip_smoke.make_batch()
     for fused, conv_impl in (("off", "xla"), ("cuda", "xla"), ("cuda", "cuda")):
         profile_path(fused, conv_impl, card, batch)
+    for path in chip_smoke.PATHS:
+        profile_graph(path, card)
 
 
 if __name__ == "__main__":

@@ -9,11 +9,11 @@
 
 For each conv shape below (the 64², n=16, batch-8 training iteration's
 shape families) it times K5 (`conv3x3_dw_bf16`, both passes) under every
-plan of rows per run in {1, 2, 4, ..} and about 1, 2, 4, .., 1024 splits
-that fits the card's shared memory, and K4 (`conv3x3_fwd_bf16`, forward
-and dX, both passes) under every output-channel tile and fragments per
-warp it has and every count of splits of K, calling the C entries
-directly; and K3 (`fused_step_bwd_f32`, the fused step's backward) under
+plan its launcher takes (`cuda_conv.dw_plans`: rows per run in {1, 2,
+4, ..} and about 1, 2, 4, .. splits, fitting the card's shared memory),
+and K4 (`conv3x3_fwd_bf16`, forward and dX, both passes) under every plan
+of `cuda_conv.fwd_plans` (each output-channel tile and fragments per warp
+by each count of splits of K); and K3 (`fused_step_bwd_f32`, the fused step's backward) under
 every cluster size its launcher takes (512 threads a block) at 64²×8 and
 64²×64 (the main path's step, tol 1e-4 / maxiter 100, and maxiter 0: the
 rest without the CG trips), and K1 (`pcg_solve_f32`, cold and warm) and
@@ -46,49 +46,6 @@ SHAPES = [(8, 64, 64, 64, 64), (8, 64, 64, 32, 64), (8, 64, 64, 64, 32),
           (8, 8, 8, 128, 128), (64, 8, 8, 128, 128)]
 
 
-def _launcher(shape, x, g, rows: int, runs_per_block: int):
-    """A call of K5 under the given plan, and the plan's splits."""
-    b, h, w, cin, cout = shape
-    splits = -(-b * -(-h // rows) // runs_per_block)
-    partial = torch.empty((splits, 9 * cin, cout), dtype=torch.float32,
-                          device=x.device)
-    dw = torch.empty((9 * cin, cout), dtype=x.dtype, device=x.device)
-    kernel = cuda_conv._kernels()[1]
-
-    def call():
-        rc = kernel(x.data_ptr(), g.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-                    b, h, w, cin, cout, rows, runs_per_block, splits,
-                    cuda_conv._vec(x, cin), cuda_conv._vec(g, cout),
-                    cuda_conv._stream(x))
-        if rc != 0:
-            raise RuntimeError(f"conv3x3_dw_bf16 failed with cudaError {rc}")
-
-    return call, splits
-
-
-def _fwd_launcher(x, wgt, bias, cin: int, cout: int, rotated: bool, bn: int,
-                  fm: int, seg: int, splits: int):
-    """A call of K4 on x (b, h, w, cin) → (b, h, w, cout) under the given
-    plan."""
-    b, h, w, _ = x.shape
-    partial = torch.empty((splits, b * h * w, cout), dtype=torch.float32,
-                          device=x.device)
-    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    kernel = cuda_conv._kernels()[0]
-    vec_w = cuda_conv._vec(wgt, cin if rotated else cout)
-
-    def call():
-        rc = kernel(x.data_ptr(), wgt.data_ptr(),
-                    None if bias is None else bias.data_ptr(), y.data_ptr(),
-                    partial.data_ptr(), b, h, w, cin, cout, int(rotated), bn,
-                    fm, seg, splits, cuda_conv._vec(x, cin), vec_w,
-                    cuda_conv._stream(x))
-        if rc != 0:
-            raise RuntimeError(f"conv3x3_fwd_bf16 failed with cudaError {rc}")
-
-    return call
-
-
 def sweep_fwd(card: str, rng) -> None:
     dev = torch.device("cuda")
     for shape in SHAPES:
@@ -110,17 +67,12 @@ def sweep_fwd(card: str, rng) -> None:
             plan = cuda_conv.fwd_plan(b, h, w, k_in, k_out)
             plan_ms = chip_smoke._graph_ms(plan_call, 20)
             library_ms = chip_smoke._graph_ms(library, 20)
-            slices = -(-k_in // 16)
             swept = {}
-            for bn, fm in cuda_conv.FWD_TILES:
-                seg = w
-                while (seg > 1 and cuda_conv.fwd_shared_bytes(bn, fm, seg, w)
-                       > cuda_conv.MAX_SHARED_BYTES):
-                    seg = -(-seg // 2)
-                for splits in sorted({-(-slices // p) for p in range(1, slices + 1)}):
-                    call = _fwd_launcher(inp, wflat, None if rotated else bias,
-                                         k_in, k_out, rotated, bn, fm, seg, splits)
-                    swept[bn, fm, splits] = chip_smoke._graph_ms(call, 20)
+            for p in cuda_conv.fwd_plans(b, h, w, k_in, k_out):
+                swept[p.bn, p.fm, p.splits] = chip_smoke._graph_ms(
+                    lambda p=p: cuda_conv._fwd_launch(
+                        d, inp, wflat, None if rotated else bias, k_in, k_out,
+                        rotated, p), 20)
             ranked = sorted((ms, key) for key, ms in swept.items())
             print(f"K4 {d} {b}x{h}x{w} {k_in}->{k_out}: fwd_plan bn {plan.bn} x "
                   f"fm {plan.fm} x seg {plan.seg} x splits {plan.splits} "
@@ -289,20 +241,10 @@ def sweep_dw(card: str, rng) -> None:
                                                 padding=1), 20)
         plan = cuda_conv.dw_plan(*shape)
         plan_ms = chip_smoke._graph_ms(lambda: cuda_conv.conv3x3_dw(x, g), 20)
-        swept = {}
-        for rows in (r for r in (1, 2, 4, 8, 16, 32, 64) if r <= h):
-            shared = cuda_conv.dw_shared_bytes(rows, w, cin, cout)
-            if shared > cuda_conv.MAX_SHARED_BYTES:
-                continue
-            total_runs = b * -(-h // rows)
-            for target in (2 ** i for i in range(11) if 2 ** i <= total_runs):
-                runs_per_block = -(-total_runs // target)
-                call, splits = _launcher(shape, x, g, rows, runs_per_block)
-                if (rows, splits) not in swept:
-                    swept[rows, splits] = (chip_smoke._graph_ms(call, 20),
-                                           runs_per_block, shared)
-        best = sorted((ms, rows, rpb, splits, shared)
-                      for (rows, splits), (ms, rpb, shared) in swept.items())[:5]
+        best = sorted((chip_smoke._graph_ms(
+            lambda p=p: cuda_conv._dw_launch(x, g, p), 20), p.rows,
+            p.runs_per_block, p.splits, p.shared_bytes)
+            for p in cuda_conv.dw_plans(*shape))[:5]
         print(f"{b}x{h}x{w} {cin}->{cout}: dw_plan rows {plan.rows} x runs "
               f"{plan.runs_per_block} x splits {plan.splits} {plan_ms:.4f} ms, "
               f"cuDNN {library_ms:.4f} ms; fastest swept: " + "; ".join(

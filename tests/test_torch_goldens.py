@@ -1,26 +1,33 @@
-"""The fused fluid step (K2 forward, K3 backward) and the pressure solve
-(K1) against the JAX package's, through goldens:
+"""The fused fluid step (K2 forward, K3 backward), the pressure solve
+(K1) and the 3×3 conv (K4 forward and dX, K5 dW) against the JAX
+package's, through goldens:
 `scripts/make_fused_goldens.py` wrote `tests/goldens/fused_step_32.npz`
 from `pde_control_tpu/ops/pallas_fluid.py :: fused_fluid_step
 (interpret=True)` and its VJP (32×32 closed box with the plate, batch 2,
 tol 1e-7 / maxiter 500; a warm start with force and inflow, and zero
 velocity); `scripts/make_cg_goldens.py` wrote `tests/goldens/pcg_32.npz`
 from `pde_control_tpu/ops/pallas_cg.py :: pallas_pressure_solve
-(interpret=True)` (the same box closed, cold and warm, and open, cold).
+(interpret=True)` (the same box closed, cold and warm, and open, cold);
+`scripts/make_conv_goldens.py` wrote `tests/goldens/conv3x3_32.npz` from
+`pde_control_tpu/ops/pallas_conv.py :: conv3x3(bfloat16, interpret=True)`
+and its VJP (32², batch 2, with a bias: 5 → 32, 64 → 64, 16 → 16, 32 → 16).
 
 This file imports neither JAX nor the JAX package. On the CPU it holds the
 plain versions to the goldens with the tolerances of
 `tests/test_torch_cuda_fluid.py` (forward atol 5e-6 / rtol 1e-5, the VJP
 3e-5 of each cotangent's largest entry) and, for the solve, 5e-6 of the
-pressure's largest entry (fp32 CG to tol 1e-7, sums in another order).
-On a machine with a GPU:
+pressure's largest entry (fp32 CG to tol 1e-7, sums in another order);
+the conv's y, dX, dW and db, in bf16, to 1e-2 of each one's largest entry
+(one bf16 ulp is 2⁻⁸; the fp32 sums run in another order), on the CPU and
+on the card. On a machine with a GPU:
 
     python -m pytest tests/test_torch_goldens.py --noconftest -q
 
 also holds the kernels to them: outputs within 1e-4 and cotangents within
 1e-3 of the golden's largest entry (fp32 sums in another order), K1, K2
-and K3 under their plan and under every plan their launchers take; and
-K3's cold solve to the bits it gave before K1 and K2 moved onto its core.
+and K3 under their plan and under every plan their launchers take (K4 and
+K5 likewise, at the conv's limit); and K3's cold solve to the bits it
+gave before K1 and K2 moved onto its core.
 """
 
 import json
@@ -30,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+from pde_control_tpu_torch.ops import cuda_cg, cuda_conv, cuda_fluid
 
 torch.set_num_threads(1)
 
@@ -199,6 +206,93 @@ def test_solve_kernel_matches_goldens(case):
     for plan in [None] + cuda_cg.solve_plans(32, 32):
         p, _ = cuda_cg._launch_solve(div, *geom, x0, plan, precond=True, **kw)
         _within_scale(p, want, 1e-4, f"{case} {plan}")
+
+
+CONV_GOLDENS = GOLDENS.with_name("conv3x3_32.npz")
+CONV_CASES = ("5-32", "64-64", "16-16", "32-16")
+CONV_OUTS = ("y", "dx", "dw", "db")
+
+
+def _conv_case(case: str, dev):
+    """The conv goldens' operands x, kernel, bias and cotangent as bf16
+    tensors on `dev`, and the JAX package's y, dX, dW and db in fp32."""
+    z = np.load(CONV_GOLDENS)
+    ops = [torch.tensor(z[f"{case}/{n}"].astype(np.float32), device=dev
+                        ).to(torch.bfloat16) for n in "xkbg"]
+    want = [torch.from_numpy(z[f"{case}/{n}"].view(np.int16)).view(
+        torch.bfloat16).float().numpy() for n in CONV_OUTS]
+    return ops, want
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_plain_conv_matches_goldens(case):
+    """`cuda_conv.conv3x3` on CPU tensors (K4's and K5's plain versions,
+    through the autograd function) against the JAX package's bf16 conv."""
+    (x, k, b, g), want = _conv_case(case, "cpu")
+    x, k, b = (t.requires_grad_(True) for t in (x, k, b))
+    y = cuda_conv.conv3x3(x, k, b)
+    y.backward(g)
+    for name, got, ref in zip(CONV_OUTS, (y, x.grad, k.grad, b.grad), want):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        _within_scale(got.float(), ref, 1e-2, name)
+
+
+def test_conv_goldens_are_small_and_whole():
+    """The conv's goldens stay under 1.5 MB and hold every array the tests
+    read, each case's at its shapes."""
+    assert CONV_GOLDENS.stat().st_size <= 1536 * 1024
+    z = np.load(CONV_GOLDENS)
+    for case in CONV_CASES:
+        cin, cout = map(int, case.split("-"))
+        shapes = dict(x=(2, 32, 32, cin), k=(3, 3, cin, cout), b=(cout,),
+                      g=(2, 32, 32, cout), y=(2, 32, 32, cout),
+                      dx=(2, 32, 32, cin), dw=(3, 3, cin, cout), db=(cout,))
+        for name, shape in shapes.items():
+            a = z[f"{case}/{name}"]
+            assert a.shape == shape, (case, name)
+            assert a.dtype == (np.float16 if name in "xkbg" else np.uint16)
+    _, want = _conv_case("64-64", "cpu")
+    assert all(np.isfinite(a).all() and np.abs(a).max() > 0 for a in want)
+
+
+def _conv_golden_plans(case: str):
+    """Every (direction, plan) the conv kernels' launchers take at a golden
+    case: K4 forward and dX under `fwd_plans` and K5 under `dw_plans`,
+    each beside None, the wrappers' own plan."""
+    cin, cout = map(int, case.split("-"))
+    return ([("y", p) for p in [None] + cuda_conv.fwd_plans(2, 32, 32, cin, cout)]
+            + [("dx", p) for p in [None] + cuda_conv.fwd_plans(2, 32, 32, cout,
+                                                                 cin)]
+            + [("dw", p) for p in [None] + cuda_conv.dw_plans(2, 32, 32, cin,
+                                                               cout)])
+
+
+def _run_conv_plan(ops, direction: str, plan):
+    """K4 (y, dX) or K5 (dW, reshaped to the kernel's shape) on the golden
+    operands under `plan`."""
+    x, k, b, g = ops
+    cin, cout = k.shape[2], k.shape[3]
+    wflat = k.reshape(9 * cin, cout)
+    if direction == "y":
+        return cuda_conv._fwd_launch("forward", x, wflat, b, cin, cout, False,
+                                     plan)
+    if direction == "dx":
+        return cuda_conv._fwd_launch("dX", g, wflat, None, cout, cin, True, plan)
+    dw = cuda_conv._dw_launch(x, g, plan or cuda_conv.dw_plan(*x.shape, cout))
+    return dw.reshape(k.shape)
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv_kernels_match_goldens(case):
+    """K4 (forward and dX) and K5 on the card, under their wrappers' plan
+    and every plan their launchers take, against the JAX package's conv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ops, want = _conv_case(case, torch.device("cuda"))
+    ref = dict(zip(CONV_OUTS, want))
+    for direction, plan in _conv_golden_plans(case):
+        got = _run_conv_plan(ops, direction, plan)
+        _within_scale(got.float(), ref[direction], 1e-2, f"{direction} {plan}")
 
 
 # K3's cotangents and trip counts on the fused goldens' operands, as

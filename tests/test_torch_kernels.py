@@ -891,3 +891,102 @@ def test_fwd_plan_fills_the_card_and_is_cached():
         assert plan.splits == 1 and plan.blocks >= 132
     assert cuda_conv.fwd_plan(8, 8, 8, 128, 128) is cuda_conv.fwd_plan(8, 8, 8,
                                                                        128, 128)
+
+
+# ----------------------------------------------------------- progress_multi
+
+# The three paths of the training step: the unfused step (its pressure
+# solve on K1), the fused step (K2/K3) and the fused step with the nets'
+# 3×3 stride-1 convs on K4/K5.
+_PATHS = {"unfused": ("auto", "xla"), "fused": ("cuda", "xla"),
+          "conv": ("cuda", "cuda")}
+
+
+def _training_app(path: str, dev, n: int = 4, h: int = 32):
+    """'refined' at h², n, batch 2 with clip and cosine schedule, bf16 nets,
+    the CFE's output layer perturbed from a numpy seed."""
+    from pde_control_tpu_torch import (
+        ControlTraining,
+        FluidConfig,
+        IncompressibleFluidPDE,
+    )
+
+    fused, conv_impl = _PATHS[path]
+    domain = Domain2D.create(h, h, obstacle_mask=_plate(h), device=dev)
+    cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
+                      pressure_maxiter=100, warm_start_pressure=True,
+                      fused=fused)
+    pde = IncompressibleFluidPDE(domain, cfg, control="buoyancy",
+                                 unet_levels=2, cfe_features=(32, 64, 64, 32),
+                                 dtype=torch.bfloat16, conv_impl=conv_impl)
+    app = ControlTraining(n, pde, trainable_networks=("CFE", "OP4", "OP2"),
+                          sequence_class="refined", grad_clip=1.0,
+                          lr_schedule="cosine", decay_steps=100).prepare()
+    w = app.nets["CFE"].Conv_4.weight
+    with torch.no_grad():
+        w.copy_(torch.tensor(0.05 * np.random.default_rng(3).normal(
+            size=tuple(w.shape)), dtype=torch.float32))
+    return app
+
+
+def _training_batches(k: int, n: int = 4, h: int = 32, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.uniform(0, 1, size=(k, 2, n + 1, h, h, 1)).astype(np.float32),
+            "vy0": np.zeros((k, 2, h + 1, h), np.float32),
+            "vx0": np.zeros((k, 2, h, h + 1), np.float32)}
+
+
+@pytest.mark.parametrize("path", list(_PATHS))
+def test_progress_multi_replays_equal_progress_calls(path):
+    """Three graph replays from a given state against three eager
+    `progress` calls from a copy of it, cuDNN deterministic: the counts and
+    counters equal; parameters, moments and metrics the same bits on the
+    fused and conv paths, whose kernels are deterministic; on the unfused
+    path, whose shift sampler's backward adds with atomics, parameters
+    within 1e-5 (1% of one step at lr 1e-3) and each moment buffer within
+    1e-2 of its largest entry."""
+    dev = _cuda()
+    batches = _training_batches(3)
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False, allow_tf32=False):
+        eager, graph = _training_app(path, dev), _training_app(path, dev)
+        steps = [eager.progress({k: v[i] for k, v in batches.items()})
+                 for i in range(3)]
+        stacked = graph.progress_multi(batches)
+    assert graph.step_count == eager.step_count == 3
+    assert graph.graph_launches["K2"] == (0 if path == "unfused" else 4)
+    assert (graph.graph_launches["K1"] > 0) == (path == "unfused")
+    assert (graph.graph_launches["K5"] > 0) == (path == "conv")
+    state = list(zip(eager._state(), graph._state()))
+    assert int(graph.optimizer.count) == int(eager.optimizer.count) == 3
+    for a, b in state[-2:]:
+        assert torch.equal(a, b)
+    if path == "unfused":
+        for a, b in state[:-5]:
+            assert float((a - b).abs().max()) <= 1e-5
+        for a, b in state[-5:-3]:
+            assert float((a - b).abs().max()) <= 1e-2 * float(a.abs().max())
+        return
+    for a, b in state:
+        assert torch.equal(a, b)
+    for key, v in stacked.items():
+        assert torch.equal(v, torch.stack([m[key] for m in steps])), key
+
+
+def test_progress_multi_skips_a_nonfinite_batch():
+    """A replay on a batch with a NaN leaves parameters, moments and the
+    count as they were and advances both not-finite counters."""
+    dev = _cuda()
+    app = _training_app("conv", dev)
+    app.progress_multi(_training_batches(2))
+    before = [t.clone() for t in app._state()]
+    bad = _training_batches(1, seed=1)
+    bad["obs"][0, 0, -1, 5, 5, 0] = np.nan
+    m = app.progress_multi(bad)
+    assert not torch.isfinite(m["loss"]).any()
+    assert int(m["notfinite_total"][0]) == 1 and int(m["notfinite_consec"][0]) == 1
+    for a, b in zip(app._state()[:-2], before[:-2]):
+        assert torch.equal(a, b)
+    assert int(app.notfinite_total) == int(app.notfinite_consec) == 1
+    m = app.progress_multi(_training_batches(1, seed=2))
+    assert int(m["notfinite_consec"][0]) == 0 and int(app.optimizer.count) == 3
