@@ -73,6 +73,7 @@ The line before the last is the kernels' JSON summary; the last line is
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import re
 import subprocess
@@ -852,7 +853,12 @@ def _fwd_plan_text(plan) -> str:
             f"shared, {plan.partial_bytes} B partials)")
 
 
-CONV_GOLDENS = "tests/goldens/conv3x3_32.npz"
+# The conv goldens' files and their cases: the main path's widths, and the
+# indirect-smoke task's CFE widths (BASELINE config 4).
+CONV_GOLDENS = {"tests/goldens/conv3x3_32.npz": ("5-32", "64-64", "16-16",
+                                                 "32-16"),
+                "tests/goldens/conv3x3_32_wide.npz": ("6-48", "48-96", "96-96",
+                                                      "96-48")}
 
 
 def conv_golden_check(dev) -> dict:
@@ -860,15 +866,17 @@ def conv_golden_check(dev) -> dict:
     their launchers take (`fwd_plans`, `dw_plans`) against the JAX
     package's bf16 conv and VJP, from the goldens of
     `scripts/make_conv_goldens.py` (32², batch 2, with a bias: 5 → 32,
-    64 → 64, 16 → 16, 32 → 16): each within 1e-2 of the golden's max|ref|.
-    Returns the largest max|d| of K4 and of K5."""
+    64 → 64, 16 → 16, 32 → 16, and config 4's 6 → 48, 48 → 96, 96 → 96,
+    96 → 48): each within 1e-2 of the golden's max|ref|. Returns the
+    largest max|d| of K4 and of K5."""
     from pathlib import Path
 
     from pde_control_tpu_torch.ops import cuda_conv
 
-    z = np.load(Path(__file__).resolve().parent / CONV_GOLDENS)
     worst = {"K4": 0.0, "K5": 0.0}
-    for case in ("5-32", "64-64", "16-16", "32-16"):
+    for path, case in [(p, c) for p, cases in CONV_GOLDENS.items()
+                       for c in cases]:
+        z = np.load(Path(__file__).resolve().parent / path)
         cin, cout = map(int, case.split("-"))
         x, k, b, g = (torch.tensor(z[f"{case}/{n}"].astype(np.float32),
                                    device=dev).to(torch.bfloat16) for n in "xkbg")
@@ -907,6 +915,59 @@ def conv_golden_check(dev) -> dict:
     return worst
 
 
+# (batch, H, W, Cin, Cout) of config 4's CFE (widths 48-96-96-48, six
+# input channels) at 64², in training (batch 8) and in the eval (batch 16).
+CONFIG4_CONV_SHAPES = [(b, 64, 64, cin, cout) for b in (8, 16)
+                       for cin, cout in ((6, 48), (48, 96), (96, 96),
+                                         (96, 48), (48, 1))]
+
+
+def config4_conv_check(dev, rng, err: dict) -> None:
+    """K4 (forward, dX) and K5 against their plain versions at config 4's
+    CFE shapes, under the wrappers' plan and every plan `fwd_plans` and
+    `dw_plans` list: y and dX within 1e-2 of max|ref|, dW within 2e-2."""
+    from pde_control_tpu_torch.ops import cuda_conv
+
+    for key in CONFIG4_CONV_SHAPES:
+        b, h, w, cin, cout = key
+        x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,
+                             device=dev).to(torch.bfloat16) for c in (cin, cout))
+        wflat = torch.tensor(rng.normal(size=(9 * cin, cout)) / np.sqrt(9 * cin),
+                             dtype=torch.float32, device=dev).to(torch.bfloat16)
+        bias = torch.tensor(0.1 * rng.normal(size=cout), dtype=torch.float32,
+                            device=dev).to(torch.bfloat16)
+        cases = (
+            ("fwd", 1e-2, cuda_conv.conv3x3_plain(x, wflat, bias),
+             [None] + cuda_conv.fwd_plans(b, h, w, cin, cout),
+             lambda p: cuda_conv._fwd_launch("forward", x, wflat, bias, cin,
+                                             cout, False, p)),
+            ("dx", 1e-2, cuda_conv.conv3x3_plain(
+                g, cuda_conv.rotate_weights(wflat)),
+             [None] + cuda_conv.fwd_plans(b, h, w, cout, cin),
+             lambda p: cuda_conv._fwd_launch("dX", g, wflat, None, cout, cin,
+                                             True, p)),
+            ("dw", 2e-2, cuda_conv.conv3x3_dw_plain(x, g),
+             [None] + cuda_conv.dw_plans(*key),
+             lambda p: cuda_conv._dw_launch(x, g, p or cuda_conv.dw_plan(*key))))
+        rels = {}
+        for d, limit, want, plans, launch in cases:
+            want = want.float()
+            scale = max(float(want.abs().max()), 1e-30)
+            rels[d] = 0.0
+            for plan in plans:
+                got = launch(plan).float().reshape(want.shape)
+                diff = float((got - want).abs().max())
+                err["K5" if d == "dw" else "K4"] = max(
+                    err["K5" if d == "dw" else "K4"], diff)
+                rels[d] = max(rels[d], diff / scale)
+                if not (diff <= limit * scale and torch.isfinite(got).all()):
+                    raise AssertionError(f"config 4 {key} {d} {plan}: max|d|/"
+                                         f"max|ref| {diff / scale:.3e} > {limit}")
+            rels[d] = f"{rels[d]:.2e} ({len(plans)} plans)"
+        print(f"config 4 {b}x{h}x{w} {cin}->{cout} against plain, worst over "
+              f"every plan: " + ", ".join(f"{d} {v}" for d, v in rels.items()))
+
+
 def conv_kernel_phase(card: str, shapes: dict) -> dict:
     """K4 (forward and dX) and K5 (dW) against their plain versions, and db
     as `_Conv3x3` computes it, at every conv shape of the conv path's first
@@ -925,6 +986,7 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
           "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
           "2^15..2^18 products); y, dX and dW the same bits in two calls")
     err = conv_golden_check(dev)
+    config4_conv_check(dev, rng, err)
     dirs = ("fwd", "dx", "dw")
     sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     t_bytes=0.0, t_ops=0.0, launches=0) for d in dirs}
@@ -1541,6 +1603,255 @@ def training_phase(card: str, batch: dict) -> dict:
     return per_step
 
 
+# BASELINE config 4 (indirect smoke control) at full width: 64², n=16,
+# batch 8, CFE 48-96-96-48 with the inflow channel, OP U-nets of base
+# width 16 and 3 levels (spans 16/8/4/2), pressure maxiter 200, the
+# obstacle course of `default_obstacles`. Cut in counts only.
+CONFIG4 = dict(size=64, n=16, batch=8, num_train=64, num_val=16,
+               iterations=16, steps_per_call=8, autosave_every=8)
+CONFIG4_WORKDIR = "runs/chip_smoke_config4"
+
+
+def _config4_recorder(stages: list):
+    """A `ControlTraining` that records, for each stage it trains: each
+    `progress_multi` call's device time (CUDA events) and the launches the
+    wrappers counted in it, the captured step's launches, the stage's peak
+    and reserved memory, and its trained parameters."""
+    from pde_control_tpu_torch.control.training import (
+        GRAPH_WARMUP_STEPS,
+        ControlTraining,
+    )
+
+    class Recorded(ControlTraining):
+        def train(self, iterations, **kw):
+            torch.cuda.synchronize()
+            rec = {"stage": ",".join(self.trainable_networks),
+                   "class": self.sequence_class, "calls": [],
+                   "reserved_before": torch.cuda.memory_reserved()}
+            stages.append(rec)
+            self._rec = rec
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = super().train(iterations, **kw)
+            torch.cuda.synchronize()
+            rec.update(seconds=time.perf_counter() - t0, result=out,
+                       graph_launches=dict(self.graph_launches),
+                       steps=self.step_count,
+                       peak=torch.cuda.max_memory_allocated(),
+                       reserved=torch.cuda.memory_reserved(),
+                       params={name: {k: v.detach().cpu().clone()
+                                      for k, v in net.state_dict().items()}
+                               for name, net in self.nets.items()})
+            return out
+
+        def progress_multi(self, batches):
+            captured = bool(self._graphs)
+            before = _counts()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = super().progress_multi(batches)
+            end.record()
+            torch.cuda.synchronize()
+            after = _counts()
+            counted = {k: after[k] - before[k] for k in after}
+            k = int(next(iter(out.values())).shape[0])
+            if captured:
+                expect = dict.fromkeys(counted, 0)  # a replay runs no wrapper
+            else:  # the warm-up steps and the capture
+                expect = {name: (GRAPH_WARMUP_STEPS + 1)
+                          * self.graph_launches[name] for name in counted}
+            if counted != expect:
+                raise AssertionError(
+                    f"{self._rec['stage']}: the wrappers counted {counted} in a "
+                    f"progress_multi call, expected {expect}")
+            self._rec["calls"].append({"k": k, "ms": start.elapsed_time(end),
+                                       "replay_only": captured})
+            return out
+
+    return Recorded
+
+
+def config4_phase(card: str) -> dict:
+    """BASELINE config 4 (`CONFIG4`) through the port's entry points: the
+    datasets generated on the default route (K1), a first CFE-stage
+    iteration on the conv route against the default route, `run_curriculum`
+    on K2–K5 (`fused='cuda', conv_impl='cuda'`), `run_curriculum(resume=
+    True)` on the same workdir (every stage skipped, the same eval block bit
+    for bit), and one saved `CFE.msgpack` read back. Returns the launches
+    the wrappers counted in the phase, by kernel."""
+    _phase("config 4 (indirect smoke control) through run_curriculum")
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch import ControlTraining, IncompressibleFluidPDE
+    from pde_control_tpu_torch.experiments import curriculum, fluid2d
+    from pde_control_tpu_torch.utils.checkpoint import load_network
+
+    c = CONFIG4
+    workdir = Path(__file__).resolve().parent / CONFIG4_WORKDIR
+    shutil.rmtree(workdir, ignore_errors=True)
+    datadir = str(workdir / "data")
+    phase_counts = dict.fromkeys(_counts(), 0)
+
+    def add_counts():
+        for k, v in _counts().items():
+            phase_counts[k] += v
+
+    def setup():
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fluid2d._smoke_indirect_setup(
+            c["size"], c["n"], c["num_train"], c["num_val"], 1.0, datadir,
+            device="cuda", fused="cuda", conv_impl="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+        add_counts()
+        return out, seconds, launches
+
+    (pde, train, val), seconds, launches = setup()
+    rollouts = -(-c["num_train"] // 8) + -(-c["num_val"] // 8)
+    print(f"data: {c['num_train']} + {c['num_val']} trajectories of "
+          f"{c['n'] + 1} frames at {c['size']}^2 ({rollouts} rollouts of 8 warm-up"
+          f" + {c['n']} steps, unfused, pressure on K1) in {seconds:.2f} s, "
+          f"{launches['K1']} K1 launches; written to the disk cache [{card}]")
+    if launches["K1"] != rollouts * (8 + c["n"]):
+        raise AssertionError(f"data generation: {launches['K1']} K1 launches, "
+                             f"expected {rollouts * (8 + c['n'])}")
+    if not (np.isfinite(train.obs).all() and train.obs.shape == (
+            c["num_train"], c["n"] + 1, c["size"], c["size"], 1)):
+        raise AssertionError("data generation: non-finite or misshapen obs")
+
+    # The first CFE-stage iteration, conv route against the default route.
+    batch = train.take(np.arange(c["batch"]))
+    default_pde = IncompressibleFluidPDE(
+        pde.domain, dataclasses.replace(pde.cfg, fused="auto"),
+        control="buoyancy", with_inflow=True, unet_levels=pde.unet_levels,
+        cfe_features=pde.cfe_features, op_base_features=pde.op_base_features)
+    first, weights = {}, None
+    for label, p in (("conv", pde), ("default", default_pde)):
+        app = ControlTraining(c["n"], p, trainable_networks=("CFE",),
+                              sequence_class="chain",
+                              obs_loss_frames=tuple(range(1, c["n"] + 1)),
+                              seed=0).prepare()
+        if weights is None:
+            perturb_cfe(app)
+            weights = {"CFE": {k: v.clone() for k, v in
+                               app.nets["CFE"].state_dict().items()}}
+        app.load_params(weights)
+        _zero_counts()
+        metrics = app.compute_gradients(app.to_batch(batch))
+        add_counts()
+        first[label] = (float(metrics["loss"]), _grad_norms(app))
+        del app
+    _compare_first("config 4 CFE stage, conv route (K2-K5) against K1 + cuDNN",
+                   first["conv"], first["default"])
+
+    ccfg = curriculum.CurriculumConfig(
+        n=c["n"], batch_size=c["batch"], cfe_iterations=c["iterations"],
+        op_iterations=c["iterations"], e2e_iterations=c["iterations"],
+        cfe_lr=1e-3, op_lr=1e-3, e2e_lr=1e-4, grad_clip=1.0, force_reg=3e-5,
+        seed=0, steps_per_call=c["steps_per_call"],
+        autosave_every=c["autosave_every"])
+    stages: list = []
+    original = curriculum.ControlTraining
+    curriculum.ControlTraining = _config4_recorder(stages)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        results = curriculum.run_curriculum(pde, ccfg, train, val, str(workdir))
+        seconds = time.perf_counter() - t0
+        add_counts()
+        print(f"run_curriculum: {len(stages)} stages in {seconds:.2f} s; "
+              f"wrappers counted {_counts()} (data generation not included; "
+              f"captures, warm-up steps, renders and the eval) [{card}]")
+        (pde2, train2, val2), seconds2, launches2 = setup()
+        if launches2["K1"] != 0 or not np.array_equal(train2.obs, train.obs):
+            raise AssertionError("the disk cache missed or changed the data")
+        print(f"data again from the disk cache in {seconds2:.2f} s, 0 K1 launches")
+        n_stages = len(stages)
+        _zero_counts()
+        resumed = curriculum.run_curriculum(pde2, ccfg, train2, val2,
+                                            str(workdir), resume=True)
+        add_counts()
+    finally:
+        curriculum.ControlTraining = original
+
+    names = ["cfe_supervised"] + [f"op{s}_supervised" for s in
+                                  sorted(curriculum.op_spans(c["n"]))] + [
+        f"end_to_end_n{c['n']}"]
+    if len(stages) != n_stages or n_stages != len(names):
+        raise AssertionError(f"stages trained: {n_stages}, then "
+                             f"{len(stages) - n_stages} on resume")
+    pool = 0
+    for name, rec in zip(names, stages):
+        res = rec["result"]
+        bad = [k for k, v in res.items() if not np.isfinite(v)]
+        if bad or res.get("iterations_run") != c["iterations"]:
+            raise AssertionError(f"{name}: non-finite {bad} or iterations {res}")
+        replays = [cl for cl in rec["calls"] if cl["replay_only"]]
+        if not replays or len(rec["calls"]) != c["iterations"] // c[
+                "steps_per_call"]:
+            raise AssertionError(f"{name}: calls {rec['calls']}")
+        ms = sum(cl["ms"] for cl in replays) / sum(cl["k"] for cl in replays)
+        gl = rec["graph_launches"]
+        physics = rec["class"] != "op_supervised"
+        need = ["K4 fwd", "K4 dX", "K5"] + (["K2", "K3"] if physics else [])
+        if any(gl[k] <= 0 for k in need) or gl["K1"] != 0 or (
+                not physics and gl["K2"] + gl["K3"] != 0):
+            raise AssertionError(f"{name}: launches a replay {gl}")
+        rec["ms"] = ms
+        pool = max(pool, rec["reserved"] - rec["reserved_before"])
+        print(f"stage {name} ({rec['class']}, trains {rec['stage']}): "
+              f"{rec['steps']} steps in {rec['seconds']:.2f} s (capture "
+              f"included); under the graph {ms:.3f} ms a step, "
+              f"{c['n'] * c['batch'] / (ms / 1e3):.1f} steps/s (n x batch a "
+              f"second); launches a replay {gl}, x {rec['steps']} steps = "
+              f"{ {k: v * rec['steps'] for k, v in gl.items()} }; peak "
+              f"{rec['peak'] / 2**20:.1f} MiB, reserved "
+              f"{rec['reserved_before'] / 2**20:.1f} -> "
+              f"{rec['reserved'] / 2**20:.1f} MiB; loss "
+              f"{res['loss']:.6e} [{card}]")
+    base = stages[0]["reserved_before"]
+    for name, rec in zip(names, stages):
+        if rec["reserved_before"] > base + pool:
+            raise AssertionError(
+                f"{name}: {rec['reserved_before'] / 2**20:.1f} MiB reserved "
+                f"before the stage, more than the first stage's "
+                f"{base / 2**20:.1f} plus one stage's pool {pool / 2**20:.1f}")
+
+    ev = results["eval"]
+    with open(workdir / "results.json") as f:
+        on_disk = json.load(f)
+    if on_disk.get("eval") != json.loads(json.dumps(ev)) or not all(
+            np.all(np.isfinite(v)) for v in ev.values()):
+        raise AssertionError(f"eval block missing or non-finite: {ev}")
+    print("eval: " + json.dumps({k: v for k, v in ev.items()
+                                 if not isinstance(v, list)}))
+    for name in names:
+        if resumed[name] != {"resumed": True}:
+            raise AssertionError(f"resume: {name} gave {resumed[name]}")
+    if resumed["eval"] != ev:
+        raise AssertionError(f"resume: the eval block differs: "
+                             f"{resumed['eval']} against {ev}")
+    print("resume: every stage skipped, the eval block the same bit for bit")
+
+    saved = load_network(str(workdir / "ckpt_cfe" / "CFE.msgpack"))
+    trained = stages[0]["params"]["CFE"]
+    if set(saved) != set(trained) or not all(
+            torch.equal(saved[k], trained[k]) for k in trained):
+        raise AssertionError("ckpt_cfe/CFE.msgpack is not the trained CFE")
+    print(f"ckpt_cfe/CFE.msgpack read back by load_network: the CFE stage's "
+          f"{len(trained)} tensors bit for bit; the phase's wrapper counts "
+          f"{phase_counts}")
+    return {"counted": phase_counts,
+            "graph": {k: sum(r["graph_launches"][k] * r["steps"]
+                             for r in stages[:n_stages])
+                      for k in phase_counts}}
+
+
 def main() -> None:
     card = device_phase()
     build_phase()
@@ -1557,16 +1868,19 @@ def main() -> None:
     fused_launches = fused_path_phase(card, batch, first)
     conv_launches = conv_path_phase(card, batch, first, shapes)
     training_phase(card, batch)
+    config4 = config4_phase(card)
     # Last, so that its CUDA graphs' memory stays out of the paths' peaks.
     conv = conv_kernel_phase(card, shapes)
 
-    def entry(name, source, replaces, launches, s):
+    def entry(name, source, replaces, launches, s, keys):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": s["err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
-                **{k: s[k] for k in ("graph_ms", "plan") if k in s}}
+                **{k: s[k] for k in ("graph_ms", "plan") if k in s},
+                "config4_launches": sum(config4["counted"][k] for k in keys),
+                "config4_graph_launches": sum(config4["graph"][k] for k in keys)}
 
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
                   for key in ("ms", "plain_ms", "bound_ms")}
@@ -1575,19 +1889,20 @@ def main() -> None:
     kernels = [
         entry("pcg_pressure_solve", "pde_control_tpu_torch/csrc/pcg.cu",
               "pde_control_tpu/ops/pallas_cg.py:180", unfused_launches["K1"],
-              k1_summary),
+              k1_summary, ("K1",)),
         entry("fused_step_forward", "pde_control_tpu_torch/csrc/fused_step.cu",
               "pde_control_tpu/ops/pallas_fluid.py:482", fused_launches["K2"],
-              fused["fwd"]),
+              fused["fwd"], ("K2",)),
         entry("fused_step_backward", "pde_control_tpu_torch/csrc/fused_step.cu",
               "pde_control_tpu/ops/pallas_fluid.py:516", fused_launches["K3"],
-              fused["bwd"]),
+              fused["bwd"], ("K3",)),
         entry("conv3x3_forward_and_dx", "pde_control_tpu_torch/csrc/conv3x3.cu",
               "pde_control_tpu/ops/pallas_conv.py:110",
-              conv_launches["K4 fwd"] + conv_launches["K4 dX"], conv["K4"]),
+              conv_launches["K4 fwd"] + conv_launches["K4 dX"], conv["K4"],
+              ("K4 fwd", "K4 dX")),
         entry("conv3x3_dw", "pde_control_tpu_torch/csrc/conv3x3.cu",
               "pde_control_tpu/ops/pallas_conv.py:160", conv_launches["K5"],
-              conv["K5"]),
+              conv["K5"], ("K5",)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 It mirrors the JAX package's module layout; a module here ports the module
 of the same path there. Ported so far: the 64² smoke-control training
 iteration (2D incompressible flow with the masked pressure solve, shift
-advection, the CFE and OP networks, the staggered and chain sequences, and
-the training step). Five hand-written CUDA kernels carry it on the card,
+advection, inflow, the CFE and OP networks, every sequence class, and the
+training step), and the staged-training entry point of the indirect
+smoke-control task: geometry, dataset generation and scene trees,
+checkpoints interchangeable with the JAX package's, `train()`, the
+curriculum and the `experiments.run` CLI. Five hand-written CUDA kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
     unfused step calls;

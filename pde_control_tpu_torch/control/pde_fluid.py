@@ -9,6 +9,10 @@ Two control modes:
     resampled to faces and applied as +dt·F (shape transition).
   * ``buoyancy`` — indirect control: the CFE outputs a scalar field b(x);
     the force is an extra buoyancy term b·ρ on y-faces only.
+
+An optional static ``force_mask`` (H, W) restricts where forces may act.
+With ``with_inflow`` the batches carry a per-sample ``inflow`` (a
+continuous smoke source), which the CFE sees as a sixth input channel.
 """
 
 from __future__ import annotations
@@ -35,9 +39,11 @@ class IncompressibleFluidPDE(PDE):
         domain: Domain2D,
         cfg: FluidConfig = FluidConfig(),
         control: str = "direct",          # 'direct' | 'buoyancy'
+        force_mask=None,  # (H, W), 1 = forcing allowed; numpy or tensor
         unet_levels: int = 4,
         cfe_features: tuple | None = None,  # conv widths; None = CFENet default
         op_base_features: int = 16,
+        with_inflow: bool = False,  # batches carry 'inflow' (B, H, W)
         dtype=torch.bfloat16,  # net compute dtype; params and physics are fp32
         conv_impl: str = "xla",  # models/nets.py :: Conv; 'cuda' routes the
         # 3x3 stride-1 convs to the hand-written kernels (ops/cuda_conv.py)
@@ -47,9 +53,12 @@ class IncompressibleFluidPDE(PDE):
         self.domain = domain
         self.cfg = cfg
         self.control = control
+        self.force_mask = None if force_mask is None else torch.as_tensor(
+            force_mask, dtype=torch.float32, device=domain.device)
         self.unet_levels = unet_levels
         self.cfe_features = cfe_features
         self.op_base_features = op_base_features
+        self.with_inflow = with_inflow
         self.dtype = dtype
         self.conv_impl = conv_impl
 
@@ -73,10 +82,14 @@ class IncompressibleFluidPDE(PDE):
     def cfe_inputs(self, state: FluidState, target_obs: torch.Tensor) -> torch.Tensor:
         vy_c, vx_c = state.velocity.at_centers()
         mask = self.domain.fluid_mask[None].expand_as(state.density)
-        return torch.stack([state.density, vy_c, vx_c, target_obs[..., 0], mask],
-                           dim=-1)
+        chans = [state.density, vy_c, vx_c, target_obs[..., 0], mask]
+        if self.with_inflow:
+            chans.append(state.inflow)
+        return torch.stack(chans, dim=-1)
 
     def force_from_net(self, net_out: torch.Tensor, state: FluidState) -> Staggered2D:
+        if self.force_mask is not None:
+            net_out = net_out * self.force_mask[None, :, :, None]
         if self.control == "buoyancy":
             # Upward force ∝ smoke density, modulated by the net's scalar
             # field — forces exist only where smoke is.
@@ -88,7 +101,8 @@ class IncompressibleFluidPDE(PDE):
     def build_cfe(self, generator: torch.Generator | None = None) -> CFENet:
         out = 1 if self.control == "buoyancy" else 2
         kw = {"features": tuple(self.cfe_features)} if self.cfe_features else {}
-        return CFENet(in_channels=5, out_channels=out, dtype=self.dtype,
+        return CFENet(in_channels=6 if self.with_inflow else 5,
+                      out_channels=out, dtype=self.dtype,
                       generator=generator, conv_impl=self.conv_impl, **kw)
 
     def build_op(self, generator: torch.Generator | None = None) -> UNet:
@@ -109,13 +123,19 @@ class IncompressibleFluidPDE(PDE):
             vel = Staggered2D(vy=batch["vy0"], vx=batch["vx0"])
         else:
             vel = Staggered2D.zeros(b, h, w, device=obs.device)
+        inflow = None
+        if self.with_inflow:
+            if "inflow" not in batch:
+                raise ValueError("with_inflow=True but batch has no 'inflow'")
+            inflow = batch["inflow"]
         # A zero pressure seed makes every step warm-start its projection
         # from the previous step's solution.
         pressure = (torch.zeros((b, h, w), dtype=obs.dtype, device=obs.device)
                     if self.cfg.warm_start_pressure else None)
         return FluidState(velocity=vel, density=obs[:, 0, :, :, 0],
-                          pressure=pressure)
+                          inflow=inflow, pressure=pressure)
 
     def example_state(self, batch_size: int) -> FluidState:
         h, w = self.domain.grid_shape
-        return FluidState.zeros(batch_size, h, w, device=self.domain.device)
+        return FluidState.zeros(batch_size, h, w, with_inflow=self.with_inflow,
+                                device=self.domain.device)

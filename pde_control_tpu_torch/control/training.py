@@ -21,18 +21,30 @@ a select on the device, and the counters `notfinite_total` and
 
 `progress_multi` runs K steps for one call. On the card it replays one
 captured CUDA graph of the whole step (forward, backward, update) K
-times; on the CPU it runs the same step K times.
+times; on the CPU it runs the same step K times. `train()` drives it from
+the dataset, drawing batches with `np.random.default_rng(seed + 1)` (and
+validation batches with `seed + 7919`) exactly as the JAX package draws
+them, and reads metrics back only at its log points.
 
-Not ported yet: the dataset, `train()`, checkpoints and restore, the
-logger, the mesh (queue A5/A6 of ROADMAP.md), and the `remat` and
-`scan_unroll` knobs, which eager torch does not need.
+Stages compose through per-network checkpoints that the JAX package reads
+and writes too (`utils/checkpoint.py`): `restore=` in `prepare()`,
+`save(names=…)`, and the full resume state of `save_state` /
+`restore_state` / `autosave`.
+
+Not ported yet: the mesh (data parallelism, queue A13 of ROADMAP.md). The
+`remat` and `scan_unroll` knobs are not ported: eager torch does not need
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
+import time
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,7 +56,17 @@ from pde_control_tpu_torch.control.sequences import (
     stack_steps,
     staggered_targets,
 )
+from pde_control_tpu_torch.data.scene import DeviceDataset
 from pde_control_tpu_torch.ops import launch_counts
+from pde_control_tpu_torch.utils.checkpoint import (
+    load_network,
+    load_training_state,
+    restore_networks,
+    save_networks,
+    save_training_state,
+)
+from pde_control_tpu_torch.utils.logging import MetricsLogger
+from pde_control_tpu_torch.utils.viz import save_comparison_png, tb_image
 
 SEQUENCE_CLASSES = ("chain", "chain_final", "staggered", "refined",
                     "op_supervised")
@@ -73,12 +95,19 @@ class ControlTraining:
         self,
         n: int,
         pde: PDE,
+        dataset=None,
+        val_dataset=None,
+        batch_size: int = 16,
         trainable_networks: Sequence[str] = ("CFE",),
         sequence_class: str = "staggered",
         obs_loss_frames: Sequence[int] | None = None,
         force_reg: float = 1e-2,
         learning_rate: float = 1e-3,
+        restore: dict[str, str] | str | None = None,  # a checkpoint dir, or
+        # {network: dir or .msgpack file}; applied in prepare()
         seed: int = 0,
+        logdir: str | None = None,
+        mesh=None,  # data parallelism is not ported: must be None
         grad_clip: float | None = None,
         lr_schedule: str | None = None,  # None | 'cosine'
         decay_steps: int | None = None,  # the cosine's horizon in updates
@@ -95,8 +124,15 @@ class ControlTraining:
                                        "op_supervised")):
             raise ValueError(
                 f"n must be a power of two for {sequence_class!r}, got {n}")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (data parallelism) is not ported yet (ROADMAP A13)")
         self.n = n
         self.pde = pde
+        self.dataset = dataset
+        self.val_dataset = val_dataset
+        self.batch_size = batch_size
+        self.restore = restore
         self.sequence_class = sequence_class
         self.trainable_networks = tuple(trainable_networks)
         self.obs_loss_frames = tuple(obs_loss_frames) if obs_loss_frames else (n,)
@@ -123,6 +159,7 @@ class ControlTraining:
         self.seed = seed
         self.device = torch.device(device) if device is not None \
             else pde.domain.device
+        self.logger = MetricsLogger(logdir)
         self._prepared = False
         # Which OP levels exist: spans n, n/2, …, 2.
         self.op_spans: list[int] = []
@@ -135,12 +172,20 @@ class ControlTraining:
     # ------------------------------------------------------------ lifecycle
 
     def prepare(self) -> "ControlTraining":
-        """Build the networks from a seeded generator and the optimizer."""
+        """Build the networks from a seeded generator, restore checkpoints
+        (`restore`), build the optimizer and the sampling streams, and put
+        the datasets on the device (`DeviceDataset.wrap`)."""
+        if self.dataset is not None:
+            self.dataset = DeviceDataset.wrap(self.dataset, self.device)
+        if self.val_dataset is not None:
+            self.val_dataset = DeviceDataset.wrap(self.val_dataset,
+                                                  self.device)
         gen = torch.Generator().manual_seed(self.seed)
         nets = {"CFE": self.pde.build_cfe(gen)}
         for span in self.op_spans:
             nets[f"OP{span}"] = self.pde.build_op(gen)
         self.nets = nn.ModuleDict(nets).to(self.device)
+        self._restore_checkpoints()
         for name in self.trainable_networks:
             if name not in self.nets:
                 raise ValueError(f"trainable network {name!r} does not exist; "
@@ -162,8 +207,41 @@ class ControlTraining:
         self.step_count = 0
         self._graphs: dict[tuple, _StepGraph] = {}
         self.graph_launches: dict[str, int] = {}
+        self._np_rng = np.random.default_rng(self.seed + 1)
+        # A separate stream for validation draws: evaluate() must not
+        # consume training draws, or val_every would change the training
+        # batch sequence.
+        self._val_rng = np.random.default_rng(self.seed + 7919)
         self._prepared = True
         return self
+
+    def _restore_checkpoints(self) -> None:
+        """Load `restore` into the networks: a directory restores every
+        network it holds; a dict names a directory or file per network."""
+        if not self.restore:
+            return
+        current = {name: net.state_dict() for name, net in self.nets.items()}
+        if isinstance(self.restore, str):
+            restored = restore_networks(self.restore, current)
+        else:
+            restored = {}
+            for name, path in self.restore.items():
+                if os.path.isdir(path):
+                    path = os.path.join(path, f"{name}.msgpack")
+                restored[name] = load_network(path, current[name])
+        for name, sd in restored.items():
+            if sd is not current[name]:
+                self.nets[name].load_state_dict(sd)
+
+    def close(self) -> None:
+        """Drop the captured step graphs, returning their memory pools to
+        the device, and close the logger. The app can still evaluate and
+        save; training again captures anew."""
+        self._graphs.clear()
+        self.logger.close()
+        self.logger = MetricsLogger(None)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def load_params(self, params: dict[str, dict[str, torch.Tensor]]) -> None:
         """Copy per-network state dicts ({'CFE': {...}, 'OP16': {...}}) in.
@@ -328,11 +406,14 @@ class ControlTraining:
             metrics["notfinite_consec"] = self.notfinite_consec.clone()
         return metrics
 
-    def progress(self, batch) -> dict:
-        """One optimization step. Returns the step's metrics and the
-        not-finite counters, as device tensors."""
+    def progress(self, batch=None) -> dict:
+        """One optimization step, on `batch` or a batch sampled from the
+        dataset. Returns the step's metrics and the not-finite counters,
+        as device tensors."""
         if not self._prepared:
             raise RuntimeError("call prepare() first")
+        if batch is None:
+            batch = self.dataset.sample(self._np_rng, self.batch_size)
         metrics = self._step(self.to_batch(batch))
         self.step_count += 1
         return metrics
@@ -373,6 +454,224 @@ class ControlTraining:
             self.graph_launches = graph.launches
         self.step_count += k
         return out
+
+    def sample_batches(self, k: int) -> dict:
+        """k sampled batches stacked along a new leading axis (for
+        progress_multi)."""
+        if hasattr(self.dataset, "sample_stacked"):
+            return self.dataset.sample_stacked(self._np_rng, k,
+                                               self.batch_size)
+        samples = [self.dataset.sample(self._np_rng, self.batch_size)
+                   for _ in range(k)]
+        return {key: np.stack([s[key] for s in samples]) for key in samples[0]}
+
+    def _prefetch(self) -> dict[str, torch.Tensor]:
+        """Sample the next batch and put it on the device."""
+        return self.to_batch(self.dataset.sample(self._np_rng,
+                                                 self.batch_size))
+
+    def train(self, iterations: int, log_every: int = 50,
+              val_every: int | None = None, render: bool = True,
+              steps_per_call: int = 1, autosave_dir: str | None = None,
+              autosave_every: int = 500,
+              autosave_restore: bool = False) -> dict:
+        """Run the stage; returns the last logged metrics (floats).
+
+        steps_per_call > 1 runs that many steps per `progress_multi` call
+        (one CUDA graph replayed per step on the card); `iterations` is
+        then rounded up to a multiple of steps_per_call, and the result's
+        `iterations_run` says how many ran. Metrics are read back only at
+        log points (every `log_every` steps and the last), where the
+        divergence check runs.
+
+        autosave_dir enables mid-stage crash recovery: every
+        `autosave_every` steps the full training state is saved; with
+        autosave_restore, an existing autosave is restored first and only
+        `iterations - restored_step` steps run (`iterations` stays the
+        stage's total). The sampling stream's position is not part of the
+        state, so a resumed stage sees another batch order.
+
+        With a logdir and `render`, each log point renders the rollout's
+        final frame beside its target (PNG under the logdir, and a
+        TensorBoard image)."""
+        restored = 0
+        if autosave_dir and autosave_restore:
+            restored = self.try_restore_autosave(autosave_dir)
+            if restored >= iterations:
+                return {"resumed_mid_stage": restored,
+                        "iterations_run": restored}
+        if steps_per_call > 1:
+            return self._train_fused(iterations - restored, log_every,
+                                     val_every, render, steps_per_call,
+                                     autosave_dir, autosave_every, restored)
+        last = {}
+        t0 = time.time()
+        iterations = iterations - restored
+        next_autosave = autosave_every
+        nxt = self._prefetch()
+        for i in range(iterations):
+            cur = nxt
+            if i + 1 < iterations:
+                nxt = self._prefetch()
+            metrics = self.progress(cur)
+            if (i + 1) % log_every == 0 or i == iterations - 1:
+                last = {k: float(v) for k, v in metrics.items()}
+                last["steps_per_sec"] = (i + 1) / (time.time() - t0)
+                self.logger.log(self.step_count, last, prefix="train/")
+                self._check_divergence(last)
+                if render:
+                    self._render_progress(cur)
+            if val_every and (i + 1) % val_every == 0 and self.val_dataset:
+                self.logger.log(self.step_count, self.evaluate(),
+                                prefix="val/")
+            if autosave_dir and i + 1 >= next_autosave:
+                next_autosave += autosave_every
+                self.autosave(autosave_dir)
+        if restored:
+            last["resumed_mid_stage"] = restored
+            last["iterations_run"] = restored + iterations
+        return last
+
+    def _train_fused(self, iterations: int, log_every: int,
+                     val_every: int | None, render: bool, k: int,
+                     autosave_dir: str | None = None,
+                     autosave_every: int = 500, restored: int = 0) -> dict:
+        """The loop of `train` at k steps a `progress_multi` call."""
+        requested = iterations
+        if iterations % k:
+            # A whole number of k-step calls: a shorter tail would capture
+            # a second graph.
+            iterations = (iterations // k + 1) * k
+        last = {}
+        t0 = time.time()
+        done = 0
+        next_autosave = autosave_every
+        nxt = self.to_batch(self.sample_batches(k))
+        next_log = log_every
+        next_val = val_every or 0
+        while done < iterations:
+            cur = nxt
+            k_cur = int(next(iter(cur.values())).shape[0])
+            k_next = min(k, iterations - done - k_cur)
+            if k_next > 0:
+                nxt = self.to_batch(self.sample_batches(k_next))
+            metrics = self.progress_multi(cur)
+            done += k_cur
+            if done >= next_log or done >= iterations:
+                while next_log <= done:
+                    next_log += log_every
+                last = {key: float(v[-1]) for key, v in metrics.items()}
+                last["steps_per_sec"] = done / (time.time() - t0)
+                self.logger.log(self.step_count, last, prefix="train/")
+                self._check_divergence(last)
+                if render:
+                    self._render_progress({key: v[-1]
+                                           for key, v in cur.items()})
+            if val_every and done >= next_val and self.val_dataset:
+                while next_val <= done:
+                    next_val += val_every
+                self.logger.log(self.step_count, self.evaluate(),
+                                prefix="val/")
+            if autosave_dir and done >= next_autosave:
+                while next_autosave <= done:
+                    next_autosave += autosave_every
+                self.autosave(autosave_dir)
+        last["iterations_run"] = restored + iterations
+        if restored:
+            last["resumed_mid_stage"] = restored
+        if iterations != requested:
+            self.logger.log(self.step_count,
+                            {"iterations_requested": requested,
+                             "iterations_run": iterations}, prefix="train/")
+        return last
+
+    def _render_progress(self, batch) -> None:
+        """Render the rollout's final frame beside its target to the
+        logdir (and TensorBoard)."""
+        if not self.logger.logdir or self.sequence_class == "op_supervised":
+            return
+        obs_traj = self.infer_all_frames(batch)[0]
+        pred = obs_traj[self.n - 1][0, ..., 0].cpu().numpy()
+        tgt = torch.as_tensor(batch["obs"])[0, self.n, ..., 0].cpu().numpy()
+        save_comparison_png(
+            {"rollout final": pred, "target": tgt},
+            os.path.join(self.logger.logdir,
+                         f"fields_{self.step_count:06d}.png"))
+        if pred.ndim == 2:
+            tb_image(self.logger, "rollout_final", pred, self.step_count)
+            tb_image(self.logger, "target", tgt, self.step_count)
+
+    # ---------------------------------------------------------- checkpoints
+
+    def state_dicts(self) -> dict[str, dict[str, torch.Tensor]]:
+        """Every network's state dict, by name."""
+        return {name: net.state_dict() for name, net in self.nets.items()}
+
+    def _opt_state(self) -> dict[str, torch.Tensor]:
+        """The optimizer's state and the non-finite counters, by name."""
+        opt = self.optimizer
+        return {"mu": opt.mu, "nu": opt.nu, "count": opt.count,
+                "notfinite_total": self.notfinite_total,
+                "notfinite_consec": self.notfinite_consec}
+
+    def save_state(self, directory: str) -> None:
+        """Full resume checkpoint: networks, optimizer state, step counter."""
+        save_training_state(directory, self.state_dicts(), self._opt_state(),
+                            self.step_count,
+                            {"sequence_class": self.sequence_class})
+
+    def restore_state(self, directory: str) -> None:
+        """Resume from save_state (same configuration and trainable set).
+        Everything is copied in place; the captured graphs are dropped."""
+        params, opt_state, self.step_count = load_training_state(
+            directory, self.state_dicts(), self._opt_state())
+        for name, sd in params.items():
+            self.nets[name].load_state_dict(sd)
+        for name, t in self._opt_state().items():
+            t.copy_(opt_state[name])
+        self._graphs.clear()
+
+    def autosave(self, directory: str) -> None:
+        """Crash-safe periodic save_state: write to a sibling tmp dir, move
+        the previous autosave aside, swap the tmp in, then drop the old one.
+        A kill at any point leaves the old or the new state restorable
+        (state.json is written last; try_restore_autosave falls back to the
+        .old dir if the swap itself was interrupted)."""
+        tmp, old = directory + ".tmp", directory + ".old"
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(old, ignore_errors=True)
+        self.save_state(tmp)
+        if os.path.isdir(directory):
+            os.replace(directory, old)
+        os.replace(tmp, directory)
+        shutil.rmtree(old, ignore_errors=True)
+
+    def try_restore_autosave(self, directory: str) -> int:
+        """Restore a mid-stage autosave if one exists (or its `.old` copy);
+        returns the restored step count (0 = nothing restored)."""
+        for src in (directory, directory + ".old"):
+            if os.path.exists(os.path.join(src, "state.json")):
+                self.restore_state(src)
+                return self.step_count
+        return 0
+
+    def save(self, directory: str, names: Sequence[str] | None = None) -> None:
+        """Write per-network msgpacks. `names` restricts which networks are
+        written: a supervised stage saving into a shared directory passes
+        its trained net only, or the later spans would be written at
+        random init and a resumed run would take them for finished."""
+        params = self.state_dicts()
+        if names is not None:
+            missing = [n for n in names if n not in params]
+            if missing:
+                raise ValueError(f"save(names=...): unknown nets {missing}")
+            params = {k: v for k, v in params.items() if k in names}
+        save_networks(directory, params, {
+            "n": self.n,
+            "sequence_class": self.sequence_class,
+            "trainable": list(self.trainable_networks),
+            "steps": self.step_count,
+        })
 
     def _state(self) -> list[torch.Tensor]:
         """Every tensor a step updates in place, the parameters detached (a
@@ -423,8 +722,12 @@ class ControlTraining:
                 "Typical causes: force_reg too small (forces blow past the "
                 "CFL clip), lr too high, or non-finite training data.")
 
-    def evaluate(self, batch) -> dict:
-        """The loss terms on `batch`, without gradients, as floats."""
+    def evaluate(self, batch=None) -> dict:
+        """The loss terms on `batch`, or on a batch drawn from the
+        validation set with the validation stream, without gradients, as
+        floats."""
+        if batch is None:
+            batch = self.val_dataset.sample(self._val_rng, self.batch_size)
         with torch.no_grad():
             _, metrics = self._loss_fn(self.to_batch(batch))
         return {k: float(v) for k, v in metrics.items()}

@@ -39,12 +39,15 @@ class FluidState:
 
     @classmethod
     def zeros(cls, batch: int, h: int, w: int, dtype=torch.float32,
-              device=None) -> "FluidState":
-        """A state at rest on `device` (the GPU when None)."""
+              with_inflow: bool = False, device=None) -> "FluidState":
+        """A state at rest on `device` (the GPU when None); with
+        `with_inflow`, a zero inflow field too."""
         device = resolve_device(device)
         return cls(
             velocity=Staggered2D.zeros(batch, h, w, dtype, device),
             density=torch.zeros((batch, h, w), dtype=dtype, device=device),
+            inflow=(torch.zeros((batch, h, w), dtype=dtype, device=device)
+                    if with_inflow else None),
         )
 
 

@@ -1,1 +1,1 @@
-"""Utilities: weight conversion from the JAX package."""
+"""Utilities: weight conversion, checkpoints, metrics logging, renders."""

@@ -1,10 +1,11 @@
-"""Weight conversion from the JAX package's flax parameters.
+"""Weight conversion between the port's state dicts and flax parameters.
 
 `params_from_flax` takes the JAX package's parameter tree as nested dicts
 of numpy arrays (`jax.device_get(app.params)`) and returns one state dict
 per network, named as the port's modules name them. Names map one to one
 (`ConvBlock_3/Conv_1/kernel` → `ConvBlock_3.Conv_1.weight`); conv kernels go
-from flax's HWIO layout to torch's OIHW.
+from flax's HWIO layout to torch's OIHW. `params_to_flax` is its inverse
+and round-trips exactly.
 """
 
 from __future__ import annotations
@@ -38,3 +39,29 @@ def _state_dict(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
 def params_from_flax(tree: Mapping) -> dict[str, dict[str, torch.Tensor]]:
     """{'CFE': flax params, 'OP16': …} → {'CFE': state dict, 'OP16': …}."""
     return {name: _state_dict(net) for name, net in tree.items()}
+
+
+def _flax_tree(sd: Mapping[str, torch.Tensor]) -> dict:
+    out: dict = {}
+    for key, val in sd.items():
+        *path, leaf = key.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        arr = val.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim != 4:
+                raise ValueError(f"{key}: want a 2D conv weight (OIHW), "
+                                 f"got shape {arr.shape}")
+            node["kernel"] = np.array(arr.transpose(2, 3, 1, 0), order="C")
+        elif leaf == "bias":
+            node["bias"] = arr.copy()
+        else:
+            raise KeyError(f"unexpected parameter {key}")
+    return out
+
+
+def params_to_flax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> dict:
+    """{'CFE': state dict, 'OP16': …} → {'CFE': flax params, …}: nested
+    dicts of float32 numpy arrays, kernels in HWIO."""
+    return {name: _flax_tree(sd) for name, sd in params.items()}

@@ -10,7 +10,9 @@ from `pde_control_tpu/ops/pallas_cg.py :: pallas_pressure_solve
 (interpret=True)` (the same box closed, cold and warm, and open, cold);
 `scripts/make_conv_goldens.py` wrote `tests/goldens/conv3x3_32.npz` from
 `pde_control_tpu/ops/pallas_conv.py :: conv3x3(bfloat16, interpret=True)`
-and its VJP (32², batch 2, with a bias: 5 → 32, 64 → 64, 16 → 16, 32 → 16).
+and its VJP (32², batch 2, with a bias: 5 → 32, 64 → 64, 16 → 16, 32 → 16),
+and `tests/goldens/conv3x3_32_wide.npz` the same at the indirect-smoke
+task's CFE widths (6 → 48, 48 → 96, 96 → 96, 96 → 48).
 
 This file imports neither JAX nor the JAX package. On the CPU it holds the
 plain versions to the goldens with the tolerances of
@@ -209,14 +211,21 @@ def test_solve_kernel_matches_goldens(case):
 
 
 CONV_GOLDENS = GOLDENS.with_name("conv3x3_32.npz")
-CONV_CASES = ("5-32", "64-64", "16-16", "32-16")
+CONV_GOLDENS_WIDE = GOLDENS.with_name("conv3x3_32_wide.npz")
+# The goldens' file of each case: the main path's widths, and the
+# indirect-smoke task's CFE widths.
+CONV_FILES = {**dict.fromkeys(("5-32", "64-64", "16-16", "32-16"),
+                              CONV_GOLDENS),
+              **dict.fromkeys(("6-48", "48-96", "96-96", "96-48"),
+                              CONV_GOLDENS_WIDE)}
+CONV_CASES = tuple(CONV_FILES)
 CONV_OUTS = ("y", "dx", "dw", "db")
 
 
 def _conv_case(case: str, dev):
     """The conv goldens' operands x, kernel, bias and cotangent as bf16
     tensors on `dev`, and the JAX package's y, dX, dW and db in fp32."""
-    z = np.load(CONV_GOLDENS)
+    z = np.load(CONV_FILES[case])
     ops = [torch.tensor(z[f"{case}/{n}"].astype(np.float32), device=dev
                         ).to(torch.bfloat16) for n in "xkbg"]
     want = [torch.from_numpy(z[f"{case}/{n}"].view(np.int16)).view(
@@ -238,11 +247,13 @@ def test_plain_conv_matches_goldens(case):
 
 
 def test_conv_goldens_are_small_and_whole():
-    """The conv's goldens stay under 1.5 MB and hold every array the tests
-    read, each case's at its shapes."""
+    """The conv's goldens stay under 1.5 MB (the main path's widths) and
+    3.5 MB (the wide ones) and hold every array the tests read, each
+    case's at its shapes."""
     assert CONV_GOLDENS.stat().st_size <= 1536 * 1024
-    z = np.load(CONV_GOLDENS)
+    assert CONV_GOLDENS_WIDE.stat().st_size <= 3584 * 1024
     for case in CONV_CASES:
+        z = np.load(CONV_FILES[case])
         cin, cout = map(int, case.split("-"))
         shapes = dict(x=(2, 32, 32, cin), k=(3, 3, cin, cout), b=(cout,),
                       g=(2, 32, 32, cout), y=(2, 32, 32, cout),

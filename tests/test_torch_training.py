@@ -326,14 +326,20 @@ def test_frozen_network_gets_no_update():
 
 
 def test_import_leaves_jax_out():
+    """Every module of the port, and `chip_smoke.py`, imports none of jax,
+    flax, optax, msgpack or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = ("import sys, pde_control_tpu_torch; "
+    code = ("import importlib, pkgutil, sys, pde_control_tpu_torch, chip_smoke; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "pde_control_tpu_torch.__path__, 'pde_control_tpu_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert len(mods) >= 30, mods; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'pde_control_tpu')]; "
+            "('jax', 'flax', 'optax', 'msgpack', 'pde_control_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
-                   timeout=120)
+                   timeout=120, cwd=env["PYTHONPATH"])
 
 
 def test_solves_per_iteration(monkeypatch):
