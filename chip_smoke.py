@@ -54,9 +54,20 @@ prints no result):
      the K steps, steps/s, peak memory, launches a step: counted by the
      wrappers for eager steps, the captured step's times K for replays);
      a NaN batch inside a replay, skipped;
- 10. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
+ 10. BASELINE configs 4, 3 and 5 (`CONFIGS`: indirect smoke control,
+     shape transition, natural flow at n=128) through `run_curriculum` at
+     full width, each: its data generated on K1 into a disk cache, the CFE
+     stage's first iteration on K2-K5 against K1 + cuDNN, every stage on
+     K2-K5 under its graph (ms a step, launches a replay, warm-up and
+     capture seconds, peak and reserved memory, each mid-stage autosave
+     read back bit for bit), the eval block, a resumed run with the same
+     eval bits, the CFE checkpoint read back; then the refined class at
+     n=128 as one captured step, and the CLI's `run shape_transition` on
+     the card's default route;
+ 11. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
      package's goldens (`tests/goldens/conv3x3_32.npz`) under every plan
-     their launchers take, and against their plain
+     their launchers take, at the conv shapes of configs 3-5 that the
+     main path does not reach under every plan, and against their plain
      versions at every conv shape the conv path ran, with db, then their
      device times (CUDA-graph replay) beside the plain versions', cuDNN's
      and the bound, per launch and summed over one iteration; K5's bound
@@ -66,8 +77,9 @@ prints no result):
      timed, and K5 alone at the shapes its runs of whole rows could get
      wrong, checked and timed; neither is summed. It runs last because the
      graphs' memory pools would raise the paths' peak memory.
-The line before the last is the kernels' JSON summary; the last line is
-`{"ok": true, "device": {...}}`.
+Each phase's seconds follow it. The line before the last is the kernels'
+JSON summary (with each kernel's launches in configs 3-5); the last line
+is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -120,8 +132,20 @@ K5_EDGE_SHAPES = [(3, 7, 9, 16, 24), (2, 13, 64, 32, 32), (40, 13, 64, 32, 32),
                   (2, 16, 16, 128, 1), (5, 3, 64, 64, 64), (40, 5, 8, 128, 128)]
 
 
-def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+_PHASES: list = []  # (name, start on the host clock) of each phase begun
+
+
+def _phase(name: str | None) -> None:
+    """Starts the phase `name` (None: the end of the last one), printing
+    the seconds of the one before it."""
+    now = time.perf_counter()
+    if _PHASES:
+        prev, t0 = _PHASES[-1]
+        print(f"-- {prev}: {now - t0:.1f} s (script so far "
+              f"{now - _PHASES[0][1]:.1f} s)", flush=True)
+    if name is not None:
+        _PHASES.append((name, now))
+        print(f"== {name}", flush=True)
 
 
 def device_phase() -> str:
@@ -922,13 +946,13 @@ CONFIG4_CONV_SHAPES = [(b, 64, 64, cin, cout) for b in (8, 16)
                                          (96, 48), (48, 1))]
 
 
-def config4_conv_check(dev, rng, err: dict) -> None:
-    """K4 (forward, dX) and K5 against their plain versions at config 4's
-    CFE shapes, under the wrappers' plan and every plan `fwd_plans` and
-    `dw_plans` list: y and dX within 1e-2 of max|ref|, dW within 2e-2."""
+def config_conv_check(dev, rng, err: dict, label: str, keys) -> None:
+    """K4 (forward, dX) and K5 against their plain versions at a config's
+    conv shapes `keys`, under the wrappers' plan and every plan `fwd_plans`
+    and `dw_plans` list: y and dX within 1e-2 of max|ref|, dW within 2e-2."""
     from pde_control_tpu_torch.ops import cuda_conv
 
-    for key in CONFIG4_CONV_SHAPES:
+    for key in keys:
         b, h, w, cin, cout = key
         x, g = (torch.tensor(rng.normal(size=(b, h, w, c)), dtype=torch.float32,
                              device=dev).to(torch.bfloat16) for c in (cin, cout))
@@ -961,17 +985,19 @@ def config4_conv_check(dev, rng, err: dict) -> None:
                     err["K5" if d == "dw" else "K4"], diff)
                 rels[d] = max(rels[d], diff / scale)
                 if not (diff <= limit * scale and torch.isfinite(got).all()):
-                    raise AssertionError(f"config 4 {key} {d} {plan}: max|d|/"
+                    raise AssertionError(f"{label} {key} {d} {plan}: max|d|/"
                                          f"max|ref| {diff / scale:.3e} > {limit}")
             rels[d] = f"{rels[d]:.2e} ({len(plans)} plans)"
-        print(f"config 4 {b}x{h}x{w} {cin}->{cout} against plain, worst over "
+        print(f"{label} {b}x{h}x{w} {cin}->{cout} against plain, worst over "
               f"every plan: " + ", ".join(f"{d} {v}" for d, v in rels.items()))
 
 
-def conv_kernel_phase(card: str, shapes: dict) -> dict:
+def conv_kernel_phase(card: str, shapes: dict, config_shapes: dict) -> dict:
     """K4 (forward and dX) and K5 (dW) against their plain versions, and db
     as `_Conv3x3` computes it, at every conv shape of the conv path's first
-    iteration; then each direction's time per launch beside its plain
+    iteration (and under every plan at config 4's CFE shapes and at the
+    shapes of configs 3 and 5 the main path does not reach,
+    `config_shapes`: label → shapes); then each direction's time per launch beside its plain
     version's, cuDNN's (timed as a yardstick; the port never calls it on
     this path) and its bound, and the sums over one iteration. Times are
     device times (`_graph_ms`)."""
@@ -986,7 +1012,9 @@ def conv_kernel_phase(card: str, shapes: dict) -> dict:
           "2^-8; the fp32 sums run in another order); dW <= 2e-2 (it sums "
           "2^15..2^18 products); y, dX and dW the same bits in two calls")
     err = conv_golden_check(dev)
-    config4_conv_check(dev, rng, err)
+    config_conv_check(dev, rng, err, "config 4", CONFIG4_CONV_SHAPES)
+    for label, keys in config_shapes.items():
+        config_conv_check(dev, rng, err, label, keys)
     dirs = ("fwd", "dx", "dw")
     sums = {d: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                     t_bytes=0.0, t_ops=0.0, launches=0) for d in dirs}
@@ -1603,31 +1631,94 @@ def training_phase(card: str, batch: dict) -> dict:
     return per_step
 
 
-# BASELINE config 4 (indirect smoke control) at full width: 64², n=16,
-# batch 8, CFE 48-96-96-48 with the inflow channel, OP U-nets of base
-# width 16 and 3 levels (spans 16/8/4/2), pressure maxiter 200, the
-# obstacle course of `default_obstacles`. Cut in counts only.
-CONFIG4 = dict(size=64, n=16, batch=8, num_train=64, num_val=16,
-               iterations=16, steps_per_call=8, autosave_every=8)
-CONFIG4_WORKDIR = "runs/chip_smoke_config4"
+# BASELINE configs 3, 4 and 5 through `run_curriculum`, each at full width
+# and depth and cut in counts only: trajectories, iterations a stage (a
+# multiple of the K steps of a progress_multi call) and the autosave
+# interval. Data on the default route (K1), training on K2-K5.
+#   3: shape transition: 64², n=16, batch 8, the direct two-channel force,
+#      CFE 32-64-64-32 (the default for control='direct'), OP U-nets base
+#      16 / 3 levels, maxiter 200 (the reference: 256 + 32 trajectories,
+#      500 iterations a stage);
+#   4: indirect smoke control: 64², n=16, batch 8, CFE 48-96-96-48 with the
+#      inflow channel, U-nets base 16 / 3 levels, maxiter 200, the obstacle
+#      course of `default_obstacles` (256 + 32, 500);
+#   5: natural-flow reconstruction: 64², n=128, batch 8, dt 0.5, blobs, the
+#      staged horizons 32 -> 64 -> 128 with frames 32/64/96/128, CFE
+#      32-64-64-32, U-nets base 16 / 3 levels (OP2 ... OP128), maxiter 200
+#      (128 + 16, 300).
+# `warmup`: natural steps of the generator before frame 0.
+CONFIGS = {
+    3: dict(task="shape transition", size=64, n=16, batch=8, num_train=64,
+            num_val=16, iterations=16, steps_per_call=8, autosave_every=8,
+            warmup=0),
+    4: dict(task="indirect smoke control", size=64, n=16, batch=8,
+            num_train=64, num_val=16, iterations=16, steps_per_call=8,
+            autosave_every=8, warmup=8),
+    5: dict(task="natural flow, n = 128", size=64, n=128, batch=8,
+            num_train=16, num_val=8, iterations=8, steps_per_call=4,
+            autosave_every=4, warmup=0),
+}
 
 
-def _config4_recorder(stages: list):
+def _config_task(number: int, datadir: str):
+    """Config `number`'s (pde, train, val) on the conv route (K2-K5), the
+    data from the disk cache under `datadir` or generated by the unfused
+    step with its pressure solve on K1, and its entry's CurriculumConfig
+    with `CONFIGS`' counts."""
+    from pde_control_tpu_torch.experiments import fluid2d
+    from pde_control_tpu_torch.experiments.curriculum import CurriculumConfig
+
+    c = CONFIGS[number]
+    args = (c["size"], c["n"], c["num_train"], c["num_val"])
+    routes = dict(device="cuda", fused="cuda", conv_impl="cuda")
+    # Configs 3 and 5 have no obstacles, where the default route solves the
+    # pressure exactly by the spectral method (the JAX package's choice) and
+    # the fused kernels refuse: 'cuda' puts it on K1 (PCG at tol 1e-4) for
+    # the data and the unfused reference, and lets K2/K3 train.
+    kernel_solve = dict(routes, pressure_backend="cuda")
+    counts = dict(n=c["n"], batch_size=c["batch"], seed=0, grad_clip=1.0,
+                  cfe_iterations=c["iterations"], op_iterations=c["iterations"],
+                  e2e_iterations=c["iterations"],
+                  steps_per_call=c["steps_per_call"],
+                  autosave_every=c["autosave_every"])
+    if number == 3:
+        task = fluid2d._shape_transition_setup(*args, datadir, **kernel_solve)
+        ccfg = CurriculumConfig(force_reg=1e-5, **counts)
+    elif number == 4:
+        task = fluid2d._smoke_indirect_setup(*args, 1.0, datadir, **routes)
+        ccfg = CurriculumConfig(cfe_lr=1e-3, op_lr=1e-3, e2e_lr=1e-4,
+                                force_reg=3e-5, **counts)
+    else:
+        task = fluid2d._natural_flow_setup(*args, datadir, **kernel_solve)
+        ccfg = CurriculumConfig(e2e_lr=1e-4, e2e_stage_ns=(32, 64, 128),
+                                e2e_obs_frames=(32, 64, 96, 128),
+                                force_reg=1e-5, **counts)
+    return task, ccfg
+
+
+def _stage_recorder(stages: list):
     """A `ControlTraining` that records, for each stage it trains: each
     `progress_multi` call's device time (CUDA events) and the launches the
-    wrappers counted in it, the captured step's launches, the stage's peak
-    and reserved memory, and its trained parameters."""
+    wrappers counted in it, the captured step's launches, the time of the
+    warm-up steps and the capture, the stage's peak and reserved memory,
+    and its trained parameters; and that reads each autosave back with
+    `load_training_state`, which must give the live parameters and
+    optimizer tree bit for bit."""
     from pde_control_tpu_torch.control.training import (
         GRAPH_WARMUP_STEPS,
         ControlTraining,
+    )
+    from pde_control_tpu_torch.utils.checkpoint import (
+        _leaves,
+        load_training_state,
     )
 
     class Recorded(ControlTraining):
         def train(self, iterations, **kw):
             torch.cuda.synchronize()
             rec = {"stage": ",".join(self.trainable_networks),
-                   "class": self.sequence_class, "calls": [],
-                   "reserved_before": torch.cuda.memory_reserved()}
+                   "class": self.sequence_class, "n": self.n, "calls": [],
+                   "autosaves": 0, "reserved_before": torch.cuda.memory_reserved()}
             stages.append(rec)
             self._rec = rec
             torch.cuda.reset_peak_memory_stats()
@@ -1642,6 +1733,23 @@ def _config4_recorder(stages: list):
                        params={name: {k: v.detach().cpu().clone()
                                       for k, v in net.state_dict().items()}
                                for name, net in self.nets.items()})
+            return out
+
+        def _step(self, batch):
+            if torch.cuda.is_current_stream_capturing():
+                self._rec["capture_start"] = time.perf_counter()
+            return super()._step(batch)
+
+        def _step_graph(self, batches):
+            known = len(self._graphs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._step_graph(batches)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            if len(self._graphs) > known:
+                self._rec["capture_s"] = t1 - self._rec["capture_start"]
+                self._rec["warmup_capture_s"] = time.perf_counter() - t0
             return out
 
         def progress_multi(self, batches):
@@ -1669,27 +1777,52 @@ def _config4_recorder(stages: list):
                                        "replay_only": captured})
             return out
 
+        def autosave(self, directory):
+            super().autosave(directory)
+            live = self._opt_state()
+            params, tree, step = load_training_state(
+                directory, self.state_dicts(), live)
+            got, want = dict(_leaves(tree)), dict(_leaves(live))
+            same = step == self.step_count and set(got) == set(want) and all(
+                torch.equal(got[k], torch.from_numpy(np.array(want[k])))
+                for k in want) and all(
+                torch.equal(params[name][k], v.detach().cpu())
+                for name, sd in self.state_dicts().items()
+                for k, v in sd.items())
+            if not same:
+                raise AssertionError(f"{self._rec['stage']}: the autosave at "
+                                     f"step {self.step_count} does not read "
+                                     "back bit for bit")
+            self._rec["autosaves"] += 1
+            self._rec["autosave_leaves"] = len(want)
+
     return Recorded
 
 
-def config4_phase(card: str) -> dict:
-    """BASELINE config 4 (`CONFIG4`) through the port's entry points: the
-    datasets generated on the default route (K1), a first CFE-stage
-    iteration on the conv route against the default route, `run_curriculum`
-    on K2–K5 (`fused='cuda', conv_impl='cuda'`), `run_curriculum(resume=
-    True)` on the same workdir (every stage skipped, the same eval block bit
-    for bit), and one saved `CFE.msgpack` read back. Returns the launches
-    the wrappers counted in the phase, by kernel."""
-    _phase("config 4 (indirect smoke control) through run_curriculum")
+def config_phase(card: str, number: int, conv_shapes: dict | None = None
+                 ) -> dict:
+    """BASELINE config `number` (`CONFIGS`) through the port's entry
+    points: the datasets generated on the default route (K1) into a disk
+    cache, a first CFE-stage iteration on the conv route against the
+    default route, `run_curriculum` on K2-K5 (each mid-stage autosave read
+    back bit for bit, `opt_state.msgpack` in the JAX package's layout
+    included), the data again from the cache, `run_curriculum(resume=True)`
+    on the same workdir (every stage skipped, the same eval block bit for
+    bit), and the saved `CFE.msgpack` read back. With `conv_shapes`, the
+    conv shapes of the curriculum's K4/K5 launches are added to it. Returns
+    the launches the wrappers counted in the phase, by kernel, those of
+    the captured steps times their replays, and the task."""
+    c = CONFIGS[number]
+    _phase(f"config {number} ({c['task']}) through run_curriculum")
     import shutil
     from pathlib import Path
 
     from pde_control_tpu_torch import ControlTraining, IncompressibleFluidPDE
-    from pde_control_tpu_torch.experiments import curriculum, fluid2d
+    from pde_control_tpu_torch.experiments import curriculum
+    from pde_control_tpu_torch.ops import cuda_conv
     from pde_control_tpu_torch.utils.checkpoint import load_network
 
-    c = CONFIG4
-    workdir = Path(__file__).resolve().parent / CONFIG4_WORKDIR
+    workdir = Path(__file__).resolve().parent / f"runs/chip_smoke_config{number}"
     shutil.rmtree(workdir, ignore_errors=True)
     datadir = str(workdir / "data")
     phase_counts = dict.fromkeys(_counts(), 0)
@@ -1702,24 +1835,23 @@ def config4_phase(card: str) -> dict:
         _zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = fluid2d._smoke_indirect_setup(
-            c["size"], c["n"], c["num_train"], c["num_val"], 1.0, datadir,
-            device="cuda", fused="cuda", conv_impl="cuda")
+        out = _config_task(number, datadir)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = _counts()
         add_counts()
         return out, seconds, launches
 
-    (pde, train, val), seconds, launches = setup()
+    ((pde, train, val), ccfg), seconds, launches = setup()
     rollouts = -(-c["num_train"] // 8) + -(-c["num_val"] // 8)
+    steps = c["warmup"] + c["n"]
     print(f"data: {c['num_train']} + {c['num_val']} trajectories of "
-          f"{c['n'] + 1} frames at {c['size']}^2 ({rollouts} rollouts of 8 warm-up"
-          f" + {c['n']} steps, unfused, pressure on K1) in {seconds:.2f} s, "
+          f"{c['n'] + 1} frames at {c['size']}^2 ({rollouts} rollouts of 8, "
+          f"{steps} unfused steps each, pressure on K1) in {seconds:.2f} s, "
           f"{launches['K1']} K1 launches; written to the disk cache [{card}]")
-    if launches["K1"] != rollouts * (8 + c["n"]):
+    if launches["K1"] != rollouts * steps:
         raise AssertionError(f"data generation: {launches['K1']} K1 launches, "
-                             f"expected {rollouts * (8 + c['n'])}")
+                             f"expected {rollouts * steps}")
     if not (np.isfinite(train.obs).all() and train.obs.shape == (
             c["num_train"], c["n"] + 1, c["size"], c["size"], 1)):
         raise AssertionError("data generation: non-finite or misshapen obs")
@@ -1728,8 +1860,9 @@ def config4_phase(card: str) -> dict:
     batch = train.take(np.arange(c["batch"]))
     default_pde = IncompressibleFluidPDE(
         pde.domain, dataclasses.replace(pde.cfg, fused="auto"),
-        control="buoyancy", with_inflow=True, unet_levels=pde.unet_levels,
-        cfe_features=pde.cfe_features, op_base_features=pde.op_base_features)
+        control=pde.control, with_inflow=pde.with_inflow,
+        unet_levels=pde.unet_levels, cfe_features=pde.cfe_features,
+        op_base_features=pde.op_base_features)
     first, weights = {}, None
     for label, p in (("conv", pde), ("default", default_pde)):
         app = ControlTraining(c["n"], p, trainable_networks=("CFE",),
@@ -1746,28 +1879,27 @@ def config4_phase(card: str) -> dict:
         add_counts()
         first[label] = (float(metrics["loss"]), _grad_norms(app))
         del app
-    _compare_first("config 4 CFE stage, conv route (K2-K5) against K1 + cuDNN",
-                   first["conv"], first["default"])
+    _compare_first(f"config {number} CFE stage, conv route (K2-K5) against "
+                   "K1 + cuDNN", first["conv"], first["default"])
 
-    ccfg = curriculum.CurriculumConfig(
-        n=c["n"], batch_size=c["batch"], cfe_iterations=c["iterations"],
-        op_iterations=c["iterations"], e2e_iterations=c["iterations"],
-        cfe_lr=1e-3, op_lr=1e-3, e2e_lr=1e-4, grad_clip=1.0, force_reg=3e-5,
-        seed=0, steps_per_call=c["steps_per_call"],
-        autosave_every=c["autosave_every"])
     stages: list = []
     original = curriculum.ControlTraining
-    curriculum.ControlTraining = _config4_recorder(stages)
+    curriculum.ControlTraining = _stage_recorder(stages)
+    originals = (_record_conv_shapes(conv_shapes) if conv_shapes is not None
+                 else {})
     try:
         _zero_counts()
         t0 = time.perf_counter()
         results = curriculum.run_curriculum(pde, ccfg, train, val, str(workdir))
         seconds = time.perf_counter() - t0
         add_counts()
+        for d, fn in originals.items():
+            setattr(cuda_conv, f"conv3x3_{d}", fn)
+        originals = {}
         print(f"run_curriculum: {len(stages)} stages in {seconds:.2f} s; "
               f"wrappers counted {_counts()} (data generation not included; "
               f"captures, warm-up steps, renders and the eval) [{card}]")
-        (pde2, train2, val2), seconds2, launches2 = setup()
+        ((pde2, train2, val2), _), seconds2, launches2 = setup()
         if launches2["K1"] != 0 or not np.array_equal(train2.obs, train.obs):
             raise AssertionError("the disk cache missed or changed the data")
         print(f"data again from the disk cache in {seconds2:.2f} s, 0 K1 launches")
@@ -1778,10 +1910,13 @@ def config4_phase(card: str) -> dict:
         add_counts()
     finally:
         curriculum.ControlTraining = original
+        for d, fn in originals.items():
+            setattr(cuda_conv, f"conv3x3_{d}", fn)
 
+    stage_ns = ccfg.e2e_stage_ns or (c["n"],)
     names = ["cfe_supervised"] + [f"op{s}_supervised" for s in
                                   sorted(curriculum.op_spans(c["n"]))] + [
-        f"end_to_end_n{c['n']}"]
+        f"end_to_end_n{n_k}" for n_k in stage_ns]
     if len(stages) != n_stages or n_stages != len(names):
         raise AssertionError(f"stages trained: {n_stages}, then "
                              f"{len(stages) - n_stages} on resume")
@@ -1795,25 +1930,30 @@ def config4_phase(card: str) -> dict:
         if not replays or len(rec["calls"]) != c["iterations"] // c[
                 "steps_per_call"]:
             raise AssertionError(f"{name}: calls {rec['calls']}")
+        if rec["autosaves"] != c["iterations"] // c["autosave_every"]:
+            raise AssertionError(f"{name}: {rec['autosaves']} autosaves read back")
         ms = sum(cl["ms"] for cl in replays) / sum(cl["k"] for cl in replays)
         gl = rec["graph_launches"]
         physics = rec["class"] != "op_supervised"
         need = ["K4 fwd", "K4 dX", "K5"] + (["K2", "K3"] if physics else [])
         if any(gl[k] <= 0 for k in need) or gl["K1"] != 0 or (
-                not physics and gl["K2"] + gl["K3"] != 0):
+                not physics and gl["K2"] + gl["K3"] != 0) or (
+                physics and gl["K2"] != rec["n"]):
             raise AssertionError(f"{name}: launches a replay {gl}")
         rec["ms"] = ms
         pool = max(pool, rec["reserved"] - rec["reserved_before"])
-        print(f"stage {name} ({rec['class']}, trains {rec['stage']}): "
-              f"{rec['steps']} steps in {rec['seconds']:.2f} s (capture "
-              f"included); under the graph {ms:.3f} ms a step, "
-              f"{c['n'] * c['batch'] / (ms / 1e3):.1f} steps/s (n x batch a "
+        print(f"stage {name} ({rec['class']}, n={rec['n']}, trains "
+              f"{rec['stage']}): {rec['steps']} steps in {rec['seconds']:.2f} s;"
+              f" warm-up and capture {rec['warmup_capture_s']:.2f} s (capture "
+              f"{rec['capture_s']:.2f} s); under the graph {ms:.3f} ms a step, "
+              f"{rec['n'] * c['batch'] / (ms / 1e3):.1f} steps/s (n x batch a "
               f"second); launches a replay {gl}, x {rec['steps']} steps = "
               f"{ {k: v * rec['steps'] for k, v in gl.items()} }; peak "
               f"{rec['peak'] / 2**20:.1f} MiB, reserved "
               f"{rec['reserved_before'] / 2**20:.1f} -> "
-              f"{rec['reserved'] / 2**20:.1f} MiB; loss "
-              f"{res['loss']:.6e} [{card}]")
+              f"{rec['reserved'] / 2**20:.1f} MiB; {rec['autosaves']} autosaves "
+              f"read back ({rec['autosave_leaves']} optimizer arrays and the "
+              f"networks bit for bit); loss {res['loss']:.6e} [{card}]")
     base = stages[0]["reserved_before"]
     for name, rec in zip(names, stages):
         if rec["reserved_before"] > base + pool:
@@ -1828,8 +1968,8 @@ def config4_phase(card: str) -> dict:
     if on_disk.get("eval") != json.loads(json.dumps(ev)) or not all(
             np.all(np.isfinite(v)) for v in ev.values()):
         raise AssertionError(f"eval block missing or non-finite: {ev}")
-    print("eval: " + json.dumps({k: v for k, v in ev.items()
-                                 if not isinstance(v, list)}))
+    print("eval (controlled beside zero force): " + json.dumps(
+        {k: v for k, v in ev.items() if not isinstance(v, list)}))
     for name in names:
         if resumed[name] != {"resumed": True}:
             raise AssertionError(f"resume: {name} gave {resumed[name]}")
@@ -1849,7 +1989,98 @@ def config4_phase(card: str) -> dict:
     return {"counted": phase_counts,
             "graph": {k: sum(r["graph_launches"][k] * r["steps"]
                              for r in stages[:n_stages])
-                      for k in phase_counts}}
+                      for k in phase_counts},
+            "pde": pde, "train": train, "workdir": workdir}
+
+
+def refined_128_phase(card: str, config5: dict) -> None:
+    """One `progress_multi` of K = 2 at n = 128 with the 'refined' class on
+    config 5's e2e app (every net trainable, restored from its
+    ckpt_final), then a second one timed by CUDA events: the recursion's
+    127 OP calls and 128 steps captured as one graph. Checks the launches
+    a replay and finite losses; prints the capture's seconds, ms a step,
+    peak and reserved memory."""
+    _phase("config 5: the refined class at n = 128 under progress_multi")
+    from pde_control_tpu_torch import ControlTraining
+    from pde_control_tpu_torch.experiments.curriculum import op_spans
+
+    n, k = 128, 2
+    app = ControlTraining(
+        n, config5["pde"], dataset=config5["train"], batch_size=BATCH,
+        trainable_networks=("CFE",) + tuple(f"OP{s}" for s in op_spans(n)),
+        sequence_class="refined", obs_loss_frames=(32, 64, 96, 128),
+        force_reg=1e-5, learning_rate=1e-4, grad_clip=1.0,
+        lr_schedule="cosine", decay_steps=2 * k, seed=0,
+        restore=str(config5["workdir"] / "ckpt_final")).prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = app.progress_multi(app.to_batch(app.sample_batches(k)))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    batches = app.to_batch(app.sample_batches(k))
+    _zero_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    second = app.progress_multi(batches)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / k
+    gl = app.graph_launches
+    # The CFE's convs (config 5 keeps the default widths, CFE_FEATURES) at
+    # every step and the U-net's eligible convs at each of the n - 1 OP
+    # calls; no dX for the first OP call's first conv, fed by data.
+    fwd = n * (len(app.pde.cfe_features or CFE_FEATURES) + 1) + (n - 1) * (
+        5 * app.pde.unet_levels + 2)
+    want = {"K1": 0, "K2": n, "K3": n, "K4 fwd": fwd, "K4 dX": fwd - 1,
+            "K5": fwd}
+    losses = torch.cat([first["loss"], second["loss"]])
+    if gl != want or any(_counts().values()) or not torch.isfinite(losses).all():
+        raise AssertionError(f"refined n=128: launches a replay {gl} (expected "
+                             f"{want}), wrappers in a replay {_counts()}, "
+                             f"losses {losses.tolist()}")
+    print(f"refined n=128, batch {BATCH}: warm-up, capture and {k} replays "
+          f"{capture_s:.2f} s; under the graph {ms:.3f} ms a step "
+          f"({n * BATCH / (ms / 1e3):.1f} n x batch steps/s); launches a "
+          f"replay {gl}; peak {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          f"MiB, reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB; "
+          f"losses {[f'{v:.6e}' for v in losses.tolist()]} [{card}]")
+    app.close()
+    del app
+    torch.cuda.empty_cache()
+
+
+def cli_phase(card: str) -> None:
+    """`python -m pde_control_tpu_torch.experiments.run shape_transition
+    --iterations 2 --num-train 16 --num-val 8` on the card (the CLI's
+    default device and routes), in this process: its results.json must
+    hold a finite eval block equal to the one it printed."""
+    _phase("the CLI: run shape_transition on the card")
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch.experiments import run
+
+    workdir = Path(__file__).resolve().parent / "runs/chip_smoke_cli"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        run.main(["shape_transition", "--iterations", "2", "--num-train", "16",
+                  "--num-val", "8", "--workdir", str(workdir)])
+    seconds = time.perf_counter() - t0
+    with open(workdir / "results.json") as f:
+        res = json.load(f)
+    ev = res["eval"]
+    if json.loads(out.getvalue())["eval"] != ev or not all(
+            np.all(np.isfinite(v)) for v in ev.values()):
+        raise AssertionError(f"CLI: eval block missing or non-finite: {ev}")
+    print(f"run shape_transition --iterations 2 --num-train 16 --num-val 8: "
+          f"results.json in {seconds:.2f} s, stages "
+          f"{sorted(k for k in res if k.endswith(('supervised', '_n16')))}; "
+          f"eval final_state_mse {ev['final_state_mse']:.6e}, zero force "
+          f"{ev['zero_force_final_mse']:.6e} [{card}]")
 
 
 def main() -> None:
@@ -1868,19 +2099,34 @@ def main() -> None:
     fused_launches = fused_path_phase(card, batch, first)
     conv_launches = conv_path_phase(card, batch, first, shapes)
     training_phase(card, batch)
-    config4 = config4_phase(card)
+    configs, seen = {}, {3: {}, 5: {}}
+    for number in (4, 3, 5):
+        configs[number] = config_phase(card, number, seen.get(number))
+    refined_128_phase(card, configs[5])
+    cli_phase(card)
+    # The conv shapes of configs 3 and 5 that neither the main path nor
+    # config 4's CFE check reaches, each held to plain under every plan
+    # once.
+    known = set(shapes) | set(CONFIG4_CONV_SHAPES)
+    config_shapes = {}
+    for m in (3, 5):
+        config_shapes[f"config {m}"] = sorted(set(seen[m]) - known)
+        known |= set(seen[m])
     # Last, so that its CUDA graphs' memory stays out of the paths' peaks.
-    conv = conv_kernel_phase(card, shapes)
+    conv = conv_kernel_phase(card, shapes, config_shapes)
+    _phase(None)
 
     def entry(name, source, replaces, launches, s, keys):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": s["err"], "ms": s["ms"],
-                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
-                **{k: s[k] for k in ("graph_ms", "plan") if k in s},
-                "config4_launches": sum(config4["counted"][k] for k in keys),
-                "config4_graph_launches": sum(config4["graph"][k] for k in keys)}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": s["err"], "ms": s["ms"],
+               "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+               "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
+               **{k: s[k] for k in ("graph_ms", "plan") if k in s}}
+        for m, c in sorted(configs.items()):
+            out[f"config{m}_launches"] = sum(c["counted"][k] for k in keys)
+            out[f"config{m}_graph_launches"] = sum(c["graph"][k] for k in keys)
+        return out
 
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
                   for key in ("ms", "plain_ms", "bound_ms")}

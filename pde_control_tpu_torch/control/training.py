@@ -65,6 +65,7 @@ from pde_control_tpu_torch.utils.checkpoint import (
     save_networks,
     save_training_state,
 )
+from pde_control_tpu_torch.utils.convert import _flax_tree, _state_dict
 from pde_control_tpu_torch.utils.logging import MetricsLogger
 from pde_control_tpu_torch.utils.viz import save_comparison_png, tb_image
 
@@ -607,28 +608,73 @@ class ControlTraining:
         """Every network's state dict, by name."""
         return {name: net.state_dict() for name, net in self.nets.items()}
 
-    def _opt_state(self) -> dict[str, torch.Tensor]:
-        """The optimizer's state and the non-finite counters, by name."""
-        opt = self.optimizer
-        return {"mu": opt.mu, "nu": opt.nu, "count": opt.count,
-                "notfinite_total": self.notfinite_total,
-                "notfinite_consec": self.notfinite_consec}
+    def _opt_state(self) -> dict:
+        """The optimizer's state as the JAX package's optax state tree
+        serializes it (`flax.serialization.to_state_dict` of
+        `apply_if_finite(multi_transform({'train': chain(clip, adam(lr or
+        schedule)), 'freeze': set_to_zero()}))`'s state, built at
+        `pde_control_tpu/control/training.py:211-228`): Adam's moments of
+        every trainable network under its flax names (kernels HWIO), {} for
+        a frozen one (optax's MaskedNode), Adam's count, which also stands
+        for the schedule's (they advance together under apply_if_finite),
+        and the non-finite counters. Arrays on the CPU."""
+        count = self.optimizer.count.cpu().numpy()
+        moments = self.moments()
+        mu, nu = ({name: _flax_tree({k: m[i] for k, m in moments[name].items()})
+                   if name in moments else {} for name in self.nets}
+                  for i in (0, 1))
+        train = {"0": {"count": count, "mu": mu, "nu": nu},
+                 "1": {"count": count} if self.optimizer.decay_steps else {}}
+        if self.grad_clip:
+            train = {"0": {}, "1": train}
+        tree = {"inner_states": {"freeze": {"inner_state": {}},
+                                 "train": {"inner_state": train}}}
+        if not self.skip_nonfinite:
+            return tree
+        consec = self.notfinite_consec.cpu().numpy()
+        return {"inner_state": tree, "last_finite": consec == 0,
+                "notfinite_count": consec,
+                "total_notfinite": self.notfinite_total.cpu().numpy()}
+
+    def _load_opt_state(self, tree: dict) -> None:
+        """Copy an `_opt_state` tree (of tensors, structure checked) into
+        the optimizer's buffers and the counters."""
+        if self.skip_nonfinite:
+            self.notfinite_consec.copy_(tree["notfinite_count"])
+            self.notfinite_total.copy_(tree["total_notfinite"])
+            tree = tree["inner_state"]
+        train = tree["inner_states"]["train"]["inner_state"]
+        if self.grad_clip:
+            train = train["1"]
+        adam = train["0"]
+        if self.optimizer.decay_steps and not torch.equal(
+                train["1"]["count"], adam["count"]):
+            raise ValueError("optimizer state: the schedule's count "
+                             f"{int(train['1']['count'])} is not Adam's "
+                             f"{int(adam['count'])}")
+        self.optimizer.count.copy_(adam["count"])
+        for name, params in self.moments().items():
+            for i, key in ((0, "mu"), (1, "nu")):
+                sd = _state_dict(adam[key][name])
+                for k, pair in params.items():
+                    pair[i].copy_(sd[k])
 
     def save_state(self, directory: str) -> None:
-        """Full resume checkpoint: networks, optimizer state, step counter."""
+        """Full resume checkpoint: networks, optimizer state (optax's tree,
+        `_opt_state`), step counter; the JAX package resumes it too."""
         save_training_state(directory, self.state_dicts(), self._opt_state(),
                             self.step_count,
                             {"sequence_class": self.sequence_class})
 
     def restore_state(self, directory: str) -> None:
-        """Resume from save_state (same configuration and trainable set).
-        Everything is copied in place; the captured graphs are dropped."""
+        """Resume from either package's save_state (same configuration and
+        trainable set; another raises ValueError). Everything is copied in
+        place; the captured graphs are dropped."""
         params, opt_state, self.step_count = load_training_state(
             directory, self.state_dicts(), self._opt_state())
         for name, sd in params.items():
             self.nets[name].load_state_dict(sd)
-        for name, t in self._opt_state().items():
-            t.copy_(opt_state[name])
+        self._load_opt_state(opt_state)
         self._graphs.clear()
 
     def autosave(self, directory: str) -> None:

@@ -1,18 +1,28 @@
 """Dataset generation: batched rollouts of the port's physics.
 
-Counterpart of the inflow-smoke part of `pde_control_tpu/data/generate.py`
-(`random_inflow`, `random_smooth_field_2d`, `generate_inflow_smoke_dataset`):
-an inflow-driven plume steered by a withheld random buoyancy-modulation
-field, so that the target frame is not the natural evolution.
+Counterpart of the 2D part of `pde_control_tpu/data/generate.py`:
+* the indirect-smoke data (`random_inflow`, `random_smooth_field_2d`,
+  `generate_inflow_smoke_dataset`, BASELINE config 4): an inflow-driven
+  plume steered by a withheld random buoyancy-modulation field, so that
+  the target frame is not the natural evolution;
+* natural plumes from Gaussian blobs (`random_smoke_blobs`,
+  `generate_smoke_dataset`);
+* forced smoke (`generate_forced_smoke_dataset`, configs 3 and 5): soft
+  rasterized shapes (`random_shape_densities`: circles and boxes; the
+  withheld families `random_cross_densities` and `random_ring_densities`)
+  or blobs, pushed by withheld random smooth direct forces.
 
 Randomness comes from a `torch.Generator` seeded by `seed`. The JAX
 package draws with `jax.random`, whose bits torch cannot reproduce, so each
 random function is split into its draws (`*_draws`) and a deterministic
-construction from them (`inflow_from_draws`, `smooth_field_from_draws`);
-fed the same draws, the constructions match the JAX package's.
+construction from them (`*_from_draws`); fed the same draws, the
+constructions match the JAX package's. Draws are made on the CPU; the
+constructions and the unfused rollouts run on the domain's device, with
+the configuration's pressure solve (on the card 'auto' takes K1 where
+there are obstacles and the exact spectral solve in an empty closed box;
+'cuda' takes K1 everywhere).
 
-The other generators (shapes, rings, crosses, forced smoke, Burgers) are
-not ported yet.
+The Burgers generators are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +33,13 @@ import numpy as np
 import torch
 
 from pde_control_tpu_torch.data.scene import TrajectoryDataset
-from pde_control_tpu_torch.grids import Domain2D, Staggered2D, centered_to_y_faces
+from pde_control_tpu_torch.geom import Box, Sphere, rasterize, union
+from pde_control_tpu_torch.grids import (
+    Domain2D,
+    Staggered2D,
+    centered_to_x_faces,
+    centered_to_y_faces,
+)
 from pde_control_tpu_torch.physics.fluid import FluidConfig, FluidState, fluid_step
 
 
@@ -154,3 +170,227 @@ def generate_inflow_smoke_dataset(
                              vy0=np.concatenate(vy0s, axis=0),
                              vx0=np.concatenate(vx0s, axis=0),
                              inflow=np.concatenate(inflows, axis=0))
+
+
+# ------------------------------------------------- blobs and shapes (B, H, W)
+
+def _positions(gen: torch.Generator, batch: int, h: int, w: int,
+               margin: int) -> torch.Tensor:
+    """Centres (B, 2) as (y, x), uniform in [margin, h - margin) ×
+    [margin, w - margin)."""
+    hi = torch.tensor([h - margin, w - margin], dtype=torch.float32)
+    return margin + torch.rand((batch, 2), generator=gen) * (hi - margin)
+
+
+def _uniform(gen: torch.Generator, batch: int, lo: float, hi: float
+             ) -> torch.Tensor:
+    """(B, 1, 1) uniform in [lo, hi)."""
+    return lo + torch.rand((batch, 1, 1), generator=gen) * (hi - lo)
+
+
+def _margin(margin: int, h: int, w: int) -> int:
+    # A margin of 8-12 on a 16² grid would pin every centre to the middle
+    # (and invert the range below 16): clamp it as the JAX package does.
+    return min(margin, h // 4, w // 4)
+
+
+def _centres(pos: torch.Tensor):
+    return pos[:, 0, None, None], pos[:, 1, None, None]
+
+
+def blob_draws(gen: torch.Generator, batch: int, h: int, w: int,
+               sigma_range=(4.0, 8.0), margin: int = 8):
+    """Blob centres (B, 2) and widths (B, 1, 1)."""
+    return (_positions(gen, batch, h, w, _margin(margin, h, w)),
+            _uniform(gen, batch, *sigma_range))
+
+
+def blobs_from_draws(pos: torch.Tensor, sig: torch.Tensor, h: int, w: int
+                     ) -> torch.Tensor:
+    """Gaussian density blobs (B, H, W) of peak 1."""
+    yy = torch.arange(h, dtype=torch.float32, device=pos.device)[None, :, None]
+    xx = torch.arange(w, dtype=torch.float32, device=pos.device)[None, None, :]
+    cy, cx = _centres(pos)
+    return torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
+
+
+def random_smoke_blobs(gen: torch.Generator, batch: int, h: int, w: int,
+                       sigma_range=(4.0, 8.0), margin: int = 8) -> torch.Tensor:
+    """Random Gaussian density blobs (B, H, W), peak 1."""
+    return blobs_from_draws(*blob_draws(gen, batch, h, w, sigma_range, margin),
+                            h, w)
+
+
+def shape_draws(gen: torch.Generator, batch: int, h: int, w: int,
+                size_range=(5.0, 10.0), margin: int = 12):
+    """Centres (B, 2), half-sizes r and box aspect ratios (B, 1, 1), and
+    whether each shape is a circle (B, 1, 1) bool, even odds."""
+    pos = _positions(gen, batch, h, w, _margin(margin, h, w))
+    r = _uniform(gen, batch, *size_range)
+    aspect = _uniform(gen, batch, 0.6, 1.6)
+    return pos, r, aspect, torch.rand((batch, 1, 1), generator=gen) < 0.5
+
+
+def shapes_from_draws(pos, r, aspect, is_circle, h: int, w: int,
+                      smooth: float = 1.5) -> torch.Tensor:
+    """Circles of radius r, or boxes of half-height r and half-width
+    r·aspect, rasterized with a soft edge (B, H, W): the shape-transition
+    task's content."""
+    cy, cx = _centres(pos)
+    circles = rasterize(Sphere(cy=cy, cx=cx, r=r), h, w, smooth=smooth,
+                        device=pos.device)
+    boxes = rasterize(Box(y0=cy - r, x0=cx - r * aspect, y1=cy + r,
+                          x1=cx + r * aspect), h, w, smooth=smooth,
+                      device=pos.device)
+    return torch.where(is_circle, circles, boxes)
+
+
+def random_shape_densities(gen: torch.Generator, batch: int, h: int, w: int,
+                           size_range=(5.0, 10.0), margin: int = 12,
+                           smooth: float = 1.5) -> torch.Tensor:
+    """Random soft circles and boxes (B, H, W)."""
+    return shapes_from_draws(*shape_draws(gen, batch, h, w, size_range,
+                                          margin), h, w, smooth=smooth)
+
+
+def cross_draws(gen: torch.Generator, batch: int, h: int, w: int,
+                size_range=(5.0, 10.0), margin: int = 12):
+    """Centres (B, 2), arm lengths and thickness fractions (B, 1, 1)."""
+    pos = _positions(gen, batch, h, w, _margin(margin, h, w))
+    arm = _uniform(gen, batch, *size_range)
+    return pos, arm, _uniform(gen, batch, 0.25, 0.45)
+
+
+def crosses_from_draws(pos, arm, thick_frac, h: int, w: int,
+                       smooth: float = 1.5) -> torch.Tensor:
+    """Crosses (the union of two elongated boxes) with a soft edge (B, H,
+    W): a shape family withheld from training, for generalization."""
+    cy, cx = _centres(pos)
+    thick = arm * thick_frac
+    cross = union(
+        Box(y0=cy - arm, x0=cx - thick, y1=cy + arm, x1=cx + thick),
+        Box(y0=cy - thick, x0=cx - arm, y1=cy + thick, x1=cx + arm))
+    return rasterize(cross, h, w, smooth=smooth, device=pos.device)
+
+
+def random_cross_densities(gen: torch.Generator, batch: int, h: int, w: int,
+                           size_range=(5.0, 10.0), margin: int = 12,
+                           smooth: float = 1.5) -> torch.Tensor:
+    """Random soft crosses (B, H, W)."""
+    return crosses_from_draws(*cross_draws(gen, batch, h, w, size_range,
+                                           margin), h, w, smooth=smooth)
+
+
+def ring_draws(gen: torch.Generator, batch: int, h: int, w: int,
+               size_range=(6.0, 10.0), margin: int = 12):
+    """Centres (B, 2), outer radii and inner-radius fractions (B, 1, 1)."""
+    pos = _positions(gen, batch, h, w, _margin(margin, h, w))
+    r_out = _uniform(gen, batch, *size_range)
+    return pos, r_out, _uniform(gen, batch, 0.4, 0.65)
+
+
+def rings_from_draws(pos, r_out, in_frac, h: int, w: int,
+                     smooth: float = 1.5) -> torch.Tensor:
+    """Rings (outer disc minus inner disc, clipped to [0, 1]) with a soft
+    edge (B, H, W): the second withheld family, of hollow topology."""
+    cy, cx = _centres(pos)
+    outer = rasterize(Sphere(cy=cy, cx=cx, r=r_out), h, w, smooth=smooth,
+                      device=pos.device)
+    inner = rasterize(Sphere(cy=cy, cx=cx, r=r_out * in_frac), h, w,
+                      smooth=smooth, device=pos.device)
+    return torch.clamp(outer - inner, 0.0, 1.0)
+
+
+def random_ring_densities(gen: torch.Generator, batch: int, h: int, w: int,
+                          size_range=(6.0, 10.0), margin: int = 12,
+                          smooth: float = 1.5) -> torch.Tensor:
+    """Random soft rings (B, H, W)."""
+    return rings_from_draws(*ring_draws(gen, batch, h, w, size_range, margin),
+                            h, w, smooth=smooth)
+
+
+# init name -> (draws, construction). 'crosses' and 'rings' are withheld
+# from every training run ('shapes' = circles and boxes); they exist for
+# generalization evals and the rings fine-tune.
+INITS = {"shapes": (shape_draws, shapes_from_draws),
+         "blobs": (blob_draws, blobs_from_draws),
+         "crosses": (cross_draws, crosses_from_draws),
+         "rings": (ring_draws, rings_from_draws)}
+
+
+# ------------------------------------------------ natural and forced smoke
+
+def smoke_rollout(domain: Domain2D, cfg: FluidConfig, density0: torch.Tensor,
+                  n_steps: int, force: Staggered2D | None = None
+                  ) -> torch.Tensor:
+    """n_steps from rest under a force constant in time (or none). Returns
+    the densities (n_steps + 1, B, H, W), frame 0 the initial one."""
+    h, w = domain.grid_shape
+    with torch.no_grad():
+        state = FluidState(
+            velocity=Staggered2D.zeros(density0.shape[0], h, w,
+                                       device=density0.device),
+            density=density0)
+        frames = [density0]
+        for _ in range(n_steps):
+            state = fluid_step(state, domain, cfg, force=force)
+            frames.append(state.density)
+    return torch.stack(frames)
+
+
+def _from_rest(domain: Domain2D, cfg: FluidConfig, num: int, n_steps: int,
+               seed: int, batch: int, init: str,
+               force_amplitude: float | None) -> TrajectoryDataset:
+    """Rollouts from rest of `init`'s densities, in batches, under random
+    smooth direct forces of `force_amplitude` (None: no force): obs (num,
+    n_steps + 1, H, W, 1) and the zero initial velocity (vy0, vx0)."""
+    draw, build = INITS[init]
+    h, w = domain.grid_shape
+    dev = domain.device
+    gen = torch.Generator().manual_seed(seed)
+    chunks = []
+    remaining = num
+    while remaining > 0:
+        b = min(batch, remaining)
+        d0 = build(*(d.to(dev) for d in draw(gen, b, h, w)), h, w)
+        force = None
+        if force_amplitude is not None:
+            fy, fx = (smooth_field_from_draws(
+                *(d.to(dev) for d in smooth_field_draws(gen, b)), h, w,
+                amplitude=force_amplitude) for _ in range(2))
+            force = Staggered2D(vy=centered_to_y_faces(fy),
+                                vx=centered_to_x_faces(fx))
+        traj = smoke_rollout(domain, cfg, d0, n_steps, force)
+        chunks.append(np.moveaxis(traj.cpu().numpy(), 0, 1)[..., None])
+        remaining -= b
+    return TrajectoryDataset(np.concatenate(chunks, axis=0),
+                             vy0=np.zeros((num, h + 1, w), np.float32),
+                             vx0=np.zeros((num, h, w + 1), np.float32))
+
+
+def generate_smoke_dataset(domain: Domain2D, cfg: FluidConfig, num: int,
+                           n_steps: int, seed: int = 0, batch: int = 8
+                           ) -> TrajectoryDataset:
+    """Natural buoyant-plume trajectories from random blobs at rest: obs
+    (num, n_steps + 1, H, W, 1) and the zero initial velocity (vy0, vx0)."""
+    return _from_rest(domain, cfg, num, n_steps, seed, batch, "blobs", None)
+
+
+def generate_forced_smoke_dataset(
+    domain: Domain2D,
+    cfg: FluidConfig,
+    num: int,
+    n_steps: int,
+    seed: int = 0,
+    force_amplitude: float = 0.1,
+    batch: int = 8,
+    init: str = "shapes",  # a key of INITS
+) -> TrajectoryDataset:
+    """Shape-transition style trajectories (BASELINE configs 3 and 5): the
+    initial densities of `init` pushed by random smooth direct forces (fy,
+    fx centred, moved to the faces), constant in time and withheld from the
+    controller, so that endpoint reconstruction needs control while staying
+    reachable with moderate force. Returns obs (num, n_steps + 1, H, W, 1)
+    and the zero initial velocity (vy0, vx0)."""
+    return _from_rest(domain, cfg, num, n_steps, seed, batch, init,
+                      force_amplitude)

@@ -6,10 +6,12 @@
 
 Counterpart of `pde_control_tpu/experiments/run.py`, with the same names,
 flags and per-experiment flag table, plus `--device` (default `cuda`;
-`cpu` runs the kernels' plain versions). Ported: `smoke_indirect`
-(BASELINE config 4) and its fine-tune `smoke_indirect_ft`; every other
-name exits with "not ported yet". `--smoke-test` shrinks every dimension
-for a fast CI-sized run.
+`cpu` runs the kernels' plain versions). Ported: the three 2D BASELINE
+configs with their fine-tunes: `shape_transition` (config 3),
+`shape_transition_ft`, `shape_transition_rings_ft`, `smoke_indirect`
+(config 4), `smoke_indirect_ft`, `natural_flow_128` (config 5) and
+`natural_flow_128_ft`; every other name exits with "not ported yet".
+`--smoke-test` shrinks every dimension for a fast CI-sized run.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ NAMES = [
     "natural_flow_128_ft", "smoke_indirect_ft",
     "shape_transition_ft", "shape_transition_rings_ft",
     "generalize_shapes", "generalize_smoke"]
-PORTED = ("smoke_indirect", "smoke_indirect_ft")
+PORTED = ("shape_transition", "shape_transition_ft",
+          "shape_transition_rings_ft", "smoke_indirect", "smoke_indirect_ft",
+          "natural_flow_128", "natural_flow_128_ft")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -132,30 +136,54 @@ def main(argv=None) -> None:
     st = args.smoke_test
     it = args.iterations
     dev = dict(device=args.device)
-    if args.name == "smoke_indirect":
+    if args.name.endswith("_ft") and not args.init_from:
+        base = args.name[:-3].replace("_rings", "")
+        p.error(f"{args.name} requires --init-from "
+                f"(a finished {base} run's ckpt_final)")
+    common = dict(datadir=args.datadir, seed=args.seed or 0,
+                  resume=args.resume, **dev)
+    sizes = dict(size=16 if st else 64, n=4 if st else 16,
+                 num_train=args.num_train or (16 if st else 256),
+                 num_val=args.num_val or (8 if st else 32))
+    ft = dict(init_from=args.init_from,
+              e2e_iterations=args.e2e_iterations or (5 if st else None),
+              batch_size=4 if st else 8)
+    if args.name == "shape_transition":
+        result = fluid2d.run_shape_transition(
+            workdir, iterations=it or (10 if st else 500),
+            batch_size=args.batch or (4 if st else 8), **sizes, **common)
+    elif args.name == "shape_transition_ft":
+        result = fluid2d.run_shape_transition_ft(
+            workdir, force_reg=args.force_reg or 5e-6, **ft, **sizes, **common)
+    elif args.name == "shape_transition_rings_ft":
+        del common["datadir"]
+        result = fluid2d.run_shape_transition_rings_ft(
+            workdir, **ft, **sizes, **common)
+    elif args.name == "smoke_indirect":
         result = fluid2d.run_smoke_indirect(
-            workdir, size=16 if st else 64, n=4 if st else 16,
-            iterations=it or (10 if st else 500),
+            workdir, iterations=it or (10 if st else 500),
             e2e_iterations=args.e2e_iterations,
-            num_train=args.num_train or (16 if st else 256),
-            num_val=args.num_val or (8 if st else 32),
             batch_size=args.batch or (4 if st else 8),
-            datadir=args.datadir, seed=args.seed or 0, resume=args.resume,
-            width=args.width or 1, lr_scale=args.lr_scale or 1.0, **dev)
-    else:  # smoke_indirect_ft
-        if not args.init_from:
-            p.error("smoke_indirect_ft requires --init-from "
-                    "(a finished smoke_indirect run's ckpt_final)")
+            width=args.width or 1, lr_scale=args.lr_scale or 1.0, **sizes,
+            **common)
+    elif args.name == "smoke_indirect_ft":
         result = fluid2d.run_smoke_indirect_ft(
-            workdir, init_from=args.init_from,
-            force_reg=args.force_reg or 1.5e-5,
-            size=16 if st else 64, n=4 if st else 16,
-            e2e_iterations=args.e2e_iterations or (5 if st else None),
-            num_train=args.num_train or (16 if st else 256),
-            num_val=args.num_val or (8 if st else 32),
-            batch_size=4 if st else 8,
-            datadir=args.datadir, seed=args.seed or 0, resume=args.resume,
-            **dev)
+            workdir, force_reg=args.force_reg or 1.5e-5, **ft, **sizes,
+            **common)
+    else:  # config 5: 16², n=8 for the smoke test
+        sizes.update(n=8 if st else 128,
+                     num_train=args.num_train or (16 if st else 128),
+                     num_val=args.num_val or (8 if st else 16))
+        if args.name == "natural_flow_128":
+            result = fluid2d.run_natural_flow_128(
+                workdir, iterations=it or (10 if st else 300),
+                e2e_iterations=args.e2e_iterations,
+                batch_size=args.batch or (4 if st else 8),
+                sequence=args.sequence or "staggered", **sizes, **common)
+        else:
+            result = fluid2d.run_natural_flow_128_ft(
+                workdir, force_reg=args.force_reg or 5e-6, **ft, **sizes,
+                **common)
     print(json.dumps(result, indent=2, default=float))
 
 

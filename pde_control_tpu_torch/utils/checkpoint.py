@@ -89,6 +89,9 @@ def _check_structure(path: str, got: Mapping, want: Mapping, at: tuple = ()):
                 raise ValueError(f"checkpoint {path}: {_keystr(at + (key,))} "
                                  "is an array where a subtree was expected")
             _check_structure(path, got[key], val, at + (key,))
+        elif isinstance(got[key], Mapping):
+            raise ValueError(f"checkpoint {path}: {_keystr(at + (key,))} "
+                             "is a subtree where an array was expected")
         elif np.shape(got[key]) != np.shape(val):
             raise ValueError(
                 f"checkpoint {path}: {_keystr(at + (key,))} has shape "
@@ -126,36 +129,54 @@ def restore_networks(directory: str, params: Mapping[str, Mapping],
     return out
 
 
-def save_training_state(directory: str, params: Mapping, opt_state: dict,
+def _numpy_tree(tree: Mapping) -> dict:
+    """Nested mapping of tensors or arrays → nested dict of numpy arrays."""
+    return {k: _numpy_tree(v) if isinstance(v, Mapping)
+            else v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in tree.items()}
+
+
+def _tensor_tree(tree: Mapping) -> dict:
+    return {k: _tensor_tree(v) if isinstance(v, Mapping)
+            else torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def save_training_state(directory: str, params: Mapping, opt_state: Mapping,
                         step: int, extra: dict | None = None) -> None:
     """Full resume checkpoint: the networks (as save_networks writes them,
     under networks/), the optimizer's state and the step counter.
 
-    The optimizer state is the port's own (`control/_adam.py`: the flat
-    first and second moments over the trainable parameters, the count of
-    applied updates, and the non-finite counters), a dict of tensors kept
-    in opt_state.pt by `torch.save`. optax's state tree is not the port's,
-    so this file does not load in the JAX package; the networks do."""
+    `opt_state` is a nested mapping of tensors or arrays, written to
+    opt_state.msgpack in the layout of `flax.serialization.to_bytes`, the
+    JAX package's file. `ControlTraining` hands over optax's state tree
+    (`ControlTraining._opt_state`), so that either package resumes an
+    autosave the other wrote."""
     os.makedirs(directory, exist_ok=True)
     save_networks(os.path.join(directory, "networks"), params,
                   {"step": step, **(extra or {})})
-    torch.save({k: v.detach().cpu() for k, v in opt_state.items()},
-               os.path.join(directory, "opt_state.pt"))
+    with open(os.path.join(directory, "opt_state.msgpack"), "wb") as f:
+        f.write(_msgpack.packb(_numpy_tree(opt_state)))
     with open(os.path.join(directory, "state.json"), "w") as f:
         json.dump({"step": step, **(extra or {})}, f)
 
 
-def load_training_state(directory: str, params: Mapping, opt_state: dict):
-    """Restore (params, opt_state, step) saved by save_training_state.
-    `params`/`opt_state` are templates with the target structure; the
-    returned optimizer tensors are on the CPU."""
+def load_training_state(directory: str, params: Mapping, opt_state: Mapping):
+    """Restore (params, opt_state, step) saved by either package's
+    save_training_state. `params`/`opt_state` are templates with the target
+    structure; the optimizer state comes from opt_state.msgpack, the only
+    file read for it, as a nested dict of CPU tensors. A file whose tree
+    does not match the template (another trainable set, clip, schedule or
+    shape) raises a ValueError naming it: nothing is restored in part."""
     params = restore_networks(os.path.join(directory, "networks"), params)
-    saved = torch.load(os.path.join(directory, "opt_state.pt"),
-                       weights_only=True)
-    if set(saved) != set(opt_state) or any(
-            saved[k].shape != opt_state[k].shape for k in opt_state):
-        raise ValueError(f"{directory}: optimizer state does not match this "
-                         "app (another trainable set?)")
+    path = os.path.join(directory, "opt_state.msgpack")
+    with open(path, "rb") as f:
+        tree = _msgpack.unpackb(f.read())
+    try:
+        _check_structure(path, tree, _numpy_tree(opt_state))
+    except ValueError as e:
+        raise ValueError(f"optimizer state in {path} does not match this app "
+                         f"(another trainable set, clip or schedule?): {e}"
+                         ) from None
     with open(os.path.join(directory, "state.json")) as f:
         step = json.load(f)["step"]
-    return params, saved, step
+    return params, _tensor_tree(tree), step
