@@ -64,7 +64,25 @@ prints no result):
      eval bits, the CFE checkpoint read back; then the refined class at
      n=128 as one captured step, and the CLI's `run shape_transition` on
      the card's default route;
- 11. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
+ 11. BASELINE configs 1 and 2 (`BURGERS`: 1D Burgers, N=32, n=32, batch
+     32, 1024 + 128 trajectories, fp32 nets with TF32 off) through the
+     entry points (`run_chain_supervised`, `run_hierarchical`): the data
+     generated on the card, the first CFE-stage iteration on the card
+     against the CPU at fp32 tolerance (CFE output layer perturbed), every
+     stage under its graph (ms a step under the graph and eager, device
+     operations and busy share of a replay, and of an eager step in the
+     CFE and e2e stages, by `torch.profiler`, peak memory), the eval
+     blocks; no K1-K5 launch;
+ 12. the adjoint (`ADJOINT`): `optimize_forces` on Burgers and on
+     compare_smoke's 64², n=16 task (32 trajectories generated on K1),
+     each as one captured optimizer step replayed (ms a step, launches a
+     replay: 2n - 1 K1 unfused, n K2 + n K3 with `fused='cuda'`) against
+     eager, the first iterations' histories agreeing, and the two smoke
+     routes' first iterations agreeing; then `compare_burgers` and
+     `compare_smoke` with cut counts, each writing comparison.json with
+     all five rows (`python3 chip_smoke.py burgers` runs 11 and 12 alone
+     and prints no result);
+ 13. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
      package's goldens (`tests/goldens/conv3x3_32.npz`) under every plan
      their launchers take, at the conv shapes of configs 3-5 that the
      main path does not reach under every plan, and against their plain
@@ -89,6 +107,7 @@ import dataclasses
 import json
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -2082,9 +2101,452 @@ def cli_phase(card: str) -> None:
           f"eval final_state_mse {ev['final_state_mse']:.6e}, zero force "
           f"{ev['zero_force_final_mse']:.6e} [{card}]")
 
+# BASELINE configs 1-2 (Burgers, `experiments/burgers.py`): N=32, dx 1/32,
+# dt 0.03, viscosity 0.01, periodic; n=32, batch 32, 1024 + 128
+# trajectories (the reference's, not cut); the CFE 32-64-64-32 and the
+# U-nets OP32 ... OP2 (3 levels, base 16), fp32 nets with TF32 off. Cut:
+# the iterations, 2000 (config 1) and 1000 (config 2) a stage in the
+# reference, to `iterations` at K = 8 (the entries' steps a call).
+# `eager_steps`: eager steps timed after each stage, its state restored
+# after them.
+BURGERS = dict(n=32, batch=32, num_train=1024, num_val=128, iterations=16,
+               eager_steps=3)
+# The adjoint (`control/adjoint.py`) on the 32-trajectory eval prefix, at
+# config 1's size (lr 0.1, force_reg 1e-4; 500 iterations in the
+# reference) and at compare_smoke's 64², n=16 with the plates and inflow
+# (lr 0.5, force_reg 3e-4; 300), cut to `burgers_iterations` and
+# `smoke_iterations`; eager runs of `eager_iterations`. Then
+# `compare_burgers` and `compare_smoke` at `compare_iterations` a stage
+# (1000 and 500 in the reference), compare_smoke's adjoint row at
+# `smoke_adjoint` iterations (300) and its training set cut to
+# `smoke_train` trajectories (256); everything else, compare_burgers'
+# 500-iteration adjoint row included, at the reference's sizes.
+ADJOINT = dict(burgers_iterations=100, smoke_iterations=20,
+               eager_iterations=3, compare_iterations=8, smoke_adjoint=20,
+               smoke_train=32)
+
+
+def _device_ops(fn) -> tuple[int, float, float]:
+    """Runs `fn` once under `torch.profiler`, tracing the device only: its
+    device operations, the device's busy ms (the union of their
+    intervals) and the wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return len(device), busy / 1e3, wall
+
+
+def _ops_text(ops: tuple) -> str:
+    n, busy, wall = ops
+    if not n:
+        return "device operations not measured (the profiler saw none)"
+    return (f"{n} device operations, busy {busy:.3f} of {wall:.3f} ms under "
+            f"the profiler ({100 * busy / wall:.1f}%)")
+
+
+def _burgers_recorder(stages: list):
+    """`_stage_recorder`'s ControlTraining, which after each stage also
+    times `eager_steps` eager steps (CUDA events, after one untimed),
+    profiles one graph replay (and, in the CFE and e2e stages, one eager
+    step), and then restores the stage's state (parameters, moments,
+    counters, step count)."""
+    recorded = _stage_recorder(stages)
+
+    class Timed(recorded):
+        def train(self, iterations, **kw):
+            out = super().train(iterations, **kw)
+            rec = self._rec
+            t0 = time.perf_counter()
+            saved, steps = [t.clone() for t in self._state()], self.step_count
+            batch = self.to_batch(self.dataset.sample(
+                np.random.default_rng(0), self.batch_size))
+            self.progress(batch)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(BURGERS["eager_steps"]):
+                self.progress(batch)
+            end.record()
+            torch.cuda.synchronize()
+            rec["eager_ms"] = start.elapsed_time(end) / BURGERS["eager_steps"]
+            graph = next(iter(self._graphs.values())).graph
+            rec["graph_ops"] = _device_ops(graph.replay)
+            if self.sequence_class != "op_supervised":
+                rec["eager_ops"] = _device_ops(lambda: self.progress(batch))
+            for t, s in zip(self._state(), saved):
+                t.copy_(s)
+            self.step_count = steps
+            rec["timing_s"] = time.perf_counter() - t0
+            return out
+
+    return Timed
+
+
+def _fp32_first(label: str, got: tuple, ref: tuple) -> None:
+    """fp32 tolerances: the loss within 1e-4 relative, each parameter's
+    gradient within 1e-3 relative norm error and not zero."""
+    (loss_g, grads_g), (loss_r, grads_r) = got, ref
+    errs = {k: float((grads_g[k] - g).norm() / g.norm()) if float(g.norm())
+            else float("inf") for k, g in grads_r.items()}
+    print(f"{label}: loss {loss_g:.7e} against {loss_r:.7e}; gradient norm "
+          f"{float(torch.sqrt(sum((g ** 2).sum() for g in grads_g.values()))):.6e}"
+          f" against {float(torch.sqrt(sum((g ** 2).sum() for g in grads_r.values()))):.6e};"
+          f" worst relative gradient error {max(errs.values()):.3e} "
+          f"({max(errs, key=errs.get)})")
+    if abs(loss_g - loss_r) > 1e-4 * abs(loss_r) or max(errs.values()) > 1e-3:
+        raise AssertionError(f"{label}: beyond fp32 tolerance {errs}")
+
+
+def burgers_phase(card: str) -> dict:
+    """BASELINE configs 1 and 2 (`BURGERS`) through the port's entry points
+    on the card: the data generated there, the first CFE-stage iteration
+    against the CPU at fp32 tolerance (CFE output layer perturbed), config
+    1's `run_chain_supervised` and config 2's `run_hierarchical`
+    (`run_curriculum`), every stage under `progress_multi`'s graph, with
+    ms a step under the graph and eager, device operations a replay, peak
+    memory and the eval blocks. No kernel of K1-K5 may launch. Returns the
+    datasets."""
+    _phase("configs 1-2 (Burgers) through run_curriculum")
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch import ControlTraining
+    from pde_control_tpu_torch.control.pde_burgers import BurgersPDE
+    from pde_control_tpu_torch.experiments import burgers, curriculum
+
+    c, n = BURGERS, BURGERS["n"]
+    workdir = Path(__file__).resolve().parent / "runs/chip_smoke_burgers"
+    shutil.rmtree(workdir, ignore_errors=True)
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    pde = BurgersPDE(burgers.BURGERS_CFG)
+    if pde.device.type != "cuda" or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("BurgersPDE: not on the card, or TF32 left on")
+    print(f"BurgersPDE on {pde.device}: cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32} (the fp32 nets' convs in fp32)")
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train, val = burgers.make_datasets(n, c["num_train"], c["num_val"],
+                                       str(workdir / "data"))
+    seconds = time.perf_counter() - t0
+    if train.obs.shape != (c["num_train"], n + 1, 32, 1) or not (
+            np.isfinite(train.obs).all() and np.isfinite(val.obs).all()):
+        raise AssertionError("Burgers data: non-finite or misshapen obs")
+    print(f"data: {c['num_train']} + {c['num_val']} trajectories of {n + 1} "
+          f"frames at N=32, generated on the card in rollouts of up to 64, "
+          f"{seconds:.2f} s [{card}]")
+
+    batch = train.take(np.arange(c["batch"]))
+    first, weights = {}, None
+    for dev in ("cuda", "cpu"):
+        app = ControlTraining(n, BurgersPDE(burgers.BURGERS_CFG, device=dev),
+                              trainable_networks=("CFE",),
+                              sequence_class="chain",
+                              obs_loss_frames=tuple(range(1, n + 1)),
+                              force_reg=1e-4, seed=0).prepare()
+        if weights is None:
+            w = app.nets["CFE"].Conv_4.weight
+            k = 0.05 * np.random.default_rng(3).normal(size=tuple(w.shape))
+            with torch.no_grad():
+                w.copy_(torch.tensor(k, dtype=torch.float32))
+            weights = {"CFE": {key: v.detach().cpu().clone() for key, v in
+                               app.nets["CFE"].state_dict().items()}}
+        app.load_params(weights)
+        metrics = app.compute_gradients(app.to_batch(batch))
+        first[dev] = (float(metrics["loss"]),
+                      {key: p.grad.detach().cpu() for key, p in
+                       app.nets["CFE"].named_parameters()})
+        del app
+    _fp32_first("config 1 first CFE-stage iteration, the card against the CPU",
+                first["cuda"], first["cpu"])
+
+    stages: list = []
+    originals = burgers.ControlTraining, curriculum.ControlTraining
+    burgers.ControlTraining = curriculum.ControlTraining = \
+        _burgers_recorder(stages)
+    sizes = dict(n=n, iterations=c["iterations"], num_train=c["num_train"],
+                 num_val=c["num_val"], batch_size=c["batch"])
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        res1 = burgers.run_chain_supervised(str(workdir / "config1"), **sizes)
+        t1 = time.perf_counter()
+        res2 = burgers.run_hierarchical(str(workdir / "config2"), **sizes)
+        t2 = time.perf_counter()
+        counted = _counts()
+    finally:
+        burgers.ControlTraining, curriculum.ControlTraining = originals
+    if any(counted.values()):
+        raise AssertionError(f"the Burgers path launched kernels: {counted}")
+    names = ["config 1 CFE"] + [f"config 2 {s}" for s in (
+        "CFE", "OP2", "OP4", "OP8", "OP16", "OP32", "e2e")]
+    if len(stages) != len(names):
+        raise AssertionError(f"{len(stages)} stages trained")
+    for name, rec in zip(names, stages):
+        res = rec["result"]
+        bad = [k for k, v in res.items() if not np.isfinite(v)]
+        replays = [cl for cl in rec["calls"] if cl["replay_only"]]
+        if bad or res.get("iterations_run") != c["iterations"] or not replays:
+            raise AssertionError(f"{name}: non-finite {bad}, {res}, "
+                                 f"calls {rec['calls']}")
+        rec["ms"] = sum(cl["ms"] for cl in replays) / sum(
+            cl["k"] for cl in replays)
+        print(f"stage {name} ({rec['class']}, n={rec['n']}, trains "
+              f"{rec['stage']}): {rec['steps']} steps in {rec['seconds']:.2f} "
+              f"s; warm-up and capture {rec['warmup_capture_s']:.2f} s; "
+              f"{rec['ms']:.3f} ms a step under the graph, "
+              f"{rec['eager_ms']:.3f} eager ({rec['eager_ms'] / rec['ms']:.1f}x);"
+              f" a replay: {_ops_text(rec['graph_ops'])}; an eager step: "
+              f"{_ops_text(rec['eager_ops']) if 'eager_ops' in rec else 'not profiled'}"
+              f" (eager timing and profiles "
+              f"{rec['timing_s']:.2f} s); peak "
+              f"{rec['peak'] / 2**20:.1f} MiB, reserved "
+              f"{rec['reserved'] / 2**20:.1f} MiB; loss {res['loss']:.6e} "
+              f"[{card}]")
+    with open(workdir / "config2" / "results.json") as f:
+        on_disk = json.load(f)
+    for label, res in (("config 1", res1), ("config 2", res2)):
+        ev = res["eval"]
+        if not all(np.all(np.isfinite(v)) for v in ev.values()):
+            raise AssertionError(f"{label}: non-finite eval block {ev}")
+        print(f"{label} eval (controlled beside zero force): " + json.dumps(
+            {k: v for k, v in ev.items() if not isinstance(v, list)}))
+    if on_disk["eval"] != json.loads(json.dumps(res2["eval"])):
+        raise AssertionError("config 2: results.json's eval block differs")
+    print(f"run_chain_supervised {t1 - t0:.2f} s, run_hierarchical "
+          f"{t2 - t1:.2f} s (data generation included); wrappers counted "
+          f"{counted} [{card}]")
+    return {"train": train, "val": val}
+
+
+def _adjoint_runs(label: str, pde, batch: dict, n: int, lr: float,
+                  force_reg: float, iterations: int, card: str,
+                  must_fall: bool = False) -> dict:
+    """`optimize_forces` on the card: its first call (warm-up, capture and
+    `iterations` replays), the same call again (replays only, timed by
+    CUDA events), and `eager_iterations` steps of the same program run
+    eagerly (timed), whose history must match the graph's first
+    iterations at rtol 1e-4. The
+    wrappers' counts must be the captured step's launches times the eager
+    steps, and none in a replay; with `must_fall`, the last obs_loss must
+    be below the first (compare_smoke's lr 0.5 oscillates over the first
+    tens of iterations). Returns one replay's launches and the times."""
+    from pde_control_tpu_torch.control import adjoint
+
+    state0, target = pde.initial_state(batch), batch["obs"][:, n]
+    kw = dict(n=n, learning_rate=lr, force_reg=force_reg)
+
+    def call(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), time.perf_counter() - t0, _counts()
+
+    def graph():
+        return adjoint.optimize_forces(pde, state0, target,
+                                       iterations=iterations, **kw)
+
+    e = ADJOINT["eager_iterations"]
+    eager = _adjoint_program(pde, batch, n, lr, force_reg, e)
+
+    def eager_steps():
+        for _ in range(e):
+            eager.step()
+        return dict(zip(adjoint.HISTORY_KEYS, eager.history.cpu().numpy()))
+
+    (_, hist), _, first_s, counted = call(graph)
+    program = next(p for key, p in pde._adjoint_programs.items()
+                   if key[1] == iterations)
+    per_replay = program.launches
+    want = {k: (adjoint.GRAPH_WARMUP_STEPS + 1) * v
+            for k, v in per_replay.items()}
+    if counted != want:
+        raise AssertionError(f"{label}: wrappers counted {counted}, expected "
+                             f"{want}")
+    (forces, hist2), graph_ms, _, counted = call(graph)
+    if any(counted.values()):
+        raise AssertionError(f"{label}: a replay ran a wrapper: {counted}")
+    hist_e, eager_ms, _, counted = call(eager_steps)
+    if counted != {k: e * v for k, v in per_replay.items()}:
+        raise AssertionError(f"{label}: eager counts {counted}")
+    for key in hist:
+        # The second run replays the same graph from the same start; only
+        # the atomic scatter-adds of the backward may order sums otherwise.
+        if not (np.isfinite(hist[key]).all() and np.allclose(
+                hist2[key], hist[key], rtol=1e-3,
+                atol=1e-3 * abs(hist[key][0])) and np.allclose(
+                hist_e[key], hist[key][:e], rtol=1e-4)):
+            raise AssertionError(f"{label} {key}: graph {hist[key][:e]}, "
+                                 f"again {hist2[key][:e]}, eager {hist_e[key]}")
+    if must_fall and not hist["obs_loss"][-1] < hist["obs_loss"][0]:
+        raise AssertionError(f"{label}: obs_loss did not fall {hist['obs_loss']}")
+    graph_ms, eager_ms = graph_ms / iterations, eager_ms / e
+    print(f"{label}: {iterations} iterations, first call (3 warm-up steps, "
+          f"capture, replays) {first_s:.2f} s; {graph_ms:.3f} ms an optimizer "
+          f"step under the graph, {eager_ms:.3f} eager ({eager_ms / graph_ms:.1f}x);"
+          f" launches a replay {per_replay}; obs_loss "
+          f"{hist['obs_loss'][0]:.6e} -> {hist['obs_loss'][-1]:.6e} (least "
+          f"{hist['obs_loss'].min():.6e}), force_cost "
+          f"{hist['force_cost'][-1]:.6e}; graph and eager histories agree over "
+          f"the first {e} iterations (rtol 1e-4) [{card}]")
+    return {"graph_ms": graph_ms, "eager_ms": eager_ms, "launches": per_replay,
+            "forces": forces}
+
+
+def _adjoint_program(pde, batch: dict, n: int, lr: float, force_reg: float,
+                     iterations: int):
+    """`optimize_forces`' program (MSE, clip 1.0) on `batch`, for eager
+    steps."""
+    from pde_control_tpu_torch.control import adjoint
+
+    return adjoint._Program(pde, pde.initial_state(batch), batch["obs"][:, n],
+                            n, iterations, lr, force_reg, adjoint._mse, 1.0)
+
+
+def _adjoint_first(pde, batch: dict, n: int, lr: float, force_reg: float):
+    """The adjoint's first iteration: its loss and the gradient's norm."""
+    program = _adjoint_program(pde, batch, n, lr, force_reg, 1)
+    program.step()
+    return float(program.history[1, 0]), float(program.flat.grad.norm())
+
+
+def adjoint_phase(card: str, burgers_data: dict) -> None:
+    """`optimize_forces` on Burgers (config 1's size) and on compare_smoke's
+    64², n=16 task (`ADJOINT`), each graph against eager; the smoke adjoint
+    on K1 (unfused) and on K2/K3 (`fused='cuda'`), first iterations
+    agreeing; then `compare_burgers` and `compare_smoke` with cut counts,
+    each writing comparison.json with every row."""
+    _phase("the adjoint and compare_schemes")
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch import (
+        Domain2D,
+        FluidConfig,
+        IncompressibleFluidPDE,
+    )
+    from pde_control_tpu_torch.control.pde_burgers import BurgersPDE
+    from pde_control_tpu_torch.data.generate import (
+        generate_inflow_smoke_dataset,
+    )
+    from pde_control_tpu_torch.experiments import burgers, compare_schemes
+    from pde_control_tpu_torch.experiments.fluid2d import default_obstacles
+
+    a = ADJOINT
+    dev = torch.device("cuda")
+
+    def on_card(b):
+        return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32,
+                                   device=dev) for k, v in b.items()}
+
+    n = BURGERS["n"]
+    batch = on_card(compare_schemes._eval_batch(burgers_data["val"]))
+    _adjoint_runs(f"Burgers adjoint, N=32, n={n}, batch "
+                  f"{batch['obs'].shape[0]}", BurgersPDE(burgers.BURGERS_CFG),
+                  batch, n, 0.1, 1e-4, a["burgers_iterations"], card,
+                  must_fall=True)
+
+    # compare_smoke's task: 64², n=16, the plates, inflow; its val set.
+    domain = Domain2D.create(H, H, obstacle_mask=default_obstacles(H, H),
+                             device=dev)
+    cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
+                      pressure_maxiter=200, warm_start_pressure=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    val = generate_inflow_smoke_dataset(domain, cfg, 32, N, seed=999,
+                                        control_amplitude=0.6)
+    print(f"smoke data: 32 trajectories at 64^2, n={N}, on K1: "
+          f"{time.perf_counter() - t0:.2f} s, {_counts()['K1']} K1 launches "
+          f"[{card}]")
+    batch = on_card(compare_schemes._eval_batch(val))
+    kw = dict(control="buoyancy", with_inflow=True, unet_levels=3)
+    unfused = IncompressibleFluidPDE(domain, cfg, **kw)
+    fused = IncompressibleFluidPDE(domain, dataclasses.replace(
+        cfg, fused="cuda"), **kw)
+    label = f"smoke adjoint, 64^2, n={N}, batch {batch['obs'].shape[0]}"
+    runs = _adjoint_runs(f"{label}, unfused (K1)", unfused, batch, N, 0.5,
+                         3e-4, a["smoke_iterations"], card)
+    # The backward needs a transpose solve at every step but the last: the
+    # final density is advected before the last projection, so that solve
+    # does not reach the loss. The step-0 force needs its gradient, as the
+    # CFE's step-0 force does on the main path: 2n - 1 there and here.
+    if runs["launches"]["K1"] != 2 * N - 1:
+        raise AssertionError(f"{label}: {runs['launches']['K1']} K1 launches "
+                             f"a replay, expected 2n - 1 = {2 * N - 1}")
+    print(f"K1 a replay: {N} forward (warm) + {N - 1} transpose (cold) = "
+          f"{2 * N - 1}: the last step's projection does not reach the "
+          "final density, and the step-0 force takes its gradient through "
+          "step 0's solve, as the CFE's force does on the main path")
+    fused_runs = _adjoint_runs(f"{label}, fused (K2/K3)", fused, batch, N, 0.5,
+                               3e-4, a["smoke_iterations"], card)
+    fl = fused_runs["launches"]
+    if (fl["K1"], fl["K2"], fl["K3"]) != (0, N, N):
+        raise AssertionError(f"{label} fused: launches a replay {fl}")
+    got, ref = (_adjoint_first(p, batch, N, 0.5, 3e-4)
+                for p in (fused, unfused))
+    print(f"{label} first iteration: obs loss {got[0]:.7e} (K2/K3) against "
+          f"{ref[0]:.7e} (K1), gradient norm {got[1]:.6e} against "
+          f"{ref[1]:.6e}")
+    if abs(got[0] - ref[0]) > 1e-3 * abs(ref[0]) or not ref[1] > 0 or abs(
+            got[1] - ref[1]) > 2e-2 * ref[1]:
+        raise AssertionError(f"{label}: the routes' first iterations differ")
+
+    root = Path(__file__).resolve().parent / "runs"
+    for name, fn, extra in (
+            ("compare_burgers", compare_schemes.compare_burgers, {}),
+            ("compare_smoke", compare_schemes.compare_smoke,
+             dict(num_train=a["smoke_train"],
+                  adjoint_iterations=a["smoke_adjoint"]))):
+        workdir = root / f"chip_smoke_{name}"
+        shutil.rmtree(workdir, ignore_errors=True)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = fn(str(workdir), iterations=a["compare_iterations"], **extra)
+        seconds = time.perf_counter() - t0
+        counted = _counts()
+        with open(workdir / "comparison.json") as f:
+            on_disk = json.load(f)
+        rows = ("chain_final", "staggered", "refined", "adjoint", "zero_force")
+        if on_disk != json.loads(json.dumps(res)) or not all(
+                r in res and np.isfinite(res[r]["final_state_mse"])
+                for r in rows):
+            raise AssertionError(f"{name}: rows missing or non-finite: {res}")
+        if name == "compare_smoke" and not counted["K1"] > 0:
+            raise AssertionError(f"{name}: no K1 launch ({counted})")
+        print(f"{name}: comparison.json in {seconds:.2f} s ("
+              f"{a['compare_iterations']} iterations a stage, adjoint "
+              f"{res['adjoint']['iterations']}); wrappers counted {counted}; "
+              "final_state_mse / mean_abs_force: " + ", ".join(
+                  f"{r} {res[r]['final_state_mse']:.4e}"
+                  + (f" / {res[r]['mean_abs_force']:.4e}"
+                     if "mean_abs_force" in res[r] else "") for r in rows)
+              + f" [{card}]")
+
+
 
 def main() -> None:
     card = device_phase()
+    if sys.argv[1:] == ["burgers"]:  # the Burgers slice alone, no result
+        adjoint_phase(card, burgers_phase(card))
+        _phase(None)
+        return
     build_phase()
     k1 = kernel_phase(card)
     fused = fused_kernel_phase(card)
@@ -2104,6 +2566,7 @@ def main() -> None:
         configs[number] = config_phase(card, number, seen.get(number))
     refined_128_phase(card, configs[5])
     cli_phase(card)
+    adjoint_phase(card, burgers_phase(card))
     # The conv shapes of configs 3 and 5 that neither the main path nor
     # config 4's CFE check reaches, each held to plain under every plan
     # once.

@@ -6,8 +6,9 @@ provides (a) a differentiable solver step with a force effect, (b) a state
 state and force types.
 
 Observations are channels-last tensors (B, *spatial, C) — the common
-currency of CFE/OP networks and losses. States and forces are PDE-specific
-dataclasses of tensors.
+currency of CFE/OP networks and losses. States and forces are PDE-specific:
+a tensor (Burgers) or a dataclass of tensors (the fluid); `tree_leaves`
+and `tree_map` walk either, as `jax.tree_util` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +23,28 @@ State = Any
 Force = Any
 
 
+def tree_leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a state or force in order: the tensor itself, or a
+    dataclass's fields, nested dataclasses flattened and None skipped."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for f in dataclasses.fields(tree)
+            for leaf in tree_leaves(getattr(tree, f.name))]
+
+
+def tree_map(fn, tree):
+    """`tree` with `fn` applied to every tensor (None stays None)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return dataclasses.replace(tree, **{
+        f.name: tree_map(fn, getattr(tree, f.name))
+        for f in dataclasses.fields(tree)})
+
+
 class PDE(abc.ABC):
     """A controllable PDE."""
 
@@ -29,6 +52,8 @@ class PDE(abc.ABC):
     dim: int
     #: channels of observe()'s output
     obs_channels: int
+    #: torch device of the solver's tensors and of the nets
+    device: torch.device
 
     # ---------------------------------------------------------------- solver
 
@@ -52,7 +77,7 @@ class PDE(abc.ABC):
         """Per-sample mean |F| over all force components → (B,) — the
         paper's reported force metric, distinct from the Σ‖F‖²·dxᵈ
         training regularizer."""
-        leaves = [getattr(force, f.name) for f in dataclasses.fields(force)]
+        leaves = tree_leaves(force)
         total = sum(torch.sum(torch.abs(l), dim=tuple(range(1, l.ndim)))
                     for l in leaves)
         count = sum(l[0].numel() for l in leaves)

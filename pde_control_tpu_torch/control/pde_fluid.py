@@ -62,6 +62,10 @@ class IncompressibleFluidPDE(PDE):
         self.dtype = dtype
         self.conv_impl = conv_impl
 
+    @property
+    def device(self) -> torch.device:
+        return self.domain.device
+
     # solver ---------------------------------------------------------------
     def step(self, state: FluidState, force: Staggered2D | None) -> FluidState:
         return fluid_step(state, self.domain, self.cfg, force=force)

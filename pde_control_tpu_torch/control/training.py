@@ -159,7 +159,7 @@ class ControlTraining:
             if refined_impl == "auto" else refined_impl
         self.seed = seed
         self.device = torch.device(device) if device is not None \
-            else pde.domain.device
+            else pde.device
         self.logger = MetricsLogger(logdir)
         self._prepared = False
         # Which OP levels exist: spans n, n/2, …, 2.

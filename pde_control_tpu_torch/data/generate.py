@@ -1,6 +1,10 @@
 """Dataset generation: batched rollouts of the port's physics.
 
-Counterpart of the 2D part of `pde_control_tpu/data/generate.py`:
+Counterpart of `pde_control_tpu/data/generate.py`:
+* Burgers (BASELINE configs 1-2, `random_burgers_states`,
+  `generate_burgers_dataset`): smooth periodic states (superposed
+  sinusoids) evolved under a withheld random forcing, constant in time,
+  so that endpoint reconstruction needs control;
 * the indirect-smoke data (`random_inflow`, `random_smooth_field_2d`,
   `generate_inflow_smoke_dataset`, BASELINE config 4): an inflow-driven
   plume steered by a withheld random buoyancy-modulation field, so that
@@ -21,8 +25,6 @@ constructions and the unfused rollouts run on the domain's device, with
 the configuration's pressure solve (on the card 'auto' takes K1 where
 there are obstacles and the exact spectral solve in an empty closed box;
 'cuda' takes K1 everywhere).
-
-The Burgers generators are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,8 +41,70 @@ from pde_control_tpu_torch.grids import (
     Staggered2D,
     centered_to_x_faces,
     centered_to_y_faces,
+    resolve_device,
 )
+from pde_control_tpu_torch.physics.burgers import BurgersConfig, burgers_step
 from pde_control_tpu_torch.physics.fluid import FluidConfig, FluidState, fluid_step
+
+
+# ------------------------------------------------------------ Burgers (B, N)
+
+def burgers_draws(gen: torch.Generator, batch: int, modes: int = 3):
+    """Unit normal amplitudes and phases in [0, 2π), (B, M) each."""
+    amps = torch.randn((batch, modes), generator=gen)
+    phases = torch.rand((batch, modes), generator=gen) * (2 * math.pi)
+    return amps, phases
+
+
+def burgers_from_draws(amps: torch.Tensor, phases: torch.Tensor, n: int,
+                       amplitude: float = 1.0) -> torch.Tensor:
+    """Smooth periodic fields (B, N): Σ_k amplitude·a_k/k · sin(k·x + φ_k)
+    over the wavenumbers k = 1..M, x = 2πi/N."""
+    dev = amps.device
+    ks = torch.arange(1, amps.shape[1] + 1, dtype=torch.float32, device=dev)
+    amps = amps * amplitude / ks[None]
+    x = torch.arange(n, dtype=torch.float32, device=dev) * (2 * math.pi / n)
+    waves = torch.sin(ks[None, :, None] * x[None, None, :] + phases[..., None])
+    return torch.sum(amps[..., None] * waves, dim=1)
+
+
+def random_burgers_states(gen: torch.Generator, batch: int, n: int,
+                          modes: int = 3, amplitude: float = 1.0,
+                          device=None) -> torch.Tensor:
+    """Randomized smooth periodic fields: superposed sinusoids (B, N)."""
+    amps, phases = burgers_draws(gen, batch, modes)
+    dev = resolve_device(device)
+    return burgers_from_draws(amps.to(dev), phases.to(dev), n,
+                              amplitude=amplitude)
+
+
+def generate_burgers_dataset(cfg: BurgersConfig, num: int, n_steps: int,
+                             seed: int = 0, force_amplitude: float = 0.25,
+                             batch: int = 64, device=None
+                             ) -> TrajectoryDataset:
+    """Forced Burgers trajectories → TrajectoryDataset of obs (num,
+    n_steps + 1, N, 1). Each chunk of `batch` draws its initial states,
+    then its forces (amplitude `force_amplitude`), and rolls out on
+    `device` (the card unless given); the force is not stored."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    chunks = []
+    remaining = num
+    while remaining > 0:
+        b = min(batch, remaining)
+        u0_draws, f_draws = (burgers_draws(gen, b) for _ in range(2))
+        u = burgers_from_draws(*(d.to(dev) for d in u0_draws), cfg.n)
+        force = burgers_from_draws(*(d.to(dev) for d in f_draws), cfg.n,
+                                   amplitude=force_amplitude)
+        frames = [u]
+        with torch.no_grad():
+            for _ in range(n_steps):
+                u = burgers_step(u, force, cfg)
+                frames.append(u)
+        traj = torch.stack(frames, dim=1)  # (b, T + 1, N)
+        chunks.append(traj.cpu().numpy()[..., None])
+        remaining -= b
+    return TrajectoryDataset(np.concatenate(chunks, axis=0))
 
 
 def inflow_draws(gen: torch.Generator, batch: int, w: int,

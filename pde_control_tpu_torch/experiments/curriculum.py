@@ -23,7 +23,7 @@ import shutil
 import numpy as np
 import torch
 
-from pde_control_tpu_torch.control.pde_base import PDE
+from pde_control_tpu_torch.control.pde_base import PDE, tree_map
 from pde_control_tpu_torch.control.training import ControlTraining
 from pde_control_tpu_torch.utils.epoch import stamp
 from pde_control_tpu_torch.utils.viz import save_comparison_png, save_field_png
@@ -316,10 +316,9 @@ def zero_force_baseline(app: ControlTraining, batch,
 
 
 def _force_at(forces, t: int):
-    """Step t's force from a force stacked along a leading time axis."""
-    return dataclasses.replace(forces, **{
-        f.name: getattr(forces, f.name)[t]
-        for f in dataclasses.fields(forces)})
+    """Step t's force from a force (a tensor or a dataclass of them)
+    stacked along a leading time axis."""
+    return tree_map(lambda leaf: leaf[t], forces)
 
 
 def evaluate_control(app: ControlTraining, val_dataset, n: int,

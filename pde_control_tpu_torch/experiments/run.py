@@ -6,12 +6,18 @@
 
 Counterpart of `pde_control_tpu/experiments/run.py`, with the same names,
 flags and per-experiment flag table, plus `--device` (default `cuda`;
-`cpu` runs the kernels' plain versions). Ported: the three 2D BASELINE
-configs with their fine-tunes: `shape_transition` (config 3),
+`cpu` runs the kernels' plain versions). Ported: the five BASELINE
+configs with their fine-tunes: `burgers_chain` (config 1),
+`burgers_hierarchical` (config 2), `shape_transition` (config 3),
 `shape_transition_ft`, `shape_transition_rings_ft`, `smoke_indirect`
 (config 4), `smoke_indirect_ft`, `natural_flow_128` (config 5) and
-`natural_flow_128_ft`; every other name exits with "not ported yet".
-`--smoke-test` shrinks every dimension for a fast CI-sized run.
+`natural_flow_128_ft`; the adjoint baseline `burgers_adjoint`; and the
+scheme comparisons `compare_burgers`, `compare_smoke`,
+`compare_smoke_long` and `compare_smoke_64` (`comparison.json`). Every
+other name exits with "not ported yet". `burgers_chain` and
+`burgers_adjoint` also write their printed result to `results.json` in
+the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
+run.
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from __future__ import annotations
 import argparse
 import json
 
-from pde_control_tpu_torch.experiments import fluid2d
+from pde_control_tpu_torch.experiments import burgers, compare_schemes, fluid2d
+from pde_control_tpu_torch.experiments.curriculum import _write_results
 
 NAMES = [
     "burgers_chain", "burgers_hierarchical", "shape_transition",
@@ -30,7 +37,9 @@ NAMES = [
     "natural_flow_128_ft", "smoke_indirect_ft",
     "shape_transition_ft", "shape_transition_rings_ft",
     "generalize_shapes", "generalize_smoke"]
-PORTED = ("shape_transition", "shape_transition_ft",
+PORTED = ("burgers_chain", "burgers_hierarchical", "burgers_adjoint",
+          "compare_burgers", "compare_smoke", "compare_smoke_long",
+          "compare_smoke_64", "shape_transition", "shape_transition_ft",
           "shape_transition_rings_ft", "smoke_indirect", "smoke_indirect_ft",
           "natural_flow_128", "natural_flow_128_ft")
 
@@ -116,6 +125,33 @@ def _supports() -> dict:
     }
 
 
+def _burgers_adjoint(workdir: str, st: bool, it: int | None, device) -> dict:
+    """The paper's classical comparator on Burgers: direct force
+    optimization through the differentiable solver (no networks) on 8
+    validation trajectories."""
+    import numpy as np
+    import torch
+
+    from pde_control_tpu_torch.control.adjoint import optimize_forces
+    from pde_control_tpu_torch.control.pde_burgers import BurgersPDE
+
+    n = 4 if st else 32
+    _, val = burgers.make_datasets(n, 8 if st else 32, 8, workdir,
+                                   device=device)
+    pde = BurgersPDE(burgers.BURGERS_CFG, device=device)
+    batch = {k: torch.as_tensor(v, device=pde.device) for k, v in
+             val.sample(np.random.default_rng(0), 8).items()}
+    _, hist = optimize_forces(
+        pde, pde.initial_state(batch), batch["obs"][:, n], n=n,
+        iterations=it or (50 if st else 500), learning_rate=0.1,
+        force_reg=1e-4)
+    return {
+        "final_obs_mse": float(hist["obs_loss"][-1]),
+        "initial_obs_mse": float(hist["obs_loss"][0]),
+        "mean_force_cost": float(hist["force_cost"][-1]),
+    }
+
+
 def main(argv=None) -> None:
     p = _parser()
     args = p.parse_args(argv)
@@ -148,7 +184,25 @@ def main(argv=None) -> None:
     ft = dict(init_from=args.init_from,
               e2e_iterations=args.e2e_iterations or (5 if st else None),
               batch_size=4 if st else 8)
-    if args.name == "shape_transition":
+    if args.name == "burgers_adjoint":
+        result = _burgers_adjoint(workdir, st, it, args.device)
+    elif args.name.startswith("compare_"):
+        fn = getattr(compare_schemes, args.name)
+        result = fn(workdir, smoke_test=st, resume=args.resume,
+                    **({"iterations": it} if it else {}), **dev)
+    elif args.name == "burgers_chain":
+        result = burgers.run_chain_supervised(
+            workdir, n=4 if st else 32,
+            iterations=it or (30 if st else 2000),
+            num_train=64 if st else 1024, num_val=16 if st else 128,
+            batch_size=8 if st else 32, **dev)
+    elif args.name == "burgers_hierarchical":
+        result = burgers.run_hierarchical(
+            workdir, n=4 if st else 32,
+            iterations=it or (30 if st else 1000),
+            num_train=64 if st else 1024, num_val=16 if st else 128,
+            batch_size=8 if st else 32, **dev)
+    elif args.name == "shape_transition":
         result = fluid2d.run_shape_transition(
             workdir, iterations=it or (10 if st else 500),
             batch_size=args.batch or (4 if st else 8), **sizes, **common)
@@ -184,6 +238,8 @@ def main(argv=None) -> None:
             result = fluid2d.run_natural_flow_128_ft(
                 workdir, force_reg=args.force_reg or 5e-6, **ft, **sizes,
                 **common)
+    if args.name in ("burgers_chain", "burgers_adjoint"):
+        _write_results(workdir, result)  # the other entries write their own
     print(json.dumps(result, indent=2, default=float))
 
 

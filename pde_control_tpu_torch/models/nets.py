@@ -1,20 +1,22 @@
-"""Networks for PDE control, 2D: the CFE conv net and the OP U-net.
+"""Networks for PDE control: the CFE conv net and the OP U-net, 1D and 2D.
 
 Counterpart of `pde_control_tpu/models/nets.py` (`Conv`, `ConvBlock`,
-`UNet`, `CFENet`) at dim=2. Inputs and outputs are channels-last
-(B, H, W, C) at the public boundary, as in the JAX package. Parameters are
-fp32; compute runs in `dtype` (bf16 on the main path), as flax's `dtype`
-attribute does.
+`UNet`, `CFENet`) at dim=1 (Burgers) and dim=2. Inputs and outputs are
+channels-last (B, *spatial, C) at the public boundary, as in the JAX
+package. Parameters are fp32; compute runs in `dtype` (bf16 on the 2D main
+path, fp32 for Burgers), as flax's `dtype` attribute does.
 
 `conv_impl` picks the convolution, as in the JAX package:
-  * 'xla' and 'auto': `torch.nn.functional.conv2d` (cuDNN on the card);
-    the nets run NCHW inside. 'auto' stays here until a benchmark routes
-    it from measurements on the card.
-  * 'cuda': every 3×3 stride-1 SAME conv goes to the hand-written kernels
-    of `ops/cuda_conv.py` (JAX's 'pallas'); the stride-2 downsampling convs
-    and the U-net's 1×1 output conv stay on `conv2d`. The nets run
-    channels-last inside, the kernels' layout, so the eligible convs need
-    no permute and the others see a channels-last view.
+  * 'xla' and 'auto': `torch.nn.functional.conv1d`/`conv2d` (cuDNN on the
+    card); the nets run channels-first inside. 'auto' stays here until a
+    benchmark routes it from measurements on the card.
+  * 'cuda': every 2D 3×3 stride-1 SAME conv goes to the hand-written
+    kernels of `ops/cuda_conv.py` (JAX's 'pallas'); the stride-2
+    downsampling convs and the U-net's 1×1 output conv stay on `conv2d`.
+    The 2D nets run channels-last inside, the kernels' layout, so the
+    eligible convs need no permute and the others see a channels-last
+    view. 1D convs stay on `conv1d` and channels-first, as the JAX
+    package's stay on XLA (its kernel gate needs a 4-D input).
 'pallas' raises and names 'cuda'. JAX's XLA reformulations 'patches',
 'shifted' and 'im2col' are not ported (ROADMAP queue A) and raise.
 
@@ -22,9 +24,15 @@ Submodules carry flax's auto-names (`Conv_0`, `ConvBlock_3.Conv_1`, …), so
 converting the JAX package's weights is a rename and a transpose
 (`utils/convert.py`).
 
-Padding is flax's 'SAME': for a stride-2 conv on an even input that is
-(0, 1) — one cell after, none before — which `Conv2d(padding=1)` would
-get wrong, so uneven padding goes through `F.pad`.
+Padding is flax's:
+  * 'SAME': for a stride-2 conv on an even input that is (0, 1) — one
+    cell after, none before — which `Conv2d(padding=1)` would get wrong,
+    so uneven padding goes through `F.pad`;
+  * 'CIRCULAR' (periodic Burgers): ((k-1)//2, k//2) cells by wrap, then a
+    VALID conv, whatever the stride. It is not SAME with wrap: a stride-2
+    conv on even N reads cells 2i-1, 2i, 2i+1 (SAME reads 2i, 2i+1,
+    2i+2).
+The U-net's 1×1 output conv keeps 'SAME', as flax's default.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from torch import nn
 from pde_control_tpu_torch.ops import cuda_conv
 
 CONV_IMPLS = ("xla", "auto", "cuda")
+PADDINGS = ("SAME", "CIRCULAR")
 
 
 def _check_conv_impl(conv_impl: str) -> None:
@@ -60,25 +69,33 @@ def _same_pads(n: int, k: int, s: int) -> tuple[int, int]:
 def _lecun_normal_(w: torch.Tensor, generator: torch.Generator | None) -> None:
     """flax's default kernel init: truncated normal on [-2σ, 2σ] with
     variance 1/fan_in after truncation."""
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    fan_in = math.prod(w.shape[1:])
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
 class Conv(nn.Module):
-    """k×k conv with 'SAME' padding. It takes and returns (B, C, H, W), or
-    (B, H, W, C) under conv_impl='cuda'."""
+    """k^dim conv with flax's 'SAME' or 'CIRCULAR' padding. It takes and
+    returns (B, C, *spatial), or (B, H, W, C) for a 2D conv under
+    conv_impl='cuda'."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, dtype=torch.float32, zero_init: bool = False,
                  generator: torch.Generator | None = None,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", dim: int = 2,
+                 padding: str = "SAME"):
         super().__init__()
         _check_conv_impl(conv_impl)
+        if dim not in (1, 2):
+            raise ValueError(f"dim={dim} is not ported (1 or 2)")
+        if padding not in PADDINGS:
+            raise ValueError(f"padding {padding!r} is not ported; choose "
+                             f"from {PADDINGS}")
         self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
-        self.conv_impl = conv_impl
+        self.conv_impl, self.dim, self.padding = conv_impl, dim, padding
+        self.channels_last = conv_impl == "cuda" and dim == 2
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, kernel_size, kernel_size))
+            torch.empty(features, in_features, *(kernel_size,) * dim))
         self.bias = nn.Parameter(torch.zeros(features))
         with torch.no_grad():
             if zero_init:
@@ -87,30 +104,36 @@ class Conv(nn.Module):
                 _lecun_normal_(self.weight, generator)
 
     def _shape_eligible(self, x: torch.Tensor) -> bool:
-        """The JAX package's gate: 2D, 3×3, stride 1 (SAME padding, no
-        dilation and no groups hold for every conv of the nets)."""
-        return x.dim() == 4 and self.kernel_size == 3 and self.stride == 1
+        """The JAX package's gate: 2D, 3×3, stride 1, SAME (no dilation
+        and no groups hold for every conv of the nets)."""
+        return (x.dim() == 4 and self.kernel_size == 3 and self.stride == 1
+                and self.padding == "SAME")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.conv_impl != "cuda":
-            return self._conv2d(x)
+        if not self.channels_last:
+            return self._conv(x)
         if self._shape_eligible(x):
             return cuda_conv.conv3x3(x, self.weight.permute(2, 3, 1, 0),
                                      self.bias, dtype=self.dtype)
-        return self._conv2d(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return self._conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
-    def _conv2d(self, x: torch.Tensor) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
         k, s = self.kernel_size, self.stride
-        top, bottom = _same_pads(x.shape[-2], k, s)
-        left, right = _same_pads(x.shape[-1], k, s)
-        x = x.to(self.dtype)
-        if top == bottom and left == right:
-            pad = (top, left)
+        if self.padding == "CIRCULAR":
+            pads, mode = [((k - 1) // 2, k // 2)] * self.dim, "circular"
         else:
-            x = F.pad(x, (left, right, top, bottom))
+            pads, mode = [_same_pads(n, k, s) for n in x.shape[2:]], "constant"
+        x = x.to(self.dtype)
+        if mode == "constant" and all(a == b for a, b in pads):
+            pad = tuple(a for a, _ in pads)
+        else:
+            flat = [p for pair in reversed(pads) for p in pair]
+            if any(flat):
+                x = F.pad(x, flat, mode=mode)
             pad = 0
-        return F.conv2d(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
-                        stride=s, padding=pad)
+        conv = F.conv1d if self.dim == 1 else F.conv2d
+        return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
+                    stride=s, padding=pad)
 
 
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -120,9 +143,10 @@ def _leaky_relu(x: torch.Tensor) -> torch.Tensor:
 class ConvBlock(nn.Module):
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
                  generator: torch.Generator | None = None,
-                 conv_impl: str = "xla"):
+                 conv_impl: str = "xla", dim: int = 2, padding: str = "SAME"):
         super().__init__()
-        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl)
+        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl,
+                  dim=dim, padding=padding)
         self.Conv_0 = Conv(in_features, features, **kw)
         self.Conv_1 = Conv(features, features, **kw)
 
@@ -133,23 +157,25 @@ class ConvBlock(nn.Module):
 class _FlaxNamed(nn.Module):
     """Registers submodules under flax's per-class auto-names; the nets
     keep the names in the order their forward pass uses them. Also the
-    layout inside the net: channels-last under conv_impl='cuda', NCHW
-    otherwise."""
+    layout inside the net: channels-last for a 2D net under
+    conv_impl='cuda', channels-first otherwise."""
 
-    def __init__(self, dtype, conv_impl: str):
+    def __init__(self, dtype, conv_impl: str, dim: int):
         super().__init__()
         self._counts: dict[str, int] = {}
         self.dtype = dtype
-        self.channels_last = conv_impl == "cuda"
-        # The channel axis and the two spatial axes inside the net.
-        self._c, self._hw = (3, (1, 2)) if self.channels_last else (1, (2, 3))
+        self.channels_last = conv_impl == "cuda" and dim == 2
+        # The channel axis and the spatial axes inside the net.
+        self._c = dim + 1 if self.channels_last else 1
+        first = 1 if self.channels_last else 2
+        self._spatial = tuple(range(first, first + dim))
 
     def _enter(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
-        return x if self.channels_last else x.permute(0, 3, 1, 2)
+        return x if self.channels_last else x.movedim(-1, 1)
 
     def _leave(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        return (x if self.channels_last else x.permute(0, 2, 3, 1)).to(dtype)
+        return (x if self.channels_last else x.movedim(1, -1)).to(dtype)
 
     def _add(self, module: nn.Module) -> str:
         kind = type(module).__name__
@@ -164,28 +190,30 @@ class UNet(_FlaxNamed):
     """Multi-scale encoder-decoder with skip connections (the OP net).
 
     `levels` stride-2 downsampling stages; spatial dims must be divisible
-    by 2**levels. Input/output are channels-last: (B, H, W, C).
+    by 2**levels. Input/output are channels-last: (B, *spatial, C).
     """
 
     def __init__(self, in_channels: int, out_channels: int, levels: int = 3,
                  base_features: int = 16, dtype=torch.float32,
                  generator: torch.Generator | None = None,
-                 conv_impl: str = "xla"):
-        super().__init__(dtype, conv_impl)
-        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl)
+                 conv_impl: str = "xla", dim: int = 2, padding: str = "SAME"):
+        super().__init__(dtype, conv_impl, dim)
+        kw = dict(dtype=dtype, generator=generator, conv_impl=conv_impl,
+                  dim=dim)
+        pkw = dict(kw, padding=padding)
         self.encoder = []
         cin, feats = in_channels, base_features
         for _ in range(levels):
-            block = self._add(ConvBlock(cin, feats, **kw))
-            down = self._add(Conv(feats, feats * 2, stride=2, **kw))
+            block = self._add(ConvBlock(cin, feats, **pkw))
+            down = self._add(Conv(feats, feats * 2, stride=2, **pkw))
             self.encoder.append((block, down))
             cin, feats = feats * 2, feats * 2
-        self.bottom = self._add(ConvBlock(cin, feats, **kw))
+        self.bottom = self._add(ConvBlock(cin, feats, **pkw))
         self.decoder = []
         for _ in range(levels):
             feats //= 2
-            up = self._add(Conv(feats * 2, feats, **kw))
-            block = self._add(ConvBlock(feats * 2, feats, **kw))
+            up = self._add(Conv(feats * 2, feats, **pkw))
+            block = self._add(ConvBlock(feats * 2, feats, **pkw))
             self.decoder.append((up, block))
         self.out = self._add(Conv(feats, out_channels, kernel_size=1, **kw))
 
@@ -198,9 +226,9 @@ class UNet(_FlaxNamed):
             skips.append(x)
             x = self.get_submodule(down)(x)
         x = self.get_submodule(self.bottom)(x)
-        sy, sx = self._hw
         for (up, block), skip in zip(self.decoder, reversed(skips)):
-            x = x.repeat_interleave(2, dim=sy).repeat_interleave(2, dim=sx)
+            for ax in self._spatial:  # nearest-neighbour 2x upsampling
+                x = x.repeat_interleave(2, dim=ax)
             x = self.get_submodule(up)(x)
             x = self.get_submodule(block)(torch.cat([x, skip], dim=self._c))
         return self._leave(self.get_submodule(self.out)(x), in_dtype)
@@ -216,16 +244,16 @@ class CFENet(_FlaxNamed):
     def __init__(self, in_channels: int, out_channels: int,
                  features: Sequence[int] = (32, 64, 64, 32),
                  dtype=torch.float32, generator: torch.Generator | None = None,
-                 conv_impl: str = "xla"):
-        super().__init__(dtype, conv_impl)
+                 conv_impl: str = "xla", dim: int = 2, padding: str = "SAME"):
+        super().__init__(dtype, conv_impl, dim)
+        kw = dict(dtype=dtype, conv_impl=conv_impl, dim=dim, padding=padding)
         self.hidden = []
         cin = in_channels
         for f in features:
-            self.hidden.append(self._add(Conv(
-                cin, f, dtype=dtype, generator=generator, conv_impl=conv_impl)))
+            self.hidden.append(self._add(Conv(cin, f, generator=generator,
+                                              **kw)))
             cin = f
-        self.out = self._add(Conv(cin, out_channels, dtype=dtype, zero_init=True,
-                                  conv_impl=conv_impl))
+        self.out = self._add(Conv(cin, out_channels, zero_init=True, **kw))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype

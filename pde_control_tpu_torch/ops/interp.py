@@ -1,6 +1,12 @@
-"""Shift-stencil bilinear sampling — the semi-Lagrangian advection core.
+"""Linear and shift-stencil bilinear sampling — the semi-Lagrangian
+advection core.
 
-Counterpart of `pde_control_tpu/ops/interp.py :: shift_bilinear_sample_2d`.
+Counterpart of `pde_control_tpu/ops/interp.py :: linear_sample_1d,
+shift_bilinear_sample_2d`. `linear_sample_1d` (Burgers) gathers at
+floor(x) and floor(x) + 1; its gradient flows through the fractional part
+and the gather (a scatter-add), floor's is zero, as in JAX. On the card the
+scatter-add is atomic, so its bits may change from call to call.
+
 When sample points are ``grid + displacement`` with ``|displacement| <=
 max_shift`` cells, bilinear interpolation is a weighted sum over a static
 (2K+2)² window of shifted copies of the field.
@@ -20,6 +26,33 @@ Boundary modes: ``clamp`` (edge replicate) and ``periodic``.
 from __future__ import annotations
 
 import torch
+
+
+def _wrap_or_clip(idx: torch.Tensor, n: int, boundary: str) -> torch.Tensor:
+    if boundary == "periodic":
+        return torch.remainder(idx, n)  # jnp.mod's sign on negative indices
+    if boundary == "clamp":
+        return idx.clamp(0, n - 1)
+    raise ValueError(f"unknown sampling boundary {boundary!r}")
+
+
+def linear_sample_1d(field: torch.Tensor, x: torch.Tensor,
+                     boundary: str = "periodic") -> torch.Tensor:
+    """Sample a batched 1D field at fractional coordinates.
+
+    Args:
+      field: (B, N) values; field[b, i] at coordinate i.
+      x: (B, M) fractional sample coordinates.
+      boundary: 'periodic' or 'clamp'.
+    Returns: (B, M) sampled values.
+    """
+    n = field.shape[-1]
+    x0 = torch.floor(x)
+    f = x - x0
+    i = x0.long()
+    v0 = torch.gather(field, -1, _wrap_or_clip(i, n, boundary))
+    v1 = torch.gather(field, -1, _wrap_or_clip(i + 1, n, boundary))
+    return v0 * (1.0 - f) + v1 * f
 
 
 def _hat(d: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,8 @@
 of numpy arrays (`jax.device_get(app.params)`) and returns one state dict
 per network, named as the port's modules name them. Names map one to one
 (`ConvBlock_3/Conv_1/kernel` → `ConvBlock_3.Conv_1.weight`); conv kernels go
-from flax's HWIO layout to torch's OIHW. `params_to_flax` is its inverse
-and round-trips exactly.
+from flax's spatial-first layout to torch's: HWIO → OIHW in 2D, WIO → OIW
+in 1D. `params_to_flax` is its inverse and round-trips exactly.
 """
 
 from __future__ import annotations
@@ -24,11 +24,12 @@ def _state_dict(tree: Mapping, prefix: str = "") -> dict[str, torch.Tensor]:
             continue
         arr = np.asarray(val, dtype=np.float32)
         if key == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{prefix}kernel: want a 2D conv kernel (HWIO), "
-                                 f"got shape {arr.shape}")
-            out[prefix + "weight"] = torch.from_numpy(
-                np.array(arr.transpose(3, 2, 0, 1), order="C"))
+            if arr.ndim not in (3, 4):
+                raise ValueError(f"{prefix}kernel: want a 1D or 2D conv kernel "
+                                 f"(WIO or HWIO), got shape {arr.shape}")
+            sp = tuple(range(arr.ndim - 2))
+            out[prefix + "weight"] = torch.from_numpy(np.array(
+                arr.transpose(arr.ndim - 1, arr.ndim - 2, *sp), order="C"))
         elif key == "bias":
             out[prefix + "bias"] = torch.from_numpy(arr.copy())
         else:
@@ -50,10 +51,11 @@ def _flax_tree(sd: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(part, {})
         arr = val.detach().to("cpu", torch.float32).numpy()
         if leaf == "weight":
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: want a 2D conv weight (OIHW), "
-                                 f"got shape {arr.shape}")
-            node["kernel"] = np.array(arr.transpose(2, 3, 1, 0), order="C")
+            if arr.ndim not in (3, 4):
+                raise ValueError(f"{key}: want a 1D or 2D conv weight (OIW or "
+                                 f"OIHW), got shape {arr.shape}")
+            node["kernel"] = np.array(
+                arr.transpose(*range(2, arr.ndim), 1, 0), order="C")
         elif leaf == "bias":
             node["bias"] = arr.copy()
         else:
@@ -63,5 +65,5 @@ def _flax_tree(sd: Mapping[str, torch.Tensor]) -> dict:
 
 def params_to_flax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> dict:
     """{'CFE': state dict, 'OP16': …} → {'CFE': flax params, …}: nested
-    dicts of float32 numpy arrays, kernels in HWIO."""
+    dicts of float32 numpy arrays, kernels in (W)IO or HWIO."""
     return {name: _flax_tree(sd) for name, sd in params.items()}
