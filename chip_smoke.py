@@ -62,7 +62,17 @@ prints no result):
      capture seconds, peak and reserved memory, each mid-stage autosave
      read back bit for bit), the eval block, a resumed run with the same
      eval bits, the CFE checkpoint read back; then the refined class at
-     n=128 as one captured step, and the CLI's `run shape_transition` on
+     n=128 as one captured step; then the rest of the 2D module surface
+     (`OOD`): `generalize_shapes` from config 3's ckpt_final and
+     `generalize_smoke` from config 4's (every row, `results.json` with the
+     JAX module's keys, K1's launches as many as the rows' rollouts take),
+     `render_rollout.render('smoke_indirect')` on config 4's run (four
+     PNGs), config 4's data cache through the native gather against numpy
+     (the same bits, both times), one 64² step with
+     `advection_mode='gather'` on the card against the CPU (state, loss,
+     gradients), the CFE at 64² x 8 under `conv_impl` 'patches', 'shifted'
+     and 'im2col' against cuDNN (2e-2, times beside cuDNN's), and
+     `profile_bench`'s phases; last the CLI's `run shape_transition` on
      the card's default route;
  11. BASELINE configs 1 and 2 (`BURGERS`: 1D Burgers, N=32, n=32, batch
      32, 1024 + 128 trajectories, fp32 nets with TF32 off) through the
@@ -96,7 +106,8 @@ prints no result):
      wrong, checked and timed; neither is summed. It runs last because the
      graphs' memory pools would raise the paths' peak memory.
 Each phase's seconds follow it. The line before the last is the kernels'
-JSON summary (with each kernel's launches in configs 3-5); the last line
+JSON summary (with each kernel's launches in configs 3-5 and in the OOD
+evals); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -1199,39 +1210,20 @@ def make_app(backend: str = "auto", fused: str = "auto", conv_impl: str = "xla",
              sequence_class: str = "staggered", **train):
     """The port's counterpart of `__graft_entry__._make_app(64, 16, 8)`
     (`fused='cuda'`: of `_make_app(64, 16, 8, fused='pallas')`;
-    `conv_impl='cuda'`: of its `conv_impl='pallas'`); `sequence_class` and
-    `train` (grad_clip, lr_schedule, …) go to `ControlTraining`."""
-    from pde_control_tpu_torch import (
-        ControlTraining,
-        Domain2D,
-        FluidConfig,
-        IncompressibleFluidPDE,
-    )
+    `conv_impl='cuda'`: of its `conv_impl='pallas'`), on the card:
+    `profile_bench.make_app`."""
+    from pde_control_tpu_torch.experiments import profile_bench
 
-    dev = torch.device("cuda")
-    domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device=dev)
-    cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
-                      pressure_maxiter=100, warm_start_pressure=True,
-                      pressure_backend=backend, fused=fused)
-    pde = IncompressibleFluidPDE(domain, cfg, control="buoyancy",
-                                 unet_levels=UNET_LEVELS,
-                                 cfe_features=CFE_FEATURES, op_base_features=16,
-                                 dtype=torch.bfloat16, conv_impl=conv_impl)
-    return ControlTraining(
-        N, pde,
-        trainable_networks=("CFE",) + tuple(f"OP{s}" for s in SPANS),
-        sequence_class=sequence_class, obs_loss_frames=(N,), seed=SEED,
-        **train).prepare()
+    return profile_bench.make_app(H, N, BATCH, "cuda", fused=fused,
+                                  conv_impl=conv_impl, backend=backend,
+                                  sequence_class=sequence_class, **train)
 
 
 def make_batch(seed: int = SEED) -> dict:
     """`__graft_entry__._make_batch(64, 16, 8)`."""
-    rng = np.random.default_rng(seed)
-    return {
-        "obs": rng.uniform(0, 1, size=(BATCH, N + 1, H, H, 1)).astype(np.float32),
-        "vy0": np.zeros((BATCH, H + 1, H), np.float32),
-        "vx0": np.zeros((BATCH, H, H + 1), np.float32),
-    }
+    from pde_control_tpu_torch.experiments import profile_bench
+
+    return profile_bench.make_batch(H, N, BATCH, seed)
 
 
 def _grad_norms(app) -> dict:
@@ -2101,6 +2093,304 @@ def cli_phase(card: str) -> None:
           f"eval final_state_mse {ev['final_state_mse']:.6e}, zero force "
           f"{ev['zero_force_final_mse']:.6e} [{card}]")
 
+# The out-of-distribution evals (`experiments/generalize.py`) on the
+# checkpoints that configs 3 and 4 leave in `runs/chip_smoke_config{3,4}`, at
+# the entries' sizes (64², n=16, config 4's CFE 48-96-96-48, OP16 ... OP2,
+# the horizon rows 24 and 32). Cut: `num_val`, 32 trajectories a row in the
+# entries, to 16.
+OOD = dict(num_val=16)
+# `results.json` keys of the JAX package's entries at full size.
+OOD_KEYS = {
+    "generalize_shapes": {"init_from", "protocol", "shapes", "shapes_chain",
+                          "crosses", "crosses_chain", "rings", "rings_chain",
+                          "shapes_worst_idx", "rings_worst_idx"},
+    "generalize_smoke": {"init_from", "in_dist", "in_dist_chain",
+                         "obstacles_ood", "inflow_shifted", "horizon_24",
+                         "horizon_32"},
+}
+
+
+def _smoke_eval_k1(n: int, num_val: int, horizons=(24, 32)) -> int:
+    """K1 launches of `generalize_smoke`: each row generates its data in
+    rollouts of 8 (8 warm-up steps and nh steps each) and evaluates its
+    chunks of 16 trajectories, controlled and at zero force (nh steps
+    each): four rows at n, one at each horizon."""
+    rollouts = -(-num_val // 8)
+    chunks = max(num_val // 16, 1)
+    return sum(rollouts * (8 + nh) + chunks * 2 * nh
+               for nh in [n] * 4 + list(horizons))
+
+
+def generalize_phase(card: str, configs: dict) -> dict:
+    """`generalize_shapes` from config 3's ckpt_final and `generalize_smoke`
+    from config 4's, on the card's default route: every row finite and
+    printed, `results.json` with the JAX module's keys and the worst-sample
+    PNGs, K1's launches (the obstacle courses' solves) as many as the rows'
+    rollouts take. Returns the wrappers' counts."""
+    _phase("the OOD evals: generalize_shapes (config 3) and generalize_smoke "
+           "(config 4)")
+    import contextlib
+    import io
+    import shutil
+
+    from pde_control_tpu_torch.experiments import generalize
+
+    counted = dict.fromkeys(_counts(), 0)
+    for name, number in (("generalize_shapes", 3), ("generalize_smoke", 4)):
+        src = configs[number]["workdir"]
+        workdir = src.parent / f"chip_smoke_{name}"
+        shutil.rmtree(workdir, ignore_errors=True)
+        _zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = getattr(generalize, name)(
+                str(workdir), init_from=str(src / "ckpt_final"),
+                num_val=OOD["num_val"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+        for k, v in launches.items():
+            counted[k] += v
+        with open(workdir / "results.json") as f:
+            on_disk = json.load(f)
+        if set(on_disk) != OOD_KEYS[name]:
+            raise AssertionError(f"{name}: results.json keys {sorted(on_disk)}")
+        rows = [k for k, v in res.items() if isinstance(v, dict)]
+        for tag in rows:
+            r = res[tag]
+            vals = (r["final_state_mse"], r["zero_force_final_mse"],
+                    r["ratio_vs_zero_force"])
+            if not all(np.isfinite(vals)) or r["eval_samples"] != OOD["num_val"]:
+                raise AssertionError(f"{name} {tag}: {r}")
+            scheme = r.get("scheme", "chain_final" if tag.endswith("_chain")
+                           else "staggered")
+            print(f"{name} {tag} ({scheme}): mse {vals[0]:.6e}, zero-force "
+                  f"mse {vals[1]:.6e}, ratio {vals[2]:.4f} over "
+                  f"{r['eval_samples']} trajectories")
+        pngs = sorted(p.name for p in workdir.glob("worst_*.png"))
+        if name == "generalize_shapes":
+            want = [f"worst_{t}_{r}.png" for t in ("rings", "shapes")
+                    for r in range(4)]
+            if pngs != want:
+                raise AssertionError(f"{name}: worst PNGs {pngs}")
+            print(f"{name}: worst samples shapes {res['shapes_worst_idx']}, "
+                  f"rings {res['rings_worst_idx']}; {len(pngs)} PNGs")
+            expect_k1 = 0  # no obstacles: the exact spectral solve
+        else:
+            expect_k1 = _smoke_eval_k1(N, OOD["num_val"])
+        if launches["K1"] != expect_k1 or any(
+                v for k, v in launches.items() if k != "K1"):
+            raise AssertionError(f"{name}: wrappers counted {launches}, "
+                                 f"expected K1 {expect_k1} and no other")
+        print(f"{name}: {len(rows)} rows in {seconds:.2f} s, wrappers counted "
+              f"{launches}, peak {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              f" MiB [{card}]")
+    return counted
+
+
+def render_phase(card: str, configs: dict) -> None:
+    """`render_rollout.render('smoke_indirect')` on config 4's run: the
+    four strips and finite MSEs."""
+    _phase("render_rollout smoke_indirect on config 4's run")
+    import contextlib
+    import io
+
+    from pde_control_tpu_torch.experiments import render_rollout
+
+    workdir = configs[4]["workdir"]
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = render_rollout.render("smoke_indirect", str(workdir))
+    seconds = time.perf_counter() - t0
+    pngs = {name: workdir / "renders" / f"{name}.png" for name in
+            ("controlled", "ground_truth", "zero_force", "force_magnitude")}
+    missing = [n for n, p in pngs.items()
+               if not p.exists() or p.stat().st_size == 0]
+    if missing or not all(np.isfinite(list(res.values()))):
+        raise AssertionError(f"render: missing {missing} or MSEs {res}")
+    print(out.getvalue().splitlines()[0])
+    print(f"render_rollout: {len(pngs)} PNGs in {seconds:.2f} s ("
+          + ", ".join(f"{n} {p.stat().st_size} B" for n, p in pngs.items())
+          + f"), wrappers counted {_counts()} [{card}]")
+
+
+def native_gather_phase(card: str, configs: dict) -> None:
+    """Config 4's data cache read by the native gather (`load_dataset`)
+    and by numpy (`np.load` a file, `np.stack`): the same bits; both
+    times, best of 3, after the library's build."""
+    _phase("the native gather on config 4's data cache")
+    from pde_control_tpu_torch.data import native_loader
+    from pde_control_tpu_torch.data.scene import Scene, load_dataset
+
+    t0 = time.perf_counter()
+    native_loader.get_lib()
+    build_s = time.perf_counter() - t0
+    for split in ("train", "val"):
+        root = str(configs[4]["workdir"] / "data" / split)
+        with open(f"{root}/manifest.json") as f:
+            m = json.load(f)
+
+        def numpy_path():
+            obs = np.stack([np.stack([np.load(Scene.at(root, i).frame_path(
+                "obs", t, "npy")) for t in range(m["frames"])])
+                for i in range(m["num"])])
+            return obs, {k: np.stack([np.load(Scene.at(root, i).frame_path(
+                k, 0, "npy")) for i in range(m["num"])]) for k in m["extras"]}
+
+        def native_path():
+            ds = load_dataset(root, m["num"], m["frames"], m["extras"])
+            return ds.obs, ds.extras
+
+        times, out = {"native": [], "numpy": []}, {}
+        for _ in range(3):
+            for label, fn in (("native", native_path), ("numpy", numpy_path)):
+                t0 = time.perf_counter()
+                out[label] = fn()
+                times[label].append(time.perf_counter() - t0)
+        (obs, ex), (obs_np, ex_np) = out["native"], out["numpy"]
+        if obs.tobytes() != obs_np.tobytes() or set(ex) != set(ex_np) or any(
+                ex[k].tobytes() != ex_np[k].tobytes() for k in ex_np):
+            raise AssertionError(f"native gather: {split} differs from numpy")
+        nbytes = obs.nbytes + sum(v.nbytes for v in ex.values())
+        files = m["num"] * (m["frames"] + len(m["extras"]))
+        print(f"native gather, config 4 {split}: {files} files, "
+              f"{nbytes / 2**20:.1f} MiB, the same bits as numpy; native "
+              f"{1e3 * min(times['native']):.1f} ms, numpy "
+              f"{1e3 * min(times['numpy']):.1f} ms (best of 3, host clock; "
+              f"library build or load {build_s:.2f} s) [{card}]")
+
+
+def gather_step_phase(card: str) -> None:
+    """One unfused 64² step with `advection_mode='gather'` on the card
+    against the same step on the CPU, the pressure solve on K1 and on its
+    plain version (tol 1e-6, maxiter 500): the state, the loss and the
+    gradients with respect to vy, vx, rho and the force."""
+    _phase("gather-mode advection: one 64² step, the card against the CPU")
+    from pde_control_tpu_torch import Domain2D, FluidConfig, FluidState
+    from pde_control_tpu_torch.grids import Staggered2D
+    from pde_control_tpu_torch.physics.fluid import fluid_step
+
+    rng = np.random.default_rng(SEED + 13)
+    arrays = [0.8 * rng.normal(size=(BATCH, H + 1, H)),
+              0.8 * rng.normal(size=(BATCH, H, H + 1)),
+              rng.uniform(0, 1, size=(BATCH, H, H)),
+              0.02 * rng.normal(size=(BATCH, H + 1, H)),
+              0.02 * rng.normal(size=(BATCH, H, H + 1))]
+    weights = [rng.normal(size=s) for s in ((BATCH, H + 1, H),
+                                            (BATCH, H, H + 1), (BATCH, H, H),
+                                            (BATCH, H, H))]
+    cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-6,
+                      pressure_maxiter=500, warm_start_pressure=True,
+                      advection_mode="gather", pressure_backend="cuda")
+
+    def run(dev):
+        domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device=dev)
+        args = [torch.tensor(a, dtype=torch.float32, device=dev,
+                             requires_grad=True) for a in arrays]
+        vy, vx, rho, fy, fx = args
+        s = fluid_step(FluidState(Staggered2D(vy, vx), rho,
+                                  pressure=torch.zeros_like(rho)),
+                       domain, cfg, force=Staggered2D(fy, fx))
+        outs = [s.velocity.vy, s.velocity.vx, s.density, s.pressure]
+        loss = sum((torch.tensor(w, dtype=torch.float32, device=dev) * o).sum()
+                   for w, o in zip(weights, outs))
+        loss.backward()
+        return ([o.detach().cpu() for o in outs] + [loss.detach().cpu()],
+                [a.grad.cpu() for a in args])
+
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_state, card_grads = run("cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    cpu_state, cpu_grads = run("cpu")
+    state, _, _ = _agree("gather step state", card_state, cpu_state,
+                         ("vy", "vx", "rho", "p", "loss"), 1e-4, False)
+    grads, _, _ = _agree("gather step gradients", card_grads, cpu_grads,
+                         ("g_vy", "g_vx", "g_rho", "g_fy", "g_fx"), 1e-3, False)
+    if launches["K1"] < 1:
+        raise AssertionError(f"gather step: wrappers counted {launches}")
+    print(f"gather step at {H}x{H}, batch {BATCH} (the plate, velocity "
+          f"0.8 N(0,1)), the card against the CPU, max|d|/max|ref| (limits "
+          f"1e-4 state and loss, 1e-3 gradients): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in {**state, **grads}.items()})}"
+          f"; first call on the card {seconds:.2f} s, wrappers counted "
+          f"{launches} [{card}]")
+
+
+def conv_impls_phase(card: str) -> None:
+    """The main path's CFE (bf16, CFE_FEATURES, output layer perturbed) at
+    64² x 8, forward and backward, under 'patches', 'shifted' and 'im2col'
+    against 'xla' (cuDNN): the output and every parameter gradient within
+    2e-2 of max|ref|; the forward and forward + backward times of each
+    beside cuDNN's (CUDA events over a host loop)."""
+    _phase("the conv impls 'patches', 'shifted', 'im2col' against cuDNN")
+    from pde_control_tpu_torch.models.nets import CFENet
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    nets = {"xla": CFENet(5, 1, features=CFE_FEATURES, dtype=torch.bfloat16,
+                          generator=gen)}
+    w = nets["xla"].Conv_4.weight
+    with torch.no_grad():
+        w.copy_(0.05 * torch.randn(w.shape, generator=gen))
+    for impl in ("patches", "shifted", "im2col"):
+        nets[impl] = CFENet(5, 1, features=CFE_FEATURES, dtype=torch.bfloat16,
+                            conv_impl=impl)
+        nets[impl].load_state_dict(nets["xla"].state_dict())
+    x = torch.randn((BATCH, H, H, 5), generator=gen).to(dev)
+    g = torch.randn((BATCH, H, H, 1), generator=gen).to(dev)
+    results = {}
+    for impl, net in nets.items():
+        net.to(dev)
+
+        def fwd_bwd(net=net):
+            for p in net.parameters():
+                p.grad = None
+            y = net(x)
+            y.backward(g)
+            return y
+
+        y = fwd_bwd().detach().float()
+        grads = {k: p.grad.float().clone() for k, p in net.named_parameters()}
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda net=net: net(x), 20)
+        results[impl] = (y, grads, fwd_ms, _time_ms(fwd_bwd, 10))
+    y_ref, g_ref, fwd_ref, both_ref = results["xla"]
+    for impl in ("patches", "shifted", "im2col"):
+        y, grads, fwd_ms, both_ms = results[impl]
+        rels = {"y": float((y - y_ref).abs().max() / y_ref.abs().max())}
+        rels.update({k: float((grads[k] - v).abs().max() / v.abs().max())
+                     for k, v in g_ref.items()})
+        worst = max(rels, key=rels.get)
+        if not rels[worst] <= 2e-2:
+            raise AssertionError(f"conv_impl={impl}: {worst} max|d|/max|ref| "
+                                 f"{rels[worst]:.3e} > 2e-2")
+        print(f"conv_impl={impl} against xla, CFE {CFE_FEATURES} at {H}x{H}x"
+              f"{BATCH}: max|d|/max|ref| y {rels['y']:.3e}, worst of y and "
+              f"the gradients {worst} {rels[worst]:.3e} (limit 2e-2); forward "
+              f"{fwd_ms:.3f} ms (cuDNN {fwd_ref:.3f}), forward + backward "
+              f"{both_ms:.3f} ms (cuDNN {both_ref:.3f}) [{card}]")
+
+
+def profile_bench_phase(card: str) -> None:
+    """`profile_bench` once at 64², n=16, batch 8 on the card."""
+    _phase("profile_bench at 64², n=16, batch 8")
+    from pde_control_tpu_torch.experiments import profile_bench
+
+    res = profile_bench.run("cuda", blocks=5, inner=2)
+    bad = [k for k, v in res.items() if k != "flops_per_step"
+           and not v["ms"] > 0]
+    if bad:
+        raise AssertionError(f"profile_bench: phases without a time: {bad}")
+    print("\n".join(profile_bench.lines(res, card)))
+
+
 # BASELINE configs 1-2 (Burgers, `experiments/burgers.py`): N=32, dx 1/32,
 # dt 0.03, viscosity 0.01, periodic; n=32, batch 32, 1024 + 128
 # trajectories (the reference's, not cut); the CFE 32-64-64-32 and the
@@ -2565,6 +2855,12 @@ def main() -> None:
     for number in (4, 3, 5):
         configs[number] = config_phase(card, number, seen.get(number))
     refined_128_phase(card, configs[5])
+    ood = generalize_phase(card, configs)
+    render_phase(card, configs)
+    native_gather_phase(card, configs)
+    gather_step_phase(card)
+    conv_impls_phase(card)
+    profile_bench_phase(card)
     cli_phase(card)
     adjoint_phase(card, burgers_phase(card))
     # The conv shapes of configs 3 and 5 that neither the main path nor
@@ -2589,6 +2885,7 @@ def main() -> None:
         for m, c in sorted(configs.items()):
             out[f"config{m}_launches"] = sum(c["counted"][k] for k in keys)
             out[f"config{m}_graph_launches"] = sum(c["graph"][k] for k in keys)
+        out["ood_launches"] = sum(ood[k] for k in keys)
         return out
 
     k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))

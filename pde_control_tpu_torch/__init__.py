@@ -5,9 +5,12 @@ of the same path there. Ported so far: the 64² smoke-control training
 iteration (2D incompressible flow with the masked pressure solve, shift
 advection, inflow, the CFE and OP networks, every sequence class, and the
 training step), and the staged-training entry point of the indirect
-smoke-control task: geometry, dataset generation and scene trees,
-checkpoints interchangeable with the JAX package's, `train()`, the
-curriculum and the `experiments.run` CLI. Five hand-written CUDA kernels carry it on the card,
+smoke-control task: geometry, dataset generation and scene trees (read
+by a native C++ gather), checkpoints interchangeable with the JAX
+package's, `train()`, the curriculum and the `experiments.run` CLI; every
+BASELINE config, the adjoint and the scheme comparison; the
+out-of-distribution evals, `render_rollout` and `profile_bench`. Not
+ported yet: 3D and data parallelism. Five hand-written CUDA kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
     unfused step calls;

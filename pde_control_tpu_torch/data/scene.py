@@ -13,8 +13,8 @@ card and gathers batches there, drawing its indices on the host from the
 caller's `np.random.Generator` exactly as the JAX package draws them, so
 that the same seed gives the same batch order.
 
-Frames are read with numpy; the JAX package's native C++ loader is not
-ported yet.
+Trees of .npy frames are read by the native C++ gather
+(`data/native_loader.py`, built at first use); .npz frames with numpy.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from pde_control_tpu_torch.data.native_loader import gather_frames
 from pde_control_tpu_torch.grids import resolve_device
 
 _SCENE_FMT = "sim_{:06d}"
@@ -235,10 +236,18 @@ class SceneDataset:
         self.sim_range = sim_range
 
     def load_trajectories(self, frames: int | None = None) -> TrajectoryDataset:
-        """Load all scenes into memory (numpy, .npy or .npz frames)."""
+        """Load all scenes into memory: .npy frames through the native
+        gather, .npz frames with numpy."""
         sims = list(self.sim_range)
         first = Scene.at(self.root, sims[0])
         t = first.frame_count(self.field) if frames is None else frames
+        npy0 = first.frame_path(self.field, 0, "npy")
+        if os.path.exists(npy0):
+            shape = tuple(np.load(npy0, mmap_mode="r").shape)
+            paths = [Scene.at(self.root, i).frame_path(self.field, f, "npy")
+                     for i in sims for f in range(t)]
+            return TrajectoryDataset(
+                gather_frames(paths, shape).reshape((len(sims), t) + shape))
         trajs = []
         for i in sims:
             scene = Scene.at(self.root, i)
@@ -273,12 +282,21 @@ def save_dataset(root: str, ds: TrajectoryDataset, fmt: str = "npy") -> None:
 
 def load_dataset(root: str, num: int, frames: int,
                  extras: Sequence[str] = ()) -> TrajectoryDataset:
-    """Load a save_dataset tree back into memory."""
+    """Load a save_dataset tree back into memory (.npy frames through the
+    native gather)."""
     ds = SceneDataset(root, sim_range=range(num)).load_trajectories(
         frames=frames)
-    ex = {name: np.stack([Scene.at(root, i).read_frame([name], 0)[name]
-                          for i in range(num)])
-          for name in extras}
+    ex = {}
+    for name in extras:
+        npy0 = Scene.at(root, 0).frame_path(name, 0, "npy")
+        if os.path.exists(npy0):
+            ex[name] = gather_frames(
+                [Scene.at(root, i).frame_path(name, 0, "npy")
+                 for i in range(num)],
+                tuple(np.load(npy0, mmap_mode="r").shape))
+        else:
+            ex[name] = np.stack([Scene.at(root, i).read_frame([name], 0)[name]
+                                 for i in range(num)])
     return TrajectoryDataset(ds.obs, **ex)
 
 

@@ -13,8 +13,11 @@ configs with their fine-tunes: `burgers_chain` (config 1),
 (config 4), `smoke_indirect_ft`, `natural_flow_128` (config 5) and
 `natural_flow_128_ft`; the adjoint baseline `burgers_adjoint`; and the
 scheme comparisons `compare_burgers`, `compare_smoke`,
-`compare_smoke_long` and `compare_smoke_64` (`comparison.json`). Every
-other name exits with "not ported yet". `burgers_chain` and
+`compare_smoke_long` and `compare_smoke_64` (`comparison.json`); and the
+out-of-distribution evals `generalize_shapes` and `generalize_smoke`,
+which restore a finished run's ckpt_final (`--init-from`, either
+package's) and train nothing. Every other name (the 3D and 128² entries)
+exits with "not ported yet", and so does `--mesh`. `burgers_chain` and
 `burgers_adjoint` also write their printed result to `results.json` in
 the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
 run.
@@ -25,7 +28,12 @@ from __future__ import annotations
 import argparse
 import json
 
-from pde_control_tpu_torch.experiments import burgers, compare_schemes, fluid2d
+from pde_control_tpu_torch.experiments import (
+    burgers,
+    compare_schemes,
+    fluid2d,
+    generalize,
+)
 from pde_control_tpu_torch.experiments.curriculum import _write_results
 
 NAMES = [
@@ -41,7 +49,8 @@ PORTED = ("burgers_chain", "burgers_hierarchical", "burgers_adjoint",
           "compare_burgers", "compare_smoke", "compare_smoke_long",
           "compare_smoke_64", "shape_transition", "shape_transition_ft",
           "shape_transition_rings_ft", "smoke_indirect", "smoke_indirect_ft",
-          "natural_flow_128", "natural_flow_128_ft")
+          "natural_flow_128", "natural_flow_128_ft", "generalize_shapes",
+          "generalize_smoke")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -184,7 +193,16 @@ def main(argv=None) -> None:
     ft = dict(init_from=args.init_from,
               e2e_iterations=args.e2e_iterations or (5 if st else None),
               batch_size=4 if st else 8)
-    if args.name == "burgers_adjoint":
+    if args.name in ("generalize_shapes", "generalize_smoke"):
+        if not args.init_from:
+            p.error(f"{args.name} requires --init-from "
+                    "(a finished run's ckpt_final)")
+        fn = getattr(generalize, args.name)
+        kw = {"width": args.width} if args.width else {}
+        result = fn(workdir, init_from=args.init_from,
+                    num_val=args.num_val or (8 if st else 32),
+                    smoke_test=st, **kw, **dev)
+    elif args.name == "burgers_adjoint":
         result = _burgers_adjoint(workdir, st, it, args.device)
     elif args.name.startswith("compare_"):
         fn = getattr(compare_schemes, args.name)

@@ -16,6 +16,8 @@ import dataclasses
 
 import torch
 
+from pde_control_tpu_torch.ops.interp import bilinear_sample_2d
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the GPU when it is None. The port's constructors build
@@ -55,6 +57,13 @@ class Staggered2D:
         dvy = self.vy[:, 1:, :] - self.vy[:, :-1, :]
         dvx = self.vx[:, :, 1:] - self.vx[:, :, :-1]
         return (dvy + dvx) / dx
+
+    def sample_at(self, y: torch.Tensor, x: torch.Tensor,
+                  boundary: str = "clamp") -> tuple[torch.Tensor, torch.Tensor]:
+        """Bilinearly sample both components at physical coords (y, x)."""
+        vy = bilinear_sample_2d(self.vy, y + 0.5, x, boundary)
+        vx = bilinear_sample_2d(self.vx, y, x + 0.5, boundary)
+        return vy, vx
 
     def __add__(self, other: "Staggered2D") -> "Staggered2D":
         return Staggered2D(self.vy + other.vy, self.vx + other.vx)

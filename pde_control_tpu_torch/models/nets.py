@@ -17,8 +17,19 @@ path, fp32 for Burgers), as flax's `dtype` attribute does.
     eligible convs need no permute and the others see a channels-last
     view. 1D convs stay on `conv1d` and channels-first, as the JAX
     package's stay on XLA (its kernel gate needs a 4-D input).
-'pallas' raises and names 'cuda'. JAX's XLA reformulations 'patches',
-'shifted' and 'im2col' are not ported (ROADMAP queue A) and raise.
+  * 'patches', 'shifted' and 'im2col': the JAX package's reformulations
+    of a 3×3 stride-1 SAME conv as plain matmuls (`Conv._patches_call`,
+    `_shifted_call` there), which run outside any kernel there too:
+    'patches' is `F.unfold` and one matmul over the channel-major
+    (Cin, ky, kx) features; 'shifted' sums nine (Cin, Cout) products, one
+    per statically shifted view of the zero-padded input; 'im2col'
+    concatenates the nine views (tap-major) and runs one matmul. The
+    operands are rounded to `dtype` and multiplied in fp32, the bias added
+    in fp32 and the sum rounded to `dtype` once, as the JAX package's
+    dots with an fp32 result do. Every other conv (stride 2, 1×1,
+    CIRCULAR, 1D) takes `conv1d`/`conv2d`, as there. The nets stay
+    channels-first inside.
+'pallas' raises and names 'cuda'.
 
 Submodules carry flax's auto-names (`Conv_0`, `ConvBlock_3.Conv_1`, …), so
 converting the JAX package's weights is a rename and a transpose
@@ -46,7 +57,7 @@ from torch import nn
 
 from pde_control_tpu_torch.ops import cuda_conv
 
-CONV_IMPLS = ("xla", "auto", "cuda")
+CONV_IMPLS = ("xla", "auto", "cuda", "patches", "shifted", "im2col")
 PADDINGS = ("SAME", "CIRCULAR")
 
 
@@ -55,7 +66,7 @@ def _check_conv_impl(conv_impl: str) -> None:
         raise ValueError("conv_impl='pallas' is the JAX package's name; the "
                          "port's hand-written conv kernels are conv_impl='cuda'")
     if conv_impl not in CONV_IMPLS:
-        raise ValueError(f"conv_impl {conv_impl!r} is not ported; choose from "
+        raise ValueError(f"unknown conv_impl {conv_impl!r}; choose from "
                          f"{CONV_IMPLS}")
 
 
@@ -110,6 +121,13 @@ class Conv(nn.Module):
                 and self.padding == "SAME")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl in _MATMUL_IMPLS and self._shape_eligible(x):
+            # The JAX package's dots take `dtype` operands and return fp32
+            # (preferred_element_type), add the fp32 bias, then cast: fp32
+            # products of the rounded operands are its fp32 sums.
+            return _MATMUL_IMPLS[self.conv_impl](
+                x.to(self.dtype).float(), self.weight.to(self.dtype).float(),
+                self.bias.float()).to(self.dtype)
         if not self.channels_last:
             return self._conv(x)
         if self._shape_eligible(x):
@@ -134,6 +152,43 @@ class Conv(nn.Module):
         conv = F.conv1d if self.dim == 1 else F.conv2d
         return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
                     stride=s, padding=pad)
+
+
+def _taps(x: torch.Tensor) -> list[torch.Tensor]:
+    """The nine views of the zero-padded (B, C, H, W) input that a 3×3 SAME
+    conv reads, in (ky, kx) order."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    return [xp[:, :, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+
+
+def _patches_conv(x, weight, bias):
+    """'patches': unfold (channel-major (Cin, ky, kx) features, the order of
+    `weight.reshape(Cout, 9·Cin)`) and one matmul."""
+    b, _, h, w = x.shape
+    cols = F.unfold(x, 3, padding=1)                    # (B, 9·Cin, H·W)
+    y = torch.matmul(weight.reshape(weight.shape[0], -1), cols)
+    return (y + bias[:, None]).reshape(b, -1, h, w)
+
+
+def _shifted_conv(x, weight, bias):
+    """'shifted': one (Cin, Cout) product per tap, summed."""
+    y = None
+    for t, tap in enumerate(_taps(x)):
+        p = torch.einsum("bchw,oc->bohw", tap, weight[:, :, t // 3, t % 3])
+        y = p if y is None else y + p
+    return y + bias[:, None, None]
+
+
+def _im2col_conv(x, weight, bias):
+    """'im2col': the nine views concatenated tap-major and one matmul."""
+    cols = torch.cat(_taps(x), dim=1)                   # (B, 9·Cin, H, W)
+    wflat = weight.permute(0, 2, 3, 1).reshape(weight.shape[0], -1)
+    return torch.einsum("bkhw,ok->bohw", cols, wflat) + bias[:, None, None]
+
+
+_MATMUL_IMPLS = {"patches": _patches_conv, "shifted": _shifted_conv,
+                 "im2col": _im2col_conv}
 
 
 def _leaky_relu(x: torch.Tensor) -> torch.Tensor:

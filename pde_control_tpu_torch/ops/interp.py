@@ -1,10 +1,12 @@
-"""Linear and shift-stencil bilinear sampling — the semi-Lagrangian
-advection core.
+"""Linear and bilinear sampling — the semi-Lagrangian advection core.
 
 Counterpart of `pde_control_tpu/ops/interp.py :: linear_sample_1d,
-shift_bilinear_sample_2d`. `linear_sample_1d` (Burgers) gathers at
-floor(x) and floor(x) + 1; its gradient flows through the fractional part
-and the gather (a scatter-add), floor's is zero, as in JAX. On the card the
+bilinear_sample_2d, shift_bilinear_sample_2d`. `linear_sample_1d`
+(Burgers) gathers at floor(x) and floor(x) + 1, and `bilinear_sample_2d`
+(advection_mode='gather') at the four corners of floor(y), floor(x); their
+gradients flow through the fractional parts and the gathers (a
+scatter-add), floor's is zero, as in JAX, so a coordinate on an exact
+integer takes the cell it names as its lower corner. On the card the
 scatter-add is atomic, so its bits may change from call to call.
 
 When sample points are ``grid + displacement`` with ``|displacement| <=
@@ -53,6 +55,44 @@ def linear_sample_1d(field: torch.Tensor, x: torch.Tensor,
     v0 = torch.gather(field, -1, _wrap_or_clip(i, n, boundary))
     v1 = torch.gather(field, -1, _wrap_or_clip(i + 1, n, boundary))
     return v0 * (1.0 - f) + v1 * f
+
+
+def bilinear_sample_2d(field: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                       boundary: str = "clamp") -> torch.Tensor:
+    """Sample a batched 2D field at fractional coordinates (gather-based).
+
+    Args:
+      field: (B, H, W); field[b, i, j] at coordinate (y=i, x=j).
+      y, x: (B, ...) sample coordinates (same trailing shape).
+      boundary: 'periodic' or 'clamp'.
+    Returns: (B, ...) sampled values.
+    """
+    b, h, w = field.shape
+    out_shape = y.shape
+    y = y.reshape(b, -1)
+    x = x.reshape(b, -1)
+    y0f = torch.floor(y)
+    x0f = torch.floor(x)
+    fy = y - y0f
+    fx = x - x0f
+    y0 = y0f.long()
+    x0 = x0f.long()
+    flat = field.reshape(b, h * w)
+
+    def gather(iy, ix):
+        iy = _wrap_or_clip(iy, h, boundary)
+        ix = _wrap_or_clip(ix, w, boundary)
+        return torch.gather(flat, -1, iy * w + ix)
+
+    v00 = gather(y0, x0)
+    v01 = gather(y0, x0 + 1)
+    v10 = gather(y0 + 1, x0)
+    v11 = gather(y0 + 1, x0 + 1)
+    out = (v00 * (1 - fy) * (1 - fx)
+           + v01 * (1 - fy) * fx
+           + v10 * fy * (1 - fx)
+           + v11 * fy * fx)
+    return out.reshape(b, *out_shape[1:]) if len(out_shape) > 1 else out
 
 
 def _hat(d: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Semi-Lagrangian advection for centered and staggered fields.
 
-Counterpart of `pde_control_tpu/physics/advect.py`, shift mode only:
-backtrace sample points by −dt·v, then resample with the shift-stencil
-bilinear sampler (valid while |v·dt/dx| ≤ ``max_shift`` cells; larger
-displacements are clipped).
+Counterpart of `pde_control_tpu/physics/advect.py`: backtrace sample
+points by −dt·v, then resample the advected field. Two resampling modes:
+  * ``shift``  — the shift-stencil bilinear sampler (valid while
+    |v·dt/dx| ≤ ``max_shift`` cells; larger displacements are clipped).
+    Default, and the only mode of the fused step.
+  * ``gather`` — the gather-based bilinear sampler at any displacement.
 """
 
 from __future__ import annotations
@@ -15,12 +17,25 @@ from pde_control_tpu_torch.grids import (
     centered_to_x_faces,
     centered_to_y_faces,
 )
-from pde_control_tpu_torch.ops.interp import shift_bilinear_sample_2d
+from pde_control_tpu_torch.ops.interp import (
+    bilinear_sample_2d,
+    shift_bilinear_sample_2d,
+)
 
 
-def _check_mode(mode: str) -> None:
-    if mode != "shift":
-        raise ValueError(f"advection mode {mode!r} is not ported; use 'shift'")
+def _resample_displaced(field: torch.Tensor, disp_y: torch.Tensor,
+                        disp_x: torch.Tensor, mode: str, max_shift: int,
+                        boundary: str) -> torch.Tensor:
+    """Sample `field` at (grid + disp) with the chosen sampler."""
+    if mode == "shift":
+        return shift_bilinear_sample_2d(field, disp_y, disp_x, max_shift,
+                                        boundary)
+    if mode == "gather":
+        _, h, w = field.shape
+        iy = torch.arange(h, dtype=field.dtype, device=field.device)[None, :, None]
+        ix = torch.arange(w, dtype=field.dtype, device=field.device)[None, None, :]
+        return bilinear_sample_2d(field, iy + disp_y, ix + disp_x, boundary)
+    raise ValueError(f"unknown advection mode {mode!r}")
 
 
 def advect_centered(
@@ -33,11 +48,10 @@ def advect_centered(
     boundary: str = "clamp",
 ) -> torch.Tensor:
     """Advect a centered field (B, H, W) through velocity v for time dt."""
-    _check_mode(mode)
     vy_c, vx_c = v.at_centers()
     disp_y = -dt * vy_c / dx
     disp_x = -dt * vx_c / dx
-    return shift_bilinear_sample_2d(c, disp_y, disp_x, max_shift, boundary)
+    return _resample_displaced(c, disp_y, disp_x, mode, max_shift, boundary)
 
 
 def advect_staggered(
@@ -53,12 +67,11 @@ def advect_staggered(
     The transverse velocity component at each face is approximated by
     center-averaging then face-resampling.
     """
-    _check_mode(mode)
     vy_c, vx_c = v.at_centers()
     vx_at_y = centered_to_y_faces(vx_c, boundary="clamp")
-    vy_new = shift_bilinear_sample_2d(
-        v.vy, -dt * v.vy / dx, -dt * vx_at_y / dx, max_shift, boundary)
+    vy_new = _resample_displaced(
+        v.vy, -dt * v.vy / dx, -dt * vx_at_y / dx, mode, max_shift, boundary)
     vy_at_x = centered_to_x_faces(vy_c, boundary="clamp")
-    vx_new = shift_bilinear_sample_2d(
-        v.vx, -dt * vy_at_x / dx, -dt * v.vx / dx, max_shift, boundary)
+    vx_new = _resample_displaced(
+        v.vx, -dt * vy_at_x / dx, -dt * v.vx / dx, mode, max_shift, boundary)
     return Staggered2D(vy=vy_new, vx=vx_new)

@@ -58,7 +58,7 @@ class FluidConfig:
     dt: float = 1.0
     viscosity: float = 0.0
     buoyancy: float = 0.1          # upward force per unit density (y+ is up)
-    advection_mode: str = "shift"  # the only mode ported
+    advection_mode: str = "shift"  # 'shift' | 'gather' (physics/advect.py)
     max_shift: int = 2             # CFL bound for shift advection
     pressure_tol: float = 1e-5
     pressure_maxiter: int = 500

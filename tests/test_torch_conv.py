@@ -15,7 +15,8 @@
   gets a gradient: the loss at rtol 1e-4, each net's gradient at relative
   norm error 1e-3 (nonzero), one Adam step at atol 1e-6 (on the
   unperturbed CFE, as `test_torch_training.py` holds it; see there).
-* The routing: which convs reach the kernels' wrappers, and what raises.
+* The routing: which convs reach the kernels' wrappers, and what raises
+  ('pallas', and an impl neither package has).
 """
 
 import functools
@@ -225,11 +226,15 @@ def test_unet_sends_every_3x3_stride1_conv_to_the_kernels(monkeypatch):
                                       (tnets.CFENet, (5, 1)),
                                       (tnets.UNet, (3, 1))])
 def test_pallas_and_unported_impls_raise(cls, args):
+    """'pallas' names the port's 'cuda'; an impl that neither package has
+    raises. The matmul impls 'patches', 'shifted' and 'im2col' are ported:
+    `tests/test_torch_conv_impls.py` holds them to the JAX package's."""
     with pytest.raises(ValueError, match="'cuda'"):
         cls(*args, conv_impl="pallas")
+    with pytest.raises(ValueError, match="unknown conv_impl"):
+        cls(*args, conv_impl="winograd")
     for impl in ("patches", "shifted", "im2col"):
-        with pytest.raises(ValueError, match="not ported"):
-            cls(*args, conv_impl=impl)
+        cls(*args, conv_impl=impl)
 
 
 # ----------------------------------------------------------- the iteration

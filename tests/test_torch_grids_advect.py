@@ -173,9 +173,13 @@ def test_advect_centered_and_staggered(rng, scale):
 
 
 def test_advect_rejects_unported_mode():
+    """Both of the JAX package's modes are ported ('gather' is held to it in
+    `tests/test_torch_gather.py`); a mode neither package has raises."""
     v = tgrids.Staggered2D.zeros(1, H, W, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tadvect.advect_centered(torch.zeros(1, H, W), v, 1.0, mode="gather")
+    with pytest.raises(ValueError, match="unknown advection mode"):
+        tadvect.advect_centered(torch.zeros(1, H, W), v, 1.0, mode="spline")
+    with pytest.raises(ValueError, match="unknown advection mode"):
+        tadvect.advect_staggered(v, 1.0, mode="spline")
 
 
 def test_constructors_default_to_the_gpu():
