@@ -8,18 +8,21 @@ prints no result):
      settings (both off);
   2. build: compiles the CUDA kernels from `pde_control_tpu_torch/csrc`
      (one nvcc per source, in parallel), prints each kernel's registers and
-     spills (a kernel the report does not know, a K3, K4 or K5 kernel
+     spills (a kernel the report does not know, a K1, K3, K4 or K5 kernel
      missing from it or one that spills fails), checks the kernels'
-     shared-memory counts against the Python gates and plans, and prints
-     K3's plan at 64²×8 and ×64;
+     shared-memory counts and K1's layout (the large one at 112² and
+     128²) against the Python gates and plans, and prints K3's plan at
+     64²×8 and ×64 and K1's at 128²×8;
   3. the pressure solve (K1) against its plain torch version on the card:
-     64² (bench plate, closed), 32² (open, with an obstacle), 48² and 96²
-     (closed), batch 8, warm and cold, at tol 1e-4 / 100 iterations and
-     tol 1e-6 / 500, under `solve_plan`'s plan and every plan its launcher
-     takes; residuals, solution error, trip counts, the gradient through
-     `solve_pressure` against the plain path; against the JAX package's
-     goldens (`tests/goldens/pcg_32.npz`); times at 64²×8 and ×64, tol
-     1e-4 / 100, and the plans;
+     64² (bench plate, closed), 32² (open, with an obstacle), 48², 96² and
+     128² (closed; 128² in the large layout), batch 8, warm and cold, at
+     tol 1e-4 / 100 iterations and tol 1e-6 / 500, under `solve_plan`'s
+     plan and every plan its launcher takes; residuals, solution error,
+     trip counts, the gradient through `solve_pressure` against the plain
+     path; against the JAX package's goldens (`tests/goldens/pcg_32.npz`,
+     and `pcg_128.npz` with trip counts within 1); times at 64²×8 and ×64,
+     tol 1e-4 / 100, and at 128²×8 (tol 1e-4 / 200, smoke_128's) under
+     every plan beside plain and the bound, and the plans;
   4. the fused step's forward (K2) and backward (K3) against their plain
      versions: 64², 32², 32×48, 24×30 and 8×8, closed with the plate,
      batch 8, cold and warm, with force, with inflow, at zero velocity (the
@@ -72,8 +75,14 @@ prints no result):
      `advection_mode='gather'` on the card against the CPU (state, loss,
      gradients), the CFE at 64² x 8 under `conv_impl` 'patches', 'shifted'
      and 'im2col' against cuDNN (2e-2, times beside cuDNN's), and
-     `profile_bench`'s phases; last the CLI's `run shape_transition` on
-     the card's default route;
+     `profile_bench`'s phases; the CLI's `run shape_transition` on the
+     card's default route; last the 128² and 3D entries (`ENTRIES`):
+     `run smoke_128` (its data generated on K1 into a disk cache first,
+     every stage unfused on K1 and cuDNN under its graph) and `run
+     smoke3d` (24³, the exact 3D spectral solve, no K1-K5), each then its
+     `_ft` from the run's ckpt_final: data seconds and launches, each
+     stage's ms a step under its graph, launches a replay, peak and
+     reserved memory, the eval block beside zero force;
  11. BASELINE configs 1 and 2 (`BURGERS`: 1D Burgers, N=32, n=32, batch
      32, 1024 + 128 trajectories, fp32 nets with TF32 off) through the
      entry points (`run_chain_supervised`, `run_hierarchical`): the data
@@ -106,8 +115,8 @@ prints no result):
      wrong, checked and timed; neither is summed. It runs last because the
      graphs' memory pools would raise the paths' peak memory.
 Each phase's seconds follow it. The line before the last is the kernels'
-JSON summary (with each kernel's launches in configs 3-5 and in the OOD
-evals); the last line
+JSON summary (with each kernel's launches in configs 3-5, in the OOD evals
+and in the 128² and 3D entries, and K1's times at 128²x8); the last line
 is `{"ok": true, "device": {...}}`.
 """
 
@@ -140,10 +149,12 @@ PEAK_HBM_BYTES = 3.35e12
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
 # K3's instantiations <threads, trip profile>: the main path's and the one
-# `fused_bwd_trace` selects; and K1's and K2's (512 threads). Each must
-# stand in ptxas's report, without spills.
+# `fused_bwd_trace` selects; K1's <threads, large layout> (the large one
+# on grids from 112² to 128²) and K2's (512 threads). Each must stand in
+# ptxas's report, without spills.
 K3_KERNELS = {"fused_bwd_kernel<512, 0>", "fused_bwd_kernel<512, 1>"}
-K1_K2_KERNELS = {"pcg_cluster_kernel<512>", "fused_fwd_kernel<512>"}
+K1_K2_KERNELS = {"pcg_cluster_kernel<512, 0>", "pcg_cluster_kernel<512, 1>",
+                 "fused_fwd_kernel<512>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -240,7 +251,8 @@ def build_phase() -> None:
     if any(seen[k] for k in checked):
         raise AssertionError(f"a kernel spills: "
                              f"{ {k: seen[k] for k in checked if seen[k]} }")
-    shapes = ((H, H), (32, 32), (48, 48), (96, 96), (32, 48), (24, 30), (8, 8))
+    shapes = ((H, H), (32, 32), (48, 48), (96, 96), (112, 112), (128, 128),
+              (32, 48), (24, 30), (8, 8))
     for name, c_name, plans, plan, query in (
             ("K1", "pcg_shared_bytes", cuda_cg.solve_plans, cuda_cg.solve_plan,
              cuda_cg._kernel()[1]),
@@ -263,6 +275,22 @@ def build_phase() -> None:
               "(cudaOccupancyMaxActiveClusters): " + ", ".join(
                   f"C={p.cluster}: {query(H, H, p.cluster, p.threads)}"
                   for p in plans(H, H)))
+    # K1's layout: the large one exactly where the Python count says so.
+    fn = lib.pcg_large_layout
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    for h, w in shapes:
+        large = cuda_cg.large_layout(h, w)
+        if bool(fn(h, w, cuda_cg.CLUSTER_THREADS)) is not large:
+            raise AssertionError(f"pcg_large_layout({h}, {w}) disagrees with "
+                                 f"cuda_cg.large_layout ({large})")
+    print("K1 large layout at " + ", ".join(
+        f"{h}x{w}" for h, w in shapes if cuda_cg.large_layout(h, w))
+          + " (the kernel's and the Python count agree)")
+    print(f"K1 plan at {K1_BIG}x{K1_BIG}x{BATCH}: "
+          f"{_plan_text(cuda_cg.solve_plan(BATCH, K1_BIG, K1_BIG))}; resident "
+          "clusters: " + ", ".join(
+              f"C={p.cluster}: {cuda_cg._kernel()[1](K1_BIG, K1_BIG, p.cluster, p.threads)}"
+              for p in cuda_cg.solve_plans(K1_BIG, K1_BIG)))
     fn = lib.fused_bwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     bwd_cases = [(h, w, c, cuda_fluid.BWD_THREADS)
@@ -400,9 +428,12 @@ def _nbytes(*tensors) -> int:
 
 
 # K1's grids: (n, closed). The main path's, an open box, a grid its bands
-# do not divide evenly and the largest its gate holds to plain.
-K1_SHAPES = ((H, True), (32, False), (48, True), (96, True))
+# do not divide evenly, the largest of the small layout the tests hold to
+# plain, and smoke_128's (the large layout), closed with the plate.
+K1_BIG = 128
+K1_SHAPES = ((H, True), (32, False), (48, True), (96, True), (K1_BIG, True))
 CG_GOLDENS = "tests/goldens/pcg_32.npz"
+CG_GOLDENS_128 = "tests/goldens/pcg_128.npz"
 
 
 def cg_golden_check(dev) -> float:
@@ -439,6 +470,45 @@ def cg_golden_check(dev) -> float:
         if rel > 1e-4:
             raise AssertionError(f"K1 differs from the JAX golden {case}: "
                                  f"{rel:.3e} > 1e-4")
+    return worst
+
+
+def cg128_golden_check(dev) -> float:
+    """K1 at 128² under its plan and every plan its launcher takes against
+    the JAX package's solve, from `scripts/make_cg_goldens_128.py`'s golden
+    (closed box with the plate, batch 2, cold and warm, tol 1e-6 / maxiter
+    200): the pressure within 1e-4 of the golden's max|p|, trip counts
+    within 1 of the JAX package's CG. Returns the largest max|dp|."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    z = np.load(Path(__file__).resolve().parent / CG_GOLDENS_128)
+    kw = dict(json.loads(str(z["config"])), closed=True, precond=True)
+
+    def t(key):
+        return torch.tensor(z[key].astype(np.float32), device=dev)
+
+    geom = [t(k) for k in ("acc_y", "acc_x", "fluid")]
+    worst = 0.0
+    plans = cuda_cg.solve_plans(K1_BIG, K1_BIG)
+    for case in ("cold", "warm"):
+        want = t(f"{case}/p")
+        trips = z[f"{case}/trips"]
+        rel, dit = 0.0, 0
+        for plan in [None] + plans:
+            p, it = cuda_cg._launch_solve(t("div"), *geom,
+                                          t("x0") if case == "warm" else None,
+                                          plan, **kw)
+            d = float((p - want).abs().max())
+            worst, rel = max(worst, d), max(rel, d / float(want.abs().max()))
+            dit = max(dit, int(np.abs(it.cpu().numpy() - trips).max()))
+        print(f"golden {K1_BIG}x{K1_BIG}x2 {case} (JAX interpret-mode kernel, "
+              f"trips {trips.tolist()}): K1 worst max|dp|/max|p| over its plan "
+              f"and {len(plans)} others {rel:.2e}, trips within {dit}")
+        if rel > 1e-4 or dit > 1:
+            raise AssertionError(f"K1 at {K1_BIG}^2 differs from the JAX golden "
+                                 f"{case}: {rel:.3e} > 1e-4 or trips by {dit}")
     return worst
 
 
@@ -555,6 +625,48 @@ def kernel_phase(card: str) -> dict:
             raise AssertionError(f"gradient through the kernel differs: {g_err:.3e}")
     golden = cg_golden_check(dev)
     summary["cold"]["err"] = max(summary["cold"]["err"], golden)
+    summary["cold"]["err"] = max(summary["cold"]["err"], cg128_golden_check(dev))
+
+    # Times at 128²×8 (smoke_128's solve: tol 1e-4, maxiter 200), under
+    # solve_plan's plan and every other, beside plain and the bound.
+    n = K1_BIG
+    domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    div = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+                       device=dev)
+    p_prev = cuda_cg.pcg_plain(div, *geom, tol=1e-6, maxiter=500)[0]
+    x0 = (p_prev + 0.05 * p_prev.std() * torch.tensor(
+        rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+        device=dev)).contiguous()
+    main_plan = cuda_cg.solve_plan(BATCH, n, n)
+    big = {}
+    for start, guess in (("cold", None), ("warm", x0)):
+        args = dict(x0=guess, dx=domain.dx, closed=True, tol=1e-4, maxiter=200)
+        p_p, it_p = cuda_cg.pcg_plain(div, *geom, **args)
+        plain_ms = _time_ms(lambda: cuda_cg.pcg_plain(div, *geom, **args), 3)
+        for plan in cuda_cg.solve_plans(n, n):
+            kw = dict(args, precond=True)
+            del kw["x0"]
+            p_k, it_k = cuda_cg._launch_solve(div, *geom, guess, plan, **kw)
+            ms = _time_ms(lambda: cuda_cg._launch_solve(div, *geom, guess, plan,
+                                                        **kw), 20)
+            nbytes = _nbytes(div, guess, p_k) + 4 * BATCH + _geom_bytes(n, n)
+            bound_ms, bound_by = _bound(nbytes, _cg_flops(n, n, it_k))
+            mark = " (solve_plan's)" if plan == main_plan else ""
+            print(f"  time per solve {n}x{n}x{BATCH} {start} tol 1e-4 maxiter "
+                  f"200, {_plan_text(plan)}{mark}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+                  f"trips {it_k.tolist()} (plain {it_p.tolist()}); max|dp|/"
+                  f"max|p| {float((p_k - p_p).abs().max() / p_p.abs().max()):.2e}"
+                  f" [{card}]")
+            if plan == main_plan:
+                big[start] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by,
+                                  trips=float(it_k.float().mean()))
+    summary["big"] = dict(
+        {f"{k}_{key}": v for k, s in big.items() for key, v in s.items()},
+        plan=dict(main_plan._asdict(), batch=BATCH, h=n, w=n,
+                  large_layout=cuda_cg.large_layout(n, n)))
 
     # Times at batch 64 (the main path's step, tol 1e-4 / maxiter 100), and
     # each batch's plan.
@@ -2093,6 +2205,170 @@ def cli_phase(card: str) -> None:
           f"eval final_state_mse {ev['final_state_mse']:.6e}, zero force "
           f"{ev['zero_force_final_mse']:.6e} [{card}]")
 
+# The 128² and 3D entries of `experiments/run.py`, each through the CLI a
+# user runs (`run.main`), at the entries' grids, horizons, batches and
+# widths, counts cut (full: smoke_128 256 + 32 trajectories, 1000
+# iterations a stage, its fine-tune 600; smoke3d 64 + 16, 300, 600):
+#   smoke_128: the indirect smoke task at 128², n=16, batch 8, CFE
+#      48-96-96-48, U-nets base 16 / 3 levels, tol 1e-4 / maxiter 200;
+#      the data generated on K1 (the plates) into a disk cache, every stage
+#      unfused on K1 and cuDNN (`fused='auto'`, `conv_impl='xla'`, the
+#      entry's routes) under its graph;
+#   smoke3d: the closed 24³ box without obstacles, n=8, batch 8, direct
+#      3-channel force, CFE 32-64-64-32 and U-nets base 16 / 2 levels at
+#      dim=3 on cuDNN; every pressure solve the exact 3D spectral one, so
+#      no K1-K5 launch.
+# Each then `*_ft` from its ckpt_final with `ft_iterations` e2e iterations.
+ENTRIES = {
+    "smoke_128": dict(task="indirect smoke control at 128^2", size=128, n=16,
+                      batch=8, num_train=32, num_val=16, iterations=16,
+                      ft_iterations=8, warmup=8),
+    "smoke3d": dict(task="3D smoke control, 24^3", size=24, n=8, batch=8,
+                    num_train=32, num_val=16, iterations=16, ft_iterations=8,
+                    warmup=0),
+}
+
+
+def _print_stage(name: str, rec: dict, batch: int, card: str) -> float | None:
+    """One stage's line: steps, warm-up and capture, ms a step under the
+    graph (over the calls that only replay, None without one), launches a
+    replay, peak and reserved memory, the loss."""
+    replays = [cl for cl in rec["calls"] if cl["replay_only"]]
+    ms = (sum(cl["ms"] for cl in replays) / sum(cl["k"] for cl in replays)
+          if replays else None)
+    first = rec["calls"][0]
+    timing = (f"under the graph {ms:.3f} ms a step, "
+              f"{rec['n'] * batch / (ms / 1e3):.1f} steps/s (n x batch a "
+              f"second)" if ms is not None else
+              f"one call of {first['k']} steps with its warm-up and capture, "
+              f"{first['ms']:.1f} ms")
+    print(f"stage {name} ({rec['class']}, n={rec['n']}, trains {rec['stage']}):"
+          f" {rec['steps']} steps in {rec['seconds']:.2f} s; warm-up and "
+          f"capture {rec['warmup_capture_s']:.2f} s (capture "
+          f"{rec['capture_s']:.2f} s); {timing}; launches a replay "
+          f"{rec['graph_launches']}; peak {rec['peak'] / 2**20:.1f} MiB, "
+          f"reserved {rec['reserved_before'] / 2**20:.1f} -> "
+          f"{rec['reserved'] / 2**20:.1f} MiB; loss "
+          f"{rec['result']['loss']:.6e} [{card}]")
+    return ms
+
+
+def entry_phase(card: str, name: str) -> dict:
+    """`name` (`ENTRIES`) through `run.main`: its data generated first into
+    the disk cache (smoke_128, K1 launches counted; smoke3d has no cache
+    and regenerates its data in the run), every stage under its graph
+    (recorded as config phases record them), the eval block beside zero
+    force, then `{name}_ft` from the run's ckpt_final. Each stage on its
+    entry's route: K1 launches in the physics stages of smoke_128 and in
+    none of its OP stages; no K2-K5 launch; none at all in 3D. Returns the
+    wrappers' counts: data, stages (a replay's times its steps, by kernel)
+    and the evals."""
+    c = ENTRIES[name]
+    _phase(f"{name} ({c['task']}) through run.py, then {name}_ft")
+    import contextlib
+    import io
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch.experiments import curriculum, fluid2d, run
+    from pde_control_tpu_torch.experiments import smoke3d as smoke3d_exp
+
+    workdir = Path(__file__).resolve().parent / f"runs/chip_smoke_{name}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    datadir = str(workdir / "data")
+    args = (c["size"], c["n"], c["num_train"], c["num_val"])
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if name == "smoke_128":
+        _, train, val = fluid2d._smoke_indirect_setup(*args, 1.0, datadir,
+                                                      device="cuda")
+    else:
+        _, train, val = smoke3d_exp._smoke3d_setup(*args, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    data = _counts()
+    chunk = 8 if name == "smoke_128" else 4
+    rollouts = -(-c["num_train"] // chunk) + -(-c["num_val"] // chunk)
+    steps = c["warmup"] + c["n"]
+    want_k1 = rollouts * steps if name == "smoke_128" else 0
+    spatial = (c["size"],) * (2 if name == "smoke_128" else 3)
+    print(f"data: {c['num_train']} + {c['num_val']} trajectories of "
+          f"{c['n'] + 1} frames at {c['size']}^{len(spatial)} ({rollouts} "
+          f"rollouts of {chunk}, {steps} unfused steps each) in {seconds:.2f} s,"
+          f" {data['K1']} K1 launches [{card}]")
+    if data["K1"] != want_k1 or any(v for k, v in data.items() if k != "K1"):
+        raise AssertionError(f"data generation: launches {data}, expected "
+                             f"{want_k1} K1 and no other")
+    if not (np.isfinite(train.obs).all() and train.obs.shape == (
+            c["num_train"], c["n"] + 1, *spatial, 1)):
+        raise AssertionError("data generation: non-finite or misshapen obs")
+
+    cut = ["--num-train", str(c["num_train"]), "--num-val", str(c["num_val"])]
+    if name == "smoke_128":
+        cut += ["--datadir", datadir]
+    runs = {}
+    original = curriculum.ControlTraining
+    try:
+        for label, argv in (
+                (name, [name, "--iterations", str(c["iterations"])]),
+                (f"{name}_ft", [f"{name}_ft", "--e2e-iterations",
+                                str(c["ft_iterations"]), "--init-from",
+                                str(workdir / name / "ckpt_final")])):
+            stages: list = []
+            curriculum.ControlTraining = _stage_recorder(stages)
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                run.main(argv + cut + ["--workdir", str(workdir / label)])
+            seconds = time.perf_counter() - t0
+            runs[label] = dict(stages=stages, counted=_counts(),
+                               seconds=seconds, printed=out.getvalue())
+    finally:
+        curriculum.ControlTraining = original
+
+    stage_names = {
+        name: ["cfe_supervised"] + [f"op{s}_supervised" for s in
+                                    sorted(curriculum.op_spans(c["n"]))]
+        + [f"end_to_end_n{c['n']}"],
+        f"{name}_ft": [f"end_to_end_n{c['n']}"]}
+    counts = {"data": data}
+    for label, r in runs.items():
+        with open(workdir / label / "results.json") as f:
+            res = json.load(f)
+        ev = res["eval"]
+        if json.loads(r["printed"])["eval"] != ev or not all(
+                np.all(np.isfinite(v)) for v in ev.values()):
+            raise AssertionError(f"{label}: eval block missing or non-finite")
+        names = stage_names[label]
+        if len(r["stages"]) != len(names):
+            raise AssertionError(f"{label}: {len(r['stages'])} stages trained")
+        print(f"run.py {label}: {len(names)} stages in {r['seconds']:.2f} s "
+              f"(data from the disk cache: {name == 'smoke_128'}); wrappers "
+              f"counted {r['counted']} (warm-up steps, captures and the "
+              f"eval) [{card}]")
+        graph = dict.fromkeys(r["counted"], 0)
+        for stage, rec in zip(names, r["stages"]):
+            res_s = rec["result"]
+            want_it = c["ft_iterations"] if label.endswith("_ft") else c[
+                "iterations"]
+            if res_s.get("iterations_run") != want_it or not all(
+                    np.isfinite(v) for v in res_s.values()):
+                raise AssertionError(f"{label} {stage}: {res_s}")
+            rec["ms"] = _print_stage(stage, rec, c["batch"], card)
+            gl = rec["graph_launches"]
+            physics = rec["class"] != "op_supervised"
+            k1 = gl["K1"] > 0 if physics and name == "smoke_128" else gl["K1"] == 0
+            if not k1 or any(gl[k] for k in gl if k != "K1"):
+                raise AssertionError(f"{label} {stage}: launches a replay {gl}")
+            for k, v in gl.items():
+                graph[k] += v * rec["steps"]
+        print(f"{label} eval (controlled beside zero force): " + json.dumps(
+            {k: v for k, v in ev.items() if not isinstance(v, list)}))
+        counts[label] = dict(counted=r["counted"], graph=graph)
+    return counts
+
+
 # The out-of-distribution evals (`experiments/generalize.py`) on the
 # checkpoints that configs 3 and 4 leave in `runs/chip_smoke_config{3,4}`, at
 # the entries' sizes (64², n=16, config 4's CFE 48-96-96-48, OP16 ... OP2,
@@ -2862,6 +3138,7 @@ def main() -> None:
     conv_impls_phase(card)
     profile_bench_phase(card)
     cli_phase(card)
+    entries = {name: entry_phase(card, name) for name in ENTRIES}
     adjoint_phase(card, burgers_phase(card))
     # The conv shapes of configs 3 and 5 that neither the main path nor
     # config 4's CFE check reaches, each held to plain under every plan
@@ -2888,9 +3165,9 @@ def main() -> None:
         out["ood_launches"] = sum(ood[k] for k in keys)
         return out
 
-    k1_summary = {key: float(np.mean([s[key] for s in k1.values()]))
+    k1_summary = {key: float(np.mean([k1[s][key] for s in ("cold", "warm")]))
                   for key in ("ms", "plain_ms", "bound_ms")}
-    k1_summary.update(err=max(s["err"] for s in k1.values()),
+    k1_summary.update(err=max(k1[s]["err"] for s in ("cold", "warm")),
                       bound_by=k1["warm"]["bound_by"], plan=k1["cold"]["plan"])
     kernels = [
         entry("pcg_pressure_solve", "pde_control_tpu_torch/csrc/pcg.cu",
@@ -2910,6 +3187,19 @@ def main() -> None:
               "pde_control_tpu/ops/pallas_conv.py:160", conv_launches["K5"],
               conv["K5"], ("K5",)),
     ]
+    # K1 at 128²x8 (smoke_128's solve) and every kernel's launches in the
+    # 128² and 3D entries: data, eager (warm-up, captures, evals) and a
+    # replay's times its steps.
+    kernels[0].update({f"{k}_128x8": v for k, v in k1["big"].items()})
+    for kern, keys in zip(kernels, (("K1",), ("K2",), ("K3",),
+                                    ("K4 fwd", "K4 dX"), ("K5",))):
+        for name, counts in entries.items():
+            kern[f"{name}_data_launches"] = sum(counts["data"][k] for k in keys)
+            for label in (name, f"{name}_ft"):
+                kern[f"{label}_launches"] = sum(counts[label]["counted"][k]
+                                                for k in keys)
+                kern[f"{label}_graph_launches"] = sum(
+                    counts[label]["graph"][k] for k in keys)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

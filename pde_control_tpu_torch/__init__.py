@@ -9,8 +9,12 @@ smoke-control task: geometry, dataset generation and scene trees (read
 by a native C++ gather), checkpoints interchangeable with the JAX
 package's, `train()`, the curriculum and the `experiments.run` CLI; every
 BASELINE config, the adjoint and the scheme comparison; the
-out-of-distribution evals, `render_rollout` and `profile_bench`. Not
-ported yet: 3D and data parallelism. Five hand-written CUDA kernels carry it on the card,
+out-of-distribution evals, `render_rollout` and `profile_bench`; the
+128² indirect-smoke entries; the obstacle-free 3D slice (3D grids,
+trilinear samplers, the 3D spectral solve, the 3D step, the nets at
+dim=3, the 3D PDE and the `smoke3d` entries). Not ported yet: the plated
+3D task (`smoke3d_indirect`) and data parallelism. Five hand-written CUDA
+kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
     unfused step calls;
@@ -29,13 +33,20 @@ The package imports torch and numpy only, never jax or the JAX package.
 __version__ = "0.1.0"
 
 from pde_control_tpu_torch.control.pde_fluid import IncompressibleFluidPDE  # noqa: F401
+from pde_control_tpu_torch.control.pde_fluid3d import IncompressibleFluid3DPDE  # noqa: F401
 from pde_control_tpu_torch.control.training import ControlTraining  # noqa: F401
 from pde_control_tpu_torch.grids import Domain2D, Staggered2D  # noqa: F401
+from pde_control_tpu_torch.grids3d import Domain3D, Staggered3D  # noqa: F401
 from pde_control_tpu_torch.physics.fluid import (  # noqa: F401
     FluidConfig,
     FluidState,
     divergence_free,
     fluid_step,
+)
+from pde_control_tpu_torch.physics.fluid3d import (  # noqa: F401
+    Fluid3DConfig,
+    FluidState3D,
+    fluid3d_step,
 )
 from pde_control_tpu_torch.physics.poisson import solve_pressure  # noqa: F401
 from pde_control_tpu_torch.utils.convert import params_from_flax  # noqa: F401

@@ -31,7 +31,7 @@ and writes too (`utils/checkpoint.py`): `restore=` in `prepare()`,
 `save(names=…)`, and the full resume state of `save_state` /
 `restore_state` / `autosave`.
 
-Not ported yet: the mesh (data parallelism, queue A13 of ROADMAP.md). The
+Not ported yet: the mesh (data parallelism, queue A11 of ROADMAP.md). The
 `remat` and `scan_unroll` knobs are not ported: eager torch does not need
 them.
 """
@@ -127,7 +127,7 @@ class ControlTraining:
                 f"n must be a power of two for {sequence_class!r}, got {n}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (data parallelism) is not ported yet (ROADMAP A13)")
+                "mesh= (data parallelism) is not ported yet (ROADMAP A11)")
         self.n = n
         self.pde = pde
         self.dataset = dataset

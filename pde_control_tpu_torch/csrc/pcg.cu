@@ -12,7 +12,12 @@
 // of rows (pcg_cluster.cuh :: Band) and holds the basis, three whole-field
 // copies (the residual, the scaled spectrum, A d) and its band's iterates
 // in shared memory (solve_layout below; 92,160 bytes at 64^2 and C = 8;
-// ops/cuda_cg.py :: solve_shared_bytes counts the same). The whole loop,
+// ops/cuda_cg.py :: solve_shared_bytes counts the same). On a grid where
+// that fits a block under no cluster size (112^2 and up to 128^2; 314,624
+// bytes at 128^2 and C = 8), every plan takes the core's large layout,
+// pcg_cluster_kernel<512, true>: the basis read from L2 and r exchanged by
+// bands, 183,040 bytes at 128^2 and C = 8 (pcg_cluster.cuh's header). The
+// whole loop,
 // its per-sample exit included, runs on the card: no host round trip and
 // no launch per trip. The best iterate's band goes straight to the output
 // whenever the residual improves.
@@ -33,23 +38,44 @@ namespace {
 struct SolveLayout {
   CgOffsets cg;
   int total;
+  bool large;
 };
 
-__host__ __device__ inline SolveLayout solve_layout(int h, int w, int C,
-                                                    int T) {
+__host__ __device__ inline SolveLayout layout_of(int h, int w, int C, int T,
+                                                 bool large) {
   SolveLayout l;
   int o = align4(kRedFloats);
-  l.cg = take_cg(o, h, w, (h + C - 1) / C, T);
+  l.cg = take_cg(o, h, w, (h + C - 1) / C, T, large);
   l.total = o;
+  l.large = large;
   return l;
 }
 
-// K1 for one sample on a cluster of C blocks (the launch's cluster size).
-template <int kT>
+// Whether K1 solves an H x W grid in the large layout: where the small one
+// fits a block under no cluster size (every plan of a grid the small
+// layout takes keeps it).
+__host__ __device__ inline bool large_grid(int h, int w, int T) {
+  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
+    if (static_cast<size_t>(layout_of(h, w, C, T, false).total) *
+            sizeof(float) <= kMaxSharedBytes)
+      return false;
+  return true;
+}
+
+__host__ __device__ inline SolveLayout solve_layout(int h, int w, int C,
+                                                    int T) {
+  return layout_of(h, w, C, T, large_grid(h, w, T));
+}
+
+// K1 for one sample on a cluster of C blocks (the launch's cluster size),
+// in the small layout or (kLarge) the large one. q_xt (Qx^T) is read only
+// by the large layout.
+template <int kT, bool kLarge>
 __global__ void __launch_bounds__(kT, 1)
 pcg_cluster_kernel(const float* __restrict__ div, const float* __restrict__ x0,
                    Geometry g, const float* __restrict__ q_y,
-                   const float* __restrict__ q_x, float* __restrict__ out,
+                   const float* __restrict__ q_x,
+                   const float* __restrict__ q_xt, float* __restrict__ out,
                    int* __restrict__ iters, float tol, int maxiter,
                    bool precond) {
   extern __shared__ __align__(16) float smem_pcg[];
@@ -61,22 +87,32 @@ pcg_cluster_kernel(const float* __restrict__ div, const float* __restrict__ x0,
   const size_t off = static_cast<size_t>(blockIdx.x / C) * h * w;
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
-  const ClusterCg cg = cluster_cg(smem, solve_layout(h, w, C, kT).cg, h, w);
-  if (precond) load_basis_t<kT>(cg, q_y, q_x, h, w);
+  ClusterCg cg = cluster_cg(smem, solve_layout(h, w, C, kT).cg, h, w);
+  if constexpr (kLarge) {
+    cg.gqy = q_y;
+    cg.gqx = q_x;
+    cg.gqxt = q_xt;
+  } else {
+    if (precond) load_basis_t<kT>(cg, q_y, q_x, h, w);
+  }
   for (int t = threadIdx.x; t < bd.rows() * w; t += kT)
     cg.g1[bd.a * w + t] = __ldg(div + off + bd.a * w + t);
-  const int k = pcg_cluster<kT, false>(cg, g, bd,
-                                       x0 == nullptr ? nullptr : x0 + off,
-                                       out + off + bd.a * w, tol, maxiter,
-                                       precond, red);
+  const int k = pcg_cluster<kT, false, kLarge>(
+      cg, g, bd, x0 == nullptr ? nullptr : x0 + off, out + off + bd.a * w, tol,
+      maxiter, precond, red);
   if (bd.rank == 0 && threadIdx.x == 0) iters[blockIdx.x / C] = k;
 }
 
 using PcgKernel = void (*)(const float*, const float*, Geometry, const float*,
-                           const float*, float*, int*, float, int, bool);
+                           const float*, const float*, float*, int*, float,
+                           int, bool);
 
-// The kernel of every launch: 512 threads a block.
-PcgKernel pcg_kernel() { return pcg_cluster_kernel<kClusterThreads>; }
+// The kernel of a plan: 512 threads a block, the grid's layout.
+PcgKernel pcg_kernel(int h, int w, int cluster, int threads) {
+  return solve_layout(h, w, cluster, threads).large
+             ? pcg_cluster_kernel<kClusterThreads, true>
+             : pcg_cluster_kernel<kClusterThreads, false>;
+}
 
 size_t solve_bytes(int h, int w, int cluster, int threads) {
   return static_cast<size_t>(solve_layout(h, w, cluster, threads).total) *
@@ -93,36 +129,43 @@ size_t pcg_shared_bytes(int h, int w, int cluster, int threads) {
   return solve_bytes(h, w, cluster, threads);
 }
 
+// 1 where K1 solves an H x W grid in the large layout, else 0
+// (ops/cuda_cg.py :: large_layout mirrors this).
+int pcg_large_layout(int h, int w, int threads) {
+  return large_grid(h, w, threads) ? 1 : 0;
+}
+
 // How many clusters of K1 under this plan the card can hold at once
 // (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
 // or of a plan the launcher would refuse.
 int pcg_max_clusters(int h, int w, int cluster, int threads) {
-  return max_active_clusters(pcg_kernel(), h, cluster, threads,
-                             solve_bytes(h, w, cluster, threads));
+  return max_active_clusters(pcg_kernel(h, w, cluster, threads), h, cluster,
+                             threads, solve_bytes(h, w, cluster, threads));
 }
 
 // Solves `batch` systems on `stream`, one cluster of `cluster` blocks of
 // `threads` threads per system. x0 may be null (cold start: x0 is never
-// read). Returns the cudaError_t of the launch: cudaErrorInvalidValue, with
-// nothing launched, for a plan the kernel cannot run (a cluster size other
-// than 1, 2, 4, 8, 16 or above H, a thread count other than 512, or more
-// shared memory than a block may have).
+// read). q_y, q_x and q_xt are Qy, Qx and Qx^T, unpadded. Returns the
+// cudaError_t of the launch: cudaErrorInvalidValue, with nothing launched,
+// for a plan the kernel cannot run (a cluster size other than 1, 2, 4, 8,
+// 16 or above H, a thread count other than 512, or more shared memory than
+// a block may have).
 int pcg_solve_f32(const float* div, const float* x0, const float* acc_y,
                   const float* acc_x, const float* fluid, const float* q_y,
-                  const float* q_x, const float* inv_lam, float* out,
-                  int* iters, int batch, int h, int w, float dx, int closed,
-                  float tol, int maxiter, int precond, int cluster,
-                  int threads, void* stream) {
+                  const float* q_x, const float* q_xt, const float* inv_lam,
+                  float* out, int* iters, int batch, int h, int w, float dx,
+                  int closed, float tol, int maxiter, int precond,
+                  int cluster, int threads, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const PcgKernel kernel = pcg_kernel();
+  const PcgKernel kernel = pcg_kernel(h, w, cluster, threads);
   cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
                                    solve_bytes(h, w, cluster, threads), stream,
                                    cfg, attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
-  err = cudaLaunchKernelEx(&cfg, kernel, div, x0, g, q_y, q_x, out, iters, tol,
-                           maxiter, precond != 0);
+  err = cudaLaunchKernelEx(&cfg, kernel, div, x0, g, q_y, q_x, q_xt, out,
+                           iters, tol, maxiter, precond != 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,6 +56,20 @@
 // whole basis and computes its band's rows, with K split over the threads
 // when the band is short and the slices added in order.
 //
+// The large layout (kLarge; K1 takes it on a grid where the buffers above
+// fit a block under no cluster size, as at 128^2). Two whole-field copies stay
+// (r in g1, the spectrum in g2); the basis and ga go. The basis is read
+// from global memory through the read-only path (L2, shared by every
+// cluster), with Qx^T passed transposed so that every product's reads are
+// coalesced or warp-uniform. Without ga each rank updates only its band of
+// r (the same fmaf as the whole-field update, so the same bits) and pushes
+// the band into its peers' g1; a fourth cluster barrier per trip publishes
+// it before the product Qy r reads r whole. The peers' g1 is free for the
+// push: since its last read of other ranks' rows of r (Qy r, or the halo
+// rows of z without the preconditioner), every rank has passed at least the
+// r.z barrier and the d.Ad barrier. (ga cannot share g2: a rank pushes its
+// spectrum into g2 while a slower peer may still be reading ga.)
+//
 // Read-only loads (__ldg) are used only for what no kernel writes: the
 // geometry, the basis and the warm start. Everything the solve computes is
 // read with plain loads.
@@ -218,7 +232,36 @@ struct ClusterReducer {
 // two that keeps the threads busy and a slice at least 4 long; with S > 1
 // the slices' sums go through `part` (8 kT floats) and are added in slice
 // order. Ends with a barrier.
-template <int kT>
+//
+// kGa / kGb: A / B lie in global memory and are read through the read-only
+// path (the large layout's basis); the loop over K is then unrolled at most
+// twice, so that the loads in flight stay within the 128 registers a thread
+// of a 512-thread block has.
+template <bool kGlobal>
+__device__ __forceinline__ float load_f(const float* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  else return *p;
+}
+
+// One step k of band_matmul's sums for one thread's 4 rows and 2 columns.
+template <bool kGa, bool kGb>
+__device__ __forceinline__ void band_fma(const float* a, int a_row, int a_col,
+                                         const float* b, int b_row, int b_col,
+                                         const int (&rows)[4],
+                                         const int (&cols)[2], int k,
+                                         float (&acc)[4][2]) {
+  float av[4], bv[2];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) av[m] = load_f<kGa>(a + rows[m] * a_row + k * a_col);
+#pragma unroll
+  for (int c = 0; c < 2; ++c) bv[c] = load_f<kGb>(b + k * b_row + cols[c] * b_col);
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) acc[m][c] = fmaf(av[m], bv[c], acc[m][c]);
+}
+
+template <int kT, bool kGa = false, bool kGb = false>
 __device__ void band_matmul(const float* a, int a_row, int a_col, const float* b,
                             int b_row, int b_col, float* out, int R, int K,
                             int n, const float* __restrict__ scale, float* part) {
@@ -240,16 +283,14 @@ __device__ void band_matmul(const float* a, int a_row, int a_col, const float* b
 #pragma unroll
     for (int c = 0; c < 2; ++c) cols[c] = min(j0 + c * half, n - 1);
     float acc[4][2] = {};
-    for (int k = k0; k < k1; ++k) {
-      float av[4], bv[2];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) av[m] = a[rows[m] * a_row + k * a_col];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) bv[c] = b[k * b_row + cols[c] * b_col];
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) acc[m][c] = fmaf(av[m], bv[c], acc[m][c]);
+    if constexpr (kGa || kGb) {
+#pragma unroll 2
+      for (int k = k0; k < k1; ++k)
+        band_fma<kGa, kGb>(a, a_row, a_col, b, b_row, b_col, rows, cols, k, acc);
+    } else {
+      for (int k = k0; k < k1; ++k)
+        band_fma<false, false>(a, a_row, a_col, b, b_row, b_col, rows, cols, k,
+                               acc);
     }
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -309,33 +350,41 @@ __device__ void push_band(float* full, const Band& bd) {
 struct ClusterCg {
   float* g1;    // (H, W): the residual r, whole on every rank
   float* g2;    // (H, W): the scaled spectrum, gathered for Qy^T
-  float* ga;    // (H, W): A d, gathered for the residual's update
+  float* ga;    // (H, W): A d, gathered for the residual's update (null in
+                // the large layout, where A d's band is in t)
   float* x;     // (R, W) band rows
   float* d;     // (R + 2, W): band rows with one halo row above and below
   float* z;     // (R, W)
   float* t;     // (R, W)
   float* zh;    // (2, W): the neighbours' rows of z above and below the band
   float* part;  // 8 kT floats: the band products' slices
-  float* qy;    // the basis, padded rows (basis_floats)
-  float* qx;
+  float* qy;    // the basis, padded rows (basis_floats); null in the large
+  float* qx;    // layout
+  // The large layout's basis in global memory, unpadded: Qy (H x H), Qx
+  // and Qx^T (W x W each).
+  const float* gqy = nullptr;
+  const float* gqx = nullptr;
+  const float* gqxt = nullptr;
 };
 
-// Offsets (floats) of ClusterCg's buffers in a rank's shared memory.
+// Offsets (floats) of ClusterCg's buffers in a rank's shared memory; -1 for
+// a buffer the large layout does not have (the basis, ga).
 struct CgOffsets {
   int qy, g1, g2, ga, x, d, z, t, zh, part;
 };
 
 // Takes ClusterCg's buffers from offset o on (o is advanced past them),
 // each 16-byte aligned, for H x W cells, bands of at most R rows and T
-// threads. ops/cuda_cg.py :: _cg_floats counts the same.
+// threads, in the small layout or, with `large`, without the basis and ga.
+// ops/cuda_cg.py :: _cg_floats counts the same.
 __host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
-                                             int T) {
+                                             int T, bool large = false) {
   auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
   CgOffsets c;
-  c.qy = take(basis_floats(h, w));
+  c.qy = large ? -1 : take(basis_floats(h, w));
   c.g1 = take(h * w);
   c.g2 = take(h * w);
-  c.ga = take(h * w);
+  c.ga = large ? -1 : take(h * w);
   c.x = take(R * w);
   c.d = take((R + 2) * w);
   c.z = take(R * w);
@@ -347,10 +396,11 @@ __host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
 
 __device__ inline ClusterCg cluster_cg(float* smem, const CgOffsets& c, int h,
                                        int w) {
-  return ClusterCg{smem + c.g1, smem + c.g2, smem + c.ga, smem + c.x,
-                   smem + c.d,  smem + c.z,  smem + c.t,  smem + c.zh,
-                   smem + c.part, smem + c.qy,
-                   h == w ? smem + c.qy : smem + c.qy + h * (h + 1)};
+  float* qy = c.qy < 0 ? nullptr : smem + c.qy;
+  return ClusterCg{smem + c.g1, smem + c.g2, c.ga < 0 ? nullptr : smem + c.ga,
+                   smem + c.x,  smem + c.d,  smem + c.z,  smem + c.t,
+                   smem + c.zh, smem + c.part, qy,
+                   qy == nullptr || h == w ? qy : qy + h * (h + 1)};
 }
 
 // Copies the bases into the padded shared layout, with this block's
@@ -393,25 +443,46 @@ __device__ void apply_a_band(const float* p, float* out, const Geometry& g,
 // residual whole in g1; the band's first and last rows
 // of z are pushed to the neighbours' halo rows, for the next cluster
 // barrier to publish. Ends with a block barrier.
-template <int kT, bool kTrace>
+//
+// kLarge: the basis from global memory (ClusterCg::gqy, gqx, gqxt), the
+// same products in the same order of summation.
+template <int kT, bool kTrace, bool kLarge = false>
 __device__ void apply_m_band(const ClusterCg& cg, const Geometry& g,
                              const Band& bd, TripClock<kTrace> clk) {
   const int h = g.h, w = g.w, a = bd.a, R = bd.rows();
-  const int qs = h + 1, qxs = w + 1;
-  band_matmul<kT>(cg.qy + a * qs, qs, 1, cg.g1, w, 1, cg.t, R, h, w, nullptr,
-                  cg.part);                                    // Qy r
-  clk.mark(2);
-  band_matmul<kT>(cg.t, w, 1, cg.qx, 1, qxs, cg.g2 + a * w, R, w, w,
-                  g.inv_lam + a * w, cg.part);                 // (.) Qx^T * 1/lam
+  if constexpr (kLarge) {
+    band_matmul<kT, true, false>(cg.gqy + a * h, h, 1, cg.g1, w, 1, cg.t, R,
+                                 h, w, nullptr, cg.part);      // Qy r
+    clk.mark(2);
+    band_matmul<kT, false, true>(cg.t, w, 1, cg.gqxt, w, 1, cg.g2 + a * w, R,
+                                 w, w, g.inv_lam + a * w,
+                                 cg.part);                     // (.) Qx^T * 1/lam
+  } else {
+    const int qs = h + 1, qxs = w + 1;
+    band_matmul<kT>(cg.qy + a * qs, qs, 1, cg.g1, w, 1, cg.t, R, h, w, nullptr,
+                    cg.part);                                  // Qy r
+    clk.mark(2);
+    band_matmul<kT>(cg.t, w, 1, cg.qx, 1, qxs, cg.g2 + a * w, R, w, w,
+                    g.inv_lam + a * w, cg.part);               // (.) Qx^T * 1/lam
+  }
   clk.mark(3);
   push_band<kT>(cg.g2, bd);
   cgrp::this_cluster().sync();
   clk.mark(4);
-  band_matmul<kT>(cg.qy + a, 1, qs, cg.g2, w, 1, cg.t, R, h, w, nullptr,
-                  cg.part);                                    // Qy^T (.)
-  clk.mark(5);
-  band_matmul<kT>(cg.t, w, 1, cg.qx, qxs, 1, cg.z, R, w, w, nullptr,
-                  cg.part);                                    // (.) Qx
+  if constexpr (kLarge) {
+    band_matmul<kT, true, false>(cg.gqy + a, 1, h, cg.g2, w, 1, cg.t, R, h, w,
+                                 nullptr, cg.part);            // Qy^T (.)
+    clk.mark(5);
+    band_matmul<kT, false, true>(cg.t, w, 1, cg.gqx, w, 1, cg.z, R, w, w,
+                                 nullptr, cg.part);            // (.) Qx
+  } else {
+    const int qs = h + 1, qxs = w + 1;
+    band_matmul<kT>(cg.qy + a, 1, qs, cg.g2, w, 1, cg.t, R, h, w, nullptr,
+                    cg.part);                                  // Qy^T (.)
+    clk.mark(5);
+    band_matmul<kT>(cg.t, w, 1, cg.qx, qxs, 1, cg.z, R, w, w, nullptr,
+                    cg.part);                                  // (.) Qx
+  }
   clk.mark(6);
   auto cluster = cgrp::this_cluster();
   for (int t = threadIdx.x; t < 2 * w; t += kT) {
@@ -499,7 +570,10 @@ __device__ __forceinline__ float warm_x(const float* __restrict__ x0,
 // the fluid sum of x0 rides on the first reduction, and A x0 is taken from
 // the band and halo rows of x before the reduction of |b|^2, whose barrier
 // publishes the residual's band.
-template <int kT, bool kTrace>
+//
+// kLarge: the large layout (the header): A d in t, each rank updates its
+// band of r and pushes it, a fourth cluster barrier per trip.
+template <int kT, bool kTrace, bool kLarge = false>
 __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
                            const Band& bd, const float* __restrict__ x0,
                            float* best, float tol, int maxiter, bool precond,
@@ -507,7 +581,7 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
   const int w = g.w, n = bd.rows() * w, hw = g.h * w;
   const float* fluid = g.fluid + bd.a * w;
   float* r = cg.g1 + bd.a * w;
-  float* ad = cg.ga + bd.a * w;
+  float* ad = kLarge ? cg.t : cg.ga + bd.a * w;
   float* x = cg.x;
   float* d = cg.d + w;  // the band's first row; d[-w..] and d[n..] are halo
   float* z = cg.z;
@@ -553,7 +627,7 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
   const float b2 = fmaxf(red.sum(bd, part, [&] { push_band<kT>(cg.g1, bd); }),
                          1e-30f);
   if (precond)
-    apply_m_band<kT, kTrace>(cg, g, bd, TripClock<kTrace>{});
+    apply_m_band<kT, kTrace, kLarge>(cg, g, bd, TripClock<kTrace>{});
   else
     copy_r_band<kT>(cg, g, bd);
   float2 dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);
@@ -576,17 +650,27 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
     apply_a_band<kT>(cg.d, ad, g, bd);
     part = 0.f;
     for (int idx = threadIdx.x; idx < n; idx += kT) part += d[idx] * ad[idx];
-    const float dad = red.sum(bd, part, [&] { push_band<kT>(cg.ga, bd); });
+    const float dad = red.sum(bd, part, [&] {
+      if constexpr (!kLarge) push_band<kT>(cg.ga, bd);
+    });
     clk.mark(0);
     const bool ok = dad > 0.f;
     const float alpha = ok ? rz / dad : 0.f;
     for (int idx = threadIdx.x; idx < n; idx += kT) x[idx] += alpha * d[idx];
-    for (int idx = threadIdx.x; idx < hw; idx += kT)
-      cg.g1[idx] = __fmaf_rn(-alpha, cg.ga[idx], cg.g1[idx]);
-    __syncthreads();  // r whole
+    if constexpr (kLarge) {
+      for (int idx = threadIdx.x; idx < n; idx += kT)
+        r[idx] = __fmaf_rn(-alpha, ad[idx], r[idx]);
+      __syncthreads();  // the band of r complete
+      push_band<kT>(cg.g1, bd);
+      cgrp::this_cluster().sync();  // r whole
+    } else {
+      for (int idx = threadIdx.x; idx < hw; idx += kT)
+        cg.g1[idx] = __fmaf_rn(-alpha, cg.ga[idx], cg.g1[idx]);
+      __syncthreads();  // r whole
+    }
     clk.mark(1);
     if (precond)
-      apply_m_band<kT, kTrace>(cg, g, bd, clk);
+      apply_m_band<kT, kTrace, kLarge>(cg, g, bd, clk);
     else
       copy_r_band<kT>(cg, g, bd);
     dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);

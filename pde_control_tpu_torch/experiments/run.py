@@ -11,13 +11,17 @@ configs with their fine-tunes: `burgers_chain` (config 1),
 `burgers_hierarchical` (config 2), `shape_transition` (config 3),
 `shape_transition_ft`, `shape_transition_rings_ft`, `smoke_indirect`
 (config 4), `smoke_indirect_ft`, `natural_flow_128` (config 5) and
-`natural_flow_128_ft`; the adjoint baseline `burgers_adjoint`; and the
-scheme comparisons `compare_burgers`, `compare_smoke`,
-`compare_smoke_long` and `compare_smoke_64` (`comparison.json`); and the
-out-of-distribution evals `generalize_shapes` and `generalize_smoke`,
-which restore a finished run's ckpt_final (`--init-from`, either
-package's) and train nothing. Every other name (the 3D and 128² entries)
-exits with "not ported yet", and so does `--mesh`. `burgers_chain` and
+`natural_flow_128_ft`; the indirect smoke task at 128² (`smoke_128`,
+`smoke_128_ft`; the pressure solve on K1 at 128²); the obstacle-free 3D
+smoke task (`smoke3d`, `smoke3d_ft`: 24³, n=8); the adjoint baseline
+`burgers_adjoint`; the scheme comparisons `compare_burgers`,
+`compare_smoke`, `compare_smoke_long` and `compare_smoke_64`
+(`comparison.json`); and the out-of-distribution evals
+`generalize_shapes` and `generalize_smoke`, which restore a finished
+run's ckpt_final (`--init-from`, either package's) and train nothing.
+Every other name (the plated 3D task `smoke3d_indirect` and its
+fine-tune) exits with "not ported yet", and so does `--mesh`.
+`burgers_chain` and
 `burgers_adjoint` also write their printed result to `results.json` in
 the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
 run.
@@ -33,6 +37,7 @@ from pde_control_tpu_torch.experiments import (
     compare_schemes,
     fluid2d,
     generalize,
+    smoke3d,
 )
 from pde_control_tpu_torch.experiments.curriculum import _write_results
 
@@ -50,7 +55,8 @@ PORTED = ("burgers_chain", "burgers_hierarchical", "burgers_adjoint",
           "compare_smoke_64", "shape_transition", "shape_transition_ft",
           "shape_transition_rings_ft", "smoke_indirect", "smoke_indirect_ft",
           "natural_flow_128", "natural_flow_128_ft", "generalize_shapes",
-          "generalize_smoke")
+          "generalize_smoke", "smoke_128", "smoke_128_ft", "smoke3d",
+          "smoke3d_ft")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -242,6 +248,32 @@ def main(argv=None) -> None:
         result = fluid2d.run_smoke_indirect_ft(
             workdir, force_reg=args.force_reg or 1.5e-5, **ft, **sizes,
             **common)
+    elif args.name in ("smoke_128", "smoke_128_ft"):  # 32², n=4 smoke test
+        sizes.update(size=32 if st else 128)
+        if args.name == "smoke_128":
+            result = fluid2d.run_smoke_indirect(
+                workdir, iterations=it or (10 if st else 1000),
+                e2e_iterations=args.e2e_iterations,
+                batch_size=args.batch or (4 if st else 8),
+                width=args.width or 1, **sizes, **common)
+        else:
+            result = fluid2d.run_smoke_indirect_ft(
+                workdir, force_reg=args.force_reg or 1.5e-5, **ft, **sizes,
+                **common)
+    elif args.name in ("smoke3d", "smoke3d_ft"):  # 8³, n=2 smoke test
+        del common["datadir"]
+        sizes = dict(size=8 if st else 24, n=2 if st else 8,
+                     num_train=args.num_train or (8 if st else 64),
+                     num_val=args.num_val or (4 if st else 16))
+        if args.name == "smoke3d":
+            result = smoke3d.run_smoke3d(
+                workdir, iterations=it or (5 if st else 300),
+                e2e_iterations=args.e2e_iterations,
+                batch_size=4 if st else 8, **sizes, **common)
+        else:
+            result = smoke3d.run_smoke3d_ft(
+                workdir, force_reg=args.force_reg or 5e-6, **ft, **sizes,
+                **common)
     else:  # config 5: 16², n=8 for the smoke test
         sizes.update(n=8 if st else 128,
                      num_train=args.num_train or (16 if st else 128),

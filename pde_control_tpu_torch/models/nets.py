@@ -1,22 +1,24 @@
-"""Networks for PDE control: the CFE conv net and the OP U-net, 1D and 2D.
+"""Networks for PDE control: the CFE conv net and the OP U-net, 1D, 2D and
+3D.
 
 Counterpart of `pde_control_tpu/models/nets.py` (`Conv`, `ConvBlock`,
-`UNet`, `CFENet`) at dim=1 (Burgers) and dim=2. Inputs and outputs are
+`UNet`, `CFENet`) at dim=1 (Burgers), dim=2 and dim=3 (the 3D smoke
+task). Inputs and outputs are
 channels-last (B, *spatial, C) at the public boundary, as in the JAX
 package. Parameters are fp32; compute runs in `dtype` (bf16 on the 2D main
 path, fp32 for Burgers), as flax's `dtype` attribute does.
 
 `conv_impl` picks the convolution, as in the JAX package:
-  * 'xla' and 'auto': `torch.nn.functional.conv1d`/`conv2d` (cuDNN on the
-    card); the nets run channels-first inside. 'auto' stays here until a
+  * 'xla' and 'auto': `torch.nn.functional.conv1d`/`conv2d`/`conv3d`
+    (cuDNN on the card); the nets run channels-first inside. 'auto' stays here until a
     benchmark routes it from measurements on the card.
   * 'cuda': every 2D 3×3 stride-1 SAME conv goes to the hand-written
     kernels of `ops/cuda_conv.py` (JAX's 'pallas'); the stride-2
     downsampling convs and the U-net's 1×1 output conv stay on `conv2d`.
     The 2D nets run channels-last inside, the kernels' layout, so the
     eligible convs need no permute and the others see a channels-last
-    view. 1D convs stay on `conv1d` and channels-first, as the JAX
-    package's stay on XLA (its kernel gate needs a 4-D input).
+    view. 1D and 3D convs stay on `conv1d`/`conv3d` and channels-first,
+    as the JAX package's stay on XLA (its kernel gate needs a 4-D input).
   * 'patches', 'shifted' and 'im2col': the JAX package's reformulations
     of a 3×3 stride-1 SAME conv as plain matmuls (`Conv._patches_call`,
     `_shifted_call` there), which run outside any kernel there too:
@@ -27,7 +29,7 @@ path, fp32 for Burgers), as flax's `dtype` attribute does.
     operands are rounded to `dtype` and multiplied in fp32, the bias added
     in fp32 and the sum rounded to `dtype` once, as the JAX package's
     dots with an fp32 result do. Every other conv (stride 2, 1×1,
-    CIRCULAR, 1D) takes `conv1d`/`conv2d`, as there. The nets stay
+    CIRCULAR, 1D, 3D) takes `conv1d`/`conv2d`/`conv3d`, as there. The nets stay
     channels-first inside.
 'pallas' raises and names 'cuda'.
 
@@ -36,9 +38,10 @@ converting the JAX package's weights is a rename and a transpose
 (`utils/convert.py`).
 
 Padding is flax's:
-  * 'SAME': for a stride-2 conv on an even input that is (0, 1) — one
-    cell after, none before — which `Conv2d(padding=1)` would get wrong,
-    so uneven padding goes through `F.pad`;
+  * 'SAME': for a stride-2 conv on an even input that is (0, 1) along
+    each axis — one cell after, none before — which `Conv2d(padding=1)`
+    or `Conv3d(padding=1)` would get wrong, so uneven padding goes through
+    `F.pad`;
   * 'CIRCULAR' (periodic Burgers): ((k-1)//2, k//2) cells by wrap, then a
     VALID conv, whatever the stride. It is not SAME with wrap: a stride-2
     conv on even N reads cells 2i-1, 2i, 2i+1 (SAME reads 2i, 2i+1,
@@ -59,6 +62,7 @@ from pde_control_tpu_torch.ops import cuda_conv
 
 CONV_IMPLS = ("xla", "auto", "cuda", "patches", "shifted", "im2col")
 PADDINGS = ("SAME", "CIRCULAR")
+_CONVS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
 def _check_conv_impl(conv_impl: str) -> None:
@@ -97,8 +101,8 @@ class Conv(nn.Module):
                  padding: str = "SAME"):
         super().__init__()
         _check_conv_impl(conv_impl)
-        if dim not in (1, 2):
-            raise ValueError(f"dim={dim} is not ported (1 or 2)")
+        if dim not in _CONVS:
+            raise ValueError(f"dim={dim} is not ported (1, 2 or 3)")
         if padding not in PADDINGS:
             raise ValueError(f"padding {padding!r} is not ported; choose "
                              f"from {PADDINGS}")
@@ -149,9 +153,9 @@ class Conv(nn.Module):
             if any(flat):
                 x = F.pad(x, flat, mode=mode)
             pad = 0
-        conv = F.conv1d if self.dim == 1 else F.conv2d
-        return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
-                    stride=s, padding=pad)
+        return _CONVS[self.dim](x, self.weight.to(self.dtype),
+                                self.bias.to(self.dtype), stride=s,
+                                padding=pad)
 
 
 def _taps(x: torch.Tensor) -> list[torch.Tensor]:

@@ -6,7 +6,10 @@ pallas_pressure_solve` (body `_pcg_kernel` → `pcg_core`). One thread-block
 cluster solves one sample's masked pressure-Poisson system and runs the
 whole CG loop on the card: its C blocks each own a band of rows, with the
 iterates in shared memory (`csrc/pcg_cluster.cuh`, the loop K2 and K3 run
-too; the source's header gives the layout). `solve_plan` picks C.
+too; the source's header gives the layout). `solve_plan` picks C. On a
+grid whose buffers fit a block under no cluster size (112² to 128²), every
+plan takes the core's large layout (`large_layout`): the basis read from
+L2 and the residual exchanged by bands, one more cluster barrier a trip.
 
 What bounds it on this card: latency, not bytes or FLOPs. Each trip is a
 chain of cluster barriers around four small fp32 basis products; the
@@ -30,6 +33,7 @@ import ctypes
 import functools
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from pde_control_tpu_torch.ops.spectral import (
@@ -49,9 +53,10 @@ SMEM_LIMIT_BYTES = 232_448
 CLUSTERS = (1, 2, 4, 8, 16)
 CLUSTER_THREADS = 512
 # The largest side of a grid that K1 takes: its parity with the plain
-# version is held up to 96² on the card. A larger grid waits for a parity
-# test at its size.
-MAX_SIDE = 98
+# version is held up to 128² on the card (the smoke_128 entries' grid,
+# small and large layouts). A larger grid waits for a parity test at its
+# size.
+MAX_SIDE = 128
 _RED_FLOATS = 2 * 4 * 16 + 4 * 16  # the cluster reduction's slots
 
 
@@ -59,23 +64,41 @@ def _align4(n: int) -> int:
     return (n + 3) & ~3
 
 
-def _cg_floats(h: int, w: int, rows: int, threads: int) -> int:
+def _cg_floats(h: int, w: int, rows: int, threads: int,
+               large: bool = False) -> int:
     """Floats of one rank's cluster-solve buffers (`pcg_cluster.cuh ::
     take_cg`): the basis, three whole fields, the band's iterates with d's
     halo rows, z's halo rows and the products' slices, each 16-byte
-    aligned."""
+    aligned; the large layout has neither the basis nor the third whole
+    field (A d)."""
     basis = h * (h + 1) + (0 if h == w else w * (w + 1))
+    whole = (h * w, h * w) if large else (basis, h * w, h * w, h * w)
     return sum(_align4(n) for n in (
-        basis, h * w, h * w, h * w, rows * w, (rows + 2) * w, rows * w,
-        rows * w, 2 * w, 8 * threads))
+        *whole, rows * w, (rows + 2) * w, rows * w, rows * w, 2 * w,
+        8 * threads))
+
+
+def _solve_bytes(h: int, w: int, cluster: int, threads: int,
+                 large: bool) -> int:
+    return 4 * (_align4(_RED_FLOATS)
+                + _cg_floats(h, w, -(-h // cluster), threads, large))
+
+
+def large_layout(h: int, w: int, threads: int = CLUSTER_THREADS) -> bool:
+    """Whether K1 solves an H x W grid in the core's large layout: where
+    the small one fits a block under no cluster size, so that every plan
+    of a grid the small layout takes keeps it (`pcg.cu :: large_grid`,
+    which `pcg_large_layout` reports in C)."""
+    return all(_solve_bytes(h, w, c, threads, False) > SMEM_LIMIT_BYTES
+               for c in CLUSTERS if c <= h)
 
 
 def solve_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
     """Shared memory one rank of K1 needs: the reduction area and the
-    solve's buffers for bands of ceil(H / cluster) rows — the count
-    `pcg_shared_bytes` makes in C."""
-    return 4 * (_align4(_RED_FLOATS)
-                + _cg_floats(h, w, -(-h // cluster), threads))
+    solve's buffers for bands of ceil(H / cluster) rows, in the grid's
+    layout — the count `pcg_shared_bytes` makes in C."""
+    return _solve_bytes(h, w, cluster, threads,
+                        large_layout(h, w, threads))
 
 
 class ClusterPlan(NamedTuple):
@@ -157,15 +180,17 @@ def cuda_solve_fits(h: int, w: int) -> bool:
 
 @functools.lru_cache(maxsize=16)
 def _tables(h: int, w: int, dx: float, closed: bool, device: torch.device):
-    """(Qy, Qx, 1/λ) on `device`: DCT-II and the Neumann eigenvalues on a
-    closed domain, DST-I and the Dirichlet ones on an open domain."""
+    """(Qy, Qx, 1/λ, Qxᵀ) on `device`: DCT-II and the Neumann eigenvalues
+    on a closed domain, DST-I and the Dirichlet ones on an open domain;
+    Qxᵀ (contiguous) for the kernel's large layout."""
     if closed:
         qy, qx = _dct_matrix(h), _dct_matrix(w)
         inv_lam = _inv_neumann_eigenvalues(h, w, dx)
     else:
         qy, qx = _dst_matrix(h), _dst_matrix(w)
         inv_lam = _inv_dirichlet_eigenvalues(h, w, dx)
-    return tuple(torch.tensor(a, device=device) for a in (qy, qx, inv_lam))
+    return tuple(torch.tensor(np.ascontiguousarray(a), device=device)
+                 for a in (qy, qx, inv_lam, qx.T))
 
 
 def pcg_plain(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
@@ -205,7 +230,8 @@ def pcg_plain(div, acc_y, acc_x, fluid, x0=None, *, dx: float = 1.0,
         return torch.where(is_fluid, -lap, p)
 
     if precond:
-        qy, qx, inv_lam = _tables(h, w, float(dx), bool(closed), div.device)
+        qy, qx, inv_lam, _ = _tables(h, w, float(dx), bool(closed),
+                                     div.device)
 
         def apply_m(r):
             rh = torch.matmul(torch.matmul(qy, r), qx.T)
@@ -265,7 +291,7 @@ def _kernel():
     lib, _ = load()
     fn = lib.pcg_solve_f32
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 10 + [i32] * 3 + [
+    fn.argtypes = [ptr] * 11 + [i32] * 3 + [
         ctypes.c_float, i32, ctypes.c_float, i32, i32, i32, i32, ptr]
     fn.restype = i32
     clusters = lib.pcg_max_clusters
@@ -338,13 +364,14 @@ def _launch_solve(div, acc_y, acc_x, fluid, x0, plan: ClusterPlan | None, *,
                          f"{SMEM_LIMIT_BYTES} bytes a block)")
     if plan is None:
         plan = solve_plan(b, h, w)
-    qy, qx, inv_lam = _tables(h, w, float(dx), bool(closed), dev)
+    qy, qx, inv_lam, qxt = _tables(h, w, float(dx), bool(closed), dev)
     out = torch.empty_like(div)
     iters = torch.empty(b, dtype=torch.int32, device=dev)
     rc = _kernel()[0](
         div.data_ptr(), None if x0 is None else x0.data_ptr(),
         acc_y.data_ptr(), acc_x.data_ptr(), fluid.data_ptr(), qy.data_ptr(),
-        qx.data_ptr(), inv_lam.data_ptr(), out.data_ptr(), iters.data_ptr(),
+        qx.data_ptr(), qxt.data_ptr(), inv_lam.data_ptr(), out.data_ptr(),
+        iters.data_ptr(),
         b, h, w, float(dx), int(closed), float(tol), int(maxiter),
         int(precond), plan.cluster, plan.threads,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -461,8 +461,8 @@ def _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow, x0,
                           (acc_y, acc_x, fluid))
     if plan is None:
         plan = fwd_plan(b, h, w)
-    qy, qx, inv_lam = cuda_cg._tables(h, w, float(kw["dx"]), bool(kw["closed"]),
-                                      rho.device)
+    qy, qx, inv_lam, _ = cuda_cg._tables(h, w, float(kw["dx"]),
+                                         bool(kw["closed"]), rho.device)
     vy4, vx4 = torch.empty_like(vy), torch.empty_like(vx)
     rho1, p = torch.empty_like(rho), torch.empty_like(rho)
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
@@ -509,8 +509,8 @@ def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
         (acc_y, acc_x, fluid))
     if plan is None:
         plan = bwd_plan(b, h, w, int(kw["max_shift"]))
-    qy, qx, inv_lam = cuda_cg._tables(h, w, float(kw["dx"]), bool(kw["closed"]),
-                                      rho.device)
+    qy, qx, inv_lam, _ = cuda_cg._tables(h, w, float(kw["dx"]),
+                                         bool(kw["closed"]), rho.device)
     g_vy, g_vx, g_rho = (torch.empty_like(t) for t in (vy, vx, rho))
     g_fy = torch.empty_like(vy) if has_force else None
     g_fx = torch.empty_like(vx) if has_force else None

@@ -6,6 +6,13 @@ cells. On a closed domain A is singular with a constant nullspace on the
 fluid; the rhs, the iterates and the preconditioned residual are projected
 to zero fluid mean.
 
+The same code solves 3D volumes (B, D, H, W) on a `grids3d.Domain3D`,
+which has the surface of `Domain2D` these functions use: the exact
+spectral solve without obstacles, the host-checked CG with them ('pcg',
+'jax'; eager only, as `cg` asks the host once a trip whether a sample is
+still active). The kernel is 2D only, as the JAX package's Pallas kernel
+is.
+
 `solve_pressure` is a `torch.autograd.Function`: since A is symmetric, the
 backward pass is one more solve of the same system with the incoming
 gradient as rhs. That solve starts cold, and the projection stays inside it
@@ -136,20 +143,31 @@ def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D,
     on the card (`on_cuda`, by default `div.is_cuda`) and the grid fits
     its shared memory (`cuda_cg.cuda_solve_fits`), and otherwise the
     spectral-preconditioned CG (closed) or plain CG (open). An explicit
-    'cuda' beyond the fit raises, as the JAX package's 'pallas' does."""
+    'cuda' beyond the fit raises, as the JAX package's 'pallas' does.
+    On a volume (B, D, H, W): the spectral solve without obstacles and
+    'pcg' with them, on open and closed domains alike; 'cuda' raises (the
+    kernel is 2D only)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown pressure backend {backend!r}; "
                          f"choose from {BACKENDS}")
-    if div.dim() != 3:
-        raise ValueError(f"2D fields (B, H, W) only, got {tuple(div.shape)}")
+    if div.dim() not in (3, 4):
+        raise ValueError(f"fields (B, H, W) or (B, D, H, W) only, got "
+                         f"{tuple(div.shape)}")
+    if backend == "spectral" and domain.has_obstacles:
+        raise ValueError("'spectral' is exact only for domains without "
+                         "obstacles; use 'pcg'")
+    if div.dim() == 4:
+        if backend == "cuda":
+            raise ValueError("the CUDA pressure kernel takes 2D (B, H, W) "
+                             "fields only; use 'auto'/'spectral'/'pcg'/'jax'")
+        if backend != "auto":
+            return backend
+        return "pcg" if domain.has_obstacles else "spectral"
     fits = cuda_cg.cuda_solve_fits(*div.shape[1:])
     if backend != "auto":
         if backend == "cuda" and not fits:
             raise ValueError(f"grid {tuple(div.shape)} exceeds the kernel's "
                              "shared memory; use 'auto' or 'pcg'")
-        if backend == "spectral" and domain.has_obstacles:
-            raise ValueError("'spectral' is exact only for domains without "
-                             "obstacles; use 'pcg'")
         return backend
     if not domain.has_obstacles:
         return "spectral"
@@ -232,7 +250,8 @@ def solve_pressure(
     backend: str = "auto",
     x0: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Solve div(acc·grad p) = div_v for p. div: (B, H, W) → p: (B, H, W).
+    """Solve div(acc·grad p) = div_v for p. div: (B, H, W) → p: (B, H, W),
+    or (B, D, H, W) → (B, D, H, W) on a `Domain3D`.
 
     backend: 'auto' (see `_pick_backend`), 'cuda' (the hand-written kernel
     for CUDA tensors; its plain torch version for CPU tensors), 'pcg'

@@ -21,6 +21,8 @@ CG trip, so that the difference is the solve's trips):
 Time per launch by CUDA events over a host loop of 50 launches (`ms`,
 chip_smoke's yardstick for K1-K3) and by CUDA-graph replay of 20 launches
 (`graph_ms`, the host left out); the mean trip count; at tol 1e-4 the
+outputs' SHA-256 (`digest`, the first 16 hex digits; equal digests of two
+trees are the same output bits) and each kernel's plan at each batch; the
 split into µs a trip, (graph_ms − graph_ms at maxiter 0) / mean trips,
 and the rest (the time at maxiter 0; graph replay, since at maxiter 0 a
 host loop of events reads the wrapper's enqueue); the card's name and
@@ -31,6 +33,7 @@ One JSON line per tree.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import json
 import os
@@ -90,14 +93,26 @@ def _one(tree: str) -> dict:
                         return cuda_cg.pressure_solve(
                             div, *geom, x0=x0, dx=domain.dx, closed=True,
                             tol=1e-4, maxiter=maxiter)
-                trips = fn()[-1]
+                got = fn()
+                trips = got[-1]
                 label = f"{name} b{batch}" + (" maxiter 0" if not maxiter else "")
                 out[label] = dict(
                     ms=smoke._time_ms(fn, 50), graph_ms=smoke._graph_ms(fn, 20),
                     trips=float(trips.float().mean()))
+                if maxiter:
+                    digest = hashlib.sha256()
+                    for t in got:
+                        if t is not None:
+                            digest.update(t.cpu().numpy().tobytes())
+                    out[label]["digest"] = digest.hexdigest()[:16]
             full, rest = out[f"{name} b{batch}"], out[f"{name} b{batch} maxiter 0"]
             full["us_per_trip"] = (1e3 * (full["graph_ms"] - rest["graph_ms"])
                                    / full["trips"])
+        out[f"plans b{batch}"] = {
+            "K1": smoke._plan_text(cuda_cg.solve_plan(batch, h, h)),
+            "K2": smoke._plan_text(cuda_fluid.fwd_plan(batch, h, h)),
+            "K3": smoke._plan_text(cuda_fluid.bwd_plan(
+                batch, h, h, smoke.FUSED_STEP["max_shift"]))}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

@@ -60,10 +60,15 @@ def test_kernel_matches_plain(n, closed, warm):
 
 
 # (n, closed, preconditioned) of the K1 plan sweep: the main path's grid,
-# an open box, a grid the bands do not divide evenly, the largest grid the
-# gate holds to plain, and the unpreconditioned loop closed and open.
+# an open box, a grid the bands do not divide evenly, the largest square
+# grid of the small layout held to plain, the large layout's smallest grid
+# (bands of 7 rows at C = 16) and the largest the gate holds to plain
+# (smoke_128's), open too, and the unpreconditioned loop closed and open,
+# in both layouts.
 _SOLVE_PLAN_CASES = [(64, True, True), (32, False, True), (48, True, True),
-                     (96, True, True), (32, True, False), (32, False, False)]
+                     (96, True, True), (112, True, True), (128, True, True),
+                     (128, False, True), (32, True, False), (32, False, False),
+                     (128, True, False)]
 
 
 @pytest.mark.parametrize("n,closed,precond", _SOLVE_PLAN_CASES)
@@ -128,19 +133,25 @@ def test_kernel_gradient_matches_plain():
     assert float((grads[0] - grads[1]).abs().max() / grads[1].abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (32, 48)])
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (128, 128)])
 def test_shared_memory_count_matches_source(h, w):
     """K1's plans count the bytes the kernel's source asks for, under every
-    plan its launcher takes and under `solve_plan`'s."""
+    plan its launcher takes and under `solve_plan`'s, and name the layout
+    the source takes (the large one at 128² only)."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
 
     _cuda()
-    fn = _build.load()[0].pcg_shared_bytes
+    lib = _build.load()[0]
+    fn = lib.pcg_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
+    large = lib.pcg_large_layout
+    large.argtypes, large.restype = [ctypes.c_int] * 3, ctypes.c_int
     for plan in cuda_cg.solve_plans(h, w) + [cuda_cg.solve_plan(8, h, w)]:
         assert fn(h, w, plan.cluster, plan.threads) == plan.shared_bytes
+    assert bool(large(h, w, cuda_cg.CLUSTER_THREADS)) is (h == 128)
+    assert cuda_cg.large_layout(h, w) is (h == 128)
 
 
 def test_kernel_rejects_bad_inputs():
@@ -154,9 +165,9 @@ def test_kernel_rejects_bad_inputs():
         cuda_cg.pressure_solve(div.transpose(1, 2), *geom)
     with pytest.raises(ValueError, match="shape"):
         cuda_cg.pressure_solve(div, domain.acc_x, domain.acc_y, domain.fluid_mask)
-    big = Domain2D.create(128, 128, device=dev)
+    big = Domain2D.create(160, 160, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_cg.pressure_solve(torch.zeros(1, 128, 128, device=dev), big.acc_y,
+        cuda_cg.pressure_solve(torch.zeros(1, 160, 160, device=dev), big.acc_y,
                                big.acc_x, big.fluid_mask)
 
 
@@ -181,8 +192,9 @@ def test_cpu_tensors_run_the_plain_version():
 
 
 @pytest.mark.parametrize("h,w,fits", [(64, 64, True), (96, 96, True),
-                                      (32, 48, True), (64, 128, False),
-                                      (128, 128, False)])
+                                      (32, 48, True), (64, 128, True),
+                                      (128, 128, True), (136, 136, False),
+                                      (160, 160, False)])
 def test_solve_fits_gate(h, w, fits):
     assert cuda_cg.cuda_solve_fits(h, w) is fits
 
@@ -465,7 +477,8 @@ def test_bwd_plan_fills_the_card_and_is_cached():
 
 
 _SOLVE_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
-                      (8, 96, 96), (2, 8, 8), (200, 96, 96)]
+                      (8, 96, 96), (2, 8, 8), (200, 96, 96), (8, 112, 112),
+                      (8, 128, 128), (200, 128, 128)]
 
 
 @pytest.mark.parametrize("batch,h,w", _SOLVE_PLAN_SHAPES,
@@ -488,8 +501,9 @@ def test_solve_plan_covers_the_rows_once(batch, h, w):
 def test_solve_plan_fills_the_card_and_is_cached():
     """K1's plan by the rule of K3's (`cuda_cg.pick_plan`): 16 at 64²×8
     where 8 clusters of 16 fit, else 8; 2 at batch 64; 1 at batch 132; the
-    smallest that fits shared memory at a large batch (4 at 96²); capped at
-    H rows; one plan object per shape; no plan beyond shared memory."""
+    smallest that fits shared memory at a large batch (4 at 96² and 128²);
+    at 128²×8 as at 64²×8; capped at H rows; one plan object per shape; no
+    plan beyond shared memory."""
     def plan(batch, h, w, limit=_resident_clusters):
         return cuda_cg.solve_plan(batch, h, w, sm_count=132, max_clusters=limit)
 
@@ -499,9 +513,12 @@ def test_solve_plan_fills_the_card_and_is_cached():
     assert plan(132, 64, 64).cluster == 1
     assert plan(1, 8, 8).cluster == 8
     assert plan(200, 96, 96).cluster == 4
+    assert plan(8, 128, 128).cluster == 16
+    assert plan(8, 128, 128, _no_resident_16).cluster == 8
+    assert plan(200, 128, 128).cluster == 4
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 128, 128)
+        plan(1, 160, 160)
 
 
 @pytest.mark.parametrize("batch,h,w", _BWD_PLAN_SHAPES,
@@ -543,7 +560,8 @@ def test_fwd_plan_fills_the_card_and_is_cached():
 # Grids around the gates' edges: where K1 and the fused step take a grid,
 # every batch has a plan of each kernel that runs there.
 _GATE_SHAPES = [(8, 8), (24, 30), (32, 48), (64, 64), (84, 84), (85, 85),
-                (96, 96), (98, 98), (99, 99), (64, 128), (128, 128)]
+                (96, 96), (98, 98), (99, 99), (112, 112), (64, 128),
+                (128, 128)]
 
 
 @pytest.mark.parametrize("h,w", _GATE_SHAPES,
@@ -562,7 +580,7 @@ def test_plans_exist_where_the_gates_say_yes(h, w):
                                        max_clusters=_resident_clusters)
             assert cuda_fluid.bwd_plan(b, h, w, sm_count=132,
                                        max_clusters=_resident_clusters)
-    assert cuda_cg.cuda_solve_fits(h, w) is (max(h, w) <= 98)
+    assert cuda_cg.cuda_solve_fits(h, w) is (max(h, w) <= 128)
     assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 84)
 
 

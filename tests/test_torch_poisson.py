@@ -139,15 +139,17 @@ def test_pick_backend():
     with pytest.raises(ValueError, match="unknown pressure backend"):
         tpoisson._pick_backend("pallas", div, td)
     # 'auto' on the card, as the JAX package routes on a TPU: the kernel
-    # only where the grid fits its shared memory (98² the largest square),
+    # only where the grid fits its shared memory (128² the largest square),
     # else the plain CG of the domain's kind; a CPU field never reaches it.
-    big = np.zeros((128, 128), np.float32)
-    big[64, 32:64] = 1.0
+    big = np.zeros((160, 160), np.float32)
+    big[80, 40:80] = 1.0
+    edge = np.zeros((128, 128), np.float32)
+    edge[64, 32:64] = 1.0
     for closed, fallback in ((True, "pcg"), (False, "jax")):
         small = _domains(True, closed)[0]
-        large = TDomain.create(128, 128, obstacle_mask=big, closed=closed,
+        large = TDomain.create(160, 160, obstacle_mask=big, closed=closed,
                                device="cpu")
-        div_large = torch.zeros(1, 128, 128)
+        div_large = torch.zeros(1, 160, 160)
         assert tpoisson._pick_backend("auto", div, small, on_cuda=True) == "cuda"
         assert tpoisson._pick_backend("auto", div_large, large,
                                       on_cuda=True) == fallback
@@ -155,6 +157,10 @@ def test_pick_backend():
         assert tpoisson._pick_backend("auto", div_large, large) == fallback
         with pytest.raises(ValueError, match="shared memory"):
             tpoisson._pick_backend("cuda", div_large, large)
-    free_large = TDomain.create(128, 128, device="cpu")
-    assert tpoisson._pick_backend("auto", torch.zeros(1, 128, 128), free_large,
+        at_edge = TDomain.create(128, 128, obstacle_mask=edge, closed=closed,
+                                 device="cpu")
+        assert tpoisson._pick_backend("auto", torch.zeros(1, 128, 128), at_edge,
+                                      on_cuda=True) == "cuda"
+    free_large = TDomain.create(160, 160, device="cpu")
+    assert tpoisson._pick_backend("auto", torch.zeros(1, 160, 160), free_large,
                                   on_cuda=True) == "spectral"
