@@ -78,11 +78,17 @@ prints no result):
      `profile_bench`'s phases; the CLI's `run shape_transition` on the
      card's default route; last the 128² and 3D entries (`ENTRIES`):
      `run smoke_128` (its data generated on K1 into a disk cache first,
-     every stage unfused on K1 and cuDNN under its graph) and `run
-     smoke3d` (24³, the exact 3D spectral solve, no K1-K5), each then its
-     `_ft` from the run's ckpt_final: data seconds and launches, each
-     stage's ms a step under its graph, launches a replay, peak and
-     reserved memory, the eval block beside zero force;
+     every stage unfused on K1 and cuDNN under its graph), `run smoke3d`
+     (24³, the exact 3D spectral solve, no K1-K5) and `run
+     smoke3d_indirect` (32³ with the plate: the 3D CG, eager in the data
+     and the evals, all maxiter trips under each stage's graph; first the
+     captured solve against eager, forward warm and backward cold, the
+     same bits, then each physics stage's CG trips read from the card
+     after the last replay and the CG's share of a step; no K1-K5), each
+     then its `_ft` from the run's ckpt_final: data seconds and launches,
+     each stage's ms a step under its graph, capture and instantiate
+     seconds and graph nodes, launches a replay, peak and reserved memory,
+     the eval block beside zero force;
  11. BASELINE configs 1 and 2 (`BURGERS`: 1D Burgers, N=32, n=32, batch
      32, 1024 + 128 trajectories, fp32 nets with TF32 off) through the
      entry points (`run_chain_supervised`, `run_hierarchical`): the data
@@ -122,6 +128,7 @@ is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -1819,6 +1826,46 @@ def _config_task(number: int, datadir: str):
     return task, ccfg
 
 
+@contextlib.contextmanager
+def _cg_trips(captured_only: bool):
+    """Patches `physics/poisson.py :: cg` so that each call (with
+    `captured_only`, each call made while a CUDA graph is being captured)
+    appends (whether it was warm-started, its per-sample trip counts as a
+    device tensor) to the yielded list. A captured call's counts are the
+    graph's own tensor: each replay writes it."""
+    from pde_control_tpu_torch.physics import poisson
+
+    cg, trips = poisson.cg, []
+
+    def recording(*args, **kw):
+        x, t = cg(*args, **kw, return_iters=True)
+        if not captured_only or torch.cuda.is_current_stream_capturing():
+            trips.append((kw.get("x0") is not None, t))
+        return x
+
+    poisson.cg = recording
+    try:
+        yield trips
+    finally:
+        poisson.cg = cg
+
+
+def _graph_nodes(graph) -> int:
+    """The nodes of a captured step's kept cudaGraph_t (`cuGraphGetNodes`
+    of libcuda; a stream capture of the step makes no child graphs)."""
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f"cuGraphGetNodes returned {rc}")
+    return n.value
+
+
+def _capture_text(rec: dict) -> str:
+    return (f"capture {rec['capture_s']:.2f} s, instantiate "
+            f"{rec['instantiate_s']:.2f} s, {rec['nodes']} graph nodes")
+
+
 def _stage_recorder(stages: list):
     """A `ControlTraining` that records, for each stage it trains: each
     `progress_multi` call's device time (CUDA events) and the launches the
@@ -1848,6 +1895,13 @@ def _stage_recorder(stages: list):
             t0 = time.perf_counter()
             out = super().train(iterations, **kw)
             torch.cuda.synchronize()
+            # The last replay's CG trip counts, read from the captured
+            # solves' counters (the plated 3D task; none elsewhere).
+            trips, rec["trips"] = rec.pop("cg_trips", []), {}
+            for label, warm in (("warm", True), ("cold", False)):
+                got = [t for w, t in trips if w == warm]
+                if got:
+                    rec["trips"][label] = torch.stack(got).cpu()
             rec.update(seconds=time.perf_counter() - t0, result=out,
                        graph_launches=dict(self.graph_launches),
                        steps=self.step_count,
@@ -1858,21 +1912,22 @@ def _stage_recorder(stages: list):
                                for name, net in self.nets.items()})
             return out
 
-        def _step(self, batch):
-            if torch.cuda.is_current_stream_capturing():
-                self._rec["capture_start"] = time.perf_counter()
-            return super()._step(batch)
-
         def _step_graph(self, batches):
             known = len(self._graphs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = super()._step_graph(batches)
-            t1 = time.perf_counter()
+            with _cg_trips(captured_only=True) as trips:
+                out = super()._step_graph(batches)
             torch.cuda.synchronize()
             if len(self._graphs) > known:
-                self._rec["capture_s"] = t1 - self._rec["capture_start"]
-                self._rec["warmup_capture_s"] = time.perf_counter() - t0
+                self._rec.update(capture_s=out.capture_s,
+                                 instantiate_s=out.instantiate_s,
+                                 nodes=_graph_nodes(out.graph),
+                                 warmup_capture_s=time.perf_counter() - t0,
+                                 cg_trips=trips,
+                                 replay_start=torch.cuda.Event(
+                                     enable_timing=True))
+                self._rec["replay_start"].record()
             return out
 
         def progress_multi(self, batches):
@@ -1896,8 +1951,12 @@ def _stage_recorder(stages: list):
                 raise AssertionError(
                     f"{self._rec['stage']}: the wrappers counted {counted} in a "
                     f"progress_multi call, expected {expect}")
-            self._rec["calls"].append({"k": k, "ms": start.elapsed_time(end),
-                                       "replay_only": captured})
+            call = {"k": k, "ms": start.elapsed_time(end),
+                    "replay_only": captured}
+            if not captured:  # the replays after the capture, alone
+                call["replay_ms"] = self._rec.pop(
+                    "replay_start").elapsed_time(end)
+            self._rec["calls"].append(call)
             return out
 
         def autosave(self, directory):
@@ -2067,8 +2126,8 @@ def config_phase(card: str, number: int, conv_shapes: dict | None = None
         pool = max(pool, rec["reserved"] - rec["reserved_before"])
         print(f"stage {name} ({rec['class']}, n={rec['n']}, trains "
               f"{rec['stage']}): {rec['steps']} steps in {rec['seconds']:.2f} s;"
-              f" warm-up and capture {rec['warmup_capture_s']:.2f} s (capture "
-              f"{rec['capture_s']:.2f} s); under the graph {ms:.3f} ms a step, "
+              f" warm-up and capture {rec['warmup_capture_s']:.2f} s "
+              f"({_capture_text(rec)}); under the graph {ms:.3f} ms a step, "
               f"{rec['n'] * c['batch'] / (ms / 1e3):.1f} steps/s (n x batch a "
               f"second); launches a replay {gl}, x {rec['steps']} steps = "
               f"{ {k: v * rec['steps'] for k, v in gl.items()} }; peak "
@@ -2217,7 +2276,15 @@ def cli_phase(card: str) -> None:
 #   smoke3d: the closed 24³ box without obstacles, n=8, batch 8, direct
 #      3-channel force, CFE 32-64-64-32 and U-nets base 16 / 2 levels at
 #      dim=3 on cuDNN; every pressure solve the exact 3D spectral one, so
-#      no K1-K5 launch.
+#      no K1-K5 launch;
+#   smoke3d_indirect: the closed 32³ box with the plate, n=16, batch 8,
+#      buoyancy-only control (CFE 32-64-64-32 with 7 input channels, the
+#      inflow one of them), U-nets base 16 / 2 levels at dim=3 on cuDNN;
+#      data after 6 warm-up steps; every pressure solve the spectrally
+#      preconditioned 3D CG (tol 1e-4, maxiter 200, warm-started), eager
+#      in the data and the evals and all 200 trips under each stage's
+#      graph; no K1-K5 launch (full: 128 + 16 trajectories, 400
+#      iterations a stage, its fine-tune 600).
 # Each then `*_ft` from its ckpt_final with `ft_iterations` e2e iterations.
 ENTRIES = {
     "smoke_128": dict(task="indirect smoke control at 128^2", size=128, n=16,
@@ -2226,46 +2293,148 @@ ENTRIES = {
     "smoke3d": dict(task="3D smoke control, 24^3", size=24, n=8, batch=8,
                     num_train=32, num_val=16, iterations=16, ft_iterations=8,
                     warmup=0),
+    "smoke3d_indirect": dict(task="plated 3D smoke control, 32^3", size=32,
+                             n=16, batch=8, num_train=32, num_val=16,
+                             iterations=16, ft_iterations=8, warmup=6),
 }
 
 
-def _print_stage(name: str, rec: dict, batch: int, card: str) -> float | None:
+def _print_stage(name: str, rec: dict, batch: int, card: str) -> float:
     """One stage's line: steps, warm-up and capture, ms a step under the
-    graph (over the calls that only replay, None without one), launches a
-    replay, peak and reserved memory, the loss."""
+    graph (over the calls that only replay; in a stage of one call, over
+    that call's replays after the capture), launches a replay, peak and
+    reserved memory, the loss; then, where the step holds CG solves, their
+    trip counts after the last replay. Returns the ms a step."""
     replays = [cl for cl in rec["calls"] if cl["replay_only"]]
-    ms = (sum(cl["ms"] for cl in replays) / sum(cl["k"] for cl in replays)
-          if replays else None)
-    first = rec["calls"][0]
-    timing = (f"under the graph {ms:.3f} ms a step, "
-              f"{rec['n'] * batch / (ms / 1e3):.1f} steps/s (n x batch a "
-              f"second)" if ms is not None else
-              f"one call of {first['k']} steps with its warm-up and capture, "
-              f"{first['ms']:.1f} ms")
+    if replays:
+        ms = sum(cl["ms"] for cl in replays) / sum(cl["k"] for cl in replays)
+    else:
+        ms = rec["calls"][0]["replay_ms"] / rec["calls"][0]["k"]
     print(f"stage {name} ({rec['class']}, n={rec['n']}, trains {rec['stage']}):"
           f" {rec['steps']} steps in {rec['seconds']:.2f} s; warm-up and "
-          f"capture {rec['warmup_capture_s']:.2f} s (capture "
-          f"{rec['capture_s']:.2f} s); {timing}; launches a replay "
-          f"{rec['graph_launches']}; peak {rec['peak'] / 2**20:.1f} MiB, "
-          f"reserved {rec['reserved_before'] / 2**20:.1f} -> "
+          f"capture {rec['warmup_capture_s']:.2f} s ({_capture_text(rec)}); "
+          f"under the graph {ms:.3f} ms a step, "
+          f"{rec['n'] * batch / (ms / 1e3):.1f} steps/s (n x batch a second"
+          f"{'' if replays else '; the replays after the capture'}); "
+          f"launches a replay {rec['graph_launches']}; peak "
+          f"{rec['peak'] / 2**20:.1f} MiB, reserved "
+          f"{rec['reserved_before'] / 2**20:.1f} -> "
           f"{rec['reserved'] / 2**20:.1f} MiB; loss "
           f"{rec['result']['loss']:.6e} [{card}]")
+    for label, t in rec["trips"].items():
+        print(f"  CG trips a solve after the last replay, {label} "
+              f"({'forward' if label == 'warm' else 'backward'} solves, "
+              f"{t.shape[0]} a step): mean {float(t.float().mean()):.2f}, max "
+              f"{int(t.max())}; per sample, mean over the solves "
+              f"{[round(v, 2) for v in t.float().mean(0).tolist()]}")
     return ms
 
 
+def cg_capture_check(card: str, pde, val, batch: int) -> dict:
+    """The plated task's pressure solve (`solve_pressure` on 'pcg' with its
+    tol and maxiter) on the divergence of `batch` validation samples'
+    post-warm-up velocities: forward warm-started from a perturbed
+    solution, backward cold through the gradient of sum(w·p). Eager (the
+    host-checked loop) against the same captured into a CUDA graph and
+    replayed (all maxiter trips each): p, the gradient and the per-sample
+    trip counts must be the same bits, or p and the gradient within 1e-6
+    of their largest magnitude. Prints both times, the trips and the
+    graph; returns the ms of one captured solve (half a replay)."""
+    from pde_control_tpu_torch.grids3d import Staggered3D
+    from pde_control_tpu_torch.physics import poisson
+
+    domain, cfg = pde.domain, pde.cfg
+    dev = domain.device
+    b = val.take(np.arange(batch))
+    v = domain.mask_velocity(Staggered3D(
+        *(torch.as_tensor(b[k], device=dev) for k in ("vz0", "vy0", "vx0"))))
+    div = v.divergence(domain.dx)
+    kw = dict(tol=cfg.pressure_tol, maxiter=cfg.pressure_maxiter)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p_ref = poisson.solve_pressure(div, domain, **kw)
+    x0 = p_ref + 0.01 * p_ref.std() * torch.randn(
+        p_ref.shape, generator=gen, device=dev)
+    w = torch.randn(div.shape, generator=gen, device=dev)
+
+    def run(d_in):
+        d = d_in.detach().clone().requires_grad_(True)
+        p = poisson.solve_pressure(d, domain, x0=x0, **kw)
+        (p * w).sum().backward()
+        return p.detach(), d.grad
+
+    with _cg_trips(captured_only=False) as trips:
+        run(div)
+        trips.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = run(div)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager_trips = [t.clone() for _, t in trips]
+        static = div.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(static)
+        torch.cuda.current_stream().wait_stream(side)
+        trips.clear()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            captured = run(static)
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        graph_trips = [t for _, t in trips]
+    graph.replay()
+    torch.cuda.synchronize()
+    for label, got, want in zip(("p", "gradient"), captured, eager):
+        err = float((got - want).abs().max())
+        if not (torch.equal(got, want) or err <= 1e-6 * float(
+                want.abs().max())):
+            raise AssertionError(f"captured 3D solve: {label} differs from "
+                                 f"eager by {err:.3e}")
+    same = all(torch.equal(g, e) for g, e in zip(captured, eager))
+    if len(graph_trips) != 2 or not all(
+            torch.equal(g, e) for g, e in zip(graph_trips, eager_trips)):
+        raise AssertionError(f"captured 3D solve: trips {graph_trips} against "
+                             f"eager {eager_trips}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / 5
+    print(f"the 3D CG ({cfg.pressure_backend} -> pcg, tol {kw['tol']:g}, "
+          f"maxiter {kw['maxiter']}) at {tuple(div.shape)}, forward warm and "
+          f"backward cold, captured against eager: p and gradient "
+          f"{'the same bits' if same else 'within 1e-6 of their largest'}, "
+          f"trips the same {[t.tolist() for t in eager_trips]}; eager "
+          f"{eager_ms:.1f} ms (host clock); the captured pair: capture "
+          f"{t1 - t0:.2f} s, instantiate {t2 - t1:.2f} s, "
+          f"{_graph_nodes(graph)} graph nodes, replay {ms:.2f} ms "
+          f"(2 x {kw['maxiter']} trips, {1e3 * ms / (2 * kw['maxiter']):.1f} "
+          f"us a trip) [{card}]")
+    return {"ms": ms / 2, "maxiter": kw["maxiter"]}
+
+
 def entry_phase(card: str, name: str) -> dict:
-    """`name` (`ENTRIES`) through `run.main`: its data generated first into
-    the disk cache (smoke_128, K1 launches counted; smoke3d has no cache
-    and regenerates its data in the run), every stage under its graph
-    (recorded as config phases record them), the eval block beside zero
-    force, then `{name}_ft` from the run's ckpt_final. Each stage on its
-    entry's route: K1 launches in the physics stages of smoke_128 and in
-    none of its OP stages; no K2-K5 launch; none at all in 3D. Returns the
-    wrappers' counts: data, stages (a replay's times its steps, by kernel)
-    and the evals."""
+    """`name` (`ENTRIES`) through `run.main`: its data generated first, into
+    the disk cache (smoke_128, K1 launches counted) or, in 3D, where the
+    entries have none, kept in memory and handed to the runs in place of
+    their generator's; then every stage under its graph (recorded as config
+    phases record them), the eval block beside zero force, then
+    `{name}_ft` from the run's ckpt_final. Each stage on
+    its entry's route: K1 launches in the physics stages of smoke_128 and
+    in none of its OP stages; no K2-K5 launch; none at all in 3D. On the
+    plated 3D task also the captured solve against eager
+    (`cg_capture_check`), and in each physics stage the CG solves of the
+    captured step (n warm, at least one cold), their trips after the last
+    replay and their share of the step. Returns the wrappers' counts:
+    data, stages (a replay's times its steps, by kernel) and the evals."""
     c = ENTRIES[name]
     _phase(f"{name} ({c['task']}) through run.py, then {name}_ft")
-    import contextlib
     import io
     import shutil
     from pathlib import Path
@@ -2281,10 +2450,13 @@ def entry_phase(card: str, name: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if name == "smoke_128":
-        _, train, val = fluid2d._smoke_indirect_setup(*args, 1.0, datadir,
-                                                      device="cuda")
+        pde, train, val = fluid2d._smoke_indirect_setup(*args, 1.0, datadir,
+                                                        device="cuda")
+    elif name == "smoke3d":
+        pde, train, val = smoke3d_exp._smoke3d_setup(*args, device="cuda")
     else:
-        _, train, val = smoke3d_exp._smoke3d_setup(*args, device="cuda")
+        pde, train, val = smoke3d_exp._smoke3d_indirect_setup(*args,
+                                                              device="cuda")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     data = _counts()
@@ -2303,10 +2475,34 @@ def entry_phase(card: str, name: str) -> dict:
     if not (np.isfinite(train.obs).all() and train.obs.shape == (
             c["num_train"], c["n"] + 1, *spatial, 1)):
         raise AssertionError("data generation: non-finite or misshapen obs")
+    solve = None
+    if name == "smoke3d_indirect":
+        want = {"inflow": spatial, "vz0": (c["size"] + 1,) + spatial[1:],
+                "vy0": (c["size"], c["size"] + 1, c["size"]),
+                "vx0": spatial[:2] + (c["size"] + 1,)}
+        for key, shape in want.items():
+            got = train.extras[key]
+            if got.shape != (c["num_train"],) + shape or not np.isfinite(
+                    got).all():
+                raise AssertionError(f"data generation: {key} {got.shape}")
+        solve = cg_capture_check(card, pde, val, c["batch"])
 
     cut = ["--num-train", str(c["num_train"]), "--num-val", str(c["num_val"])]
+    generator = None
     if name == "smoke_128":
         cut += ["--datadir", datadir]
+    else:  # no disk cache in 3D: the runs take these datasets, by seed
+        generator = ("generate_inflow_smoke3d_dataset" if name ==
+                     "smoke3d_indirect" else "generate_forced_smoke3d_dataset")
+        made, generate = {0: train, 999: val}, getattr(smoke3d_exp, generator)
+
+        def generated(domain, cfg, num, n_steps, seed=0, **kw):
+            data = made[seed]
+            if len(data) != num or data.obs.shape[1] != n_steps + 1:
+                raise AssertionError(f"{generator}: {num}, {n_steps}, {seed}")
+            return data
+
+        setattr(smoke3d_exp, generator, generated)
     runs = {}
     original = curriculum.ControlTraining
     try:
@@ -2326,6 +2522,8 @@ def entry_phase(card: str, name: str) -> dict:
                                seconds=seconds, printed=out.getvalue())
     finally:
         curriculum.ControlTraining = original
+        if generator:
+            setattr(smoke3d_exp, generator, generate)
 
     stage_names = {
         name: ["cfe_supervised"] + [f"op{s}_supervised" for s in
@@ -2343,8 +2541,9 @@ def entry_phase(card: str, name: str) -> dict:
         names = stage_names[label]
         if len(r["stages"]) != len(names):
             raise AssertionError(f"{label}: {len(r['stages'])} stages trained")
+        source = "the disk cache" if name == "smoke_128" else "memory"
         print(f"run.py {label}: {len(names)} stages in {r['seconds']:.2f} s "
-              f"(data from the disk cache: {name == 'smoke_128'}); wrappers "
+              f"(the data above, from {source}); wrappers "
               f"counted {r['counted']} (warm-up steps, captures and the "
               f"eval) [{card}]")
         graph = dict.fromkeys(r["counted"], 0)
@@ -2356,8 +2555,21 @@ def entry_phase(card: str, name: str) -> dict:
                     np.isfinite(v) for v in res_s.values()):
                 raise AssertionError(f"{label} {stage}: {res_s}")
             rec["ms"] = _print_stage(stage, rec, c["batch"], card)
-            gl = rec["graph_launches"]
             physics = rec["class"] != "op_supervised"
+            if solve and physics and not (
+                    len(rec["trips"].get("warm", [])) == c["n"]
+                    and len(rec["trips"].get("cold", []))):
+                got = {k: len(t) for k, t in rec["trips"].items()}
+                raise AssertionError(f"{label} {stage}: captured CG solves "
+                                     f"{got}")
+            if solve and rec["trips"]:
+                solves = sum(t.shape[0] for t in rec["trips"].values())
+                print(f"  the CG's share of this step: {solves} solves x "
+                      f"{solve['ms']:.3f} ms (all {solve['maxiter']} trips, "
+                      f"by the solve's own graph) = {solves * solve['ms']:.1f}"
+                      f" ms of {rec['ms']:.1f} ms "
+                      f"({100 * solves * solve['ms'] / rec['ms']:.1f}%)")
+            gl = rec["graph_launches"]
             k1 = gl["K1"] > 0 if physics and name == "smoke_128" else gl["K1"] == 0
             if not k1 or any(gl[k] for k in gl if k != "K1"):
                 raise AssertionError(f"{label} {stage}: launches a replay {gl}")

@@ -83,12 +83,16 @@ def _time_major(obs: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _StepGraph:
-    """One captured training step: its static input and output tensors and
-    the kernel launches that one replay runs."""
+    """One captured training step: its static input and output tensors, the
+    kernel launches that one replay runs, and the host seconds its capture
+    and its instantiation took. The graph keeps its cudaGraph_t
+    (`graph.raw_cuda_graph()`), so that its nodes can be counted."""
     graph: "torch.cuda.CUDAGraph"
     inputs: dict[str, torch.Tensor]
     metrics: dict[str, torch.Tensor]
     launches: dict[str, int]
+    capture_s: float
+    instantiate_s: float
 
 
 class ControlTraining:
@@ -745,12 +749,16 @@ class ControlTraining:
         for t, s in zip(self._state(), saved):
             t.copy_(s)
         before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
         with torch.cuda.graph(graph):
             metrics = self._step(inputs)
+        t1 = time.perf_counter()
+        graph.instantiate()
         after = launch_counts()
         self._graphs[key] = _StepGraph(graph, inputs, metrics, {
-            name: after[name] - before[name] for name in after})
+            name: after[name] - before[name] for name in after}, t1 - t0,
+            time.perf_counter() - t1)
         return self._graphs[key]
 
     def _check_divergence(self, last: dict) -> None:

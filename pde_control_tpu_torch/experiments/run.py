@@ -12,16 +12,15 @@ configs with their fine-tunes: `burgers_chain` (config 1),
 `shape_transition_ft`, `shape_transition_rings_ft`, `smoke_indirect`
 (config 4), `smoke_indirect_ft`, `natural_flow_128` (config 5) and
 `natural_flow_128_ft`; the indirect smoke task at 128² (`smoke_128`,
-`smoke_128_ft`; the pressure solve on K1 at 128²); the obstacle-free 3D
-smoke task (`smoke3d`, `smoke3d_ft`: 24³, n=8); the adjoint baseline
-`burgers_adjoint`; the scheme comparisons `compare_burgers`,
-`compare_smoke`, `compare_smoke_long` and `compare_smoke_64`
-(`comparison.json`); and the out-of-distribution evals
+`smoke_128_ft`; the pressure solve on K1 at 128²); the 3D smoke tasks
+(`smoke3d`, `smoke3d_ft`: 24³ without obstacles, n=8;
+`smoke3d_indirect`, `smoke3d_indirect_ft`: 32³ with the plate, n=16);
+the adjoint baseline `burgers_adjoint`; the scheme comparisons
+`compare_burgers`, `compare_smoke`, `compare_smoke_long` and
+`compare_smoke_64` (`comparison.json`); and the out-of-distribution evals
 `generalize_shapes` and `generalize_smoke`, which restore a finished
 run's ckpt_final (`--init-from`, either package's) and train nothing.
-Every other name (the plated 3D task `smoke3d_indirect` and its
-fine-tune) exits with "not ported yet", and so does `--mesh`.
-`burgers_chain` and
+`--mesh` exits with "not ported yet". `burgers_chain` and
 `burgers_adjoint` also write their printed result to `results.json` in
 the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
 run.
@@ -56,7 +55,7 @@ PORTED = ("burgers_chain", "burgers_hierarchical", "burgers_adjoint",
           "shape_transition_rings_ft", "smoke_indirect", "smoke_indirect_ft",
           "natural_flow_128", "natural_flow_128_ft", "generalize_shapes",
           "generalize_smoke", "smoke_128", "smoke_128_ft", "smoke3d",
-          "smoke3d_ft")
+          "smoke3d_ft", "smoke3d_indirect", "smoke3d_indirect_ft")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -260,19 +259,31 @@ def main(argv=None) -> None:
             result = fluid2d.run_smoke_indirect_ft(
                 workdir, force_reg=args.force_reg or 1.5e-5, **ft, **sizes,
                 **common)
-    elif args.name in ("smoke3d", "smoke3d_ft"):  # 8³, n=2 smoke test
+    elif args.name.startswith("smoke3d"):  # 8³, n=2 smoke test
         del common["datadir"]
-        sizes = dict(size=8 if st else 24, n=2 if st else 8,
-                     num_train=args.num_train or (8 if st else 64),
+        plate = args.name.startswith("smoke3d_indirect")
+        sizes = dict(size=8 if st else (32 if plate else 24),
+                     n=2 if st else (16 if plate else 8),
+                     num_train=args.num_train or (
+                         8 if st else (128 if plate else 64)),
                      num_val=args.num_val or (4 if st else 16))
         if args.name == "smoke3d":
             result = smoke3d.run_smoke3d(
                 workdir, iterations=it or (5 if st else 300),
                 e2e_iterations=args.e2e_iterations,
                 batch_size=4 if st else 8, **sizes, **common)
-        else:
+        elif args.name == "smoke3d_ft":
             result = smoke3d.run_smoke3d_ft(
                 workdir, force_reg=args.force_reg or 5e-6, **ft, **sizes,
+                **common)
+        elif args.name == "smoke3d_indirect":
+            result = smoke3d.run_smoke3d_indirect(
+                workdir, iterations=it or (5 if st else 400),
+                e2e_iterations=args.e2e_iterations,
+                batch_size=4 if st else 8, **sizes, **common)
+        else:
+            result = smoke3d.run_smoke3d_indirect_ft(
+                workdir, force_reg=args.force_reg or 1.5e-5, **ft, **sizes,
                 **common)
     else:  # config 5: 16², n=8 for the smoke test
         sizes.update(n=8 if st else 128,

@@ -1,16 +1,14 @@
 """3D smoke control: buoyant blobs in a closed volume pushed by withheld
-random forcing, controlled by the dim=3 CFE/OP stack through the staged
-curriculum.
+random forcing (`smoke3d`), and an inflow-driven plume steered through an
+obstacle plate by a buoyancy-only controller (`smoke3d_indirect`), each
+controlled by the dim=3 CFE/OP stack through the staged curriculum.
 
-Counterpart of `pde_control_tpu/experiments/smoke3d.py`, its obstacle-free
-half: `random_blobs_3d`, `random_smooth_field_3d`,
-`generate_forced_smoke3d_dataset`, `run_smoke3d` and `run_smoke3d_ft`.
-The box has no obstacles, so every pressure solve is the exact 3D
-spectral solve (no host check of a CG loop), and `progress_multi` captures
-each stage's step as one CUDA graph, as in 2D. The plated indirect task
-(`obstacle_plate_3d`, `random_inflow_3d`, `smoke3d_indirect*`) is not
-ported yet: its CG asks the host once a trip whether a sample is still
-active, which a CUDA graph cannot record.
+Counterpart of `pde_control_tpu/experiments/smoke3d.py`. The obstacle-free
+box solves every pressure exactly (the 3D spectral solve); the plate
+sends the solve to the spectrally preconditioned CG ('pcg'), which runs
+all of its `maxiter` trips while a CUDA graph is being captured
+(`physics/poisson.py :: cg`), so `progress_multi` captures each stage's
+step as one CUDA graph on both tasks.
 
 Randomness comes from a `torch.Generator` seeded by `seed`. `jax.random`'s
 bits cannot be reproduced in torch, so each random function is split into
@@ -165,6 +163,119 @@ def generate_forced_smoke3d_dataset(
     return TrajectoryDataset(np.concatenate(chunks, axis=0))
 
 
+def obstacle_plate_3d(d: int, h: int, w: int) -> np.ndarray:
+    """A horizontal plate two cells thick at mid-height with a square hole
+    off the center (1 = solid): the rising plume must pass the hole."""
+    mask = np.zeros((d, h, w), np.float32)
+    z0 = int(d * 0.5)
+    mask[z0:z0 + 2, :, :] = 1.0
+    hy, hx = int(h * 0.30), int(w * 0.55)
+    hole = max(3, h // 5)
+    mask[z0:z0 + 2, hy:hy + hole, hx:hx + hole] = 0.0
+    return mask
+
+
+def inflow3d_draws(gen: torch.Generator, batch: int, h: int, w: int
+                   ) -> torch.Tensor:
+    """The sources' (y, x) positions (B, 2), uniform in [0.2, 0.8) of each
+    side."""
+    lo = torch.tensor([0.2 * h, 0.2 * w], dtype=torch.float32)
+    hi = torch.tensor([0.8 * h, 0.8 * w], dtype=torch.float32)
+    return lo + torch.rand((batch, 2), generator=gen) * (hi - lo)
+
+
+def inflow3d_from_draws(pos: torch.Tensor, d: int, h: int, w: int,
+                        rate: float = 0.08, sigma: float = 2.0,
+                        z0: float = 3.0) -> torch.Tensor:
+    """Continuous smoke sources (B, D, H, W): a Gaussian emitter of peak
+    `rate` at height z0 near the bottom wall, at each (y, x) of `pos`."""
+    kw = dict(dtype=torch.float32, device=pos.device)
+    zz = torch.arange(d, **kw)[None, :, None, None]
+    yy = torch.arange(h, **kw)[None, None, :, None]
+    xx = torch.arange(w, **kw)[None, None, None, :]
+    r2 = ((zz - z0) ** 2 + (yy - pos[:, 0, None, None, None]) ** 2
+          + (xx - pos[:, 1, None, None, None]) ** 2)
+    return rate * torch.exp(-r2 / (2 * sigma ** 2))
+
+
+def random_inflow_3d(gen: torch.Generator, batch: int, d: int, h: int,
+                     w: int, rate: float = 0.08, sigma: float = 2.0,
+                     z0: float = 3.0) -> torch.Tensor:
+    """Random continuous smoke sources (B, D, H, W) near the bottom wall."""
+    return inflow3d_from_draws(inflow3d_draws(gen, batch, h, w), d, h, w,
+                               rate, sigma, z0)
+
+
+def inflow_smoke3d_rollout(domain: Domain3D, cfg: Fluid3DConfig,
+                           inflow: torch.Tensor, b_field: torch.Tensor,
+                           n_steps: int, warmup: int):
+    """From rest with no smoke: `warmup` unforced steps, then n_steps with
+    the buoyancy modulation vz += dt·b·ρ on z-faces (cold pressure solves,
+    as the JAX generator's state carries no pressure). Returns the
+    densities (n_steps + 1, B, D, H, W) from the end of the warm-up on, and
+    the velocity there."""
+    d, h, w = domain.grid_shape
+    with torch.no_grad():
+        state = FluidState3D(
+            velocity=Staggered3D.zeros(inflow.shape[0], d, h, w,
+                                       device=inflow.device),
+            density=torch.zeros_like(inflow), inflow=inflow)
+        for _ in range(warmup):
+            state = fluid3d_step(state, domain, cfg)
+        velocity0 = state.velocity
+        frames = [state.density]
+        for _ in range(n_steps):
+            v = state.velocity
+            force = Staggered3D(vz=centered_to_z_faces(b_field * state.density),
+                                vy=torch.zeros_like(v.vy),
+                                vx=torch.zeros_like(v.vx))
+            state = fluid3d_step(state, domain, cfg, force=force)
+            frames.append(state.density)
+    return torch.stack(frames), velocity0
+
+
+def generate_inflow_smoke3d_dataset(
+    domain: Domain3D,
+    cfg: Fluid3DConfig,
+    num: int,
+    n_steps: int,
+    seed: int = 0,
+    control_amplitude: float = 0.3,
+    batch: int = 4,
+    warmup: int = 6,
+) -> TrajectoryDataset:
+    """An inflow-driven plume through the domain's obstacles, steered by a
+    withheld random buoyancy-modulation field b(x), applied as the
+    buoyancy-mode CFE applies control. `warmup` unforced steps develop the
+    plume before frame 0 (indirect forcing has no authority over an empty
+    domain). Each chunk of `batch` draws its sources, then the field.
+    Returns obs (num, n_steps + 1, D, H, W, 1) with the extras `inflow`
+    (num, D, H, W) and the velocity at frame 0, `vz0`, `vy0`, `vx0`."""
+    d, h, w = domain.grid_shape
+    dev = domain.device
+    gen = torch.Generator().manual_seed(seed)
+    chunks, inflows, v0 = [], [], {"vz0": [], "vy0": [], "vx0": []}
+    remaining = num
+    while remaining > 0:
+        b = min(batch, remaining)
+        inflow = inflow3d_from_draws(inflow3d_draws(gen, b, h, w).to(dev),
+                                     d, h, w)
+        b_field = smooth3d_from_draws(
+            *(t.to(dev) for t in smooth3d_draws(gen, b)), d, h, w,
+            amplitude=control_amplitude)
+        traj, vel0 = inflow_smoke3d_rollout(domain, cfg, inflow, b_field,
+                                            n_steps, warmup)
+        chunks.append(np.moveaxis(traj.cpu().numpy(), 0, 1)[..., None])
+        inflows.append(inflow.cpu().numpy())
+        for k in v0:
+            v0[k].append(getattr(vel0, k[:2]).cpu().numpy())
+        remaining -= b
+    return TrajectoryDataset(
+        np.concatenate(chunks, axis=0),
+        inflow=np.concatenate(inflows, axis=0),
+        **{k: np.concatenate(vs, axis=0) for k, vs in v0.items()})
+
+
 def _smoke3d_cfg() -> Fluid3DConfig:
     return Fluid3DConfig(dt=0.7, buoyancy=0.05, pressure_tol=1e-4,
                          pressure_maxiter=200, warm_start_pressure=True)
@@ -218,6 +329,67 @@ def run_smoke3d_ft(workdir: str, init_from: str,
     restored from `init_from` (its ckpt_final, either package's), one more
     e2e stage at a lower force_reg, on `run_smoke3d`'s task and data."""
     pde, train, val = _smoke3d_setup(size, n, num_train, num_val, device)
+    ccfg = CurriculumConfig(n=n, batch_size=batch_size,
+                            e2e_iterations=e2e_iterations or 600,
+                            e2e_lr=5e-5, grad_clip=1.0,
+                            force_reg=force_reg, seed=seed)
+    return finetune_e2e(pde, ccfg, train, val, workdir, init_from,
+                        mesh=mesh, resume=resume)
+
+
+def _smoke3d_indirect_setup(size: int, n: int, num_train: int, num_val: int,
+                            device=None):
+    """The plated task's (pde, train, val), shared by
+    `run_smoke3d_indirect` and `run_smoke3d_indirect_ft` (the same seeds,
+    0 train and 999 val, and config): the plate at size³, buoyancy-only
+    control with the inflow as the CFE's seventh channel."""
+    domain = Domain3D.create(size, size, size,
+                             obstacle_mask=obstacle_plate_3d(size, size, size),
+                             device=device)
+    cfg = _smoke3d_cfg()
+    train = generate_inflow_smoke3d_dataset(domain, cfg, num_train, n, seed=0)
+    val = generate_inflow_smoke3d_dataset(domain, cfg, num_val, n, seed=999)
+    pde = IncompressibleFluid3DPDE(domain, cfg, control="buoyancy",
+                                   with_inflow=True, unet_levels=2)
+    return pde, train, val
+
+
+def run_smoke3d_indirect(workdir: str, size: int = 32, n: int = 16,
+                         iterations: int = 400, num_train: int = 128,
+                         num_val: int = 16, batch_size: int = 8,
+                         e2e_iterations: int | None = None,
+                         mesh=None, seed: int = 0, resume: bool = False,
+                         device=None) -> dict:
+    """3D indirect smoke control: a buoyancy-only CFE steering an
+    inflow-driven plume through the plate at size³, n=16. force_reg 3e-5:
+    in the JAX package's runs 1e-5 diverged twice (the reg term keeps this
+    task stable), so the converged value stays."""
+    pde, train, val = _smoke3d_indirect_setup(size, n, num_train, num_val,
+                                              device)
+    ccfg = CurriculumConfig(n=n, batch_size=batch_size,
+                            cfe_iterations=iterations,
+                            op_iterations=iterations,
+                            e2e_iterations=e2e_iterations or iterations,
+                            e2e_lr=1e-4, grad_clip=1.0,
+                            force_reg=3e-5, seed=seed)
+    return run_curriculum(pde, ccfg, train, val, workdir, mesh=mesh,
+                          resume=resume)
+
+
+def run_smoke3d_indirect_ft(workdir: str, init_from: str,
+                            force_reg: float = 1.5e-5,
+                            size: int = 32, n: int = 16,
+                            num_train: int = 128, num_val: int = 16,
+                            batch_size: int = 8,
+                            e2e_iterations: int | None = None,
+                            mesh=None, seed: int = 0,
+                            resume: bool = False, device=None) -> dict:
+    """Force-reg annealing fine-tune of a finished smoke3d_indirect run:
+    every net restored from `init_from` (its ckpt_final, either
+    package's), one more e2e stage at a lower force_reg, which from
+    scratch would diverge, on the same task and data."""
+    pde, train, val = _smoke3d_indirect_setup(size, n, num_train, num_val,
+                                              device)
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
                             e2e_iterations=e2e_iterations or 600,
                             e2e_lr=5e-5, grad_clip=1.0,

@@ -6,8 +6,10 @@ operations is the 2D step's: advect density (then inflow) and velocity →
 diffuse → effects (force, buoyancy on vz; z is up) → project. The
 pressure solve is `physics/poisson.py :: solve_pressure`, which takes
 volumes: the exact spectral solve in a box without obstacles, the
-host-checked CG with them. No kernel runs here: the fused step and the
-pressure kernel are 2D only, as the JAX package's Pallas kernels are.
+spectrally preconditioned CG with them (which a CUDA graph can capture:
+it then runs all `maxiter` trips). No kernel runs here: the fused step
+and the pressure kernel are 2D only, as the JAX package's Pallas kernels
+are.
 """
 
 from __future__ import annotations

@@ -8,10 +8,11 @@ to zero fluid mean.
 
 The same code solves 3D volumes (B, D, H, W) on a `grids3d.Domain3D`,
 which has the surface of `Domain2D` these functions use: the exact
-spectral solve without obstacles, the host-checked CG with them ('pcg',
-'jax'; eager only, as `cg` asks the host once a trip whether a sample is
-still active). The kernel is 2D only, as the JAX package's Pallas kernel
-is.
+spectral solve without obstacles, the CG with them ('pcg', 'jax'). `cg`
+stops once no sample is active when run eagerly, and runs all `maxiter`
+trips while a CUDA graph is being captured, with the same result, so a
+captured training step holds the solve. The kernel is 2D only, as the
+JAX package's Pallas kernel is.
 
 `solve_pressure` is a `torch.autograd.Function`: since A is symmetric, the
 backward pass is one more solve of the same system with the incoming
@@ -45,6 +46,12 @@ def _spatial_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=tuple(range(1, a.ndim)), keepdim=True)
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether `t` is a CUDA tensor and the current stream is being
+    captured into a CUDA graph."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def cg(matvec, b: torch.Tensor, tol: float, maxiter: int, x0=None,
        precond=None, return_iters: bool = False):
     """Batched (preconditioned) conjugate gradients on an SPD matvec.
@@ -52,41 +59,67 @@ def cg(matvec, b: torch.Tensor, tol: float, maxiter: int, x0=None,
     Each batch element runs its own CG (per-element α/β via spatial dots)
     and freezes (α=β=0) once its relative residual is below `tol`, or once
     its residual grows ≥4× above the best seen (fp32 breakdown on singular
-    systems); the best iterate is returned. The loop checks on the host
-    whether any element is still active, once per iteration.
+    systems); the best iterate is returned.
+
+    Eager, the loop asks the host once a trip whether any element is still
+    active and stops when none is. While the current stream is captured
+    into a CUDA graph, where a host read is not allowed, it runs all
+    `maxiter` trips: a trip after every element has frozen (α = β = 0)
+    leaves x and r, so rs, rs_best and x_best, as they were, and an
+    element once frozen stays frozen; so x_best and the trip counts are
+    the eager loop's bit for bit. The loop-carried tensors are updated in
+    place.
+
+    return_iters: also return each element's trip count, the trips on
+    which it was active, an int32 (B,) tensor on b's device (the eager
+    loop ran as many trips as the largest of them).
     """
     apply_m = precond if precond is not None else (lambda r: r)
-    x = torch.zeros_like(b) if x0 is None else x0
+    x = torch.zeros_like(b) if x0 is None else x0.clone()
     r = b - matvec(x)
-    z = apply_m(r)
-    d = z
-    rz = _spatial_dot(r, z)
+    d = apply_m(r).clone()
+    rz = _spatial_dot(r, d)
     rs = _spatial_dot(r, r)
     b2 = torch.clamp(_spatial_dot(b, b), min=1e-30)
     tol2 = tol * tol
-    x_best, rs_best = x, rs
-    k = 0
-    while k < maxiter:
-        act = (rs / b2 > tol2) & (rs < 4.0 * rs_best)
-        if not bool(act.any()):
-            break
+    x_best, rs_best = x.clone(), rs.clone()
+    trips = torch.zeros(rs.shape, dtype=torch.int32, device=b.device)
+
+    def active():
+        return (rs / b2 > tol2) & (rs < 4.0 * rs_best)
+
+    def trip(act):
         ad = matvec(d)
         dad = _spatial_dot(d, ad)
         ok = act & (dad > 0)
         alpha = torch.where(ok, rz / torch.where(dad > 0, dad, 1.0), 0.0)
-        x = x + alpha * d
-        r = r - alpha * ad
+        # A frozen element adds 0·d, which is NaN where d is not finite, as
+        # in the JAX package's while_loop while another element is active;
+        # x_best never takes a NaN residual's iterate.
+        x.add_(alpha * d)
+        r.sub_(alpha * ad)
         z = apply_m(r)
         rz_new = _spatial_dot(r, z)
         rs_new = _spatial_dot(r, r)
         beta = torch.where(ok, rz_new / torch.where(rz != 0, rz, 1.0), 0.0)
-        d = z + beta * d
-        x_best = torch.where(rs_new < rs_best, x, x_best)
-        rs_best = torch.minimum(rs_new, rs_best)
-        rz, rs = rz_new, rs_new
-        k += 1
+        d.mul_(beta).add_(z)
+        x_best.copy_(torch.where(rs_new < rs_best, x, x_best))
+        rs_best.copy_(torch.minimum(rs_new, rs_best))
+        rz.copy_(rz_new)
+        rs.copy_(rs_new)
+        trips.add_(act)
+
+    if _capturing(b):
+        for _ in range(maxiter):
+            trip(active())
+    else:
+        for _ in range(maxiter):
+            act = active()
+            if not bool(act.any()):
+                break
+            trip(act)
     if return_iters:
-        return x_best, k
+        return x_best, trips.reshape(-1)
     return x_best
 
 
@@ -132,8 +165,9 @@ def measure_pressure_iterations(
     b = project(torch.where(domain.fluid_mask > 0, -div, 0.0))
     x0 = None if x0 is None else project(x0)
     with torch.no_grad():
-        return cg(matvec, b, tol=tol, maxiter=maxiter, x0=x0, precond=precond,
-                  return_iters=True)
+        p, trips = cg(matvec, b, tol=tol, maxiter=maxiter, x0=x0,
+                      precond=precond, return_iters=True)
+    return p, int(trips.max())
 
 
 def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D,
@@ -145,8 +179,9 @@ def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D,
     spectral-preconditioned CG (closed) or plain CG (open). An explicit
     'cuda' beyond the fit raises, as the JAX package's 'pallas' does.
     On a volume (B, D, H, W): the spectral solve without obstacles and
-    'pcg' with them, on open and closed domains alike; 'cuda' raises (the
-    kernel is 2D only)."""
+    'pcg' with them, on open and closed domains alike, on the card too
+    (under a CUDA graph's capture `cg` runs all `maxiter` trips); 'cuda'
+    raises (the kernel is 2D only)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown pressure backend {backend!r}; "
                          f"choose from {BACKENDS}")

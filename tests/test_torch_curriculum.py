@@ -338,7 +338,7 @@ def test_cli_smoke_indirect_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["smoke3d_indirect_ft"], "smoke3d_indirect_ft is not ported yet"),
+    (["smoke3d_indirect_ft"], "smoke3d_indirect_ft requires --init-from"),
     (["smoke_indirect", "--sequence", "refined"], "--sequence is not supported"),
     (["smoke_indirect", "--mesh", "4"], "--mesh"),
     (["smoke_indirect_ft"], "requires --init-from"),

@@ -1,11 +1,13 @@
 """The 128² indirect-smoke entries (`smoke_128`, `smoke_128_ft`) and the 3D
-smoke entries (`smoke3d`, `smoke3d_ft`) of the port's CLI against the JAX
+smoke entries (`smoke3d`, `smoke3d_ft`, `smoke3d_indirect`,
+`smoke3d_indirect_ft`) of the port's CLI against the JAX
 package's, on the CPU.
 
 Held to:
 * each entry, full size and `--smoke-test`, hands its experiment function
   the JAX package's arguments (both CLIs run with the experiment functions
-  stubbed; the port adds only `device`);
+  stubbed; the port adds only `device`), the plated 3D entries among
+  them;
 * `smoke_128 --smoke-test`'s datasets (32², n=4, 16 + 8 trajectories,
   the smoke task's two plates, pressure tol 1e-4 as configured) from the
   JAX package's draws against the JAX package's datasets: the
@@ -13,7 +15,8 @@ Held to:
   (both solve the pressure to tol 1e-4 with CGs that sum in another
   order: up to 1.6e-5 in the post-warm-up velocity), the inflow
   exactly;
-* the refusals that remain: the plated 3D task and `--mesh`.
+* the refusals that remain: `--mesh`, a fine-tune without
+  `--init-from`, a flag an entry does not take.
 """
 
 import contextlib
@@ -36,7 +39,9 @@ torch.set_num_threads(1)
 
 _ENTRIES = {"smoke_128": "run_smoke_indirect",
             "smoke_128_ft": "run_smoke_indirect_ft",
-            "smoke3d": "run_smoke3d", "smoke3d_ft": "run_smoke3d_ft"}
+            "smoke3d": "run_smoke3d", "smoke3d_ft": "run_smoke3d_ft",
+            "smoke3d_indirect": "run_smoke3d_indirect",
+            "smoke3d_indirect_ft": "run_smoke3d_indirect_ft"}
 
 
 def _calls(argv, monkeypatch, port: bool):
@@ -76,6 +81,12 @@ def _calls(argv, monkeypatch, port: bool):
     ["smoke3d_ft", "--init-from", "ck"],
     ["smoke3d_ft", "--smoke-test", "--init-from", "ck", "--e2e-iterations",
      "3"],
+    ["smoke3d_indirect"], ["smoke3d_indirect", "--smoke-test"],
+    ["smoke3d_indirect", "--iterations", "4", "--e2e-iterations", "6",
+     "--num-train", "24", "--num-val", "6", "--seed", "1", "--resume"],
+    ["smoke3d_indirect_ft", "--init-from", "ck"],
+    ["smoke3d_indirect_ft", "--smoke-test", "--init-from", "ck",
+     "--force-reg", "1e-5", "--e2e-iterations", "3"],
 ], ids=lambda a: " ".join(a))
 def test_cli_dispatch_matches_jax(argv, monkeypatch):
     args, kw = _calls(argv, monkeypatch, port=True)
@@ -86,8 +97,9 @@ def test_cli_dispatch_matches_jax(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["smoke3d_indirect"], "not ported yet"),
-    (["smoke3d_indirect_ft", "--init-from", "ck"], "not ported yet"),
+    (["smoke3d_indirect", "--mesh", "2"], "not ported yet"),
+    (["smoke3d_indirect_ft", "--init-from", "ck", "--mesh", "4"],
+     "not ported yet"),
     (["smoke_128", "--mesh", "4"], "--mesh"),
     (["smoke_128_ft"], "requires --init-from"),
     (["smoke3d_ft"], "requires --init-from"),
