@@ -107,7 +107,26 @@ prints no result):
      `compare_smoke` with cut counts, each writing comparison.json with
      all five rows (`python3 chip_smoke.py burgers` runs 11 and 12 alone
      and prints no result);
- 13. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
+ 13. data parallelism and the spatial split (`parallel/`) on one card:
+     "mesh", `ControlTraining(mesh=make_mesh(1))` in a world of one NCCL
+     rank (a FileStore in a temporary directory) against `mesh=None`, the
+     same bits: the first iteration on the unfused, fused and conv paths,
+     then K_MESH `progress_multi` steps of the main path under the graph
+     (ms a step, graph nodes, the all-reduces captured, NCCL kernel
+     nodes, 31 K1 a replay); "spatial", `spatial_fluid_step` on a (1, 1)
+     mesh at 64² with the plate, batch 8, in each mode ('spectral'
+     without the plate) against the dense step, forward and gradients
+     (the JAX package's tolerances), the divergence after projection and
+     ms a forward step beside the dense one's, then
+     `optimize_forces_spatial` (64², n=3, 25 iterations, 'pcg', cosine)
+     improving at least 2×, no K1-K5 launch; two gloo ranks on the card
+     as subprocesses (`chip_smoke.py gloo-rank`), after a probe that gloo
+     takes CUDA tensors, two eager steps against `mesh=None` on the whole
+     batch (`GLOO_DTYPE`), and `progress_multi` refused; `torchrun
+     --nproc-per-node 1 -m pde_control_tpu_torch.experiments.run
+     smoke_indirect --mesh 1` with the CLI phase's counts (`python3
+     chip_smoke.py mesh` runs 13 alone and prints no result);
+ 14. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
      package's goldens (`tests/goldens/conv3x3_32.npz`) under every plan
      their launchers take, at the conv shapes of configs 3-5 that the
      main path does not reach under every plan, and against their plain
@@ -121,9 +140,9 @@ prints no result):
      wrong, checked and timed; neither is summed. It runs last because the
      graphs' memory pools would raise the paths' peak memory.
 Each phase's seconds follow it. The line before the last is the kernels'
-JSON summary (with each kernel's launches in configs 3-5, in the OOD evals
-and in the 128² and 3D entries, and K1's times at 128²x8); the last line
-is `{"ok": true, "device": {...}}`.
+JSON summary (with each kernel's launches in configs 3-5, in the OOD evals,
+in the 128² and 3D entries and in the mesh and spatial phases, and K1's
+times at 128²x8); the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -3319,10 +3338,538 @@ def adjoint_phase(card: str, burgers_data: dict) -> None:
 
 
 
+# ------------------------------------------------- data parallelism, spatial
+# One card: DP runs as a world of one rank under NCCL (in this process,
+# through a FileStore) and as two ranks on the card under gloo (eager, in
+# subprocesses); the spatial split runs on a (1, 1) mesh. Multi-rank
+# correctness is the CPU tests' (tests/test_torch_{mesh,spatial,spatial_opt}.py).
+
+K_MESH = 4
+GLOO_SEEDS = (SEED + 40, SEED + 41)
+# (b) holds a half batch's work to the whole batch's at the JAX package's
+# fp32 DP tolerances, so its nets compute in fp64 (parameters and physics
+# stay fp32) and each rank's K1 takes the whole batch's plan: in fp32 or
+# bf16 the half batches' convs round their batch sums in another order,
+# and K1's cluster size, picked by the batch, rounds its tol-bounded CG
+# otherwise; Adam's normalized step turns either into up to 2·lr on a
+# weight whose gradient nearly cancels.
+GLOO_DTYPE = torch.float64
+# The spatial checks: the JAX package's check's physics at 64² with the
+# plate (tests/_spatial_equality_check.py), 'spectral' without it, and its
+# tolerances: loss, final state, force gradient.
+SPATIAL = dict(steps=3, dt=0.5, buoyancy=0.1, tol=1e-7, maxiter=800)
+SPATIAL_MODES = {"jax": ("jax", True), "pcg": ("pcg", True),
+                 "pcg2": ("pcg", True), "spectral": ("spectral", False)}
+
+
+@contextlib.contextmanager
+def _nccl_world():
+    """A world of one rank under NCCL on cuda:0, through a FileStore in a
+    temporary directory; destroyed on leaving."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_step(app, batch) -> tuple:
+    """One step as `progress` runs it: (loss, each net's gradient norm read
+    before the update, the parameters after it)."""
+    metrics = app._global_metrics(app.compute_gradients(
+        app._device_batch(batch)))
+    norms = _grad_norms(app)
+    app.apply_gradients()
+    return (float(metrics["loss"]), norms,
+            [t.clone() for t in app.nets.state_dict().values()])
+
+
+def _same_step(label: str, a: tuple, b: tuple) -> None:
+    same = (a[0] == b[0] and a[1] == b[1]
+            and all(torch.equal(x, y) for x, y in zip(a[2], b[2])))
+    print(f"{label}: loss {a[0]:.9e} / {b[0]:.9e}, grad norms equal "
+          f"{a[1] == b[1]}, parameters equal "
+          f"{all(torch.equal(x, y) for x, y in zip(a[2], b[2]))}")
+    if not same:
+        raise AssertionError(f"{label}: mesh=make_mesh(1) differs from "
+                             "mesh=None")
+
+
+def _graph_kernel_names(graph) -> dict:
+    """Kernel nodes of a kept cudaGraph_t by function name
+    (`cuGraphGetNodes`, `cuGraphNodeGetType`, `cuGraphKernelNodeGetParams`
+    and `cuFuncGetName` of libcuda); other nodes by type."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(g, None, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(g, nodes, ctypes.byref(n)):
+        raise RuntimeError("cuGraphGetNodes failed")
+    out: dict = {}
+    kind = ctypes.c_int(0)
+    # CUDA_KERNEL_NODE_PARAMS_v2: func, 7 dims (4 slots), kernelParams,
+    # extra, kern, ctx; padded.
+    params = (ctypes.c_void_p * 16)()
+    name = ctypes.c_char_p()
+    named = hasattr(cuda, "cuFuncGetName") and hasattr(cuda, "cuKernelGetName")
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        key = f"node type {kind.value}"
+        if kind.value == 0:
+            key = "kernel (name not read)"
+            if named and not cuda.cuGraphKernelNodeGetParams_v2(
+                    ctypes.c_void_p(node), params):
+                rc = (cuda.cuFuncGetName(ctypes.byref(name),
+                                         ctypes.c_void_p(params[0]))
+                      if params[0] else
+                      cuda.cuKernelGetName(ctypes.byref(name),
+                                           ctypes.c_void_p(params[7])))
+                if not rc and name.value:
+                    key = name.value.decode()
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+@contextlib.contextmanager
+def _captured_all_reduces():
+    """Patches `torch.distributed.all_reduce` so that each call made while
+    a CUDA graph is captured is counted; yields the count (a list)."""
+    import torch.distributed as dist
+
+    fn, calls = dist.all_reduce, [0]
+
+    def counting(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            calls[0] += 1
+        return fn(*args, **kw)
+
+    dist.all_reduce = counting
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = fn
+
+
+def mesh_phase(card: str) -> dict:
+    """(a) of the "mesh" phase: `ControlTraining(mesh=make_mesh(1))` under
+    NCCL against `mesh=None`, the same bits: the first iteration on each
+    path, then K_MESH `progress_multi` steps under the graph on the main
+    path. Returns each kernel's launches in the phase."""
+    _phase("mesh: data parallelism, a world of one rank under NCCL")
+    from pde_control_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1)
+    print(f"mesh {mesh.shape} rank {mesh.rank} device {mesh.device} backend "
+          f"{mesh.backend}, NCCL {torch.cuda.nccl.version()}")
+    batch = make_batch()
+    counted = dict.fromkeys(_counts(), 0)
+    flags = dict(enabled=True, deterministic=True, benchmark=False,
+                 allow_tf32=False)
+    with torch.backends.cudnn.flags(**flags):
+        for path, config in PATHS.items():
+            _zero_counts()
+            steps = []
+            for kw in ({}, {"mesh": mesh}):
+                app = make_app(*config, **kw)
+                perturb_cfe(app)
+                steps.append(_mesh_step(app, batch))
+                del app
+            _same_step(f"first iteration, {path}", *steps)
+            counted = {k: counted[k] + v for k, v in _counts().items()}
+        batches = _device_batches(K_MESH, SEED + 30)
+        runs, apps = {}, {}
+        for label, kw in (("mesh=None", {}), ("mesh", {"mesh": mesh})):
+            app = apps[label] = make_app(**kw)
+            perturb_cfe(app)
+            _zero_counts()
+            with _captured_all_reduces() as calls:
+                first = app.progress_multi(batches)["loss"].clone()
+            counted = {k: counted[k] + v for k, v in _counts().items()}
+            graph = next(iter(app._graphs.values()))
+            runs[label] = dict(loss=first,
+                               state=[t.clone() for t in app._state()],
+                               ms=[], nodes=_graph_nodes(graph.graph),
+                               kinds=_graph_kernel_names(graph.graph),
+                               launches=dict(app.graph_launches),
+                               captured_all_reduces=calls[0])
+        # Graph replays in turns (A B B A, twice): single calls of either
+        # app have landed ~66 or ~79 ms a step on the same card.
+        for label in ("mesh=None", "mesh", "mesh", "mesh=None") * 2:
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            apps[label].progress_multi(batches)
+            end.record()
+            torch.cuda.synchronize()
+            runs[label]["ms"].append(start.elapsed_time(end) / K_MESH)
+        del apps, app, graph
+        torch.cuda.empty_cache()
+    a, b = runs["mesh=None"], runs["mesh"]
+    same = torch.equal(a["loss"], b["loss"]) and all(
+        torch.equal(x, y) for x, y in zip(a["state"], b["state"]))
+    for label, r in runs.items():
+        nccl = {k: v for k, v in r["kinds"].items() if "nccl" in k.lower()}
+        print(f"progress_multi({K_MESH}) {label}: ms a step under the graph "
+              f"(CUDA events, 4 calls in turns) "
+              f"{', '.join(f'{t:.3f}' for t in r['ms'])}, {r['nodes']} graph "
+              f"nodes, "
+              f"all-reduces captured {r['captured_all_reduces']}, NCCL "
+              f"kernel nodes {sum(nccl.values())} {nccl} (kernel nodes whose "
+              f"name was not read: "
+              f"{r['kinds'].get('kernel (name not read)', 0)}), launches a replay "
+              f"{r['launches']} [{card}]")
+    print(f"mesh graph against mesh=None: {min(b['ms']) / min(a['ms']):.4f}x "
+          f"the least ms a step, {b['nodes'] - a['nodes']:+d} nodes; losses "
+          f"and state "
+          f"(parameters, moments, count, counters) the same bits: {same}")
+    if not same:
+        raise AssertionError("the mesh graph differs from mesh=None's")
+    for r in runs.values():
+        if r["launches"]["K1"] != 2 * N - 1:
+            raise AssertionError(f"K1 a replay {r['launches']['K1']}, "
+                                 f"expected {2 * N - 1}")
+    if b["captured_all_reduces"] != 3:
+        raise AssertionError("the mesh step's capture made "
+                             f"{b['captured_all_reduces']} all-reduces, "
+                             "expected 3 (gradient, not-finite flag, metrics)")
+    return {"counted": counted, "graph": {k: K_MESH * v for k, v in
+                                          runs["mesh"]["launches"].items()}}
+
+
+def _gloo_steps(app) -> tuple[list, list]:
+    """(b)'s two eager steps: their losses and the trainable parameters
+    after each."""
+    losses, params = [], []
+    for s in GLOO_SEEDS:
+        losses.append(float(app.progress(make_batch(s))["loss"]))
+        params.append([p.detach().cpu() for p in app.trainable])
+    return losses, params
+
+
+def _gloo_rank(rank: int, tmp: str) -> None:
+    """A rank of (b): two ranks of a gloo group on cuda:0. Probes that
+    gloo takes CUDA tensors for all_reduce and broadcast; then two eager
+    `progress` steps of the main path with fp32 nets (the JAX package's DP
+    tolerances are fp32's; bf16 nets round a half batch's convs
+    otherwise) on its half of the batch, and `progress_multi`, which must
+    refuse. Writes its results to `tmp`."""
+    import os
+
+    import torch.distributed as dist
+
+    from pde_control_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False  # as device_phase sets it
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
+    out = os.path.join(tmp, f"rank{rank}.pt")
+    try:
+        t = torch.full((4,), rank + 1.0, device="cuda")
+        b = torch.full((4,), float(rank), device="cuda")
+        dist.all_reduce(t)
+        dist.broadcast(b, 0)
+        probe = bool((t == 3).all() and (b == 0).all())
+    except RuntimeError as e:  # the probe the phase asks for; nothing runs
+        torch.save({"probe_error": repr(e)}, out)
+        dist.destroy_process_group()
+        return
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    plan = cuda_cg.solve_plan
+    # K1's plan as the whole batch's (`solve_plan` picks the cluster size
+    # by the batch): a sample's solve is then the same on a half batch.
+    cuda_cg.solve_plan = lambda batch, h, w, **kw: plan(2 * batch, h, w, **kw)
+    mesh = make_mesh(2, device="cuda:0")
+    app = make_app(mesh=mesh, dtype=GLOO_DTYPE)
+    perturb_cfe(app)
+    losses, params = _gloo_steps(app)
+    try:
+        app.progress_multi(_device_batches(2, SEED))
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    torch.save({"probe": probe, "losses": losses, "refused": refused,
+                "params": params, "launches": _counts()}, out)
+    dist.destroy_process_group()
+
+
+def gloo_phase(card: str) -> None:
+    """(b) of the "mesh" phase: two gloo ranks on the one card against
+    `mesh=None` on the whole batch, at the JAX package's DP tolerances."""
+    _phase("mesh: two gloo ranks on the one card")
+    import os
+    import tempfile
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "gloo-rank", str(r),
+                               tmp]) for r in (0, 1)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"gloo ranks exited {rcs}")
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+             for r in (0, 1)]
+    if any("probe_error" in r for r in ranks):
+        print(f"gloo on this card does not take CUDA tensors: "
+              f"{[r.get('probe_error') for r in ranks]}; (b) left out")
+        return
+    app = make_app(dtype=GLOO_DTYPE)
+    perturb_cfe(app)
+    losses, want = _gloo_steps(app)
+    total = sum(p.numel() for p in want[0])
+    worst, off = [0.0, 0.0], [0, 0]
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5)
+        for step in (0, 1):
+            for got, ref in zip(r["params"][step], want[step]):
+                d = (got.double() - ref.double()).abs()
+                worst[step] = max(worst[step], float(d.max()))
+                off[step] += int((d > 1e-6 + 1e-4 * ref.double().abs()).sum())
+        if not (r["probe"] and r["refused"] and "gloo" in r["refused"]):
+            raise AssertionError(f"probe {r['probe']}, progress_multi under "
+                                 f"gloo: {r['refused']!r}")
+    same = all(torch.equal(x, y) for x, y in zip(ranks[0]["params"][1],
+                                                   ranks[1]["params"][1]))
+    lr = app.learning_rate
+    print(f"two gloo ranks on cuda:0, 2 eager steps at {H}x{H} batch "
+          f"{BATCH} (4 a rank), nets in {GLOO_DTYPE}: losses "
+          f"{ranks[0]['losses']} against mesh=None {losses} (rtol 1e-5); "
+          f"parameters beyond rtol 1e-4, atol 1e-6 (of {2 * total}, both "
+          f"ranks): after step 1 {off[0]} (max|d| {worst[0]:.3e}), after "
+          f"step 2 {off[1]} (max|d| {worst[1]:.3e}, bound 2 lr = "
+          f"{2 * lr:.0e}, at most 0.1% of the elements); the ranks' "
+          f"replicas equal {same}; "
+          f"launches a rank {ranks[0]['launches']}; progress_multi refused: "
+          f"{ranks[0]['refused'][:60]}…; {time.perf_counter() - t0:.1f} s "
+          f"[{card}]")
+    # After one step every parameter holds the JAX package's tolerance. In
+    # the second, Adam's step m/√v divides the all-reduce's fp32 rounding
+    # of a gradient entry whose two halves nearly cancel by that entry's
+    # own small size: such an entry may move by up to 2·lr, which few do.
+    if (off[0] or worst[1] > 2 * lr or off[1] > 1e-3 * 2 * total
+            or not same):
+        raise AssertionError("the gloo ranks' parameters differ from "
+                             "mesh=None's or from each other")
+
+
+def mesh_cli_phase(card: str) -> None:
+    """(c) of the "mesh" phase: `torchrun --nproc-per-node 1 -m
+    pde_control_tpu_torch.experiments.run smoke_indirect --mesh 1` with
+    the CLI phase's cut counts; rank 0's results.json holds the eval block
+    it printed."""
+    _phase("mesh: run smoke_indirect --mesh 1 under torchrun")
+    import shutil
+    from pathlib import Path
+
+    workdir = Path(__file__).resolve().parent / "runs/chip_smoke_mesh_cli"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "pde_control_tpu_torch.experiments.run",
+         "smoke_indirect", "--mesh", "1", "--iterations", "2", "--num-train",
+         "16", "--num-val", "8", "--workdir", str(workdir)],
+        capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode:
+        print(proc.stdout[-4000:], proc.stderr[-4000:])
+        raise AssertionError(f"torchrun exited {proc.returncode}")
+    with open(workdir / "results.json") as f:
+        res = json.load(f)
+    ev = res["eval"]
+    if json.loads(proc.stdout)["eval"] != ev or not all(
+            np.all(np.isfinite(v)) for v in ev.values()):
+        raise AssertionError(f"torchrun CLI: eval block missing or "
+                             f"non-finite: {ev}")
+    print(f"torchrun run smoke_indirect --mesh 1 --iterations 2 --num-train "
+          f"16 --num-val 8: {seconds:.2f} s, stages "
+          f"{sorted(k for k in res if k.endswith(('supervised', '_n16')))}; "
+          f"eval final_state_mse {ev['final_state_mse']:.6e}, zero force "
+          f"{ev['zero_force_final_mse']:.6e} [{card}]")
+
+
+def _spatial_inputs(h: int, b: int) -> dict:
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(h), indexing="ij")
+
+    def blob(r):
+        c = r.uniform(h * 0.2, h * 0.8, (b, 2))
+        return np.exp(-((yy[None] - c[:, 0, None, None]) ** 2
+                        + (xx[None] - c[:, 1, None, None]) ** 2)
+                      / (0.03 * h * h)).astype(np.float32)
+
+    arrays = dict(density=blob(rng),
+                  fy=rng.normal(0, 0.05, (b, h + 1, h)).astype(np.float32),
+                  fx=rng.normal(0, 0.05, (b, h, h + 1)).astype(np.float32),
+                  target=blob(np.random.default_rng(SEED + 7)))
+    return {k: torch.tensor(v, device="cuda") for k, v in arrays.items()}
+
+
+def _rollout_grad(step, x: dict, steps: int):
+    """loss = mean((final density − target)²) of `steps` steps from rest
+    with the force, and the force's gradient."""
+    from pde_control_tpu_torch import FluidState
+    from pde_control_tpu_torch.grids import Staggered2D
+
+    b, h, w = x["density"].shape
+    fy, fx = (x[k].clone().requires_grad_() for k in ("fy", "fx"))
+    state = FluidState(velocity=Staggered2D.zeros(b, h, w, device="cuda"),
+                       density=x["density"])
+    for _ in range(steps):
+        state = step(state, Staggered2D(vy=fy, vx=fx))
+    loss = torch.mean((state.density - x["target"]) ** 2)
+    loss.backward()
+    return loss.detach(), state, fy.grad, fx.grad
+
+
+def spatial_phase(card: str) -> None:
+    """The "spatial" phase on a (1, 1) mesh: `spatial_fluid_step` at 64²
+    with the plate, batch 8, in each mode ('spectral' without the plate)
+    against the dense `fluid_step`, forward and gradients; the divergence
+    after projection and ms a step; then `optimize_forces_spatial` as the
+    JAX package's multichip gate runs it (64², n=3, 25 iterations,
+    'pcg', cosine), which must improve the loss at least 2×."""
+    _phase("spatial: the split step on a (1, 1) mesh")
+    from pde_control_tpu_torch import (
+        Domain2D,
+        FluidConfig,
+        FluidState,
+        fluid_step,
+    )
+    from pde_control_tpu_torch.grids import Staggered2D
+    from pde_control_tpu_torch.parallel.spatial import (
+        make_mesh2d,
+        spatial_fluid_step,
+    )
+    from pde_control_tpu_torch.parallel.spatial_opt import (
+        optimize_forces_spatial,
+    )
+
+    mesh = make_mesh2d(1, 1)
+    s = SPATIAL
+    x = _spatial_inputs(H, BATCH)
+    _zero_counts()
+    print(f"limits: loss rtol 1e-5, final state rtol 1e-4 atol 1e-6, force "
+          f"gradient rtol 1e-3 atol 2e-5; {s['steps']} steps from rest, "
+          f"{H}x{H} batch {BATCH}, tol {s['tol']}")
+    for mode, (dense_mode, plate) in SPATIAL_MODES.items():
+        domain = Domain2D.create(H, H, obstacle_mask=_plate(H) if plate
+                                 else None, device="cuda")
+        cfgs = [FluidConfig(dt=s["dt"], buoyancy=s["buoyancy"],
+                            pressure_tol=s["tol"], pressure_maxiter=s["maxiter"],
+                            pressure_backend=m) for m in (mode, dense_mode)]
+        sp = _rollout_grad(lambda st, f: spatial_fluid_step(
+            st, domain, cfgs[0], mesh, force=f), x, s["steps"])
+        de = _rollout_grad(lambda st, f: fluid_step(st, domain, cfgs[1],
+                                                    force=f), x, s["steps"])
+        np.testing.assert_allclose(float(sp[0]), float(de[0]), rtol=1e-5)
+        for got, want in ((sp[1].density, de[1].density),
+                          (sp[1].velocity.vy, de[1].velocity.vy),
+                          (sp[1].velocity.vx, de[1].velocity.vx)):
+            np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                       want.detach().cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        for got, want in zip(sp[2:], de[2:]):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-3, atol=2e-5)
+        v = sp[1].velocity
+        div = float((Staggered2D(vy=v.vy.detach(), vx=v.vx.detach())
+                     .divergence(domain.dx) * domain.fluid_mask).abs().max())
+        state = FluidState(velocity=Staggered2D(vy=v.vy.detach(),
+                                                vx=v.vx.detach()),
+                           density=sp[1].density.detach())
+        force = Staggered2D(vy=x["fy"], vx=x["fx"])
+        times = {}
+        with torch.no_grad():
+            for label, fn in (("spatial", lambda: spatial_fluid_step(
+                    state, domain, cfgs[0], mesh, force=force)),
+                              ("dense", lambda: fluid_step(
+                    state, domain, cfgs[1], force=force))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                for _ in range(5):
+                    fn()
+                end.record()
+                torch.cuda.synchronize()
+                times[label] = (start.elapsed_time(end) / 5,
+                                1e3 * (time.perf_counter() - t0) / 5)
+        print(f"spatial {mode} (dense {dense_mode}, plate {plate}): loss "
+              f"{float(sp[0]):.9e} / {float(de[0]):.9e}, max|div| after "
+              f"projection {div:.3e}; a forward step {times['spatial'][0]:.3f}"
+              f" ms (host {times['spatial'][1]:.3f}) against the dense "
+              f"step's {times['dense'][0]:.3f} (host {times['dense'][1]:.3f}),"
+              f" tol {s['tol']} [{card}]")
+    # The JAX package's gate (`__graft_entry__._dryrun_spatial_rollout`): a
+    # CFL-reachable target 2 cells away, 25 cosine-decayed Adam steps.
+    yy, xx = np.meshgrid(np.arange(H), np.arange(H), indexing="ij")
+
+    def blob(cy, cx):
+        return torch.tensor(np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                                   / (0.01 * H * H)).astype(np.float32),
+                            device="cuda")[None]
+
+    domain = Domain2D.create(H, H, obstacle_mask=_plate(H), device="cuda")
+    cfg = FluidConfig(dt=0.5, buoyancy=0.0, pressure_tol=1e-4,
+                      pressure_maxiter=80, pressure_backend="pcg")
+    state0 = FluidState(velocity=Staggered2D.zeros(1, H, H, device="cuda"),
+                        density=blob(H * .3, H * .5))
+    t0 = time.perf_counter()
+    _, hist = optimize_forces_spatial(
+        state0, blob(H * .3 + 2.0, H * .5 + 2.0), domain, cfg, mesh, n=3,
+        iterations=25, learning_rate=0.4, force_reg=1e-7,
+        lr_schedule="cosine")
+    obs = hist["obs_loss"].cpu().numpy()
+    improve = float(obs[0] / obs[-1])
+    launches = _counts()
+    print(f"optimize_forces_spatial 64^2, n=3, 25 iterations, 'pcg', cosine: "
+          f"obs loss {obs[0]:.6e} -> {obs[-1]:.6e}, {improve:.2f}x in "
+          f"{time.perf_counter() - t0:.2f} s; K1-K5 launches in the phase "
+          f"{launches} [{card}]")
+    if not (np.all(np.isfinite(obs)) and improve >= 2.0):
+        raise AssertionError(f"spatial adjoint improved {improve:.2f}x < 2")
+    if any(launches.values()):
+        raise AssertionError(f"the spatial path launched a kernel: {launches}")
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["gloo-rank"]:  # a rank of the mesh phase's (b)
+        _gloo_rank(int(sys.argv[2]), sys.argv[3])
+        return
     card = device_phase()
     if sys.argv[1:] == ["burgers"]:  # the Burgers slice alone, no result
         adjoint_phase(card, burgers_phase(card))
+        _phase(None)
+        return
+    if sys.argv[1:] == ["mesh"]:  # the mesh and spatial phases, no result
+        build_phase()
+        with _nccl_world():
+            mesh_phase(card)
+            spatial_phase(card)
+        gloo_phase(card)
+        mesh_cli_phase(card)
         _phase(None)
         return
     build_phase()
@@ -3352,6 +3899,11 @@ def main() -> None:
     cli_phase(card)
     entries = {name: entry_phase(card, name) for name in ENTRIES}
     adjoint_phase(card, burgers_phase(card))
+    with _nccl_world():
+        mesh = mesh_phase(card)
+        spatial_phase(card)
+    gloo_phase(card)
+    mesh_cli_phase(card)
     # The conv shapes of configs 3 and 5 that neither the main path nor
     # config 4's CFE check reaches, each held to plain under every plan
     # once.
@@ -3412,6 +3964,14 @@ def main() -> None:
                                                 for k in keys)
                 kern[f"{label}_graph_launches"] = sum(
                     counts[label]["graph"][k] for k in keys)
+    # The mesh phase's launches: eager (the first iterations on the three
+    # paths, both apps, and each app's warm-up steps) and a replay's times
+    # K_MESH of the mesh app; the spatial phase launches none.
+    for kern, keys in zip(kernels, (("K1",), ("K2",), ("K3",),
+                                    ("K4 fwd", "K4 dX"), ("K5",))):
+        kern["mesh_launches"] = sum(mesh["counted"][k] for k in keys)
+        kern["mesh_graph_launches"] = sum(mesh["graph"][k] for k in keys)
+        kern["spatial_launches"] = 0
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

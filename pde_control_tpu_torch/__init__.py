@@ -10,11 +10,14 @@ by a native C++ gather), checkpoints interchangeable with the JAX
 package's, `train()`, the curriculum and the `experiments.run` CLI; every
 BASELINE config, the adjoint and the scheme comparison; the
 out-of-distribution evals, `render_rollout` and `profile_bench`; the
-128² indirect-smoke entries; the obstacle-free 3D slice (3D grids,
-trilinear samplers, the 3D spectral solve, the 3D step, the nets at
-dim=3, the 3D PDE and the `smoke3d` entries). Not ported yet: the plated
-3D task (`smoke3d_indirect`) and data parallelism. Five hand-written CUDA
-kernels carry it on the card,
+128² indirect-smoke entries; the 3D slice (3D grids, trilinear
+samplers, the 3D spectral solve and CG, the 3D step, the nets at dim=3,
+the 3D PDE and the `smoke3d` and plated `smoke3d_indirect` entries); and
+`parallel/`: data parallelism over torch.distributed
+(`ControlTraining(mesh=)`, `run.py --mesh` under torchrun) and the 2D
+spatial domain decomposition (`spatial.py`, `spatial_opt.py`). Not
+ported yet: the 3D spatial decomposition (`parallel/spatial3d.py`). Five
+hand-written CUDA kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the
     unfused step calls;

@@ -33,29 +33,35 @@ COSINE_ALPHA = 0.1  # the floor of the JAX package's cosine schedule
 class ClippedAdam:
     def __init__(self, numel: int, device, learning_rate: float,
                  grad_clip: float | None = None,
-                 decay_steps: int | None = None):
+                 decay_steps: int | None = None,
+                 alpha: float = COSINE_ALPHA):
         self.learning_rate = learning_rate
         self.grad_clip = grad_clip
         self.decay_steps = decay_steps
+        self.alpha = alpha
         self.mu = torch.zeros(numel, device=device)
         self.nu = torch.zeros(numel, device=device)
         self.count = torch.zeros((), dtype=torch.int32, device=device)
 
     def learning_rate_at(self, count: torch.Tensor):
         """The step size at `count` applied updates: the constant rate, or
-        optax's `cosine_decay_schedule(lr, decay_steps, alpha=0.1)`."""
+        optax's `cosine_decay_schedule(lr, decay_steps, alpha)` (alpha
+        0.1 by default, the training harness's floor)."""
         if not self.decay_steps:
             return self.learning_rate
         t = torch.clamp(count, max=self.decay_steps).float()
         cosine = 0.5 * (1 + torch.cos(math.pi * t / self.decay_steps))
-        return self.learning_rate * ((1 - COSINE_ALPHA) * cosine + COSINE_ALPHA)
+        return self.learning_rate * ((1 - self.alpha) * cosine + self.alpha)
 
-    def update(self, g: torch.Tensor, applied: torch.Tensor | None = None
-               ) -> torch.Tensor:
+    def update(self, g: torch.Tensor, applied: torch.Tensor | None = None,
+               norm: torch.Tensor | None = None) -> torch.Tensor:
         """The update of the flat gradient `g` (to be added to the
-        parameters); advances the state where `applied` (None: always)."""
+        parameters); advances the state where `applied` (None: always).
+        `norm`: the clip's global norm when `g` is one rank's part of the
+        gradient (None: `g`'s own)."""
         if self.grad_clip:
-            norm = torch.linalg.vector_norm(g)
+            if norm is None:
+                norm = torch.linalg.vector_norm(g)
             g = torch.where(norm < self.grad_clip, g, g / norm * self.grad_clip)
         count = self.count + 1
         mu = (1 - B1) * g + B1 * self.mu

@@ -31,9 +31,22 @@ and writes too (`utils/checkpoint.py`): `restore=` in `prepare()`,
 `save(names=…)`, and the full resume state of `save_state` /
 `restore_state` / `autosave`.
 
-Not ported yet: the mesh (data parallelism, queue A11 of ROADMAP.md). The
-`remat` and `scan_unroll` knobs are not ported: eager torch does not need
-them.
+`mesh=` (`parallel/mesh.py :: make_mesh`) trains data-parallel: one
+process per device, each holding a replica of the networks and the
+optimizer state (broadcast from rank 0 after `prepare`, `restore_state`
+and `load_params`). Every rank draws the same global batch from the same
+stream and keeps its slice, so the batch sequence is the `mesh=None`
+run's. After the backward pass the trainable gradient is all-reduced and
+divided by the world size (every loss term is a mean over the batch, so
+the mean of equal shards' gradients is the global batch's), the
+not-finite flag is all-reduced with MAX (the frozen networks' gradients
+stay local), and the metrics are all-reduced to their global means. Only
+rank 0 writes checkpoints, autosaves and logs; the ranks meet at a
+barrier after each write. On the card `progress_multi` captures the step
+with its NCCL all-reduce; a gloo group cannot be captured, and
+`progress_multi` on CUDA tensors under one raises. `infer_all_frames`
+runs the whole batch on each rank. The `remat` and `scan_unroll` knobs
+are not ported: eager torch does not need them.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pde_control_tpu_torch.control._adam import ClippedAdam
@@ -58,6 +72,14 @@ from pde_control_tpu_torch.control.sequences import (
 )
 from pde_control_tpu_torch.data.scene import DeviceDataset
 from pde_control_tpu_torch.ops import launch_counts
+from pde_control_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    barrier,
+    is_writer,
+    replicate,
+    shard_batch,
+    shard_batch_multi,
+)
 from pde_control_tpu_torch.utils.checkpoint import (
     load_network,
     load_training_state,
@@ -112,7 +134,7 @@ class ControlTraining:
         # {network: dir or .msgpack file}; applied in prepare()
         seed: int = 0,
         logdir: str | None = None,
-        mesh=None,  # data parallelism is not ported: must be None
+        mesh=None,  # parallel.mesh.Mesh: data-parallel over its ranks
         grad_clip: float | None = None,
         lr_schedule: str | None = None,  # None | 'cosine'
         decay_steps: int | None = None,  # the cosine's horizon in updates
@@ -129,9 +151,11 @@ class ControlTraining:
                                        "op_supervised")):
             raise ValueError(
                 f"n must be a power of two for {sequence_class!r}, got {n}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data parallelism) is not ported yet (ROADMAP A11)")
+        if mesh is not None and batch_size % mesh.size != 0:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by the mesh size "
+                f"({mesh.size} devices) for data-parallel sharding")
+        self.mesh = mesh
         self.n = n
         self.pde = pde
         self.dataset = dataset
@@ -164,7 +188,7 @@ class ControlTraining:
         self.seed = seed
         self.device = torch.device(device) if device is not None \
             else pde.device
-        self.logger = MetricsLogger(logdir)
+        self.logger = MetricsLogger(logdir if is_writer(mesh) else None)
         self._prepared = False
         # Which OP levels exist: spans n, n/2, …, 2.
         self.op_spans: list[int] = []
@@ -218,7 +242,18 @@ class ControlTraining:
         # batch sequence.
         self._val_rng = np.random.default_rng(self.seed + 7919)
         self._prepared = True
+        self._replicate()
         return self
+
+    def _replicate(self) -> None:
+        """Under a mesh, broadcast the networks, the optimizer state and
+        the counters from rank 0."""
+        if self.mesh is None:
+            return
+        opt = self.optimizer
+        replicate([*self.nets.state_dict().values(), opt.mu, opt.nu,
+                   opt.count, self.notfinite_total, self.notfinite_consec],
+                  self.mesh)
 
     def _restore_checkpoints(self) -> None:
         """Load `restore` into the networks: a directory restores every
@@ -254,6 +289,7 @@ class ControlTraining:
         for name, sd in params.items():
             self.nets[name].load_state_dict(sd)
         self._graphs.clear()
+        self._replicate()
 
     def to_batch(self, batch: dict) -> dict[str, torch.Tensor]:
         """numpy arrays or tensors → float32 tensors on the app's device."""
@@ -386,6 +422,15 @@ class ControlTraining:
             checked = [flat] + [p.grad.reshape(-1) for p in self.frozen
                                 if p.grad is not None]
             applied = torch.isfinite(torch.cat(checked)).all()
+        if self.mesh is not None:
+            all_reduce_mean(flat, self.mesh)
+            if applied is not None:
+                # Every rank must take or skip the update: a frozen
+                # network's gradient is local, so the flag is reduced.
+                bad = (~applied).int()
+                dist.all_reduce(bad, op=dist.ReduceOp.MAX)
+                applied = bad == 0
+        if applied is not None:
             self.notfinite_total.add_((~applied).int())
             self.notfinite_consec.copy_(torch.where(
                 applied, 0, self.notfinite_consec + 1))
@@ -406,20 +451,38 @@ class ControlTraining:
         metrics and, with `skip_nonfinite`, the counters after it."""
         metrics = self.compute_gradients(batch)
         self.apply_gradients()
+        metrics = self._global_metrics(metrics)
         if self.skip_nonfinite:
             metrics["notfinite_total"] = self.notfinite_total.clone()
             metrics["notfinite_consec"] = self.notfinite_consec.clone()
         return metrics
 
+    def _global_metrics(self, metrics: dict) -> dict:
+        """Under a mesh, each metric's mean over the ranks (one
+        all-reduce); without one, the metrics as they are."""
+        if self.mesh is None:
+            return metrics
+        names = list(metrics)
+        flat = all_reduce_mean(torch.stack([metrics[k].float()
+                                            for k in names]), self.mesh)
+        return dict(zip(names, flat.unbind()))
+
+    def _device_batch(self, batch: dict) -> dict[str, torch.Tensor]:
+        """A global batch → this rank's slice of it on the device."""
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh)
+        return self.to_batch(batch)
+
     def progress(self, batch=None) -> dict:
         """One optimization step, on `batch` or a batch sampled from the
-        dataset. Returns the step's metrics and the not-finite counters,
+        dataset (under a mesh, the global batch: each rank takes its
+        slice). Returns the step's metrics and the not-finite counters,
         as device tensors."""
         if not self._prepared:
             raise RuntimeError("call prepare() first")
         if batch is None:
             batch = self.dataset.sample(self._np_rng, self.batch_size)
-        metrics = self._step(self.to_batch(batch))
+        metrics = self._step(self._device_batch(batch))
         self.step_count += 1
         return metrics
 
@@ -439,6 +502,13 @@ class ControlTraining:
         capture, and a replay not at all)."""
         if not self._prepared:
             raise RuntimeError("call prepare() first")
+        if self.mesh is not None:
+            if self.device.type == "cuda" and self.mesh.backend != "nccl":
+                raise RuntimeError(
+                    f"progress_multi captures the step in a CUDA graph, and a "
+                    f"{self.mesh.backend} group's collectives cannot be "
+                    "captured: use an NCCL mesh, or progress() for eager steps")
+            batches = shard_batch_multi(batches, self.mesh)
         batches = self.to_batch(batches)
         k = next(iter(batches.values())).shape[0]
         if self.device.type != "cuda":
@@ -471,7 +541,7 @@ class ControlTraining:
         return {key: np.stack([s[key] for s in samples]) for key in samples[0]}
 
     def _prefetch(self) -> dict[str, torch.Tensor]:
-        """Sample the next batch and put it on the device."""
+        """Sample the next (global) batch and put it on the device."""
         return self.to_batch(self.dataset.sample(self._np_rng,
                                                  self.batch_size))
 
@@ -666,9 +736,12 @@ class ControlTraining:
     def save_state(self, directory: str) -> None:
         """Full resume checkpoint: networks, optimizer state (optax's tree,
         `_opt_state`), step counter; the JAX package resumes it too."""
-        save_training_state(directory, self.state_dicts(), self._opt_state(),
-                            self.step_count,
-                            {"sequence_class": self.sequence_class})
+        opt_state = self._opt_state()
+        if is_writer(self.mesh):
+            save_training_state(directory, self.state_dicts(), opt_state,
+                                self.step_count,
+                                {"sequence_class": self.sequence_class})
+        barrier(self.mesh)
 
     def restore_state(self, directory: str) -> None:
         """Resume from either package's save_state (same configuration and
@@ -680,6 +753,7 @@ class ControlTraining:
             self.nets[name].load_state_dict(sd)
         self._load_opt_state(opt_state)
         self._graphs.clear()
+        self._replicate()
 
     def autosave(self, directory: str) -> None:
         """Crash-safe periodic save_state: write to a sibling tmp dir, move
@@ -688,13 +762,16 @@ class ControlTraining:
         (state.json is written last; try_restore_autosave falls back to the
         .old dir if the swap itself was interrupted)."""
         tmp, old = directory + ".tmp", directory + ".old"
-        shutil.rmtree(tmp, ignore_errors=True)
-        shutil.rmtree(old, ignore_errors=True)
+        if is_writer(self.mesh):
+            shutil.rmtree(tmp, ignore_errors=True)
+            shutil.rmtree(old, ignore_errors=True)
         self.save_state(tmp)
-        if os.path.isdir(directory):
-            os.replace(directory, old)
-        os.replace(tmp, directory)
-        shutil.rmtree(old, ignore_errors=True)
+        if is_writer(self.mesh):
+            if os.path.isdir(directory):
+                os.replace(directory, old)
+            os.replace(tmp, directory)
+            shutil.rmtree(old, ignore_errors=True)
+        barrier(self.mesh)
 
     def try_restore_autosave(self, directory: str) -> int:
         """Restore a mid-stage autosave if one exists (or its `.old` copy);
@@ -716,12 +793,14 @@ class ControlTraining:
             if missing:
                 raise ValueError(f"save(names=...): unknown nets {missing}")
             params = {k: v for k, v in params.items() if k in names}
-        save_networks(directory, params, {
-            "n": self.n,
-            "sequence_class": self.sequence_class,
-            "trainable": list(self.trainable_networks),
-            "steps": self.step_count,
-        })
+        if is_writer(self.mesh):
+            save_networks(directory, params, {
+                "n": self.n,
+                "sequence_class": self.sequence_class,
+                "trainable": list(self.trainable_networks),
+                "steps": self.step_count,
+            })
+        barrier(self.mesh)
 
     def _state(self) -> list[torch.Tensor]:
         """Every tensor a step updates in place, the parameters detached (a
@@ -779,12 +858,12 @@ class ControlTraining:
     def evaluate(self, batch=None) -> dict:
         """The loss terms on `batch`, or on a batch drawn from the
         validation set with the validation stream, without gradients, as
-        floats."""
+        floats (under a mesh, each rank's slice, then the global means)."""
         if batch is None:
             batch = self.val_dataset.sample(self._val_rng, self.batch_size)
         with torch.no_grad():
-            _, metrics = self._loss_fn(self.to_batch(batch))
-        return {k: float(v) for k, v in metrics.items()}
+            _, metrics = self._loss_fn(self._device_batch(batch))
+        return {k: float(v) for k, v in self._global_metrics(metrics).items()}
 
     def infer_all_frames(self, batch, keep_states: bool = False,
                          keep_forces: bool = False):

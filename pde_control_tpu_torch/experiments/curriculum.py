@@ -10,7 +10,9 @@ through per-network checkpoints, which the JAX package reads too:
 
 Each stage's app is closed (`ControlTraining.close`) once its checkpoint is
 written, so that its captured step graph does not hold device memory into
-the next stage.
+the next stage. Under a mesh (data parallelism) every rank runs every
+stage and the eval; only rank 0 writes the checkpoints, the logs, the
+renders and results.json, and drops the autosaves.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from pde_control_tpu_torch.control.pde_base import PDE, tree_map
 from pde_control_tpu_torch.control.training import ControlTraining
+from pde_control_tpu_torch.parallel.mesh import is_writer
 from pde_control_tpu_torch.utils.epoch import stamp
 from pde_control_tpu_torch.utils.viz import save_comparison_png, save_field_png
 
@@ -131,9 +134,14 @@ def run_curriculum(
             "the final eval compares frame n of the last-stage model")
     os.makedirs(workdir, exist_ok=True)
     results: dict = {}
+    writer = is_writer(mesh)
 
     def stage_dir(name: str) -> str:
         return os.path.join(workdir, name)
+
+    def clear(tag: str) -> None:
+        if writer:
+            clear_autosave(workdir, tag)
 
     common = dict(pde=pde, dataset=dataset, val_dataset=val_dataset,
                   batch_size=cfg.batch_size, mesh=mesh,
@@ -148,7 +156,7 @@ def run_curriculum(
                 and _ckpt_has(stage_dir("ckpt_cfe"), "CFE"))
     if cfe_done:
         results["cfe_supervised"] = {"resumed": True}
-        clear_autosave(workdir, "cfe")
+        clear("cfe")
     if not skip_cfe and not cfe_done:
         app = ControlTraining(
             cfg.n, trainable_networks=("CFE",), sequence_class="chain",
@@ -161,13 +169,13 @@ def run_curriculum(
             **autosave_kw("cfe"))
         app.save(stage_dir("ckpt_cfe"))
         app.close()
-        clear_autosave(workdir, "cfe")
+        clear("cfe")
 
     # ---- stage 2: per-level OP supervised ---------------------------------
     for span in sorted(op_spans(cfg.n)):
         if resume and _ckpt_has(stage_dir("ckpt_ops"), f"OP{span}"):
             results[f"op{span}_supervised"] = {"resumed": True}
-            clear_autosave(workdir, f"op{span}")
+            clear(f"op{span}")
             continue
         app = ControlTraining(
             cfg.n, trainable_networks=(f"OP{span}",),
@@ -183,7 +191,7 @@ def run_curriculum(
         # spans, still at random init, would pass for finished stages.
         app.save(stage_dir("ckpt_ops"), names=(f"OP{span}",))
         app.close()
-        clear_autosave(workdir, f"op{span}")
+        clear(f"op{span}")
 
     # ---- stage 3: end-to-end (optionally staged horizon growth) -----------
     stage_ns = tuple(cfg.e2e_stage_ns) if cfg.e2e_stage_ns else (cfg.n,)
@@ -194,7 +202,7 @@ def run_curriculum(
             ck, "CFE", *(f"OP{s}" for s in op_spans(n_k))))
         if stage_done:
             results[f"end_to_end_n{n_k}"] = {"resumed": True}
-            clear_autosave(workdir, f"e2e_n{n_k}")
+            clear(f"e2e_n{n_k}")
             prev_ckpt = ck
             if n_k != stage_ns[-1]:
                 continue
@@ -229,15 +237,16 @@ def run_curriculum(
                 **autosave_kw(f"e2e_n{n_k}"))
             prev_ckpt = ck
             app.save(prev_ckpt)
-            clear_autosave(workdir, f"e2e_n{n_k}")
+            clear(f"e2e_n{n_k}")
         app.close()
     results["end_to_end"] = results[f"end_to_end_n{stage_ns[-1]}"]
     app.save(stage_dir("ckpt_final"))
 
     # ---- stage 4: eval ----------------------------------------------------
     results["eval"] = evaluate_control(app, val_dataset, cfg.n,
-                                       render_dir=workdir)
-    _write_results(workdir, results)
+                                       render_dir=workdir if writer else None)
+    if writer:
+        _write_results(workdir, results)
     return results
 
 
@@ -289,11 +298,14 @@ def finetune_e2e(
             cfg.e2e_iterations, steps_per_call=cfg.steps_per_call,
             **autosave_kwargs(workdir, "ft", cfg.autosave_every, resume))
         app.save(ck)
-    clear_autosave(workdir, "ft")
+    writer = is_writer(mesh)
+    if writer:
+        clear_autosave(workdir, "ft")
     app.close()
     results["eval"] = evaluate_control(app, val_dataset, cfg.n,
-                                       render_dir=workdir)
-    _write_results(workdir, results)
+                                       render_dir=workdir if writer else None)
+    if writer:
+        _write_results(workdir, results)
     return results
 
 

@@ -13,9 +13,10 @@ beside the controlled MSE):
     blobs under withheld forcing, with staged horizon growth
     (32 → 64 → 128) and dense observation frames (32/64/96/128).
 The same seeds, force amplitudes and disk-cache keys as the JAX package,
-so that a `--datadir` tree written by either loads in the other. None of
-them needs data parallelism: the JAX package's `mesh` defaults to None,
-and the port runs each on one device.
+so that a `--datadir` tree written by either loads in the other. Each
+entry takes `mesh` (data parallelism, `parallel/mesh.py`): every rank
+generates the same datasets from the same seeds, or, with a datadir, rank
+0 writes the cache and the other ranks read it (`_setup_on_ranks`).
 
 Each `_*_setup` takes `device`, `fused` and `conv_impl`: the last two
 route the training's physics and convs (the JAX package's routes by
@@ -51,6 +52,7 @@ from pde_control_tpu_torch.experiments.curriculum import (
 )
 from pde_control_tpu_torch.geom import Box, rasterize, union
 from pde_control_tpu_torch.grids import Domain2D, resolve_device
+from pde_control_tpu_torch.parallel.mesh import is_writer, rank0_first
 from pde_control_tpu_torch.physics.fluid import FluidConfig
 
 
@@ -69,6 +71,13 @@ def _maybe_cached(datadir, split: str, params: dict, build):
     if datadir is None:
         return build()
     return load_or_generate(os.path.join(datadir, split), params, build)
+
+
+def _setup_on_ranks(setup, mesh, datadir, *args, **kw):
+    """`setup(*args, datadir, **kw)` on every rank; with a datadir, rank 0
+    first (it writes the cache that the other ranks then read)."""
+    with rank0_first(mesh if datadir else None):
+        return setup(*args, datadir, **kw)
 
 
 def default_obstacles(h: int, w: int) -> np.ndarray:
@@ -130,8 +139,9 @@ def run_shape_transition(workdir: str, size: int = 64, n: int = 16,
                          device=None) -> dict:
     """Config 3: 64² shape transition with direct forcing — soft shapes
     pushed by withheld random forces."""
-    pde, train, val = _shape_transition_setup(size, n, num_train, num_val,
-                                              datadir, device=device)
+    pde, train, val = _setup_on_ranks(_shape_transition_setup, mesh, datadir,
+                                      size, n, num_train, num_val,
+                                      device=device)
     # force_reg keeps the regularizer well under the observation MSE at
     # convergence (at 1e-4 it was still 5x the observation loss).
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
@@ -155,8 +165,9 @@ def run_shape_transition_ft(workdir: str, init_from: str,
     """Force-reg annealing fine-tune of a converged config-3 run
     (`init_from`: its ckpt_final); the task and datasets are
     run_shape_transition's."""
-    pde, train, val = _shape_transition_setup(size, n, num_train, num_val,
-                                              datadir, device=device)
+    pde, train, val = _setup_on_ranks(_shape_transition_setup, mesh, datadir,
+                                      size, n, num_train, num_val,
+                                      device=device)
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
                             e2e_iterations=e2e_iterations or 600,
                             e2e_lr=5e-5, grad_clip=1.0,
@@ -200,8 +211,9 @@ def run_shape_transition_rings_ft(workdir: str, init_from: str,
     results = finetune_e2e(pde, ccfg, train, val, workdir, init_from,
                            mesh=mesh, resume=resume)
     results["ring_fraction"] = ring_fraction
-    with open(os.path.join(workdir, "results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=float)
+    if is_writer(mesh):
+        with open(os.path.join(workdir, "results.json"), "w") as f:
+            json.dump(results, f, indent=2, default=float)
     return results
 
 
@@ -255,9 +267,9 @@ def run_smoke_indirect(workdir: str, size: int = 64, n: int = 16,
     `control_amplitude` scales the withheld buoyancy-modulation field (how
     far targets deviate from natural evolution). `width` multiplies all
     net widths; `lr_scale` every stage's LR."""
-    pde, train, val = _smoke_indirect_setup(
-        size, n, num_train, num_val, control_amplitude, datadir, width=width,
-        device=device)
+    pde, train, val = _setup_on_ranks(
+        _smoke_indirect_setup, mesh, datadir, size, n, num_train, num_val,
+        control_amplitude, width=width, device=device)
     # grad_clip and e2e lr 1e-4: the wide CFE diverges in e2e at 3e-4
     # unclipped.
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
@@ -284,9 +296,9 @@ def run_smoke_indirect_ft(workdir: str, init_from: str,
     """Force-reg annealing fine-tune of a converged smoke-indirect run
     (`init_from`: its ckpt_final); the task and datasets are
     run_smoke_indirect's."""
-    pde, train, val = _smoke_indirect_setup(
-        size, n, num_train, num_val, control_amplitude, datadir,
-        device=device)
+    pde, train, val = _setup_on_ranks(
+        _smoke_indirect_setup, mesh, datadir, size, n, num_train, num_val,
+        control_amplitude, device=device)
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
                             e2e_iterations=e2e_iterations or 600,
                             e2e_lr=5e-5, grad_clip=1.0,
@@ -340,8 +352,9 @@ def run_natural_flow_128_ft(workdir: str, init_from: str,
     the base run's dense observation frames (needed for stable gradients
     over the long horizon), the clip and a low LR; only the reg anneals,
     over a fresh cosine cycle."""
-    pde, train, val = _natural_flow_setup(size, n, num_train, num_val,
-                                          datadir, device=device)
+    pde, train, val = _setup_on_ranks(_natural_flow_setup, mesh, datadir,
+                                      size, n, num_train, num_val,
+                                      device=device)
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,
                             e2e_iterations=e2e_iterations or 2000,
                             e2e_lr=5e-5, grad_clip=1.0,
@@ -363,8 +376,9 @@ def run_natural_flow_128(workdir: str, size: int = 64, n: int = 128,
 
     `sequence` selects the e2e scheme: 'staggered' (the protocol's) or
     'refined' (one eager recursion in the port at every n)."""
-    pde, train, val = _natural_flow_setup(size, n, num_train, num_val,
-                                          datadir, device=device)
+    pde, train, val = _setup_on_ranks(_natural_flow_setup, mesh, datadir,
+                                      size, n, num_train, num_val,
+                                      device=device)
     # At n=128 the e2e stage diverged at lr 3e-4; staged horizon growth
     # and a lower LR keep the long-rollout gradients stable.
     ccfg = CurriculumConfig(n=n, batch_size=batch_size,

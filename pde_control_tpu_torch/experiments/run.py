@@ -20,9 +20,13 @@ the adjoint baseline `burgers_adjoint`; the scheme comparisons
 `compare_smoke_64` (`comparison.json`); and the out-of-distribution evals
 `generalize_shapes` and `generalize_smoke`, which restore a finished
 run's ckpt_final (`--init-from`, either package's) and train nothing.
-`--mesh` exits with "not ported yet". `burgers_chain` and
-`burgers_adjoint` also write their printed result to `results.json` in
-the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
+`--mesh N` trains data-parallel over N ranks (`parallel/mesh.py`): launch
+it under torchrun, `torchrun --nproc-per-node N -m
+pde_control_tpu_torch.experiments.run <name> --mesh N …` (NCCL, one card
+per rank; with `--device cpu`, gloo); it is taken by the entries that
+train through the curriculum (`MESH_ENTRIES`), and only rank 0 writes
+files and prints the result. `burgers_chain` and `burgers_adjoint` also
+write their printed result to `results.json` in the workdir. `--smoke-test` shrinks every dimension for a fast CI-sized
 run.
 """
 
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 
 from pde_control_tpu_torch.experiments import (
     burgers,
@@ -56,6 +61,12 @@ PORTED = ("burgers_chain", "burgers_hierarchical", "burgers_adjoint",
           "natural_flow_128", "natural_flow_128_ft", "generalize_shapes",
           "generalize_smoke", "smoke_128", "smoke_128_ft", "smoke3d",
           "smoke3d_ft", "smoke3d_indirect", "smoke3d_indirect_ft")
+# The entries that take `mesh` in the JAX package's CLI too.
+MESH_ENTRIES = ("shape_transition", "shape_transition_ft",
+                "shape_transition_rings_ft", "smoke_indirect",
+                "smoke_indirect_ft", "smoke_128", "smoke_128_ft", "smoke3d",
+                "smoke3d_ft", "smoke3d_indirect", "smoke3d_indirect_ft",
+                "natural_flow_128", "natural_flow_128_ft")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -65,7 +76,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--smoke-test", action="store_true")
     p.add_argument("--mesh", type=int, default=None,
-                   help="data-parallel over N devices (not ported yet)")
+                   help="data-parallel over N ranks (launch under torchrun "
+                        "with --nproc-per-node N)")
     p.add_argument("--num-train", type=int, default=None,
                    help="override training-trajectory count")
     p.add_argument("--num-val", type=int, default=None,
@@ -179,19 +191,32 @@ def main(argv=None) -> None:
                     f"{args.name!r} (supported: {sorted(names)})")
     if args.name not in PORTED:
         p.error(f"{args.name} is not ported yet")
+    mesh = None
     if args.mesh:
-        p.error("--mesh (data parallelism) is not ported yet")
+        if args.name not in MESH_ENTRIES:
+            p.error(f"--mesh is not supported by {args.name!r} (supported: "
+                    f"{sorted(MESH_ENTRIES)})")
+        if os.environ.get("WORLD_SIZE") != str(args.mesh):
+            p.error(f"--mesh {args.mesh} needs a torchrun launch with "
+                    f"WORLD_SIZE == {args.mesh}: torchrun --nproc-per-node "
+                    f"{args.mesh} -m pde_control_tpu_torch.experiments.run "
+                    f"{args.name} --mesh {args.mesh} …")
+        from pde_control_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.mesh,
+                         device="cpu" if args.device == "cpu" else None)
 
     workdir = args.workdir or f"runs/{args.name}"
     st = args.smoke_test
     it = args.iterations
-    dev = dict(device=args.device)
+    dev = dict(device=args.device if mesh is None else mesh.device)
     if args.name.endswith("_ft") and not args.init_from:
         base = args.name[:-3].replace("_rings", "")
         p.error(f"{args.name} requires --init-from "
                 f"(a finished {base} run's ckpt_final)")
     common = dict(datadir=args.datadir, seed=args.seed or 0,
-                  resume=args.resume, **dev)
+                  resume=args.resume, **dev,
+                  **({"mesh": mesh} if mesh is not None else {}))
     sizes = dict(size=16 if st else 64, n=4 if st else 16,
                  num_train=args.num_train or (16 if st else 256),
                  num_val=args.num_val or (8 if st else 32))
@@ -301,7 +326,12 @@ def main(argv=None) -> None:
                 **common)
     if args.name in ("burgers_chain", "burgers_adjoint"):
         _write_results(workdir, result)  # the other entries write their own
-    print(json.dumps(result, indent=2, default=float))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(result, indent=2, default=float))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -50,6 +50,7 @@ from pde_control_tpu_torch import (
 from pde_control_tpu_torch.data.scene import TrajectoryDataset
 from pde_control_tpu_torch.experiments import curriculum, run
 from pde_control_tpu_torch.experiments.curriculum import CurriculumConfig
+from pde_control_tpu_torch.parallel.mesh import Mesh
 from pde_control_tpu_torch.utils.checkpoint import load_network
 
 torch.set_num_threads(1)
@@ -173,8 +174,9 @@ def test_train_rounds_up_and_draws_only_from_its_stream(tmp_path):
     assert tapp._np_rng.bit_generator.state == state
     res = tapp.train(3, steps_per_call=2, log_every=2, val_every=2)
     assert res["iterations_run"] == tapp.step_count == 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ControlTraining(N, _tpde(), mesh=object())
+    mesh = Mesh(("data",), {"data": 3}, 0, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="divisible by the mesh size"):
+        ControlTraining(N, _tpde(), batch_size=16, mesh=mesh)
 
 
 # ------------------------------------------------------------ finetune_e2e

@@ -207,9 +207,9 @@ def test_cli_entry_on_the_cpu(name, tmp_path):
     (["generalize_smoke"], "requires --init-from"),
     (["generalize_shapes", "--width", "2", "--init-from", "x"],
      "--width is not supported"),
-    (["smoke3d_indirect_ft", "--mesh", "2"], "not ported yet"),
+    (["smoke3d_indirect_ft", "--mesh", "2"], "needs a torchrun launch"),
     (["generalize_shapes", "--init-from", "x", "--mesh", "4"], "--mesh"),
-    (["smoke3d_indirect", "--mesh", "2"], "not ported yet"),
+    (["smoke3d_indirect", "--mesh", "2"], "needs a torchrun launch"),
 ])
 def test_cli_refuses(argv, message, capsys):
     with pytest.raises(SystemExit):

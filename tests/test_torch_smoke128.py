@@ -97,9 +97,9 @@ def test_cli_dispatch_matches_jax(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["smoke3d_indirect", "--mesh", "2"], "not ported yet"),
+    (["smoke3d_indirect", "--mesh", "2"], "needs a torchrun launch"),
     (["smoke3d_indirect_ft", "--init-from", "ck", "--mesh", "4"],
-     "not ported yet"),
+     "needs a torchrun launch"),
     (["smoke_128", "--mesh", "4"], "--mesh"),
     (["smoke_128_ft"], "requires --init-from"),
     (["smoke3d_ft"], "requires --init-from"),
