@@ -3346,14 +3346,8 @@ def adjoint_phase(card: str, burgers_data: dict) -> None:
 
 K_MESH = 4
 GLOO_SEEDS = (SEED + 40, SEED + 41)
-# (b) holds a half batch's work to the whole batch's at the JAX package's
-# fp32 DP tolerances, so its nets compute in fp64 (parameters and physics
-# stay fp32) and each rank's K1 takes the whole batch's plan: in fp32 or
-# bf16 the half batches' convs round their batch sums in another order,
-# and K1's cluster size, picked by the batch, rounds its tol-bounded CG
-# otherwise; Adam's normalized step turns either into up to 2·lr on a
-# weight whose gradient nearly cancels.
-GLOO_DTYPE = torch.float64
+_DETERMINISTIC = dict(enabled=True, deterministic=True, benchmark=False,
+                      allow_tf32=False)
 # The spatial checks: the JAX package's check's physics at 64² with the
 # plate (tests/_spatial_equality_check.py), 'spectral' without it, and its
 # tolerances: loss, final state, force gradient.
@@ -3465,7 +3459,8 @@ def mesh_phase(card: str) -> dict:
     """(a) of the "mesh" phase: `ControlTraining(mesh=make_mesh(1))` under
     NCCL against `mesh=None`, the same bits: the first iteration on each
     path, then K_MESH `progress_multi` steps under the graph on the main
-    path. Returns each kernel's launches in the phase."""
+    path. Returns each kernel's launches by the mesh apps alone (eager) and
+    in K_MESH replays of the mesh app's graph."""
     _phase("mesh: data parallelism, a world of one rank under NCCL")
     from pde_control_tpu_torch.parallel.mesh import make_mesh
 
@@ -3474,19 +3469,18 @@ def mesh_phase(card: str) -> dict:
           f"{mesh.backend}, NCCL {torch.cuda.nccl.version()}")
     batch = make_batch()
     counted = dict.fromkeys(_counts(), 0)
-    flags = dict(enabled=True, deterministic=True, benchmark=False,
-                 allow_tf32=False)
-    with torch.backends.cudnn.flags(**flags):
+    with torch.backends.cudnn.flags(**_DETERMINISTIC):
         for path, config in PATHS.items():
-            _zero_counts()
             steps = []
             for kw in ({}, {"mesh": mesh}):
                 app = make_app(*config, **kw)
                 perturb_cfe(app)
+                _zero_counts()
                 steps.append(_mesh_step(app, batch))
+                if kw:  # the mesh app's launches alone
+                    counted = {k: counted[k] + v for k, v in _counts().items()}
                 del app
             _same_step(f"first iteration, {path}", *steps)
-            counted = {k: counted[k] + v for k, v in _counts().items()}
         batches = _device_batches(K_MESH, SEED + 30)
         runs, apps = {}, {}
         for label, kw in (("mesh=None", {}), ("mesh", {"mesh": mesh})):
@@ -3495,7 +3489,8 @@ def mesh_phase(card: str) -> dict:
             _zero_counts()
             with _captured_all_reduces() as calls:
                 first = app.progress_multi(batches)["loss"].clone()
-            counted = {k: counted[k] + v for k, v in _counts().items()}
+            if kw:
+                counted = {k: counted[k] + v for k, v in _counts().items()}
             graph = next(iter(app._graphs.values()))
             runs[label] = dict(loss=first,
                                state=[t.clone() for t in app._state()],
@@ -3544,27 +3539,39 @@ def mesh_phase(card: str) -> dict:
         raise AssertionError("the mesh step's capture made "
                              f"{b['captured_all_reduces']} all-reduces, "
                              "expected 3 (gradient, not-finite flag, metrics)")
+    print(f"launches of the mesh=make_mesh(1) apps alone (first iterations "
+          f"on the three paths, the graph app's warm-up and capture): "
+          f"{counted}")
+    missing = [k for k, v in counted.items() if not v]
+    if missing:
+        raise AssertionError(f"the mesh path launched no {missing}")
     return {"counted": counted, "graph": {k: K_MESH * v for k, v in
                                           runs["mesh"]["launches"].items()}}
 
 
-def _gloo_steps(app) -> tuple[list, list]:
-    """(b)'s two eager steps: their losses and the trainable parameters
-    after each."""
-    losses, params = [], []
+def _gloo_steps(app) -> list:
+    """(b)'s two eager `progress` steps: for each, (loss, this rank's own
+    flat trainable gradient, the flat gradient the optimizer took, i.e. the
+    all-reduced one under a mesh, the trainable parameters after it)."""
+    out = []
+    update = app.optimizer.update
     for s in GLOO_SEEDS:
-        losses.append(float(app.progress(make_batch(s))["loss"]))
-        params.append([p.detach().cpu() for p in app.trainable])
-    return losses, params
+        took = []
+        app.optimizer.update = lambda flat, *a, **kw: (
+            took.append(flat.clone()), update(flat, *a, **kw))[1]
+        loss = float(app.progress(make_batch(s))["loss"])
+        del app.optimizer.update
+        out.append((loss, torch.cat([p.grad.reshape(-1)
+                                     for p in app.trainable]).cpu(),
+                    took[0].cpu(), [p.detach().cpu() for p in app.trainable]))
+    return out
 
 
 def _gloo_rank(rank: int, tmp: str) -> None:
     """A rank of (b): two ranks of a gloo group on cuda:0. Probes that
     gloo takes CUDA tensors for all_reduce and broadcast; then two eager
-    `progress` steps of the main path with fp32 nets (the JAX package's DP
-    tolerances are fp32's; bf16 nets round a half batch's convs
-    otherwise) on its half of the batch, and `progress_multi`, which must
-    refuse. Writes its results to `tmp`."""
+    `progress` steps of the main path on its half of the batch, and
+    `progress_multi`, which must refuse. Writes its results to `tmp`."""
     import os
 
     import torch.distributed as dist
@@ -3572,7 +3579,6 @@ def _gloo_rank(rank: int, tmp: str) -> None:
     from pde_control_tpu_torch.parallel.mesh import make_mesh
 
     torch.cuda.set_device(0)
-    torch.backends.cudnn.allow_tf32 = False  # as device_phase sets it
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(tmp, "store"), 2), rank=rank, world_size=2)
     out = os.path.join(tmp, f"rank{rank}.pt")
@@ -3586,32 +3592,53 @@ def _gloo_rank(rank: int, tmp: str) -> None:
         torch.save({"probe_error": repr(e)}, out)
         dist.destroy_process_group()
         return
-    from pde_control_tpu_torch.ops import cuda_cg
-
-    plan = cuda_cg.solve_plan
-    # K1's plan as the whole batch's (`solve_plan` picks the cluster size
-    # by the batch): a sample's solve is then the same on a half batch.
-    cuda_cg.solve_plan = lambda batch, h, w, **kw: plan(2 * batch, h, w, **kw)
     mesh = make_mesh(2, device="cuda:0")
-    app = make_app(mesh=mesh, dtype=GLOO_DTYPE)
-    perturb_cfe(app)
-    losses, params = _gloo_steps(app)
+    with torch.backends.cudnn.flags(**_DETERMINISTIC):
+        app = make_app(mesh=mesh)
+        perturb_cfe(app)
+        steps = _gloo_steps(app)
     try:
         app.progress_multi(_device_batches(2, SEED))
         refused = None
     except RuntimeError as e:
         refused = str(e)
-    torch.save({"probe": probe, "losses": losses, "refused": refused,
-                "params": params, "launches": _counts()}, out)
+    torch.save({"probe": probe, "steps": steps, "refused": refused,
+                "launches": _counts()}, out)
     dist.destroy_process_group()
 
 
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """‖a − b‖ / ‖b‖ in fp64."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+# (b)'s limits, steps 1 and 2, on the two half batches' step against the
+# whole batch's, both with the main path's bf16 nets and K1's own plans
+# (batch 4 and batch 8): the loss's relative error and ‖g_DP − g_full‖ /
+# ‖g_full‖ of the all-reduced gradient. The split changes the convs'
+# algorithms, so their bf16 rounding, and K1's plan; nothing else, as the
+# bit-for-bit half of the check shows. About 4× this phase's H100
+# readings (1.10e-5 and 2.68e-4; 5.65e-4 and 7.90e-4; PERF.md §6): step
+# 2 starts from parameters that step 1's bf16 split has already moved.
+GLOO_LOSS_RTOL = (5e-5, 1e-3)
+GLOO_GRAD_RTOL = (3e-3, 3e-3)
+
+
 def gloo_phase(card: str) -> None:
-    """(b) of the "mesh" phase: two gloo ranks on the one card against
-    `mesh=None` on the whole batch, at the JAX package's DP tolerances."""
+    """(b) of the "mesh" phase: two gloo ranks on the one card, each on
+    its half of the batch, for two eager `progress` steps. In the first,
+    rank r's gradient must be, bit for bit, the one a single-device app
+    computes on half r, and the all-reduced gradient and the loss their
+    mean. Against `mesh=None` on the whole batch, after each step, the loss
+    must hold GLOO_LOSS_RTOL and the all-reduced gradient GLOO_GRAD_RTOL;
+    the ranks' replicas must be equal. Parameters against the whole
+    batch's are printed, not held: Adam's first step is lr·sign(g), so
+    they compare the gradient's signs."""
     _phase("mesh: two gloo ranks on the one card")
     import os
     import tempfile
+
+    from pde_control_tpu_torch.experiments import profile_bench
 
     tmp = tempfile.mkdtemp()
     t0 = time.perf_counter()
@@ -3632,43 +3659,64 @@ def gloo_phase(card: str) -> None:
         print(f"gloo on this card does not take CUDA tensors: "
               f"{[r.get('probe_error') for r in ranks]}; (b) left out")
         return
-    app = make_app(dtype=GLOO_DTYPE)
-    perturb_cfe(app)
-    losses, want = _gloo_steps(app)
-    total = sum(p.numel() for p in want[0])
-    worst, off = [0.0, 0.0], [0, 0]
     for r in ranks:
-        np.testing.assert_allclose(r["losses"], losses, rtol=1e-5)
-        for step in (0, 1):
-            for got, ref in zip(r["params"][step], want[step]):
-                d = (got.double() - ref.double()).abs()
-                worst[step] = max(worst[step], float(d.max()))
-                off[step] += int((d > 1e-6 + 1e-4 * ref.double().abs()).sum())
         if not (r["probe"] and r["refused"] and "gloo" in r["refused"]):
             raise AssertionError(f"probe {r['probe']}, progress_multi under "
                                  f"gloo: {r['refused']!r}")
-    same = all(torch.equal(x, y) for x, y in zip(ranks[0]["params"][1],
-                                                   ranks[1]["params"][1]))
-    lr = app.learning_rate
-    print(f"two gloo ranks on cuda:0, 2 eager steps at {H}x{H} batch "
-          f"{BATCH} (4 a rank), nets in {GLOO_DTYPE}: losses "
-          f"{ranks[0]['losses']} against mesh=None {losses} (rtol 1e-5); "
-          f"parameters beyond rtol 1e-4, atol 1e-6 (of {2 * total}, both "
-          f"ranks): after step 1 {off[0]} (max|d| {worst[0]:.3e}), after "
-          f"step 2 {off[1]} (max|d| {worst[1]:.3e}, bound 2 lr = "
-          f"{2 * lr:.0e}, at most 0.1% of the elements); the ranks' "
-          f"replicas equal {same}; "
-          f"launches a rank {ranks[0]['launches']}; progress_multi refused: "
-          f"{ranks[0]['refused'][:60]}…; {time.perf_counter() - t0:.1f} s "
-          f"[{card}]")
-    # After one step every parameter holds the JAX package's tolerance. In
-    # the second, Adam's step m/√v divides the all-reduce's fp32 rounding
-    # of a gradient entry whose two halves nearly cancel by that entry's
-    # own small size: such an entry may move by up to 2·lr, which few do.
-    if (off[0] or worst[1] > 2 * lr or off[1] > 1e-3 * 2 * total
-            or not same):
-        raise AssertionError("the gloo ranks' parameters differ from "
-                             "mesh=None's or from each other")
+    with torch.backends.cudnn.flags(**_DETERMINISTIC):
+        app = make_app()
+        perturb_cfe(app)
+        full = _gloo_steps(app)
+        lr = app.learning_rate
+        # The first step's two half batches, each on a single-device app.
+        batch = make_batch(GLOO_SEEDS[0])
+        half = []
+        for r in (0, 1):
+            app = profile_bench.make_app(H, N, BATCH // 2, "cuda")
+            perturb_cfe(app)
+            loss = app.progress({k: v[r * BATCH // 2:(r + 1) * BATCH // 2]
+                                 for k, v in batch.items()})["loss"]
+            half.append((loss.float().cpu(), torch.cat(
+                [p.grad.reshape(-1) for p in app.trainable]).cpu()))
+        del app
+    dp = ranks[0]["steps"]
+    exact = {
+        "rank gradients": all(torch.equal(r["steps"][0][1], h[1])
+                              for r, h in zip(ranks, half)),
+        "all-reduced gradient": all(
+            torch.equal(r["steps"][0][2], (half[0][1] + half[1][1]) / 2)
+            for r in ranks),
+        "loss": dp[0][0] == float((half[0][0] + half[1][0]) / 2),
+        "replicas": all(torch.equal(x, y) for x, y in
+                        zip(ranks[0]["steps"][1][3], ranks[1]["steps"][1][3])),
+    }
+    loss_rel = [abs(d[0] - f[0]) / abs(f[0]) for d, f in zip(dp, full)]
+    grad_rel = [_rel(d[2], f[2]) for d, f in zip(dp, full)]
+    total = sum(p.numel() for p in full[0][3])
+    params = []
+    for d, f in zip(dp, full):
+        diff = [(x.double() - y.double()).abs() for x, y in zip(d[3], f[3])]
+        params.append((sum(int((e > 1e-6 + 1e-4 * y.double().abs()).sum())
+                           for e, y in zip(diff, f[3])),
+                       max(float(e.max()) for e in diff)))
+    print(f"two gloo ranks on cuda:0, 2 eager steps at {H}x{H} batch {BATCH} "
+          f"(4 a rank), the main path's bf16 nets and K1's own plans. Step "
+          f"1 against single-device apps on each half batch, bit for bit: "
+          f"{exact}. Against mesh=None on the whole batch, steps 1 and 2: "
+          f"losses {[d[0] for d in dp]} / {[f[0] for f in full]}, relative "
+          f"{loss_rel} (limit {GLOO_LOSS_RTOL}); all-reduced gradient's "
+          f"relative L2 error {grad_rel} (limit {GLOO_GRAD_RTOL}); "
+          f"parameters beyond rtol 1e-4, atol 1e-6 (of {total}) "
+          f"{[p[0] for p in params]}, max|d| {[p[1] for p in params]} (lr "
+          f"{lr}; not held). Launches a rank {ranks[0]['launches']}; "
+          f"progress_multi refused: {ranks[0]['refused'][:60]}…; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if not (all(exact.values()) and all(
+            e <= t for e, t in zip(loss_rel + grad_rel,
+                                   GLOO_LOSS_RTOL + GLOO_GRAD_RTOL))):
+        raise AssertionError("the gloo ranks differ from the half batches' "
+                             "single-device step, from the whole batch's "
+                             "beyond the limits, or from each other")
 
 
 def mesh_cli_phase(card: str) -> None:
@@ -3741,7 +3789,7 @@ def _rollout_grad(step, x: dict, steps: int):
     return loss.detach(), state, fy.grad, fx.grad
 
 
-def spatial_phase(card: str) -> None:
+def spatial_phase(card: str) -> dict:
     """The "spatial" phase on a (1, 1) mesh: `spatial_fluid_step` at 64²
     with the plate, batch 8, in each mode ('spectral' without the plate)
     against the dense `fluid_step`, forward and gradients; the divergence
@@ -3852,6 +3900,7 @@ def spatial_phase(card: str) -> None:
         raise AssertionError(f"spatial adjoint improved {improve:.2f}x < 2")
     if any(launches.values()):
         raise AssertionError(f"the spatial path launched a kernel: {launches}")
+    return launches
 
 
 def main() -> None:
@@ -3901,7 +3950,7 @@ def main() -> None:
     adjoint_phase(card, burgers_phase(card))
     with _nccl_world():
         mesh = mesh_phase(card)
-        spatial_phase(card)
+        spatial = spatial_phase(card)
     gloo_phase(card)
     mesh_cli_phase(card)
     # The conv shapes of configs 3 and 5 that neither the main path nor
@@ -3964,14 +4013,14 @@ def main() -> None:
                                                 for k in keys)
                 kern[f"{label}_graph_launches"] = sum(
                     counts[label]["graph"][k] for k in keys)
-    # The mesh phase's launches: eager (the first iterations on the three
-    # paths, both apps, and each app's warm-up steps) and a replay's times
-    # K_MESH of the mesh app; the spatial phase launches none.
+    # The mesh phase's launches by the mesh=make_mesh(1) apps alone: eager
+    # (the first iterations on the three paths, the graph app's warm-up and
+    # capture) and a replay's times K_MESH; the spatial phase's, as counted.
     for kern, keys in zip(kernels, (("K1",), ("K2",), ("K3",),
                                     ("K4 fwd", "K4 dX"), ("K5",))):
         kern["mesh_launches"] = sum(mesh["counted"][k] for k in keys)
         kern["mesh_graph_launches"] = sum(mesh["graph"][k] for k in keys)
-        kern["spatial_launches"] = 0
+        kern["spatial_launches"] = sum(spatial[k] for k in keys)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,11 +51,10 @@ PEAK_BF16_FLOPS = 989e12
 def make_app(h: int, n: int, batch_size: int, device, maxiter: int = 100,
              fused: str = "auto", conv_impl: str = "xla",
              backend: str = "auto", sequence_class: str = "staggered",
-             dtype=None, **train):
+             **train):
     """The port's counterpart of `__graft_entry__._make_app`, with the
-    pressure solve's `backend`; `dtype` sets the nets' compute dtype (None:
-    the PDE's default); `sequence_class` and `train` (grad_clip,
-    lr_schedule, mesh, …) go to `ControlTraining`."""
+    pressure solve's `backend`; `sequence_class` and `train` (grad_clip,
+    lr_schedule, …) go to `ControlTraining`."""
     from pde_control_tpu_torch import (
         ControlTraining,
         Domain2D,
@@ -73,7 +72,7 @@ def make_app(h: int, n: int, batch_size: int, device, maxiter: int = 100,
     pde = IncompressibleFluidPDE(
         domain, cfg, control="buoyancy", unet_levels=2 if h <= 16 else 3,
         conv_impl=conv_impl, cfe_features=(32, 64, 64, 32),
-        op_base_features=16, **({"dtype": dtype} if dtype else {}))
+        op_base_features=16)
     return ControlTraining(
         n, pde, batch_size=batch_size,
         trainable_networks=("CFE",) + tuple(f"OP{s}" for s in op_spans(n)),

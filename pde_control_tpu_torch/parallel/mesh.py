@@ -45,11 +45,6 @@ class Mesh:
         """The number of ranks (the JAX mesh's `devices.size`)."""
         return int(np.prod(list(self.shape.values())))
 
-    @property
-    def group(self):
-        """The mesh's process group: the default (world) group."""
-        return dist.group.WORLD
-
 
 def _init_default_group(device) -> None:
     """`init_process_group` from torchrun's environment (MASTER_ADDR,

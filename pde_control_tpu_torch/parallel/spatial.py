@@ -41,7 +41,6 @@ kernels are single-device, and 'pallas' (the JAX package's) is refused.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 import torch.distributed as dist
@@ -52,7 +51,7 @@ from pde_control_tpu_torch.ops.spectral import (
     _inv_neumann_eigenvalues,
     _on_device,
 )
-from pde_control_tpu_torch.parallel.mesh import Mesh, _init_default_group
+from pde_control_tpu_torch.parallel.mesh import Mesh, make_mesh
 from pde_control_tpu_torch.physics.fluid import FluidConfig, FluidState
 
 DATA_AXIS = "data"
@@ -85,29 +84,17 @@ def make_mesh2d(n_data: int, n_space: int, device=None) -> Mesh2D:
     """A (n_data, n_space) mesh over the default process group, laid out
     row-major as the JAX package reshapes its devices: rank d·n_space + s
     holds data shard d and slab s. Every rank creates every group. The
-    group is initialised from torchrun's environment when it is not yet
-    (NCCL on cuda:LOCAL_RANK, or gloo with device='cpu'); a world of
-    another size raises."""
-    if not dist.is_initialized():
-        _init_default_group(device)
-    need = n_data * n_space
-    world = dist.get_world_size()
-    if world != need:
-        raise ValueError(f"make_mesh2d: a ({n_data}, {n_space}) mesh needs "
-                         f"{need} ranks, the process group has {world}")
-    rank = dist.get_rank()
-    backend = dist.get_backend()
-    if device is None:
-        device = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
-                  if backend == "nccl" else torch.device("cpu"))
+    world is `make_mesh`'s of n_data·n_space ranks (started from torchrun's
+    environment when it is not yet; a world of another size raises)."""
+    base = make_mesh(n_data * n_space, device=device)
     space_groups = [dist.new_group([d * n_space + s for s in range(n_space)])
                     for d in range(n_data)]
     data_groups = [dist.new_group([d * n_space + s for d in range(n_data)])
                    for s in range(n_space)]
-    d, s = divmod(rank, n_space)
+    d, s = divmod(base.rank, n_space)
     return Mesh2D((DATA_AXIS, SPACE_AXIS), {DATA_AXIS: n_data,
                                             SPACE_AXIS: n_space},
-                  rank, torch.device(device), backend, d, s,
+                  base.rank, base.device, base.backend, d, s,
                   space_groups[d], data_groups[s])
 
 
