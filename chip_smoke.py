@@ -124,8 +124,20 @@ prints no result):
      takes CUDA tensors, two eager steps against `mesh=None` on the whole
      batch (`GLOO_DTYPE`), and `progress_multi` refused; `torchrun
      --nproc-per-node 1 -m pde_control_tpu_torch.experiments.run
-     smoke_indirect --mesh 1` with the CLI phase's counts (`python3
-     chip_smoke.py mesh` runs 13 alone and prints no result);
+     smoke_indirect --mesh 1` with the CLI phase's counts. Between
+     "spatial" and the gloo ranks, "spatial3d": `spatial_fluid3d_step` on
+     a (1, 1) mesh at the 3D tasks' sizes (`SPATIAL3D_CASES`: smoke3d's
+     24³ box, batch 4, 'spectral' and 'auto'; smoke3d_indirect's 32³
+     plate, batch 8, the task's inflow, a full-field then a per-batch
+     buoyancy factor, a warm-started pressure, 'pcg' and 'jax') against
+     the dense `fluid3d_step`, forward and gradients of the force and the
+     factor (the JAX package's tolerances and `SPATIAL3D_GRAD_L2`), with
+     max|div|, ms a forward step and the peak memory of rollout + backward
+     beside the dense step's; `spatial_pressure_solve3d_diag` on the
+     plate ('pcg' trips × 3 ≤ 'jax' trips, residuals ≤ 10 × tol); and
+     scripts/spatial3d_memory.py's program (128³, n = 4, split and dense:
+     peak memory, ms, the loss) (`python3 chip_smoke.py mesh` runs 13
+     alone and prints no result);
  14. the 3×3 conv's forward and dX (K4) and dW (K5) against the JAX
      package's goldens (`tests/goldens/conv3x3_32.npz`) under every plan
      their launchers take, at the conv shapes of configs 3-5 that the
@@ -141,7 +153,8 @@ prints no result):
      graphs' memory pools would raise the paths' peak memory.
 Each phase's seconds follow it. The line before the last is the kernels'
 JSON summary (with each kernel's launches in configs 3-5, in the OOD evals,
-in the 128² and 3D entries and in the mesh and spatial phases, and K1's
+in the 128² and 3D entries and in the mesh, spatial and spatial3d
+phases, and K1's
 times at 128²x8); the last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -3341,8 +3354,9 @@ def adjoint_phase(card: str, burgers_data: dict) -> None:
 # ------------------------------------------------- data parallelism, spatial
 # One card: DP runs as a world of one rank under NCCL (in this process,
 # through a FileStore) and as two ranks on the card under gloo (eager, in
-# subprocesses); the spatial split runs on a (1, 1) mesh. Multi-rank
-# correctness is the CPU tests' (tests/test_torch_{mesh,spatial,spatial_opt}.py).
+# subprocesses); the spatial splits run on a (1, 1) mesh. Multi-rank
+# correctness is the CPU tests' (tests/test_torch_{mesh,spatial,
+# spatial_opt,spatial3d}.py).
 
 K_MESH = 4
 GLOO_SEEDS = (SEED + 40, SEED + 41)
@@ -3903,6 +3917,309 @@ def spatial_phase(card: str) -> dict:
     return launches
 
 
+# The "spatial3d" checks: the 3D split on a (1, 1) mesh at the 3D tasks'
+# own sizes and domains against the dense `fluid3d_step`, with the JAX
+# package's check's physics and tolerances
+# (tests/_spatial3d_equality_check.py).
+SPATIAL3D = dict(steps=3, dt=0.5, buoyancy=0.1, max_shift=1, tol=1e-7,
+                 maxiter=800)
+# label: (size, batch, plate, split mode, dense mode, buoyancy factor); with
+# a factor the state carries the task's inflow and a warm-started pressure.
+# 'jax' (plain CG) is held to the dense plain CG: on the task's plate both
+# stall (the CG's safeguard freezes a sample whose residual grows 4x past
+# its best) well above tol, where 'pcg' converges, so against 'pcg' the
+# check would measure the solver and not the split.
+SPATIAL3D_CASES = {
+    "smoke3d spectral": (24, 4, False, "spectral", "spectral", None),
+    "smoke3d auto": (24, 4, False, "auto", "auto", None),
+    "smoke3d_indirect pcg, full factor": (32, 8, True, "pcg", "pcg", "full"),
+    "smoke3d_indirect pcg, per-batch factor": (32, 8, True, "pcg", "pcg",
+                                               "batch"),
+    "smoke3d_indirect jax, full factor": (32, 8, True, "jax", "jax", "full"),
+    "smoke3d_indirect jax, per-batch factor": (32, 8, True, "jax", "jax",
+                                               "batch"),
+}
+# The gradients' relative L2 error against the dense step's. On the task's
+# plate the float32 CG leaves the split and the dense gradients apart by
+# up to ~1% in L2 and ~2% of the largest element in a few hundred
+# elements (CPU, 32³ x 8), where the JAX check's elementwise atol on its
+# mean loss no longer binds; this holds the whole gradient.
+SPATIAL3D_GRAD_L2 = 3e-2
+# scripts/spatial3d_memory.py's program: 128³, batch 1, n = 4, 'spectral'.
+SPATIAL3D_MEMORY = dict(size=128, n=4, dt=0.5, buoyancy=0.05, tol=1e-4,
+                        maxiter=100)
+
+
+def _spatial3d_inputs(size: int, b: int, device) -> dict:
+    """A density blob, the force, the target, the task's inflow and the
+    two buoyancy factors, from SEED."""
+    from pde_control_tpu_torch.experiments.smoke3d import (
+        inflow3d_draws,
+        inflow3d_from_draws,
+    )
+
+    rng = np.random.default_rng(SEED)
+    zz, yy, xx = np.meshgrid(*(np.arange(size),) * 3, indexing="ij")
+
+    def blob(r):
+        c = r.uniform(size * 0.25, size * 0.75, (b, 3))
+        return np.exp(-((zz[None] - c[:, 0, None, None, None]) ** 2
+                        + (yy[None] - c[:, 1, None, None, None]) ** 2
+                        + (xx[None] - c[:, 2, None, None, None]) ** 2)
+                      / (0.06 * size * size)).astype(np.float32)
+
+    def normal(*shape):
+        return rng.normal(0, 0.05, (b,) + shape).astype(np.float32)
+
+    n = size
+    arrays = dict(density=blob(rng), fz=normal(n + 1, n, n),
+                  fy=normal(n, n + 1, n), fx=normal(n, n, n + 1),
+                  target=blob(np.random.default_rng(SEED + 7)),
+                  bf_full=0.1 + 0.05 * blob(np.random.default_rng(SEED + 5)),
+                  bf_batch=np.linspace(0.1, 0.2, b, dtype=np.float32)
+                  .reshape(b, 1, 1, 1))
+    x = {k: torch.tensor(v, device=device) for k, v in arrays.items()}
+    gen = torch.Generator().manual_seed(SEED + 3)
+    x["inflow"] = inflow3d_from_draws(inflow3d_draws(gen, b, n, n), n, n,
+                                      n).to(device)
+    return x
+
+
+def _rollout3d(step, x: dict, factor, steps: int):
+    """loss = mean((final density − target)²) of `steps` steps from rest
+    with the force (and, with a buoyancy factor, the inflow and a
+    warm-started pressure), and the gradients of the force and the
+    factor."""
+    from pde_control_tpu_torch import FluidState3D, Staggered3D
+
+    b, d, h, w = x["density"].shape
+    force = Staggered3D(*(x[k].clone().requires_grad_()
+                          for k in ("fz", "fy", "fx")))
+    bf = None if factor is None else x[f"bf_{factor}"].clone().requires_grad_()
+    extra = {} if factor is None else dict(
+        inflow=x["inflow"], pressure=torch.zeros_like(x["density"]))
+    state = FluidState3D(velocity=Staggered3D.zeros(
+        b, d, h, w, device=x["density"].device), density=x["density"],
+        **extra)
+    for _ in range(steps):
+        state = step(state, force, bf)
+    loss = torch.mean((state.density - x["target"]) ** 2)
+    loss.backward()
+    grads = [force.vz.grad, force.vy.grad, force.vx.grad]
+    return loss.detach(), state, grads + ([] if bf is None else [bf.grad])
+
+
+def _peak_mib(fn):
+    """fn()'s result and the peak of device memory it allocated above
+    what was allocated before it, in MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def spatial3d_phase(card: str) -> dict:
+    """The "spatial3d" phase on a (1, 1) mesh: `spatial_fluid3d_step` in
+    each case of SPATIAL3D_CASES against the dense `fluid3d_step`, forward
+    and gradients of the force and the factor; max|div| after projection,
+    ms a forward step and the peak memory of rollout + backward beside
+    the dense step's; `spatial_pressure_solve3d_diag` on the plate (the
+    JAX package's trip gate and residual); scripts/spatial3d_memory.py's
+    128³ program, split and dense."""
+    _phase("spatial3d: the 3D split step on a (1, 1) mesh")
+    from pde_control_tpu_torch import (
+        Domain3D,
+        Fluid3DConfig,
+        FluidState3D,
+        Staggered3D,
+        fluid3d_step,
+    )
+    from pde_control_tpu_torch.experiments.smoke3d import obstacle_plate_3d
+    from pde_control_tpu_torch.parallel.spatial3d import (
+        make_mesh2d,
+        spatial_fluid3d_step,
+        spatial_pressure_solve3d_diag,
+    )
+    from pde_control_tpu_torch.physics.poisson import masked_laplace_spd
+
+    mesh = make_mesh2d(1, 1)
+    s = SPATIAL3D
+    _zero_counts()
+    print(f"limits: loss rtol 1e-5, final state rtol 1e-4 atol 1e-6, "
+          f"gradients of the force and the factor rtol 1e-3 atol 2e-5; "
+          f"{s['steps']} steps from rest, dt {s['dt']}, max_shift "
+          f"{s['max_shift']}, tol {s['tol']}, maxiter {s['maxiter']}; each "
+          f"gradient also within {SPATIAL3D_GRAD_L2} relative in L2")
+    for label, (size, b, plate, mode, dense_mode, factor) in (
+            SPATIAL3D_CASES.items()):
+        domain = Domain3D.create(size, size, size, obstacle_mask=(
+            obstacle_plate_3d(size, size, size) if plate else None),
+            device="cuda")
+        cfgs = [Fluid3DConfig(dt=s["dt"], buoyancy=s["buoyancy"],
+                              max_shift=s["max_shift"], pressure_tol=s["tol"],
+                              pressure_maxiter=s["maxiter"],
+                              pressure_backend=m) for m in (mode, dense_mode)]
+        x = _spatial3d_inputs(size, b, "cuda")
+
+        def split(st, f, bf):
+            return spatial_fluid3d_step(st, domain, cfgs[0], mesh, force=f,
+                                        buoyancy_factor=bf)
+
+        def dense(st, f, bf):
+            return fluid3d_step(st, domain, cfgs[1], force=f,
+                                buoyancy_factor=bf)
+
+        sp, sp_mib = _peak_mib(lambda: _rollout3d(split, x, factor,
+                                                  s["steps"]))
+        de, de_mib = _peak_mib(lambda: _rollout3d(dense, x, factor,
+                                                  s["steps"]))
+        np.testing.assert_allclose(float(sp[0]), float(de[0]), rtol=1e-5,
+                                   err_msg=label)
+        v, vd = sp[1].velocity, de[1].velocity
+        for name, got, want in (("density", sp[1].density, de[1].density),
+                                ("vz", v.vz, vd.vz), ("vy", v.vy, vd.vy),
+                                ("vx", v.vx, vd.vx)):
+            np.testing.assert_allclose(got.detach().cpu().numpy(),
+                                       want.detach().cpu().numpy(),
+                                       rtol=1e-4, atol=1e-6,
+                                       err_msg=f"{label}: {name}")
+        l2 = {}
+        for name, got, want in zip(("fz", "fy", "fx", "factor"), sp[2],
+                                   de[2]):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=1e-3, atol=2e-5,
+                                       err_msg=f"{label}: gradient {name}")
+            l2[name] = float((got - want).norm() / want.norm())
+        if not max(l2.values()) <= SPATIAL3D_GRAD_L2:
+            raise AssertionError(f"{label}: gradients' relative L2 {l2}")
+        final = Staggered3D(v.vz.detach(), v.vy.detach(), v.vx.detach())
+        div = float((final.divergence(domain.dx) * domain.fluid_mask)
+                    .abs().max())
+        state = FluidState3D(velocity=final, density=sp[1].density.detach(),
+                             inflow=sp[1].inflow, pressure=(
+                                 None if sp[1].pressure is None
+                                 else sp[1].pressure.detach()))
+        force = Staggered3D(x["fz"], x["fy"], x["fx"])
+        bf = None if factor is None else x[f"bf_{factor}"]
+        times = {}
+        with torch.no_grad():
+            for name, fn in (("split", split), ("dense", dense)):
+                times[name] = (_time_ms(lambda: fn(state, force, bf), 5),)
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    fn(state, force, bf)
+                torch.cuda.synchronize()
+                times[name] += (1e3 * (time.perf_counter() - t0) / 5,)
+        print(f"{label} ({size}^3 batch {b}, dense {dense_mode}): loss "
+              f"{float(sp[0]):.9e} / {float(de[0]):.9e}, gradients' "
+              f"relative L2 "
+              + ", ".join(f"{k} {v:.2e}" for k, v in l2.items())
+              + f", max|div| after projection {div:.3e}; a forward step "
+              f"{times['split'][0]:.3f}"
+              f" ms (host {times['split'][1]:.3f}) against the dense step's "
+              f"{times['dense'][0]:.3f} (host {times['dense'][1]:.3f}); peak "
+              f"of rollout + backward {sp_mib:.1f} MiB against "
+              f"{de_mib:.1f} [{card}]")
+    # The JAX package's trip gate (`main_iters`) on the task's plate.
+    size = 32
+    domain = Domain3D.create(size, size, size, obstacle_mask=(
+        obstacle_plate_3d(size, size, size)), device="cuda")
+    rng = np.random.default_rng(SEED)
+    div = torch.tensor(rng.normal(0, 1, (1,) + (size,) * 3).astype(
+        np.float32), device="cuda") * domain.fluid_mask
+    dense64 = Domain3D.create(size, size, size, obstacle_mask=(
+        obstacle_plate_3d(size, size, size)), dtype=torch.float64,
+        device="cuda")
+    fluid = domain.fluid_mask > 0
+    rhs = torch.where(fluid, -div[0].double(), 0.0)
+    rhs = torch.where(fluid, rhs - rhs[fluid].mean(), 0.0)
+    trips, ms, rel = {}, {}, {}
+    for mode in ("pcg", "jax"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, trips[mode] = spatial_pressure_solve3d_diag(
+            div, domain, mesh, mode=mode, tol=1e-5, maxiter=2000)
+        torch.cuda.synchronize()
+        ms[mode] = 1e3 * (time.perf_counter() - t0)
+        # The residual of the deflated system under the dense operator.
+        ap = masked_laplace_spd(p.double(), dense64)[0]
+        ap = torch.where(fluid, ap - ap[fluid].mean(), ap)
+        rel[mode] = float((ap - rhs)[fluid].norm() / rhs[fluid].norm())
+    print(f"spatial_pressure_solve3d_diag {size}^3 plate, tol 1e-5, maxiter "
+          f"2000: " + ", ".join(f"{m} {trips[m]} trips in {ms[m]:.1f} ms, "
+                                f"relative residual {rel[m]:.3e}"
+                                for m in trips) + f" [{card}]")
+    if not trips["pcg"] * 3 <= trips["jax"]:
+        raise AssertionError(f"pcg trips {trips['pcg']} x 3 > jax "
+                             f"{trips['jax']}")
+    if not max(rel.values()) <= 10 * 1e-5:
+        raise AssertionError(f"relative residuals {rel} > 10 x tol")
+    spatial3d_memory(card, mesh)
+    launches = _counts()
+    print(f"K1-K5 launches in the phase {launches} [{card}]")
+    if any(launches.values()):
+        raise AssertionError(f"the spatial3d path launched a kernel: "
+                             f"{launches}")
+    return launches
+
+
+def spatial3d_memory(card: str, mesh) -> None:
+    """scripts/spatial3d_memory.py's program on the card: SPATIAL3D_MEMORY's
+    n-step rollout of a uniform random density at 128³ from rest with a
+    zero force, and the force's gradient, split on `mesh` and dense; the
+    peak memory above the inputs and the ms of rollout + backward (a
+    second run, after a first that warms up), the loss held at rtol 1e-5."""
+    from pde_control_tpu_torch import (
+        Domain3D,
+        Fluid3DConfig,
+        FluidState3D,
+        Staggered3D,
+        fluid3d_step,
+    )
+    from pde_control_tpu_torch.parallel.spatial3d import spatial_fluid3d_step
+
+    m = SPATIAL3D_MEMORY
+    size, n = m["size"], m["n"]
+    domain = Domain3D.create(size, size, size, device="cuda")
+    cfg = Fluid3DConfig(dt=m["dt"], buoyancy=m["buoyancy"],
+                        pressure_tol=m["tol"], pressure_maxiter=m["maxiter"],
+                        pressure_backend="spectral")
+    rng = np.random.default_rng(0)
+    density, target = (torch.tensor(rng.uniform(0, 1, (1,) + (size,) * 3)
+                                    .astype(np.float32), device="cuda")
+                       for _ in range(2))
+    steps = {"split": lambda st, f: spatial_fluid3d_step(st, domain, cfg,
+                                                         mesh, force=f),
+             "dense": lambda st, f: fluid3d_step(st, domain, cfg, force=f)}
+    out = {}
+    for name, step in steps.items():
+        def run():
+            force = Staggered3D.zeros(1, size, size, size, device="cuda")
+            force = Staggered3D(*(t.requires_grad_() for t in (
+                force.vz, force.vy, force.vx)))
+            state = FluidState3D(velocity=Staggered3D.zeros(
+                1, size, size, size, device="cuda"), density=density)
+            for _ in range(n):
+                state = step(state, force)
+            loss = torch.mean((state.density - target) ** 2)
+            loss.backward()
+            return loss.detach()
+
+        loss, mib = _peak_mib(run)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        out[name] = (float(loss), mib, 1e3 * (time.perf_counter() - t0))
+    print(f"spatial3d_memory program {size}^3 batch 1 n={n} 'spectral' "
+          f"(rollout + force gradient, no checkpointing): split loss "
+          f"{out['split'][0]:.9e} peak {out['split'][1]:.1f} MiB "
+          f"{out['split'][2]:.1f} ms; dense loss {out['dense'][0]:.9e} peak "
+          f"{out['dense'][1]:.1f} MiB {out['dense'][2]:.1f} ms [{card}]")
+    np.testing.assert_allclose(out["split"][0], out["dense"][0], rtol=1e-5)
+
+
 def main() -> None:
     if sys.argv[1:2] == ["gloo-rank"]:  # a rank of the mesh phase's (b)
         _gloo_rank(int(sys.argv[2]), sys.argv[3])
@@ -3917,6 +4234,7 @@ def main() -> None:
         with _nccl_world():
             mesh_phase(card)
             spatial_phase(card)
+            spatial3d_phase(card)
         gloo_phase(card)
         mesh_cli_phase(card)
         _phase(None)
@@ -3951,6 +4269,7 @@ def main() -> None:
     with _nccl_world():
         mesh = mesh_phase(card)
         spatial = spatial_phase(card)
+        spatial3d = spatial3d_phase(card)
     gloo_phase(card)
     mesh_cli_phase(card)
     # The conv shapes of configs 3 and 5 that neither the main path nor
@@ -4015,12 +4334,14 @@ def main() -> None:
                     counts[label]["graph"][k] for k in keys)
     # The mesh phase's launches by the mesh=make_mesh(1) apps alone: eager
     # (the first iterations on the three paths, the graph app's warm-up and
-    # capture) and a replay's times K_MESH; the spatial phase's, as counted.
+    # capture) and a replay's times K_MESH; the spatial and spatial3d
+    # phases', as counted.
     for kern, keys in zip(kernels, (("K1",), ("K2",), ("K3",),
                                     ("K4 fwd", "K4 dX"), ("K5",))):
         kern["mesh_launches"] = sum(mesh["counted"][k] for k in keys)
         kern["mesh_graph_launches"] = sum(mesh["graph"][k] for k in keys)
         kern["spatial_launches"] = sum(spatial[k] for k in keys)
+        kern["spatial3d_launches"] = sum(spatial3d[k] for k in keys)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

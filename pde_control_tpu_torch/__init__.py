@@ -14,9 +14,10 @@ out-of-distribution evals, `render_rollout` and `profile_bench`; the
 samplers, the 3D spectral solve and CG, the 3D step, the nets at dim=3,
 the 3D PDE and the `smoke3d` and plated `smoke3d_indirect` entries); and
 `parallel/`: data parallelism over torch.distributed
-(`ControlTraining(mesh=)`, `run.py --mesh` under torchrun) and the 2D
-spatial domain decomposition (`spatial.py`, `spatial_opt.py`). Not
-ported yet: the 3D spatial decomposition (`parallel/spatial3d.py`). Five
+(`ControlTraining(mesh=)`, `run.py --mesh` under torchrun) and the 2D and
+3D spatial domain decompositions (`spatial.py`, `spatial_opt.py`,
+`spatial3d.py`). Every module of the JAX package has its counterpart but
+`utils/compile_cache.py` (XLA's compile cache). Five
 hand-written CUDA kernels carry it on the card,
 each with a plain torch version beside it that runs for CPU tensors:
   * K1, the pressure solve (`csrc/pcg.cu`, `ops/cuda_cg.py`), which the

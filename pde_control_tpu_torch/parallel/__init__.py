@@ -2,8 +2,9 @@
 
 Counterpart of `pde_control_tpu/parallel/`: `mesh.py` (the batch split
 over ranks), `spatial.py` (one 2D grid split along H over ranks, forward
-and backward) and `spatial_opt.py` (the adjoint through the split step).
-The 3D split (`spatial3d.py`) is not ported yet.
+and backward), `spatial_opt.py` (the adjoint through the split step) and
+`spatial3d.py` (one volume split along z over ranks, forward and
+backward).
 """
 
 from pde_control_tpu_torch.parallel.mesh import (  # noqa: F401

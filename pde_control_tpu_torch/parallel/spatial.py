@@ -26,6 +26,10 @@ deadlock otherwise). The solve is differentiated implicitly, as
 `lax.custom_linear_solve(symmetric=True)` does: the backward pass is a
 cold solve of the gradient with the same distributed operator.
 
+`spatial3d.py` splits a volume along z on the same pieces: the shard and
+gather (`ndim=3`), the halo Function, the reduce-scatter and the solve's
+shared part (`_SlabOps`: the deflation, the preconditioner and the CG).
+
 Every rank builds the same autograd graph, op for op (a rank's position
 enters as a flag tensor in `torch.where`, never as a branch), so that the
 backward passes run their collectives in the same order on every rank.
@@ -46,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from pde_control_tpu_torch.grids import Domain2D, Staggered2D
+from pde_control_tpu_torch.grids3d import Staggered3D
 from pde_control_tpu_torch.ops.spectral import (
     _dct_matrix,
     _inv_neumann_eigenvalues,
@@ -134,7 +139,7 @@ def _gather(x: torch.Tensor, axis: int, group, parts: int) -> torch.Tensor:
 def _map(fn_tensor, fn_staggered, tree):
     if tree is None:
         return None
-    if isinstance(tree, Staggered2D):
+    if isinstance(tree, (Staggered2D, Staggered3D)):
         return fn_staggered(tree)
     if isinstance(tree, torch.Tensor):
         return fn_tensor(tree)
@@ -147,13 +152,22 @@ def _map(fn_tensor, fn_staggered, tree):
     return tree
 
 
+def _faces(v) -> tuple[list[str], int]:
+    """The component names of a `Staggered2D` / `Staggered3D`, the one with
+    the +1 along the split axis first, and the axis of its batch."""
+    names = [f.name for f in dataclasses.fields(v)]
+    return names, getattr(v, names[0]).dim() - len(names) - 1
+
+
 def spatial_shard(tree, mesh: Mesh2D, ndim: int = 2):
     """This rank's blocks of a tree of global tensors (a tensor, a
-    `Staggered2D`, a dataclass such as `FluidState`, or a dict of them).
-    A tensor is split per `spatial_spec`; a `Staggered2D` (B, H+1, W) /
-    (B, H, W+1), with any leading axes before B, is split along B and H
-    into the lower-face representation: vy's block keeps the global top
-    face as its last row."""
+    `Staggered2D` / `Staggered3D`, a dataclass such as `FluidState`, or a
+    dict of them). A tensor is split per `spatial_spec`; a staggered
+    velocity, with any leading axes before B, is split along B and its
+    first spatial axis into the lower-face representation: the block of
+    the component with the extra face along that axis (vy (B, H+1, W) in
+    2D, vz (B, D+1, H, W) in 3D) keeps the global top face as its last
+    row or plane; the other components split cleanly."""
     nd, ns = mesh.shape[DATA_AXIS], mesh.shape[SPACE_AXIS]
     d, s = mesh.data_index, mesh.space_index
 
@@ -167,14 +181,15 @@ def spatial_shard(tree, mesh: Mesh2D, ndim: int = 2):
         return out.contiguous()
 
     def staggered(v):
-        b_axis = v.vy.dim() - 3
-        vy = _take(v.vy, b_axis, d, nd)
-        top = vy.narrow(b_axis + 1, vy.shape[b_axis + 1] - 1, 1)
-        lo = _take(vy.narrow(b_axis + 1, 0, vy.shape[b_axis + 1] - 1),
+        names, b_axis = _faces(v)
+        f = _take(getattr(v, names[0]), b_axis, d, nd)
+        top = f.narrow(b_axis + 1, f.shape[b_axis + 1] - 1, 1)
+        lo = _take(f.narrow(b_axis + 1, 0, f.shape[b_axis + 1] - 1),
                    b_axis + 1, s, ns)
-        vx = _take(_take(v.vx, b_axis, d, nd), b_axis + 1, s, ns)
-        return Staggered2D(vy=torch.cat([lo, top], dim=b_axis + 1),
-                           vx=vx.contiguous())
+        rest = {n: _take(_take(getattr(v, n), b_axis, d, nd), b_axis + 1, s,
+                         ns).contiguous() for n in names[1:]}
+        return type(v)(**{names[0]: torch.cat([lo, top], dim=b_axis + 1)},
+                       **rest)
 
     return _map(tensor, staggered, tree)
 
@@ -182,7 +197,7 @@ def spatial_shard(tree, mesh: Mesh2D, ndim: int = 2):
 def spatial_gather(tree, mesh: Mesh2D, ndim: int = 2, grad: bool = False):
     """The global tensors of a tree of this rank's blocks (the inverse of
     `spatial_shard`), on every rank. With `grad`, the tree holds
-    gradients: the replicated top-face row of a vy block is then summed
+    gradients: the replicated top face of a staggered block is then summed
     over the space group (each rank holds its part of its gradient)."""
     nd, ns = mesh.shape[DATA_AXIS], mesh.shape[SPACE_AXIS]
 
@@ -196,18 +211,20 @@ def spatial_gather(tree, mesh: Mesh2D, ndim: int = 2, grad: bool = False):
         return out
 
     def staggered(v):
-        b_axis = v.vy.dim() - 3
-        rows = v.vy.shape[b_axis + 1]
-        top = v.vy.narrow(b_axis + 1, rows - 1, 1).contiguous()
+        names, b_axis = _faces(v)
+        f = getattr(v, names[0])
+        rows = f.shape[b_axis + 1]
+        top = f.narrow(b_axis + 1, rows - 1, 1).contiguous()
         if grad:
             dist.all_reduce(top, group=mesh.space_group)
-        lo = _gather(v.vy.narrow(b_axis + 1, 0, rows - 1), b_axis + 1,
+        lo = _gather(f.narrow(b_axis + 1, 0, rows - 1), b_axis + 1,
                      mesh.space_group, ns)
-        vy = _gather(torch.cat([lo, top], dim=b_axis + 1), b_axis,
-                     mesh.data_group, nd)
-        vx = _gather(_gather(v.vx, b_axis + 1, mesh.space_group, ns), b_axis,
-                     mesh.data_group, nd)
-        return Staggered2D(vy=vy, vx=vx)
+        faced = _gather(torch.cat([lo, top], dim=b_axis + 1), b_axis,
+                        mesh.data_group, nd)
+        rest = {n: _gather(_gather(getattr(v, n), b_axis + 1,
+                                   mesh.space_group, ns), b_axis,
+                           mesh.data_group, nd) for n in names[1:]}
+        return type(v)(**{names[0]: faced}, **rest)
 
     return _map(tensor, staggered, tree)
 
@@ -222,10 +239,11 @@ def _swap(to_next, to_prev, from_prev_rows: int, from_next_rows: int,
     """Sends `to_next` to the next rank of the space group and `to_prev`
     to the previous one, and returns (the previous rank's `to_next`, the
     next rank's `to_prev`), of `from_prev_rows` and `from_next_rows` rows;
-    zeros where there is no neighbour."""
-    b, _, w = like.shape
-    from_prev = like.new_zeros((b, from_prev_rows, w))
-    from_next = like.new_zeros((b, from_next_rows, w))
+    zeros where there is no neighbour. Blocks are (B, rows, *rest): rows
+    of a grid or planes of a volume."""
+    b, _, *rest = like.shape
+    from_prev = like.new_zeros((b, from_prev_rows, *rest))
+    from_next = like.new_zeros((b, from_next_rows, *rest))
     idx, r = mesh.space_index, mesh.shape[SPACE_AXIS]
     ops = []
     if idx > 0:
@@ -266,16 +284,16 @@ class _Exchange(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_below, g_above):
         lo, hi, mesh = ctx.lo, ctx.hi, ctx.mesh
-        b, rows, w = ctx.shape
+        b, rows, *rest = ctx.shape
         like = g_below if g_below is not None else g_above
         if g_below is None:
-            g_below = like.new_zeros((b, lo, w))
+            g_below = like.new_zeros((b, lo, *rest))
         if g_above is None:
-            g_above = like.new_zeros((b, hi, w))
+            g_above = like.new_zeros((b, hi, *rest))
         from_prev, from_next = _swap(g_above if hi else None,
                                      g_below if lo else None, hi, lo,
                                      g_below, mesh)
-        gx = g_below.new_zeros((b, rows, w))
+        gx = g_below.new_zeros((b, rows, *rest))
         if hi:
             gx[:, :hi] += from_prev
         if lo:
@@ -331,111 +349,45 @@ def _flag(value: bool, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class _PressureOps:
-    """The distributed pressure-solve operators over one rank's slab
-    (`pde_control_tpu/parallel/spatial.py :: _PressureOps`): the gated
-    operator, the global-mean deflation projection, the distributed exact
-    and preconditioning solves, and a CG that also reports its trips."""
+class _SlabOps:
+    """What the distributed pressure solves share in 2D and 3D
+    (`pde_control_tpu/parallel/spatial.py :: _PressureOps` and
+    `spatial3d.py :: _PressureOps3D`): the all-reduces over the space
+    group, the global-mean deflation projection, the deflated
+    preconditioners (one-level, and two-level over a subclass's
+    `coarse_q`) and a CG that also reports its trips, on a rank's slab
+    (B, rows, ...) with every sum over its non-batch axes. A subclass
+    gives the gated operator (`matvec_raw`) and the distributed exact
+    solve (`dist_spectral`)."""
 
-    def __init__(self, mesh, fluid, acc_y_lo, acc_above, acc_x, *, w, dx,
-                 tol, maxiter, mode, qh, qw, inv_lam, nbh=None, nbw=None):
+    def __init__(self, mesh, fluid, *, dx, tol, maxiter, mode):
         self.mesh, self.idx = mesh, mesh.space_index
-        self.r, self.w, self.dx = mesh.shape[SPACE_AXIS], w, dx
-        self.fluid, self.acc_y_lo, self.acc_above = fluid, acc_y_lo, acc_above
-        self.acc_x = acc_x
+        self.r, self.dx = mesh.shape[SPACE_AXIS], dx
+        self.fluid = fluid
         self.tol, self.maxiter, self.mode = tol, maxiter, mode
-        self.qh, self.qw, self.inv_lam = qh, qw, inv_lam
         self.n_fluid = torch.clamp(self.psum(fluid.sum().reshape(1)), min=1.0)
-        self.coarse_q = (self._coarse_setup(nbh, nbw) if mode == "pcg2"
-                         else None)
 
     def psum(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, group=self.mesh.space_group)
         return t
 
+    @staticmethod
+    def _sum(x):
+        """x summed over every non-batch axis, as (B, 1, ...)."""
+        return torch.sum(x, dim=tuple(range(1, x.dim())), keepdim=True)
+
     def psum_dot(self, a, b):
-        return self.psum(torch.sum(a * b, dim=(1, 2), keepdim=True))
+        return self.psum(self._sum(a * b))
 
     def project(self, p):
-        mean = self.psum(torch.sum(p * self.fluid, dim=(1, 2),
-                                   keepdim=True)) / self.n_fluid
+        mean = self.psum(self._sum(p * self.fluid)) / self.n_fluid
         return torch.where(self.fluid > 0, p - mean, p)
-
-    def grad_p(self, p):
-        """Gated ∇p: (gy_lo, gy_hi, gx); gy_hi is the slab's top face row
-        (face index Hk), which the divergence needs."""
-        dx = self.dx
-        p_prev, p_next = _exchange(p, 1, 1, self.mesh)  # gated at the ends
-        pm = torch.cat([p_prev, p[:, :-1, :]], dim=1)
-        gy_lo = (p - pm) / dx * self.acc_y_lo
-        gy_hi = (p_next - p[:, -1:, :]) / dx * self.acc_above
-        gxp = torch.nn.functional.pad(p, (1, 1))
-        gx = (gxp[:, :, 1:] - gxp[:, :, :-1]) / dx * self.acc_x
-        return gy_lo, gy_hi, gx
-
-    def matvec_raw(self, p):
-        gy_lo, gy_hi, gx = self.grad_p(p)
-        lap = (torch.cat([gy_lo[:, 1:, :], gy_hi], dim=1) - gy_lo
-               + gx[:, :, 1:] - gx[:, :, :-1]) / self.dx
-        return torch.where(self.fluid > 0, -lap, p)
 
     def matvec(self, p):
         return self.project(self.matvec_raw(self.project(p)))
 
-    def dist_spectral(self, rhs):
-        """The global DCT-II Neumann pseudo-inverse applied to a slab
-        (B, Hk, W), in fp32: the W-axis products are local, the H-axis
-        forward product is a partial over the slab's rows reduce-scattered
-        over W, the inverse W-axis product a partial over this rank's
-        block of W frequencies reduce-scattered over H."""
-        qh, qw, inv_lam, idx, mesh = (self.qh, self.qw, self.inv_lam,
-                                      self.idx, self.mesh)
-        hk, wk = rhs.shape[1], self.w // self.r
-        c = torch.einsum("lw,bhw->bhl", qw, rhs)
-        part = torch.einsum("kh,bhl->bkl", qh[:, idx * hk:(idx + 1) * hk], c)
-        spec = _ReduceScatter.apply(part, 2, mesh)            # (B, H, W/r)
-        spec = spec * inv_lam[None, :, idx * wk:(idx + 1) * wk]
-        sp = torch.einsum("kh,bkl->bhl", qh, spec)
-        part2 = torch.einsum("lw,bhl->bhw", qw[idx * wk:(idx + 1) * wk], sp)
-        return _ReduceScatter.apply(part2, 1, mesh)           # (B, Hk, W)
-
     def precond(self, res):
         return self.project(self.dist_spectral(self.project(res)))
-
-    def _coarse_setup(self, nbh: int, nbw: int):
-        """The Galerkin coarse operator E = Zᵀ A Z over fluid-masked block
-        indicators, assembled with one batched matvec over the basis, and
-        the coarse apply Q(res) = Z E⁺ Zᵀ res (blocks align with the
-        slabs, so restriction is a local block sum and one all-gather)."""
-        hk = self.acc_x.shape[0]
-        nbh_loc = nbh // self.r
-        ch, cw = hk // nbh_loc, self.w // nbw
-        nc = nbh * nbw
-        fluid, idx, mesh = self.fluid, self.idx, self.mesh
-
-        def restrict(x):
-            xb = (x * fluid).reshape(x.shape[0], nbh_loc, ch, nbw,
-                                     cw).sum(dim=(2, 4))
-            return _gather(xb, 1, mesh.space_group, self.r)
-
-        def prolong(c):
-            mine = c[:, idx * nbh_loc:(idx + 1) * nbh_loc]
-            full = mine[:, :, None, :, None].expand(
-                c.shape[0], nbh_loc, ch, nbw, cw).reshape(
-                    c.shape[0], nbh_loc * ch, nbw * cw)
-            return full * fluid
-
-        z = prolong(torch.eye(nc, device=fluid.device).reshape(nc, nbh, nbw))
-        e = restrict(self.matvec_raw(z)).reshape(nc, nc)
-        e = 0.5 * (e + e.T)
-        e_pinv = torch.linalg.pinv(e, rtol=1e-6)
-
-        def q_apply(res):
-            c = restrict(res).reshape(res.shape[0], nc)
-            c = torch.einsum("ij,bj->bi", e_pinv, c)
-            return prolong(c.reshape(res.shape[0], nbh, nbw))
-
-        return q_apply
 
     def precond2(self, res):
         """A-DEF2 two-level apply: M₂⁻¹ = Pᵀ M⁻¹ + Q with P = I − A Q,
@@ -510,6 +462,92 @@ class _PressureOps:
             None if guess is None else self.project(guess))[0]
 
 
+class _PressureOps(_SlabOps):
+    """The distributed 2D pressure-solve operators over one rank's slab
+    (`pde_control_tpu/parallel/spatial.py :: _PressureOps`): the gated
+    operator, the distributed exact solve, and the 'pcg2' coarse space."""
+
+    def __init__(self, mesh, fluid, acc_y_lo, acc_above, acc_x, *, w, dx,
+                 tol, maxiter, mode, qh, qw, inv_lam, nbh=None, nbw=None):
+        super().__init__(mesh, fluid, dx=dx, tol=tol, maxiter=maxiter,
+                         mode=mode)
+        self.w = w
+        self.acc_y_lo, self.acc_above, self.acc_x = acc_y_lo, acc_above, acc_x
+        self.qh, self.qw, self.inv_lam = qh, qw, inv_lam
+        self.coarse_q = (self._coarse_setup(nbh, nbw) if mode == "pcg2"
+                         else None)
+
+    def grad_p(self, p):
+        """Gated ∇p: (gy_lo, gy_hi, gx); gy_hi is the slab's top face row
+        (face index Hk), which the divergence needs."""
+        dx = self.dx
+        p_prev, p_next = _exchange(p, 1, 1, self.mesh)  # gated at the ends
+        pm = torch.cat([p_prev, p[:, :-1, :]], dim=1)
+        gy_lo = (p - pm) / dx * self.acc_y_lo
+        gy_hi = (p_next - p[:, -1:, :]) / dx * self.acc_above
+        gxp = torch.nn.functional.pad(p, (1, 1))
+        gx = (gxp[:, :, 1:] - gxp[:, :, :-1]) / dx * self.acc_x
+        return gy_lo, gy_hi, gx
+
+    def matvec_raw(self, p):
+        gy_lo, gy_hi, gx = self.grad_p(p)
+        lap = (torch.cat([gy_lo[:, 1:, :], gy_hi], dim=1) - gy_lo
+               + gx[:, :, 1:] - gx[:, :, :-1]) / self.dx
+        return torch.where(self.fluid > 0, -lap, p)
+
+    def dist_spectral(self, rhs):
+        """The global DCT-II Neumann pseudo-inverse applied to a slab
+        (B, Hk, W), in fp32: the W-axis products are local, the H-axis
+        forward product is a partial over the slab's rows reduce-scattered
+        over W, the inverse W-axis product a partial over this rank's
+        block of W frequencies reduce-scattered over H."""
+        qh, qw, inv_lam, idx, mesh = (self.qh, self.qw, self.inv_lam,
+                                      self.idx, self.mesh)
+        hk, wk = rhs.shape[1], self.w // self.r
+        c = torch.einsum("lw,bhw->bhl", qw, rhs)
+        part = torch.einsum("kh,bhl->bkl", qh[:, idx * hk:(idx + 1) * hk], c)
+        spec = _ReduceScatter.apply(part, 2, mesh)            # (B, H, W/r)
+        spec = spec * inv_lam[None, :, idx * wk:(idx + 1) * wk]
+        sp = torch.einsum("kh,bkl->bhl", qh, spec)
+        part2 = torch.einsum("lw,bhl->bhw", qw[idx * wk:(idx + 1) * wk], sp)
+        return _ReduceScatter.apply(part2, 1, mesh)           # (B, Hk, W)
+
+    def _coarse_setup(self, nbh: int, nbw: int):
+        """The Galerkin coarse operator E = Zᵀ A Z over fluid-masked block
+        indicators, assembled with one batched matvec over the basis, and
+        the coarse apply Q(res) = Z E⁺ Zᵀ res (blocks align with the
+        slabs, so restriction is a local block sum and one all-gather)."""
+        hk = self.acc_x.shape[0]
+        nbh_loc = nbh // self.r
+        ch, cw = hk // nbh_loc, self.w // nbw
+        nc = nbh * nbw
+        fluid, idx, mesh = self.fluid, self.idx, self.mesh
+
+        def restrict(x):
+            xb = (x * fluid).reshape(x.shape[0], nbh_loc, ch, nbw,
+                                     cw).sum(dim=(2, 4))
+            return _gather(xb, 1, mesh.space_group, self.r)
+
+        def prolong(c):
+            mine = c[:, idx * nbh_loc:(idx + 1) * nbh_loc]
+            full = mine[:, :, None, :, None].expand(
+                c.shape[0], nbh_loc, ch, nbw, cw).reshape(
+                    c.shape[0], nbh_loc * ch, nbw * cw)
+            return full * fluid
+
+        z = prolong(torch.eye(nc, device=fluid.device).reshape(nc, nbh, nbw))
+        e = restrict(self.matvec_raw(z)).reshape(nc, nc)
+        e = 0.5 * (e + e.T)
+        e_pinv = torch.linalg.pinv(e, rtol=1e-6)
+
+        def q_apply(res):
+            c = restrict(res).reshape(res.shape[0], nc)
+            c = torch.einsum("ij,bj->bi", e_pinv, c)
+            return prolong(c.reshape(res.shape[0], nbh, nbw))
+
+        return q_apply
+
+
 def _coarse_block_counts(h: int, w: int, r: int) -> tuple[int, int]:
     """The 'pcg2' coarse partition: ~16 blocks per axis, the H-axis count
     a multiple of r (blocks align with the slabs), both dividing the
@@ -528,8 +566,16 @@ def _coarse_block_counts(h: int, w: int, r: int) -> tuple[int, int]:
 
 
 def _edge(x, row: int, rows: int):
-    """One local row repeated `rows` times (the global clamp boundary)."""
-    return x[:, row:row + 1, :].expand(x.shape[0], rows, x.shape[2])
+    """One local row (a plane of a volume) repeated `rows` times (the
+    global clamp boundary)."""
+    return x[:, row:row + 1].expand(x.shape[0], rows, *x.shape[2:])
+
+
+def _face_above(nxt, x_top, rows: int, top):
+    """Rows above a lower-face slab: the next rank's leading rows `nxt`;
+    at the top rank, the real global top face `x_top` repeated."""
+    return torch.where(top, x_top.expand(x_top.shape[0], rows,
+                                         *x_top.shape[2:]), nxt)
 
 
 def _abs(x):
@@ -574,25 +620,31 @@ def _halos_cell(x, k_lo, k_hi, mesh, first, top):
     return below, above
 
 
-def _check_mode(domain: Domain2D, cfg: FluidConfig) -> str:
+def _check_mode(domain, cfg, fn: str = "spatial_fluid_step",
+                modes=("spectral", "pcg", "pcg2", "jax")) -> str:
+    """The split step's scope (the JAX package's errors): closed, inviscid,
+    shift-advected, and one of `modes` ('auto' resolved)."""
     if not domain.closed:
-        raise ValueError("spatial_fluid_step supports closed domains only "
-                         "(the dropped global top face is identically zero "
-                         "only under wall boundaries)")
+        raise ValueError(f"{fn} supports closed domains only (the dropped "
+                         "global top face is identically zero only under "
+                         "wall boundaries)")
     if cfg.viscosity:
-        raise ValueError("spatial_fluid_step: viscosity not implemented")
+        raise ValueError(f"{fn}: viscosity not implemented")
     if cfg.advection_mode != "shift":
-        raise ValueError("spatial_fluid_step requires shift advection")
+        raise ValueError(f"{fn} requires shift advection")
     mode = cfg.pressure_backend
     if mode == "auto":
         mode = "pcg" if domain.has_obstacles else "spectral"
     if mode in ("pallas", "cuda"):
-        raise ValueError("spatial_fluid_step: the fused pressure kernel is "
-                         "single-device; use 'auto'/'spectral'/'pcg'/'jax'")
+        raise ValueError(f"{fn}: the fused pressure kernel is single-device;"
+                         " use " + "/".join(f"'{m}'" for m in
+                                           ("auto",) + tuple(modes)))
     if mode == "spectral" and domain.has_obstacles:
         raise ValueError("'spectral' is exact only for domains without "
-                         "obstacles; use 'pcg'/'pcg2' (preconditioned CG)")
-    if mode not in ("spectral", "pcg", "pcg2", "jax"):
+                         "obstacles; use " + "/".join(
+                             f"'{m}'" for m in modes if m.startswith("pcg"))
+                         + " (preconditioned CG)")
+    if mode not in modes:
         raise ValueError(f"unknown pressure backend {cfg.pressure_backend!r}")
     return mode
 
@@ -652,14 +704,8 @@ def spatial_fluid_step(
     if inflow is not None and inflow.dim() == 2:
         inflow = inflow.expand(density.shape)
 
-    def from_next_face(nxt, x_top, rows_):
-        """Rows above a lower-face slab: the next rank's leading rows; at
-        the top rank, the real global top face repeated."""
-        fill = x_top.expand(x_top.shape[0], rows_, x_top.shape[2])
-        return torch.where(top, fill, nxt)
-
     # --- advection (density first, then velocity, as advect.py) -----------
-    vy_above1 = from_next_face(_exchange(vy_lo, 0, 1, mesh)[1], vy_top, 1)
+    vy_above1 = _face_above(_exchange(vy_lo, 0, 1, mesh)[1], vy_top, 1, top)
     vy_c = 0.5 * (vy_lo + torch.cat([vy_lo[:, 1:, :], vy_above1], dim=1))
     vx_c = 0.5 * (vx[:, :, :-1] + vx[:, :, 1:])
 
@@ -675,7 +721,7 @@ def spatial_fluid_step(
     vx_at_y = 0.5 * (torch.cat([vxc_prev, vx_c[:, :-1, :]], dim=1) + vx_c)
     vy_below, vy_next = _exchange(vy_lo, k, k + 1, mesh)
     vy_below = torch.where(first, _edge(vy_lo, 0, k), vy_below)
-    vy_above = from_next_face(vy_next, vy_top, k + 1)
+    vy_above = _face_above(vy_next, vy_top, k + 1, top)
     vy_new = _sample_shift_local(
         vy_lo, -dt * vy_lo / dx, -dt * vx_at_y / dx, k, vy_below, vy_above)
 
@@ -701,8 +747,8 @@ def spatial_fluid_step(
     # --- projection: mask, divergence, CG solve, correct ------------------
     vy_m = vy_new * acc_y_lo
     vx_m = vx_new * acc_x
-    vy_m_above = from_next_face(_exchange(vy_m, 0, 1, mesh)[1],
-                                torch.zeros_like(vy_top), 1)
+    vy_m_above = _face_above(_exchange(vy_m, 0, 1, mesh)[1],
+                             torch.zeros_like(vy_top), 1, top)
     div = (torch.cat([vy_m[:, 1:, :], vy_m_above], dim=1) - vy_m
            + vx_m[:, :, 1:] - vx_m[:, :, :-1]) / dx
 

@@ -325,3 +325,139 @@ def spatial_opt(rank, inputs, opt_kw, indirect, diag):
         out[f"diag_{mode}"] = dict(p=_np(spatial_gather(p, dmesh)),
                                    trips=trips)
     return out if rank == 0 else None
+
+
+# ----------------------------------------------------------- spatial3d
+
+
+def spatial3d_cases(rank, n_data, n_space, inputs, cases, steps):
+    """The split 3D rollout of tests/test_torch_spatial3d.py for each case
+    {name: (mode, plate, factor)} (factor: 'full', 'batch' or None; with a
+    factor the state also carries the inflow and a warm-started pressure):
+    the loss (the final density's squared error summed per sample), the
+    final state and the gradients of the force and the
+    factor (global, gathered); then the layout checks and
+    `spatial_pressure_solve3d_diag` ('pcg', 'jax') on the plate. Every
+    rank returns its trips; rank 0 returns the rest."""
+    from pde_control_tpu_torch import Domain3D, Fluid3DConfig, FluidState3D
+    from pde_control_tpu_torch.grids3d import Staggered3D
+    from pde_control_tpu_torch.parallel.spatial import (
+        _gather,
+        spatial_gather,
+        spatial_shard,
+    )
+    from pde_control_tpu_torch.parallel.spatial3d import (
+        make_mesh2d,
+        spatial_fluid3d_step,
+        spatial_pressure_solve3d_diag,
+    )
+
+    mesh = make_mesh2d(n_data, n_space, device="cpu")
+    t = {k: torch.tensor(v) for k, v in inputs.items()}
+    b, d, h, w = t["density"].shape
+
+    def shard(x):
+        return spatial_shard(x, mesh, ndim=3)
+
+    def gather(x, grad=False):
+        return spatial_gather(x, mesh, ndim=3, grad=grad)
+
+    out = {"_checks": _layout_checks3d(mesh, b, d, h, w)}
+    for name, (mode, plate, factor) in cases.items():
+        domain = Domain3D.create(d, h, w, obstacle_mask=t["plate"] if plate
+                                 else None, device="cpu")
+        cfg = Fluid3DConfig(dt=0.5, buoyancy=0.1, pressure_tol=1e-7,
+                            pressure_maxiter=800, pressure_backend=mode)
+        extra = {} if factor is None else dict(
+            inflow=t["inflow"], pressure=torch.zeros(b, d, h, w))
+        state = shard(FluidState3D(
+            velocity=Staggered3D.zeros(b, d, h, w, device="cpu"),
+            density=t["density"], **extra))
+        force = shard(Staggered3D(vz=t["fz"], vy=t["fy"], vx=t["fx"]))
+        force = Staggered3D(*(f.clone().requires_grad_() for f in (
+            force.vz, force.vy, force.vx)))
+        bf = None
+        if factor == "full":
+            bf = shard(t["bf_full"]).requires_grad_()
+        elif factor == "batch":
+            bf = t["bf_batch"][mesh.batch_slice(b)].clone().requires_grad_()
+        for _ in range(steps):
+            state = spatial_fluid3d_step(state, domain, cfg, mesh,
+                                         force=force, buoyancy_factor=bf)
+        loss = torch.sum((state.density - shard(t["target"])) ** 2) / b
+        loss.backward()
+        total = loss.detach().reshape(1)
+        dist.all_reduce(total)
+        g = gather(Staggered3D(force.vz.grad, force.vy.grad, force.vx.grad),
+                   grad=True)
+        v = gather(Staggered3D(*(x.detach() for x in (
+            state.velocity.vz, state.velocity.vy, state.velocity.vx))))
+        res = dict(loss=float(total), density=_np(gather(
+            state.density.detach())), vz=_np(v.vz), vy=_np(v.vy),
+                   vx=_np(v.vx), gvz=_np(g.vz), gvy=_np(g.vy), gvx=_np(g.vx))
+        if factor == "full":
+            res["gbf"] = _np(gather(bf.grad))
+        elif factor == "batch":
+            gbf = bf.grad.clone()
+            dist.all_reduce(gbf, group=mesh.space_group)  # replicated rows
+            res["gbf"] = _np(_gather(gbf, 0, mesh.data_group,
+                                     mesh.shape["data"]))
+        out[name] = res
+    domain = Domain3D.create(d, h, w, obstacle_mask=t["plate"], device="cpu")
+    for mode in ("pcg", "jax"):
+        p, trips = spatial_pressure_solve3d_diag(
+            shard(t["div"]), domain, mesh, mode=mode, tol=1e-5, maxiter=2000)
+        out[f"diag_{mode}"] = dict(p=_np(gather(p)), trips=trips)
+    return out if rank == 0 else {f"diag_{m}": dict(trips=out[f"diag_{m}"][
+        "trips"]) for m in ("pcg", "jax")}
+
+
+def _layout_checks3d(mesh, b, d, h, w) -> dict:
+    """`spatial_shard` then `spatial_gather` (ndim=3) of a `FluidState3D`
+    (inflow and pressure too) and of a time-stacked `Staggered3D` give
+    them back; with `grad`, the replicated top z-face of a vz block is
+    summed over the space group once."""
+    from pde_control_tpu_torch import FluidState3D
+    from pde_control_tpu_torch.grids3d import Staggered3D
+    from pde_control_tpu_torch.parallel.spatial import (
+        spatial_gather,
+        spatial_shard,
+    )
+
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g)
+
+    def vel(*lead):
+        return Staggered3D(vz=rnd(*lead, b, d + 1, h, w),
+                           vy=rnd(*lead, b, d, h + 1, w),
+                           vx=rnd(*lead, b, d, h, w + 1))
+
+    state = FluidState3D(velocity=vel(), density=rnd(b, d, h, w),
+                         inflow=rnd(d, h, w), pressure=rnd(b, d, h, w))
+    back = spatial_gather(spatial_shard(state, mesh, 3), mesh, 3)
+    forces = vel(3)
+    fback = spatial_gather(spatial_shard(forces, mesh, 3), mesh, 3)
+    pairs = [(back.velocity.vz, state.velocity.vz),
+             (back.velocity.vy, state.velocity.vy),
+             (back.velocity.vx, state.velocity.vx),
+             (back.density, state.density), (back.inflow, state.inflow),
+             (back.pressure, state.pressure), (fback.vz, forces.vz),
+             (fback.vy, forces.vy), (fback.vx, forces.vx)]
+    sharded = spatial_shard(state.velocity, mesh, 3)
+    ns = mesh.shape["space"]
+    bd, zk = b // mesh.shape["data"], d // ns
+    shapes = (tuple(sharded.vz.shape) == (bd, zk + 1, h, w)
+              and tuple(sharded.vy.shape) == (bd, zk, h + 1, w)
+              and tuple(sharded.vx.shape) == (bd, zk, h, w + 1))
+    # Each rank's gradient block holds 1 on its replicated top plane: the
+    # gathered top face must count every rank of the space group once.
+    ones = Staggered3D(*(torch.ones_like(x) for x in (
+        sharded.vz, sharded.vy, sharded.vx)))
+    gsum = spatial_gather(ones, mesh, 3, grad=True)
+    grad_sum = (bool((gsum.vz[:, -1] == ns).all())
+                and bool((gsum.vz[:, :-1] == 1).all())
+                and bool((gsum.vy == 1).all()) and bool((gsum.vx == 1).all()))
+    return {"round_trip": all(torch.equal(x, y) for x, y in pairs),
+            "block_shapes": shapes, "grad_sum": grad_sum}

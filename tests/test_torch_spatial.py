@@ -1,11 +1,13 @@
-"""The split 2D fluid step (`parallel/spatial.py`) on (1, 2) and (2, 2)
-worlds of gloo ranks on the CPU, against the JAX package's
-`spatial_fluid_step` on `make_mesh2d` meshes.
+"""The split 2D fluid step (`parallel/spatial.py`) on (1, 2), (2, 2) and
+(1, 4) worlds of gloo ranks on the CPU, against the JAX package's
+`spatial_fluid_step` on `make_mesh2d` meshes. On (1, 4) the slabs are 4
+rows (max_shift 2 needs k + 2 = 4), and the two middle ranks send and
+receive halos on both sides.
 
 At 16², batch 4, three steps from rest with a random force, dt 0.5,
 buoyancy 0.1, the pressure solved to tol 1e-7 (maxiter 800) so that
 every CG mode converges far below the comparison tolerance. The ranks
-(`tests/_torch_dist.py`) run every mode on both worlds: 'jax', 'pcg' and
+(`tests/_torch_dist.py`) run every mode on every world: 'jax', 'pcg' and
 'pcg2' with a two-row plate across the slabs' boundary at max_shift 2,
 and 'spectral' without obstacles at max_shift 1 (a JAX compile of half
 the time); each rank's blocks are gathered. JAX
@@ -51,7 +53,7 @@ B, H, W, STEPS = 4, 16, 16, 3
 # name: (pressure backend, plate, max_shift)
 CASES = {"jax": ("jax", True, 2), "pcg": ("pcg", True, 2),
          "pcg2": ("pcg2", True, 2), "spectral": ("spectral", False, 1)}
-WORLDS = [(1, 2), (2, 2)]
+WORLDS = [(1, 2), (2, 2), (1, 4)]
 REF_OF = {"jax": "pcg", "pcg": "pcg", "pcg2": "pcg", "spectral": "spectral"}
 
 
@@ -66,7 +68,7 @@ def _blob(rng, b, h, w):
 def _inputs():
     rng = np.random.default_rng(0)
     plate = np.zeros((H, W), np.float32)
-    plate[7:9, 4:12] = 1.0  # across the two slabs' boundary
+    plate[7:9, 4:12] = 1.0  # across a slabs' boundary on every world
     return dict(density=_blob(rng, B, H, W),
                 fy=rng.normal(0, 0.05, (B, H + 1, W)).astype(np.float32),
                 fx=rng.normal(0, 0.05, (B, H, W + 1)).astype(np.float32),
