@@ -10,9 +10,10 @@ prints no result):
      (one nvcc per source, in parallel), prints each kernel's registers and
      spills (a kernel the report does not know, a K1, K3, K4 or K5 kernel
      missing from it or one that spills fails), checks the kernels'
-     shared-memory counts and K1's layout (the large one at 112² and
-     128²) against the Python gates and plans, and prints K3's plan at
-     64²×8 and ×64 and K1's at 128²×8;
+     shared-memory counts and K1's, K2's and K3's layouts (the large one
+     at 112² and 128², K2's from 109²) against the Python gates and plans,
+     and prints K3's plan at 64²×8 and ×64 and K1's, K2's and K3's at
+     128²×8;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed), 32² (open, with an obstacle), 48², 96² and
      128² (closed; 128² in the large layout), batch 8, warm and cold, at
@@ -24,15 +25,19 @@ prints no result):
      tol 1e-4 / 100, and at 128²×8 (tol 1e-4 / 200, smoke_128's) under
      every plan beside plain and the bound, and the plans;
   4. the fused step's forward (K2) and backward (K3) against their plain
-     versions: 64², 32², 32×48, 24×30 and 8×8, closed with the plate,
-     batch 8, cold and warm, with force, with inflow, at zero velocity (the
-     tie points), and with a NaN and an infinity planted in the velocity
-     (the non-finite cells must be the plain version's), at tol 1e-6 / 500,
-     each under its plan (`fwd_plan`, `bwd_plan`) and under every plan its
-     launcher takes, each twice for the same bits; both against the JAX
-     package's goldens (`tests/goldens/fused_step_32.npz`); then their
-     times at 64²×8, tol 1e-4 / 100, at maxiter 0 (the rest without the CG
-     trips) and at batch 64, and their plans;
+     versions: 64², 32², 32×48, 24×30, 8×8, 96², 112², 128² and 64×128
+     (112² and 128² in the cluster core's large layout), closed with the
+     plate, batch 8, cold and warm, with force, with inflow, at zero
+     velocity (the tie points), and with a NaN and an infinity planted in
+     the velocity (the non-finite cells must be the plain version's), at
+     tol 1e-6 / 500, each under its plan (`fwd_plan`, `bwd_plan`) and under
+     every plan its launcher takes, each twice for the same bits; both
+     against the JAX package's goldens (`tests/goldens/fused_step_32.npz`
+     and `fused_step_128.npz`, the latter's trip counts within 3); then
+     their times at 64²×8, tol 1e-4 / 100, at maxiter 0 (the rest without
+     the CG trips) and at batch 64, and their plans; and at 128²×8 (warm,
+     force, tol 1e-4 / maxiter 200, smoke_128's step) beside plain, the
+     bound, the plan and the layout;
   5. the first iteration of each training path below, every one with the
      same perturbed CFE output layer, so that every net has a gradient; the
      conv path's run records the shape of every conv its kernels compute;
@@ -47,7 +52,14 @@ prints no result):
   8. the main path, fused, with the nets' 3×3 stride-1 convs on K4/K5
      (`conv_impl='cuda'`): the first iteration against the fused cuDNN
      path, 2 warm-up and 5 timed iterations, the launches of all five
-     kernels;
+     kernels; then "128², fused (K2 / K3)": `profile_bench.make_app(128,
+     16, 8, maxiter=200)` with `fused='cuda'` against the same app unfused
+     (K1), the first iteration of both (CFE perturbed; loss 1e-3 relative,
+     grad norms within 2e-2), 16 K2 + 16 K3 + 0 K1 an iteration, eager
+     iterations, and `progress_multi`'s graph for 'staggered' and 'chain'
+     on both apps (ms a step, peak and reserved memory, capture seconds,
+     graph nodes; `python3 chip_smoke.py fused128` runs phases 2, 4 and
+     this one alone and prints no result);
   9. the rest of the training step, on the 'refined' class (every net
      trainable, grad clip 1.0, cosine over 100 updates): its first
      iteration on the conv path against K1 with cuDNN; one op_supervised
@@ -153,9 +165,9 @@ prints no result):
      graphs' memory pools would raise the paths' peak memory.
 Each phase's seconds follow it. The line before the last is the kernels'
 JSON summary (with each kernel's launches in configs 3-5, in the OOD evals,
-in the 128² and 3D entries and in the mesh, spatial and spatial3d
-phases, and K1's
-times at 128²x8); the last line is `{"ok": true, "device": {...}}`.
+in the 128² and 3D entries, in the 128² fused app and in the mesh,
+spatial and spatial3d phases, and K1's, K2's and K3's times at 128²x8);
+the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -187,13 +199,15 @@ PEAK_HBM_BYTES = 3.35e12
 # listed by `cuda_conv.FWD_TILES` in the build phase).
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
-# K3's instantiations <threads, trip profile>: the main path's and the one
-# `fused_bwd_trace` selects; K1's <threads, large layout> (the large one
-# on grids from 112² to 128²) and K2's (512 threads). Each must stand in
-# ptxas's report, without spills.
-K3_KERNELS = {"fused_bwd_kernel<512, 0>", "fused_bwd_kernel<512, 1>"}
+# K3's instantiations <threads, trip profile, large layout>: the main
+# path's in the small layout, the one `fused_bwd_trace` selects and the main
+# path's in the large layout (grids from 112² to 128²); K1's and K2's
+# <threads, large layout> (the large one on grids from 112² to 128² for K1,
+# from 109² for K2). Each must stand in ptxas's report, without spills.
+K3_KERNELS = {"fused_bwd_kernel<512, 0, 0>", "fused_bwd_kernel<512, 1, 0>",
+              "fused_bwd_kernel<512, 0, 1>"}
 K1_K2_KERNELS = {"pcg_cluster_kernel<512, 0>", "pcg_cluster_kernel<512, 1>",
-                 "fused_fwd_kernel<512>"}
+                 "fused_fwd_kernel<512, 0>", "fused_fwd_kernel<512, 1>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -291,7 +305,7 @@ def build_phase() -> None:
         raise AssertionError(f"a kernel spills: "
                              f"{ {k: seen[k] for k in checked if seen[k]} }")
     shapes = ((H, H), (32, 32), (48, 48), (96, 96), (112, 112), (128, 128),
-              (32, 48), (24, 30), (8, 8))
+              (32, 48), (24, 30), (8, 8), (64, 128))
     for name, c_name, plans, plan, query in (
             ("K1", "pcg_shared_bytes", cuda_cg.solve_plans, cuda_cg.solve_plan,
              cuda_cg._kernel()[1]),
@@ -330,10 +344,43 @@ def build_phase() -> None:
           "clusters: " + ", ".join(
               f"C={p.cluster}: {cuda_cg._kernel()[1](K1_BIG, K1_BIG, p.cluster, p.threads)}"
               for p in cuda_cg.solve_plans(K1_BIG, K1_BIG)))
+    # K2's and K3's layouts: the large one exactly where the Python
+    # counts say so (K2 from 109², K3 from 112²), and each kernel's plan
+    # and resident clusters at 128²×8.
+    k = FUSED_STEP["max_shift"]
+    fwd_large, bwd_large = lib.fused_fwd_large_layout, lib.fused_bwd_large_layout
+    fwd_large.argtypes, fwd_large.restype = [ctypes.c_int] * 3, ctypes.c_int
+    bwd_large.argtypes, bwd_large.restype = [ctypes.c_int] * 4, ctypes.c_int
+    layout_shapes = shapes + ((104, 104), (108, 108), (109, 109), (111, 111))
+    for h, w in layout_shapes:
+        want = (cuda_fluid.fwd_large_layout(h, w),
+                cuda_fluid.bwd_large_layout(h, w, k))
+        got = (bool(fwd_large(h, w, cuda_cg.CLUSTER_THREADS)),
+               bool(bwd_large(h, w, cuda_fluid.BWD_THREADS, k)))
+        if got != want:
+            raise AssertionError(f"fused_*_large_layout({h}, {w}) = {got}, the "
+                                 f"Python count says {want}")
+    for name, large in (("K2", cuda_fluid.fwd_large_layout),
+                        ("K3", lambda h, w: cuda_fluid.bwd_large_layout(h, w, k))):
+        print(f"{name} large layout at " + ", ".join(
+            f"{h}x{w}" for h, w in layout_shapes if large(h, w))
+            + " (the kernel's and the Python count agree)")
+    big = FUSED_BIG
+    print(f"K2 plan at {big}x{big}x{BATCH}: "
+          f"{_plan_text(cuda_fluid.fwd_plan(BATCH, big, big))}; resident "
+          "clusters: " + ", ".join(
+              f"C={p.cluster}: {cuda_fluid._kernels()[3](big, big, p.cluster, p.threads)}"
+              for p in cuda_fluid.fwd_plans(big, big)))
+    print(f"K3 plan at {big}x{big}x{BATCH}: "
+          f"{_plan_text(cuda_fluid.bwd_plan(BATCH, big, big, k))}; resident "
+          "clusters: " + ", ".join(
+              f"C={p.cluster}: {cuda_fluid._kernels()[2](big, big, p.cluster, p.threads, k)}"
+              for p in cuda_fluid.bwd_plans(big, big, k)))
     fn = lib.fused_bwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     bwd_cases = [(h, w, c, cuda_fluid.BWD_THREADS)
-                 for h, w in ((H, H), (32, 32), (32, 48), (8, 8), (84, 84))
+                 for h, w in ((H, H), (32, 32), (32, 48), (8, 8), (84, 84),
+                              (96, 96), (112, 112), (128, 128), (64, 128))
                  for c in cuda_fluid.BWD_CLUSTERS if c <= h]
     for h, w, c, t in bwd_cases:
         want = cuda_fluid.bwd_shared_bytes(h, w, c, t, FUSED_STEP["max_shift"])
@@ -746,9 +793,17 @@ FUSED_STEP = dict(dt=1.0, max_shift=2, buoyancy=0.08, closed=True)
 
 # K2 and K3 are checked under every plan their launchers take at these
 # grids: the main path's, a smaller square, two that are not square (one of
-# a width that is not a multiple of 4) and one row a rank under C = 8.
-FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (24, 30), (8, 8))
-GOLDENS = "tests/goldens/fused_step_32.npz"
+# a width that is not a multiple of 4), one row a rank under C = 8; 96², the
+# small layout beyond the sides of the first fused PRs; 112² and 128²
+# (smoke_128's grid), the cluster core's large layout; and 64×128, the small
+# layout with a 128-wide basis.
+FUSED_BIG = 128
+FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (24, 30), (8, 8), (96, 96),
+                (112, 112), (FUSED_BIG, FUSED_BIG), (64, 128))
+# The JAX package's fused step and VJP: 32² (scripts/make_fused_goldens.py)
+# and 128² (scripts/make_fused_goldens_128.py), each batch 2.
+GOLDENS = {32: "tests/goldens/fused_step_32.npz",
+           FUSED_BIG: "tests/goldens/fused_step_128.npz"}
 
 
 def _fused_operands(rng, h, w, case, domain, dev, batch=BATCH):
@@ -820,17 +875,19 @@ def _same_bits(label: str, a: tuple, b: tuple) -> None:
             raise AssertionError(f"{label}: two calls differ")
 
 
-def fused_golden_check(dev) -> dict:
+def fused_golden_check(dev, n: int) -> dict:
     """K2 and K3 (each under its plan and every plan its launcher takes at
-    32²) against the JAX package's fused step and VJP, from the goldens
-    of `scripts/make_fused_goldens.py`: outputs within 1e-4, cotangents
-    within 1e-3 of the golden's max|ref|."""
+    n²) against the JAX package's fused step and VJP, from the goldens
+    `GOLDENS[n]`: outputs within 1e-4, cotangents within 1e-3 of the
+    golden's max|ref|; at 128², trip counts within 3 of the JAX package's
+    CG on the same systems (the golden's `trips`)."""
     from pathlib import Path
 
     from pde_control_tpu_torch.ops import cuda_fluid
 
-    z = np.load(Path(__file__).resolve().parent / GOLDENS)
+    z = np.load(Path(__file__).resolve().parent / GOLDENS[n])
     cfg = json.loads(str(z["config"]))
+    trips = cfg.get("trips")
     kw = {k: cfg[k] for k in ("dt", "dx", "max_shift", "buoyancy", "closed",
                               "tol", "maxiter")}
 
@@ -847,30 +904,48 @@ def fused_golden_check(dev) -> dict:
         inflow, x0 = (None, None) if zero_v else (t("inflow"), t("x0"))
         names_f = ("vy4", "vx4", "rho1", "p")
         want = [t(f"{case}/{n}") for n in names_f]
-        rel_f = 0.0
-        for plan in [None] + cuda_fluid.fwd_plans(32, 32):
+        rel_f, dit = 0.0, 0
+
+        def trips_off(got, where, plan):
+            if trips is None:
+                return 0
+            d = int(np.abs(got.cpu().numpy() - trips[case][where]).max())
+            if d > 3:
+                raise AssertionError(f"golden {n}x{n} {case} {where} {plan}: "
+                                     f"trip counts {got.tolist()} against the "
+                                     f"JAX CG's {trips[case][where]}")
+            return d
+
+        for plan in [None] + cuda_fluid.fwd_plans(n, n):
             out = cuda_fluid._launch_forward(vy, vx, rho, *geom, fy, fx, inflow,
                                              x0, plan, **kw)
-            rels, worst, _ = _agree(f"golden {case} fwd {plan}", out[:4], want,
-                                    names_f, 1e-4, False)
+            rels, worst, _ = _agree(f"golden {n}x{n} {case} fwd {plan}", out[:4],
+                                    want, names_f, 1e-4, False)
             err["fwd"] = max(err["fwd"], worst)
             rel_f = max(rel_f, max(rels.values()))
+            dit = max(dit, trips_off(out[4], "fwd", plan))
         names_b = ("vy", "vx", "rho", "fy", "fx", "inflow")
         want = [None if zero_v and n == "inflow" else t(f"{case}/d_{n}")
                 for n in names_b]
         rel_b = 0.0
-        for plan in [None] + cuda_fluid.bwd_plans(32, 32):
+        for plan in [None] + cuda_fluid.bwd_plans(n, n):
             got = cuda_fluid._launch_backward(vy, vx, rho, *cots, *geom, plan,
                                               has_force=True, has_inflow=not zero_v,
                                               **kw)
-            rels_b, worst, _ = _agree(f"golden {case} bwd {plan}", got[:6], want,
-                                      names_b, 1e-3, False)
+            rels_b, worst, _ = _agree(f"golden {n}x{n} {case} bwd {plan}",
+                                      got[:6], want, names_b, 1e-3, False)
             err["bwd"] = max(err["bwd"], worst)
             rel_b = max(rel_b, max(rels_b.values()))
-        print(f"golden 32x32x2 {case} (JAX interpret-mode kernels): worst "
+            dit = max(dit, trips_off(got[6], "bwd", plan))
+        layout = ("large" if cuda_fluid.fwd_large_layout(n, n) else "small",
+                  "large" if cuda_fluid.bwd_large_layout(n, n, kw["max_shift"])
+                  else "small")
+        print(f"golden {n}x{n}x2 {case} (JAX interpret-mode kernels): worst "
               f"max|d|/max|ref| over the plan and every other: K2 {rel_f:.2e} "
-              f"({len(cuda_fluid.fwd_plans(32, 32))} plans), K3 {rel_b:.2e} "
-              f"({len(cuda_fluid.bwd_plans(32, 32))} plans)")
+              f"({len(cuda_fluid.fwd_plans(n, n))} plans, {layout[0]} layout), "
+              f"K3 {rel_b:.2e} ({len(cuda_fluid.bwd_plans(n, n))} plans, "
+              f"{layout[1]} layout)"
+              + (f"; trip counts within {dit} of the JAX CG's" if trips else ""))
     return err
 
 
@@ -952,9 +1027,10 @@ def fused_kernel_phase(card: str) -> dict:
                 f"{g_k[-1].tolist()} plain={g_p[-1].tolist()} | {len(plans)} "
                 f"plans: worst {worst_rel:.2e}, {len(trips)} distinct trip "
                 "counts, each the same bits in two calls")
-    golden = fused_golden_check(dev)
-    for key in err:
-        err[key] = max(err[key], golden[key])
+    for n in GOLDENS:
+        golden = fused_golden_check(dev, n)
+        for key in err:
+            err[key] = max(err[key], golden[key])
 
     # Times at the main path's settings: 64², force, warm start, tol 1e-4;
     # also at maxiter 0 (the rest without the CG trips) and at batch 64.
@@ -1026,7 +1102,167 @@ def fused_kernel_phase(card: str) -> dict:
               f"mean {float(trips64.float().mean()):.2f}): {ms64:.4f} ms per "
               f"launch [{card}]")
         summary[where]["plan"] = dict(plan._asdict(), batch=BATCH)
+
+    # Times at 128²×8, the slice's settings (smoke_128's step: force, warm
+    # start, tol 1e-4 / maxiter 200, max_shift 2), both kernels in the large
+    # layout: events over a host loop, graph replay beside them, the plain
+    # versions and the bounds counted as at 64².
+    n = FUSED_BIG
+    domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    ops, cots = _fused_operands(rng, n, n, "warm", domain, dev)
+    kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-4, maxiter=200)
+    state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
+    out = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
+    grads = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags, **kw)
+    cells = _window_cells(BATCH, n, n)
+    big = {
+        "fwd": ("K2", lambda: cuda_fluid.fused_step_forward(
+                    *state, *geom, **ops, **kw),
+                lambda: cuda_fluid.fused_step_plain_forward(
+                    *state, *geom, **ops, **kw),
+                _nbytes(*state, *ops.values(), *out[:4]), out[4], False,
+                cuda_fluid.fwd_plan(BATCH, n, n),
+                cuda_fluid.fwd_large_layout(n, n)),
+        "bwd": ("K3", lambda: cuda_fluid.fused_step_backward(
+                    *state, *cots, *geom, **flags, **kw),
+                lambda: cuda_fluid.fused_step_plain_backward(
+                    *state, *cots, *geom, **flags, **kw),
+                _nbytes(*state, *cots, *grads[:6]), grads[6], True,
+                cuda_fluid.bwd_plan(BATCH, n, n, FUSED_STEP["max_shift"]),
+                cuda_fluid.bwd_large_layout(n, n, FUSED_STEP["max_shift"])),
+    }
+    for where, (name, kernel, plain, nbytes, iters, adjoint, plan,
+                large) in big.items():
+        kernel_ms, plain_ms = _time_ms(kernel, 20), _time_ms(plain, 3)
+        graph_ms = _graph_ms(kernel, 10)
+        flops = cells * (_window_flops(adjoint) + 20) + _cg_flops(n, n, iters)
+        nbytes += 4 * BATCH
+        bound_ms, bound_by = _bound(nbytes + _geom_bytes(n, n), flops)
+        layout = "large" if large else "small"
+        print(f"  time per {where} launch {n}x{n}x{BATCH} warm, force, tol 1e-4 "
+              f"maxiter 200 (trips {iters.tolist()}): {name} {kernel_ms:.4f} ms "
+              f"(graph replay {graph_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by}; {flops / 1e6:.1f} MFLOP, "
+              f"{nbytes / 1e6:.2f} MB); {_plan_text(plan)}, {layout} layout "
+              f"[{card}]")
+        summary[where]["128x8"] = dict(
+            ms=kernel_ms, graph_ms=graph_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            trips=float(iters.float().mean()),
+            plan=dict(plan._asdict(), batch=BATCH, h=n, w=n, layout=layout))
     return summary
+
+
+# ------------------------------------------------------- the 128² fused app
+
+# The slice at smoke_128's grid: `profile_bench.make_app(128, 16, 8,
+# maxiter=200)` (the plate, buoyancy control, a warm-started solve at tol
+# 1e-4, CFE 32-64-64-32, OP16-OP2 at base 16 and 3 levels, bf16 nets), its
+# fused step on K2/K3 against the same app unfused on K1.
+BIG_APP = dict(h=FUSED_BIG, n=N, batch=BATCH, maxiter=200)
+
+
+def _app128(fused: str, sequence_class: str = "staggered"):
+    from pde_control_tpu_torch.experiments import profile_bench
+
+    return profile_bench.make_app(
+        BIG_APP["h"], BIG_APP["n"], BIG_APP["batch"], "cuda",
+        maxiter=BIG_APP["maxiter"], fused=fused, sequence_class=sequence_class)
+
+
+def fused128_phase(card: str) -> dict:
+    """The 128² training iteration under fused='cuda' (K2/K3) beside the
+    same app unfused (K1): the first iteration of both on the same perturbed
+    weights and batch (loss 1e-3 relative, each net's gradient norm within
+    2e-2), the launches of an iteration (16 K2, 16 K3, 0 K1 fused), eager
+    iterations, then `progress_multi`'s CUDA graph for 'staggered' and
+    'chain' on both apps: ms a step, peak and reserved memory, capture
+    seconds and graph nodes. Returns the fused app's launches per eager
+    iteration and per replay of each class."""
+    _phase("128², fused (K2 / K3)")
+    from pde_control_tpu_torch.experiments import profile_bench
+
+    h, n, b = BIG_APP["h"], BIG_APP["n"], BIG_APP["batch"]
+    batch = profile_bench.make_batch(h, n, b, SEED)
+    fused_iter = {"K1": 0, "K2": n, "K3": n, "K4 fwd": 0, "K4 dX": 0, "K5": 0}
+    first = {}
+    for fused in ("cuda", "auto"):
+        app = _app128(fused)
+        perturb_cfe(app)
+        _zero_counts()
+        metrics = app.compute_gradients(app.to_batch(batch))
+        torch.cuda.synchronize()
+        first[fused] = ((float(metrics["loss"]), _grad_norms(app)), _counts())
+        del app, metrics
+    print(f"{h}x{h} n={n} batch={b} first iteration launches: fused "
+          f"{first['cuda'][1]}, unfused {first['auto'][1]}")
+    _compare_first(f"fused {h}x{h}", first["cuda"][0], first["auto"][0])
+    if first["cuda"][1] != fused_iter:
+        raise AssertionError(f"fused {h}x{h}: an iteration launched "
+                             f"{first['cuda'][1]}, expected {fused_iter}")
+
+    # Eager iterations of the fused app: launches and time.
+    app = _app128("cuda")
+    on_card = app.to_batch(batch)
+    app.progress(on_card)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    losses = [app.progress(on_card)["loss"] for _ in range(2)]
+    end.record()
+    torch.cuda.synchronize()
+    eager = _counts()
+    losses = [float(x) for x in losses]
+    print(f"fused {h}x{h} eager: {start.elapsed_time(end) / 2:.3f} ms an "
+          f"iteration (CUDA events), losses {losses}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB, launches in 2 "
+          f"iterations {eager} [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fused {h}x{h}: non-finite loss {losses}")
+    _expect(f"fused {h}x{h} eager", eager, fused_iter, iters=2)
+    del app, on_card
+    torch.cuda.empty_cache()
+
+    # progress_multi's CUDA graph: K_MULTI replays a call, after the call
+    # that warms up and captures.
+    stacked = [profile_bench.make_batch(h, n, b, SEED + 30 + i)
+               for i in range(K_MULTI)]
+    batches = {k: torch.tensor(np.stack([x[k] for x in stacked]), device="cuda")
+               for k in stacked[0]}
+    out = {"eager": {k: v // 2 for k, v in eager.items()}}
+    for seq in ("staggered", "chain"):
+        ms = {}
+        for fused, path in (("cuda", "fused"), ("auto", "unfused")):
+            app = _app128(fused, seq)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            app.progress_multi(batches)  # warm-up, capture and K replays
+            torch.cuda.synchronize()
+            first_call = time.perf_counter() - t0
+            graph = next(iter(app._graphs.values()))
+            capture = dict(capture_s=graph.capture_s,
+                           instantiate_s=graph.instantiate_s,
+                           nodes=_graph_nodes(graph.graph))
+            timed = _timed_steps(f"{h}x{h} {seq} {path} graph", app, batches,
+                                 card, True)
+            per_step = {k: v // K_MULTI for k, v in timed["launches"].items()}
+            print(f"{h}x{h} {seq} {path}: first progress_multi call "
+                  f"{first_call:.2f} s, {_capture_text(capture)} [{card}]")
+            if path == "fused":
+                _expect(f"{h}x{h} {seq} fused graph", per_step, fused_iter,
+                        iters=1)
+                out[seq] = per_step
+            ms[path] = timed["ms"]
+            del app, graph
+            torch.cuda.empty_cache()
+        print(f"{h}x{h} {seq}: fused {ms['fused']:.3f} ms a step under the "
+              f"graph against unfused {ms['unfused']:.3f} "
+              f"({ms['unfused'] / ms['fused']:.2f}x) [{card}]")
+    return out
 
 
 # --------------------------------------------------------------- phase 10
@@ -4229,6 +4465,12 @@ def main() -> None:
         adjoint_phase(card, burgers_phase(card))
         _phase(None)
         return
+    if sys.argv[1:] == ["fused128"]:  # K2/K3 and the 128² app, no result
+        build_phase()
+        fused_kernel_phase(card)
+        fused128_phase(card)
+        _phase(None)
+        return
     if sys.argv[1:] == ["mesh"]:  # the mesh and spatial phases, no result
         build_phase()
         with _nccl_world():
@@ -4252,6 +4494,7 @@ def main() -> None:
     unfused_launches = main_path_phase(card, batch, first)
     fused_launches = fused_path_phase(card, batch, first)
     conv_launches = conv_path_phase(card, batch, first, shapes)
+    fused128 = fused128_phase(card)
     training_phase(card, batch)
     configs, seen = {}, {3: {}, 5: {}}
     for number in (4, 3, 5):
@@ -4323,6 +4566,14 @@ def main() -> None:
     # 128² and 3D entries: data, eager (warm-up, captures, evals) and a
     # replay's times its steps.
     kernels[0].update({f"{k}_128x8": v for k, v in k1["big"].items()})
+    # K2 and K3 at 128²x8 (the slice's settings, the large layout) and
+    # their launches in the 128² app: an eager iteration's and a replay's
+    # of each class.
+    for kern, where, key in ((kernels[1], "fwd", "K2"), (kernels[2], "bwd", "K3")):
+        kern.update({f"{k}_128x8": v for k, v in fused[where]["128x8"].items()})
+        kern["fused128_launches"] = fused128["eager"][key]
+        for seq in ("staggered", "chain"):
+            kern[f"fused128_{seq}_graph_launches"] = fused128[seq][key]
     for kern, keys in zip(kernels, (("K1",), ("K2",), ("K3",),
                                     ("K4 fwd", "K4 dX"), ("K5",))):
         for name, counts in entries.items():

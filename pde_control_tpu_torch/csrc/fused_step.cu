@@ -25,21 +25,29 @@
 // (fwd_layout below; 99,360 bytes at 64^2 and C = 8, the plan at batch 8;
 // ops/cuda_fluid.py :: fwd_shared_bytes); K3 for the window adjoints its
 // band widened by k + 1 rows (bwd_layout; 94,208 bytes at 64^2 and C = 8;
-// ops/cuda_fluid.py :: bwd_shared_bytes). The step's inputs are read-only
-// for the whole launch and are read from global memory through L1 (__ldg),
-// with clamped indices standing in for the edge padding; everything the
-// kernels compute themselves (the divergence, the masked velocity, the
-// pressure, the cotangents) is read with plain loads after a barrier, never
-// through the read-only path. The window adjoint's field cotangent is a
-// gather: each thread owns its target cells and sums, in a fixed order,
-// every window term whose clamped source is that cell, which folds the edge
-// padding in as well. Each source cell's taps (the floor offsets of its
-// clipped displacement and the hat weights there) are computed once, so a
-// candidate is an integer compare; the displacement cotangents run over the
-// four offsets per axis where the hat or its derivative can be nonzero. No
-// atomics, so the result is deterministic. Window terms whose weight is
-// exactly zero are skipped: for finite fields they add exact zeros in the
-// plain version.
+// ops/cuda_fluid.py :: bwd_shared_bytes). On a grid where that fits a
+// block under no cluster size (K2 from 109^2, K3 from 112^2, up to 128^2),
+// every plan of the kernel takes the core's large layout, as K1 does
+// (pcg_cluster.cuh's header): the basis read from L2 and the residual
+// exchanged by bands, no basis and no copy of A d in shared memory
+// (fused_fwd_kernel<512, true>, 209,728 bytes at 128^2 and C = 8;
+// fused_bwd_kernel<512, false, true>, 191,232 bytes). K3's window phase
+// is the same in both layouts and fits the space the solve leaves.
+//
+// The step's inputs are read-only for the whole launch and are read from
+// global memory through L1 (__ldg), with clamped indices standing in for
+// the edge padding; everything the kernels compute themselves (the
+// divergence, the masked velocity, the pressure, the cotangents) is read
+// with plain loads after a barrier, never through the read-only path.
+// The window adjoint's field cotangent is a gather: each thread owns its
+// target cells and sums, in a fixed order, every window term whose clamped
+// source is that cell, which folds the edge padding in as well. Each
+// source cell's taps (the floor offsets of its clipped displacement and
+// the hat weights there) are computed once, so a candidate is an integer
+// compare; the displacement cotangents run over the four offsets per axis
+// where the hat or its derivative can be nonzero. No atomics, so the
+// result is deterministic. Window terms whose weight is exactly zero are
+// skipped: for finite fields they add exact zeros in the plain version.
 //
 // Non-finite values. The plain version multiplies every tap, so a NaN or
 // an infinity anywhere in a window (0 * inf is NaN) makes the window's
@@ -53,13 +61,14 @@
 // What bounds them: latency. A sample spreads over C SMs (C up to 16,
 // chosen by ops/cuda_fluid.py :: fwd_plan and bwd_plan to fill the card):
 // a CG trip's products and stencil are 1/C of the work, around three
-// cluster barriers, and the windows and their adjoints run on C SMs with no
-// exchange but one push of the pressure's edge row (K2) or one pull of the
-// solution's neighbouring rows (K3). Each kernel is one launch per
-// direction with no host round trip. The launch bounds allow one block per
-// SM, which leaves each thread of a 512-thread block up to 128 registers;
-// K3's solve is a function of its own (not inlined), so that its registers
-// and the window adjoints' are allocated apart.
+// cluster barriers (four in the large layout), and the windows and their
+// adjoints run on C SMs with no exchange but one push of the pressure's
+// edge row (K2) or one pull of the solution's neighbouring rows (K3).
+// Each kernel is one launch per direction with no host round trip. The
+// launch bounds allow one block per SM, which leaves each thread of a
+// 512-thread block up to 128 registers; K3's solve is a function of its
+// own (not inlined), so that its registers and the window adjoints' are
+// allocated apart.
 //
 // Floating-point contraction. nvcc contracts a*b+c into an FMA by default,
 // which rounds once instead of twice. A displacement that moved by one
@@ -322,11 +331,12 @@ __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Offsets (floats) into one rank's shared memory in K3, for H x W cells,
-// cluster size C, kT threads and max_shift k. A band has at most
-// R = ceil(H / C) rows; the window adjoints read E = k + 1 rows beyond it.
-// The reduction area and the best iterate persist; the solve's buffers
-// and, once the solve is done, the window phase's share the rest.
-// ops/cuda_fluid.py :: bwd_shared_bytes counts the same.
+// cluster size C, kT threads and max_shift k, in the core's small layout
+// or (large) its large one. A band has at most R = ceil(H / C) rows; the
+// window adjoints read E = k + 1 rows beyond it. The reduction area and
+// the best iterate persist; the solve's buffers and, once the solve is
+// done, the window phase's share the rest (the larger of the two sets the
+// total). ops/cuda_fluid.py :: bwd_shared_bytes counts the same.
 struct BwdLayout {
   int red, best;  // persistent
   CgOffsets cg;   // the solve
@@ -335,7 +345,7 @@ struct BwdLayout {
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
-                                                int k) {
+                                                int k, bool large) {
   BwdLayout l;
   const int R = (h + C - 1) / C, E = k + 1;
   int o = 0;
@@ -343,7 +353,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
   l.red = take(kRedFloats);
   l.best = take(R * w);
   const int shared = o;
-  l.cg = take_cg(o, h, w, R, T);
+  l.cg = take_cg(o, h, w, R, T, large);
   const int solve_end = o;
   o = shared;
   l.gdiv = take(imin(R + 2 * E + 2, h) * w);
@@ -364,10 +374,11 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
 }
 
 // Offsets (floats) into one rank's shared memory in K2, for H x W cells,
-// cluster size C and T threads: the reduction area, the solve's buffers
-// (take_cg), then the step's fields on the band: vy3 on y-faces [a, b + 1),
-// vx3 on rows [a, b), rho1 on rows [a - 1, b + 1) clipped to the grid, and
-// the row of p above the band. A band has at most R = ceil(H / C) rows.
+// cluster size C and T threads, in the core's small layout or (large) its
+// large one: the reduction area, the solve's buffers (take_cg), then the
+// step's fields on the band: vy3 on y-faces [a, b + 1), vx3 on rows
+// [a, b), rho1 on rows [a - 1, b + 1) clipped to the grid, and the row of
+// p above the band. A band has at most R = ceil(H / C) rows.
 // ops/cuda_fluid.py :: fwd_shared_bytes counts the same.
 struct FwdLayout {
   CgOffsets cg;
@@ -375,11 +386,12 @@ struct FwdLayout {
   int total;
 };
 
-__host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T) {
+__host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T,
+                                                bool large) {
   FwdLayout l;
   const int R = (h + C - 1) / C;
   int o = align4(kRedFloats);
-  l.cg = take_cg(o, h, w, R, T);
+  l.cg = take_cg(o, h, w, R, T, large);
   auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
   l.vy3 = take((R + 1) * w);
   l.vx3 = take(R * (w + 1));
@@ -389,14 +401,38 @@ __host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T) {
   return l;
 }
 
+// Whether K2 / K3 run an H x W grid in the large layout: where the small
+// one fits a block under no cluster size, as pcg.cu :: large_grid decides
+// for K1, so that every plan of a grid the small layout takes keeps it.
+// The two kernels cross over at different sides (K2 from 109^2, K3 from
+// 112^2 at max_shift 2); ops/cuda_fluid.py :: fwd_large_layout and
+// bwd_large_layout mirror these.
+inline bool fwd_large_grid(int h, int w, int T) {
+  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
+    if (static_cast<size_t>(fwd_layout(h, w, C, T, false).total) *
+            sizeof(float) <= kMaxSharedBytes)
+      return false;
+  return true;
+}
+
+inline bool bwd_large_grid(int h, int w, int T, int k) {
+  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
+    if (static_cast<size_t>(bwd_layout(h, w, C, T, k, false).total) *
+            sizeof(float) <= kMaxSharedBytes)
+      return false;
+  return true;
+}
+
 // K2's warm solve on this rank's band, the divergence in its rows of the
 // residual buffer: returns the trip count, leaves the best iterate's band
 // in p (global, the sample's (H, W) field) and the reducer's parity in
-// `parity`.
-template <int kT>
-__device__ __forceinline__ int fwd_solve(const Geometry g, const float* x0,
-                                      float* p, float tol, int maxiter,
-                                      int& parity) {
+// `parity`. kLarge: the core's large layout, its basis (q_y, q_x, q_xt =
+// Qx^T) read from global memory.
+template <int kT, bool kLarge>
+__device__ __forceinline__ int fwd_solve(const Geometry g, const float* q_y,
+                                      const float* q_x, const float* q_xt,
+                                      const float* x0, float* p, float tol,
+                                      int maxiter, int& parity) {
   extern __shared__ __align__(16) float smem_fwd[];
   float* smem = smem_fwd;
   auto cluster = cgrp::this_cluster();
@@ -405,10 +441,15 @@ __device__ __forceinline__ int fwd_solve(const Geometry g, const float* x0,
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
                          parity};
-  const ClusterCg cg =
-      cluster_cg(smem, fwd_layout(g.h, g.w, C, kT).cg, g.h, g.w);
-  const int trips = pcg_cluster<kT, false>(cg, g, bd, x0, p + bd.a * g.w, tol,
-                                           maxiter, true, red);
+  ClusterCg cg =
+      cluster_cg(smem, fwd_layout(g.h, g.w, C, kT, kLarge).cg, g.h, g.w);
+  if constexpr (kLarge) {
+    cg.gqy = q_y;
+    cg.gqx = q_x;
+    cg.gqxt = q_xt;
+  }
+  const int trips = pcg_cluster<kT, false, kLarge>(
+      cg, g, bd, x0, p + bd.a * g.w, tol, maxiter, true, red);
   parity = red.parity;
   return trips;
 }
@@ -420,7 +461,7 @@ __device__ __forceinline__ int fwd_solve(const Geometry g, const float* x0,
 // zero on the walls). It finds its band again from the launch, so that
 // nothing of the windows stays live across the solve: with those values
 // kept live the kernel spilled.
-template <int kT>
+template <int kT, bool kLarge>
 __device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
                                          float* vy4, float* vx4,
                                          float* p_out) {
@@ -433,7 +474,7 @@ __device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
   const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
   const int a = bd.a, b1 = bd.b, R = bd.rows(), yb = bd.yb();
   const size_t b = blockIdx.x / C;
-  const FwdLayout L = fwd_layout(h, w, C, kT);
+  const FwdLayout L = fwd_layout(h, w, C, kT, kLarge);
   const float* vy3 = smem + L.vy3;  // y-faces [a, b1 + 1)
   const float* vx3 = smem + L.vx3;  // rows [a, b1)
   const float* p = p_out + b * h * w;
@@ -469,11 +510,14 @@ __device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
 // row of its p to the rank below, whose first y-face needs it, and after
 // one cluster barrier corrects its own faces. Each rank writes its own rows
 // of the outputs. The solve and the correction are inlined: with either as
-// a function of its own, as K3's solve is, the kernel spilled.
-template <int kT>
+// a function of its own, as K3's solve is, the kernel spilled. kLarge: the
+// core's large layout (no basis in shared memory; q_xt, Qx^T, is read by
+// it only).
+template <int kT, bool kLarge>
 __global__ void __launch_bounds__(kT, 1)
 fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
-                 const float* __restrict__ q_x, const float* __restrict__ fy,
+                 const float* __restrict__ q_x,
+                 const float* __restrict__ q_xt, const float* __restrict__ fy,
                  const float* __restrict__ fx,
                  const float* __restrict__ inflow,
                  const float* __restrict__ x0, float* vy4, float* vx4,
@@ -491,8 +535,9 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   st.vy += b * ny;
   st.vx += b * nx;
   st.rho += b * hw;
-  const FwdLayout L = fwd_layout(h, w, C, kT);
-  load_basis_t<kT>(cluster_cg(smem, L.cg, h, w), q_y, q_x, h, w);
+  const FwdLayout L = fwd_layout(h, w, C, kT, kLarge);
+  if constexpr (!kLarge)
+    load_basis_t<kT>(cluster_cg(smem, L.cg, h, w), q_y, q_x, h, w);
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
   // A non-finite input anywhere in the sample makes every window sum all
@@ -554,20 +599,24 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
     div[t] = ((vy3[t + w] - vy3[t]) + (row[1] - row[0])) / st.dx;
   }
   int parity = red.parity;
-  const int trips = fwd_solve<kT>(g, x0 == nullptr ? nullptr : x0 + b * hw,
-                                  p_out + b * hw, tol, maxiter, parity);
+  const int trips = fwd_solve<kT, kLarge>(
+      g, q_y, q_x, q_xt, x0 == nullptr ? nullptr : x0 + b * hw, p_out + b * hw,
+      tol, maxiter, parity);
   if (cluster.block_rank() == 0 && threadIdx.x == 0)
     iters[blockIdx.x / C] = trips;
-  fwd_correct<kT>(g, st.dx, vy4, vx4, p_out);
+  fwd_correct<kT, kLarge>(g, st.dx, vy4, vx4, p_out);
 }
 
 // K3's rhs and transpose solve on this rank's band: returns the trip count
 // and leaves the best iterate's band at bwd_layout's `best`, the reducer's
 // parity in `parity`. A function of its own (not inlined), so that the
 // registers of the solve and of the window phase are allocated apart.
-template <int kT, bool kTrace>
+// kLarge: the core's large layout, its basis (q_y, q_x, q_xt = Qx^T) read
+// from global memory.
+template <int kT, bool kTrace, bool kLarge>
 __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
-                                      const float* q_x, const float* g_vy4,
+                                      const float* q_x, const float* q_xt,
+                                      const float* g_vy4,
                                       const float* g_vx4, const float* g_p,
                                       float dx, int k, float tol, int maxiter,
                                       int& parity) {
@@ -583,9 +632,15 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
   g_p += b * h * w;
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
-  const BwdLayout L = bwd_layout(h, w, C, kT, k);
-  const ClusterCg cgb = cluster_cg(smem, L.cg, h, w);
-  load_basis_t<kT>(cgb, q_y, q_x, h, w);
+  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLarge);
+  ClusterCg cgb = cluster_cg(smem, L.cg, h, w);
+  if constexpr (kLarge) {
+    cgb.gqy = q_y;
+    cgb.gqx = q_x;
+    cgb.gqxt = q_xt;
+  } else {
+    load_basis_t<kT>(cgb, q_y, q_x, h, w);
+  }
   // Projection backward: cot_p = g_p + div(acc * g_v4); the transpose solve
   // runs cold on -cot_p, so its `div` is -cot_p.
   for (int t = threadIdx.x; t < bd.rows() * w; t += kT) {
@@ -598,8 +653,8 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
                       g_vx4[fx_] * __ldg(g.acc_x + fx_);
     cgb.g1[idx] = -(g_p[idx] + (dvy + dvx) / dx);
   }
-  const int trips = pcg_cluster<kT, kTrace>(cgb, g, bd, nullptr, smem + L.best,
-                                            tol, maxiter, true, red);
+  const int trips = pcg_cluster<kT, kTrace, kLarge>(
+      cgb, g, bd, nullptr, smem + L.best, tol, maxiter, true, red);
   parity = red.parity;
   return trips;
 }
@@ -613,11 +668,14 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
 // its band and one more row, without further exchange: a row outside the
 // band comes out as the same bits its owner computes. Each rank writes its
 // own rows of the outputs. kTrace: with the CG trip's profile
-// (pcg_cluster.cuh :: TripClock), for fused_bwd_trace only.
-template <int kT, bool kTrace>
+// (pcg_cluster.cuh :: TripClock), for fused_bwd_trace only. kLarge: the
+// core's large layout for the solve (q_xt, Qx^T, is read by it only); the
+// window phase is the same in both.
+template <int kT, bool kTrace, bool kLarge>
 __global__ void __launch_bounds__(kT, 1)
 fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ q_x,
+                 const float* __restrict__ q_xt,
                  const float* __restrict__ g_vy4,
                  const float* __restrict__ g_vx4,
                  const float* __restrict__ g_rho1,
@@ -627,8 +685,8 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   extern __shared__ __align__(16) float smem_bwd[];
   float* smem = smem_bwd;
   int parity = 0;
-  const int trips = bwd_solve<kT, kTrace>(g, q_y, q_x, g_vy4, g_vx4, g_p, st.dx, st.k,
-                                  tol, maxiter, parity);
+  const int trips = bwd_solve<kT, kTrace, kLarge>(
+      g, q_y, q_x, q_xt, g_vy4, g_vx4, g_p, st.dx, st.k, tol, maxiter, parity);
   auto cluster = cgrp::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int h = g.h, w = g.w, hw = h * w;
@@ -649,7 +707,7 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
                          parity};
-  const BwdLayout L = bwd_layout(h, w, C, kT, k);
+  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLarge);
   const float* best = smem + L.best;
   // A non-finite input or window cotangent anywhere in the sample makes
   // every window sum all its taps (one vote over the cluster, below).
@@ -862,29 +920,43 @@ bool bwd_traced = false;
 
 using BwdKernel = void (*)(Step, Geometry, const float*, const float*,
                            const float*, const float*, const float*,
-                           const float*, float*, float*, float*, float*,
-                           float*, float*, int*, float, int);
+                           const float*, const float*, float*, float*, float*,
+                           float*, float*, float*, int*, float, int);
 
-BwdKernel bwd_kernel() {
-  return bwd_traced ? fused_bwd_kernel<kClusterThreads, true>
-                    : fused_bwd_kernel<kClusterThreads, false>;
+// K3's kernel at H x W: 512 threads a block, the grid's layout; with the
+// trip's profile on, its instantiation with clock marks, which exists for
+// the small layout only (null on a large grid: the launch is refused).
+BwdKernel bwd_kernel(int h, int w, int threads, int k) {
+  if (bwd_large_grid(h, w, threads, k))
+    return bwd_traced ? nullptr
+                      : fused_bwd_kernel<kClusterThreads, false, true>;
+  return bwd_traced ? fused_bwd_kernel<kClusterThreads, true, false>
+                    : fused_bwd_kernel<kClusterThreads, false, false>;
 }
 
 using FwdKernel = void (*)(Step, Geometry, const float*, const float*,
                            const float*, const float*, const float*,
-                           const float*, float*, float*, float*, float*, int*,
-                           float, int);
+                           const float*, const float*, float*, float*, float*,
+                           float*, int*, float, int);
 
-// K2's kernel: 512 threads a block.
-FwdKernel fwd_kernel() { return fused_fwd_kernel<kClusterThreads>; }
+// K2's kernel at H x W: 512 threads a block, the grid's layout.
+FwdKernel fwd_kernel(int h, int w, int threads) {
+  return fwd_large_grid(h, w, threads)
+             ? fused_fwd_kernel<kClusterThreads, true>
+             : fused_fwd_kernel<kClusterThreads, false>;
+}
 
 size_t fwd_bytes(int h, int w, int cluster, int threads) {
-  return static_cast<size_t>(fwd_layout(h, w, cluster, threads).total) *
+  return static_cast<size_t>(fwd_layout(h, w, cluster, threads,
+                                        fwd_large_grid(h, w, threads))
+                                 .total) *
          sizeof(float);
 }
 
 size_t bwd_bytes(int h, int w, int cluster, int threads, int k) {
-  return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k).total) *
+  return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k,
+                                        bwd_large_grid(h, w, threads, k))
+                                 .total) *
          sizeof(float);
 }
 
@@ -892,40 +964,47 @@ size_t bwd_bytes(int h, int w, int cluster, int threads, int k) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one rank of K2 needs (fwd_layout).
-// ops/cuda_fluid.py :: fwd_shared_bytes mirrors this count.
+// Bytes of dynamic shared memory one rank of K2 needs (fwd_layout, in the
+// grid's layout). ops/cuda_fluid.py :: fwd_shared_bytes mirrors this count.
 size_t fused_fwd_shared_bytes(int h, int w, int cluster, int threads) {
   return fwd_bytes(h, w, cluster, threads);
+}
+
+// 1 where K2 runs an H x W grid in the large layout, else 0
+// (ops/cuda_fluid.py :: fwd_large_layout mirrors this).
+int fused_fwd_large_layout(int h, int w, int threads) {
+  return fwd_large_grid(h, w, threads) ? 1 : 0;
 }
 
 // How many clusters of K2 under this plan the card can hold at once
 // (cudaOccupancyMaxActiveClusters), or minus the cudaError_t of the query
 // or of a plan the launcher would refuse.
 int fused_fwd_max_clusters(int h, int w, int cluster, int threads) {
-  return max_active_clusters(fwd_kernel(), h, cluster, threads,
+  return max_active_clusters(fwd_kernel(h, w, threads), h, cluster, threads,
                              fwd_bytes(h, w, cluster, threads));
 }
 
 // K2 for `batch` samples on `stream`, one cluster of `cluster` blocks of
 // `threads` threads per sample. fy/fx, inflow and x0 may be null (no
-// force, no inflow, cold solve). Returns the cudaError_t of the launch:
-// cudaErrorInvalidValue, with nothing launched, for a plan the kernel
-// cannot run (a cluster size other than 1, 2, 4, 8, 16 or above H, a
-// thread count other than 512, or more shared memory than a block may
-// have).
+// force, no inflow, cold solve). q_y, q_x and q_xt are Qy, Qx and Qx^T,
+// unpadded (q_xt is read only on a grid of the large layout). Returns the
+// cudaError_t of the launch: cudaErrorInvalidValue, with nothing launched,
+// for a plan the kernel cannot run (a cluster size other than 1, 2, 4, 8,
+// 16 or above H, a thread count other than 512, or more shared memory than
+// a block may have).
 int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* fy, const float* fx, const float* inflow,
                        const float* x0, const float* acc_y, const float* acc_x,
                        const float* fluid, const float* q_y, const float* q_x,
-                       const float* inv_lam, float* vy4, float* vx4,
-                       float* rho1, float* p, int* iters, int batch, int h,
-                       int w, float dx, float s, float dt, float dt_buoy,
-                       int buoy, int k, int closed, float tol, int maxiter,
-                       int cluster, int threads, void* stream) {
+                       const float* q_xt, const float* inv_lam, float* vy4,
+                       float* vx4, float* rho1, float* p, int* iters,
+                       int batch, int h, int w, float dx, float s, float dt,
+                       float dt_buoy, int buoy, int k, int closed, float tol,
+                       int maxiter, int cluster, int threads, void* stream) {
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const FwdKernel kernel = fwd_kernel();
+  const FwdKernel kernel = fwd_kernel(h, w, threads);
   cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
                                    fwd_bytes(h, w, cluster, threads), stream,
                                    cfg, attr);
@@ -933,26 +1012,33 @@ int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
   err = cudaLaunchKernelEx(
       &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
-      g, q_y, q_x, fy, fx, inflow, x0, vy4, vx4, rho1, p, iters, tol, maxiter);
+      g, q_y, q_x, q_xt, fy, fx, inflow, x0, vy4, vx4, rho1, p, iters, tol,
+      maxiter);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Turns the profile of K3's CG trip on (clocks: kTripPhases counters in
 // device memory, which the next launches add their cycles to; they run the
-// kernel instantiated with the profile) or off (null: the main path's
-// kernel again); see pcg_cluster.cuh :: TripClock. Returns the
-// cudaError_t.
+// kernel instantiated with the profile, on grids of the small layout only)
+// or off (null: the main path's kernel again); see pcg_cluster.cuh ::
+// TripClock. Returns the cudaError_t.
 int fused_bwd_trace(unsigned long long* clocks) {
   bwd_traced = clocks != nullptr;
   return static_cast<int>(
       cudaMemcpyToSymbol(trip_clocks, &clocks, sizeof(clocks)));
 }
 
-// Bytes of dynamic shared memory one rank of K3 needs (bwd_layout).
-// ops/cuda_fluid.py :: bwd_shared_bytes mirrors this count.
+// Bytes of dynamic shared memory one rank of K3 needs (bwd_layout, in the
+// grid's layout). ops/cuda_fluid.py :: bwd_shared_bytes mirrors this count.
 size_t fused_bwd_shared_bytes(int h, int w, int cluster, int threads, int k) {
   return bwd_bytes(h, w, cluster, threads, k);
+}
+
+// 1 where K3 runs an H x W grid at max_shift k in the large layout, else 0
+// (ops/cuda_fluid.py :: bwd_large_layout mirrors this).
+int fused_bwd_large_layout(int h, int w, int threads, int k) {
+  return bwd_large_grid(h, w, threads, k) ? 1 : 0;
 }
 
 // How many clusters of K3 under this plan the card can hold at once
@@ -960,31 +1046,36 @@ size_t fused_bwd_shared_bytes(int h, int w, int cluster, int threads, int k) {
 // or of a plan the launcher would refuse.
 int fused_bwd_max_clusters(int h, int w, int cluster, int threads, int k) {
   if (k < 0) return -static_cast<int>(cudaErrorInvalidValue);
-  return max_active_clusters(bwd_kernel(), h, cluster, threads,
+  const BwdKernel kernel = bwd_kernel(h, w, threads, k);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_active_clusters(kernel, h, cluster, threads,
                              bwd_bytes(h, w, cluster, threads, k));
 }
 
 // K3 for `batch` samples on `stream`, one cluster of `cluster` blocks of
 // `threads` threads per sample. g_fy/g_fx and g_inflow may be null (not
-// wanted). Returns the cudaError_t of the launch: cudaErrorInvalidValue,
-// with nothing launched, for a plan the kernel cannot run (a cluster size
-// other than 1, 2, 4, 8, 16 or above H, a thread count other than 512, or
-// more shared memory than a block may have).
+// wanted). q_y, q_x and q_xt are Qy, Qx and Qx^T, unpadded (q_xt is read
+// only on a grid of the large layout). Returns the cudaError_t of the
+// launch: cudaErrorInvalidValue, with nothing launched, for a plan the
+// kernel cannot run (a cluster size other than 1, 2, 4, 8, 16 or above H,
+// a thread count other than 512, more shared memory than a block may have,
+// or the trip's profile on a grid of the large layout).
 int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* g_vy4, const float* g_vx4,
                        const float* g_rho1, const float* g_p,
                        const float* acc_y, const float* acc_x,
                        const float* fluid, const float* q_y, const float* q_x,
-                       const float* inv_lam, float* g_vy, float* g_vx,
-                       float* g_rho, float* g_fy, float* g_fx, float* g_inflow,
-                       int* iters, int batch, int h, int w, float dx, float s,
-                       float dt, float dt_buoy, int buoy, int k, int closed,
-                       float tol, int maxiter, int cluster, int threads,
-                       void* stream) {
+                       const float* q_xt, const float* inv_lam, float* g_vy,
+                       float* g_vx, float* g_rho, float* g_fy, float* g_fx,
+                       float* g_inflow, int* iters, int batch, int h, int w,
+                       float dx, float s, float dt, float dt_buoy, int buoy,
+                       int k, int closed, float tol, int maxiter, int cluster,
+                       int threads, void* stream) {
   if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const BwdKernel kernel = bwd_kernel();
+  const BwdKernel kernel = bwd_kernel(h, w, threads, k);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cluster_config(kernel, batch, h, cluster, threads,
                                    bwd_bytes(h, w, cluster, threads, k),
                                    stream, cfg, attr);
@@ -992,8 +1083,8 @@ int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
   err = cudaLaunchKernelEx(
       &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
-      g, q_y, q_x, g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho, g_fy, g_fx,
-      g_inflow, iters, tol, maxiter);
+      g, q_y, q_x, q_xt, g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho, g_fy,
+      g_fx, g_inflow, iters, tol, maxiter);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,12 @@ chain of cluster barriers around four small basis products; `fwd_plan`
 and `bwd_plan` pick C by `cuda_cg.pick_plan` (the smallest C up to 16
 that fills the card, if that many clusters can be resident), so a trip
 and the windows are 1/C of the work on each SM. The design keeps the
-whole step in one launch per direction with no host round trip.
+whole step in one launch per direction with no host round trip. On a grid
+whose buffers fit a block under no cluster size (K2 from 109², K3 from
+112², up to 128² at max_shift 2), every plan of that kernel takes the
+cluster core's large layout, as K1 does (`fwd_large_layout`,
+`bwd_large_layout`): the basis read from L2 and the residual exchanged by
+bands.
 
 `fused_step_forward` / `fused_step_backward` launch K2 / K3 for CUDA
 tensors and run the plain versions below for CPU tensors; a CUDA tensor
@@ -53,21 +58,39 @@ from pde_control_tpu_torch.ops.interp import (
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
-# The largest side of a grid the fused step takes: K2 and K3 are held to
-# their plain versions up to it. A larger grid waits for a parity test at
-# its size.
-FUSED_MAX_SIDE = 84
+# The largest side of a grid the fused step takes, K1's (`cuda_cg.MAX_SIDE`):
+# K2 and K3 are held to their plain versions and to the JAX package's
+# goldens up to it, in both layouts. A larger grid waits for a parity test
+# at its size.
+FUSED_MAX_SIDE = cuda_cg.MAX_SIDE
+
+
+def _fwd_bytes(h: int, w: int, cluster: int, threads: int,
+               large: bool) -> int:
+    r, align4 = -(-h // cluster), cuda_cg._align4
+    return 4 * (align4(cuda_cg._RED_FLOATS)
+                + cuda_cg._cg_floats(h, w, r, threads, large)
+                + align4((r + 1) * w) + align4(r * (w + 1))
+                + align4(min(r + 2, h) * w) + align4(w))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_large_layout(h: int, w: int,
+                     threads: int = cuda_cg.CLUSTER_THREADS) -> bool:
+    """Whether K2 runs an H x W grid in the cluster core's large layout:
+    where the small one fits a block under no cluster size
+    (`fused_step.cu :: fwd_large_grid`, which `fused_fwd_large_layout`
+    reports in C)."""
+    return all(_fwd_bytes(h, w, c, threads, False) > cuda_cg.SMEM_LIMIT_BYTES
+               for c in cuda_cg.CLUSTERS if c <= h)
 
 
 def fwd_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
     """Shared memory one rank of K2 needs: the reduction area, the solve's
-    buffers, then the band's vy3 (one more y-face), vx3, rho1 (one more row
-    each side, clipped to the grid) and the row of p above the band — the
-    count `fused_fwd_shared_bytes` makes in C."""
-    r, align4 = -(-h // cluster), cuda_cg._align4
-    return 4 * (align4(cuda_cg._RED_FLOATS) + cuda_cg._cg_floats(h, w, r, threads)
-                + align4((r + 1) * w) + align4(r * (w + 1))
-                + align4(min(r + 2, h) * w) + align4(w))
+    buffers in the grid's layout, then the band's vy3 (one more y-face),
+    vx3, rho1 (one more row each side, clipped to the grid) and the row of
+    p above the band — the count `fused_fwd_shared_bytes` makes in C."""
+    return _fwd_bytes(h, w, cluster, threads, fwd_large_layout(h, w, threads))
 
 
 def fwd_plans(h: int, w: int) -> list[cuda_cg.ClusterPlan]:
@@ -91,10 +114,11 @@ def fwd_plan(batch: int, h: int, w: int, *, sm_count: int | None = None,
     return cuda_cg.pick_plan(batch, plans, max_clusters, sm_count)
 
 
+@functools.lru_cache(maxsize=None)
 def fused_step_fits(h: int, w: int) -> bool:
     """Whether the fused step takes an H x W grid: no side above
-    `FUSED_MAX_SIDE`, and both K2 and K3 have a plan that fits shared
-    memory."""
+    `FUSED_MAX_SIDE` (128), and both K2 and K3 have a plan that fits shared
+    memory (in the small or the large layout). Cached: every launch asks."""
     return (max(h, w) <= FUSED_MAX_SIDE and bool(fwd_plans(h, w))
             and bool(bwd_plans(h, w)))
 
@@ -104,17 +128,12 @@ BWD_CLUSTERS = cuda_cg.CLUSTERS
 BWD_THREADS = cuda_cg.CLUSTER_THREADS
 
 
-def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
-                     max_shift: int) -> int:
-    """Shared memory one rank of K3 needs: the reduction area and the best
-    iterate's band, then the larger of the solve's buffers (the basis, three
-    whole fields, the band's iterates, the products' slices) and the window
-    phase's (the band widened by max_shift + 1 rows) — the count
-    `fused_bwd_shared_bytes` makes in C."""
+def _bwd_bytes(h: int, w: int, cluster: int, threads: int, max_shift: int,
+               large: bool) -> int:
     r, e = -(-h // cluster), max_shift + 1
     align4 = cuda_cg._align4
     persistent = align4(cuda_cg._RED_FLOATS) + align4(r * w)
-    solve = cuda_cg._cg_floats(h, w, r, threads)
+    solve = cuda_cg._cg_floats(h, w, r, threads, large)
     taps = min(r + 2 * e + 1, h + 1) * (w + 1)
     window = sum(align4(n) for n in (
         min(r + 2 * e + 2, h) * w, min(r + 2 * e + 1, h + 1) * w,
@@ -122,6 +141,29 @@ def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
         taps, taps, min(r + 1, h) * w, min(r + 1, h) * w,
         min(r + 1, h + 1) * (w + 1)))
     return 4 * (persistent + max(solve, window))
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_large_layout(h: int, w: int, max_shift: int = 2,
+                     threads: int = BWD_THREADS) -> bool:
+    """Whether K3 runs an H x W grid at `max_shift` in the cluster core's
+    large layout: where the small one fits a block under no cluster size
+    (`fused_step.cu :: bwd_large_grid`, which `fused_bwd_large_layout`
+    reports in C)."""
+    return all(_bwd_bytes(h, w, c, threads, max_shift, False)
+               > cuda_cg.SMEM_LIMIT_BYTES for c in BWD_CLUSTERS if c <= h)
+
+
+def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
+                     max_shift: int) -> int:
+    """Shared memory one rank of K3 needs: the reduction area and the best
+    iterate's band, then the larger of the solve's buffers in the grid's
+    layout (the small one: the basis, three whole fields, the band's
+    iterates, the products' slices; the large one without the basis and the
+    third whole field) and the window phase's (the band widened by
+    max_shift + 1 rows) — the count `fused_bwd_shared_bytes` makes in C."""
+    return _bwd_bytes(h, w, cluster, threads, max_shift,
+                      bwd_large_layout(h, w, max_shift, threads))
 
 
 def bwd_plans(h: int, w: int,
@@ -384,10 +426,10 @@ def _kernels():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32] * 3 + [f32] * 4 + [i32] * 3 + [f32, i32, i32, i32, ptr]
     fwd = lib.fused_step_fwd_f32
-    fwd.argtypes = [ptr] * 18 + tail
+    fwd.argtypes = [ptr] * 19 + tail
     fwd.restype = i32
     bwd = lib.fused_step_bwd_f32
-    bwd.argtypes = [ptr] * 20 + tail
+    bwd.argtypes = [ptr] * 21 + tail
     bwd.restype = i32
     bwd_clusters = lib.fused_bwd_max_clusters
     bwd_clusters.argtypes = [i32] * 5
@@ -461,14 +503,14 @@ def _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow, x0,
                           (acc_y, acc_x, fluid))
     if plan is None:
         plan = fwd_plan(b, h, w)
-    qy, qx, inv_lam, _ = cuda_cg._tables(h, w, float(kw["dx"]),
-                                         bool(kw["closed"]), rho.device)
+    qy, qx, inv_lam, qxt = cuda_cg._tables(h, w, float(kw["dx"]),
+                                           bool(kw["closed"]), rho.device)
     vy4, vx4 = torch.empty_like(vy), torch.empty_like(vx)
     rho1, p = torch.empty_like(rho), torch.empty_like(rho)
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
     rc = _kernels()[0](
         *map(_ptr, (vy, vx, rho, fy, fx, inflow, x0, acc_y, acc_x, fluid, qy,
-                    qx, inv_lam, vy4, vx4, rho1, p, iters)),
+                    qx, qxt, inv_lam, vy4, vx4, rho1, p, iters)),
         b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)
     if rc != 0:
@@ -509,8 +551,8 @@ def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
         (acc_y, acc_x, fluid))
     if plan is None:
         plan = bwd_plan(b, h, w, int(kw["max_shift"]))
-    qy, qx, inv_lam, _ = cuda_cg._tables(h, w, float(kw["dx"]),
-                                         bool(kw["closed"]), rho.device)
+    qy, qx, inv_lam, qxt = cuda_cg._tables(h, w, float(kw["dx"]),
+                                           bool(kw["closed"]), rho.device)
     g_vy, g_vx, g_rho = (torch.empty_like(t) for t in (vy, vx, rho))
     g_fy = torch.empty_like(vy) if has_force else None
     g_fx = torch.empty_like(vx) if has_force else None
@@ -518,7 +560,8 @@ def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
     rc = _kernels()[1](
         *map(_ptr, (vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
-                    fluid, qy, qx, inv_lam, g_vy, g_vx, g_rho, g_fy, g_fx,
+                    fluid, qy, qx, qxt, inv_lam, g_vy, g_vx, g_rho, g_fy,
+                    g_fx,
                     g_inflow, iters)),
         b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)

@@ -18,7 +18,11 @@ from pde_control_tpu_torch.grids import (
     centered_to_y_faces,
     resolve_device,
 )
-from pde_control_tpu_torch.ops.cuda_fluid import fused_fluid_step, fused_step_fits
+from pde_control_tpu_torch.ops.cuda_fluid import (
+    FUSED_MAX_SIDE,
+    fused_fluid_step,
+    fused_step_fits,
+)
 from pde_control_tpu_torch.ops.stencils import laplace
 from pde_control_tpu_torch.physics.advect import advect_centered, advect_staggered
 from pde_control_tpu_torch.physics.poisson import solve_pressure
@@ -101,7 +105,7 @@ def _fused_applicable(state: FluidState, domain: Domain2D, cfg: FluidConfig,
             "FluidConfig.fused='cuda' but this configuration is not supported "
             "by the fused kernel (needs 2D closed domain, shift advection, "
             "viscosity=0, static buoyancy, a grid fused_step_fits takes: "
-            "sides up to 84)")
+            f"sides up to {FUSED_MAX_SIDE})")
     if not domain.has_obstacles and cfg.pressure_backend in ("auto", "spectral"):
         # The unfused step would take the exact spectral solve here; the
         # fused kernel always runs tol-bounded PCG.

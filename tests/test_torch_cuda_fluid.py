@@ -278,7 +278,7 @@ def test_fused_pallas_name_raises():
 @pytest.mark.parametrize("why", ["viscosity", "open", "buoyancy_factor",
                                  "too_large", "spectral_conflict"])
 def test_fused_refuses_what_it_does_not_implement(why):
-    n = 96 if why == "too_large" else H
+    n = 136 if why == "too_large" else H
     m = np.zeros((n, n), np.float32)
     m[n // 2, 2:6] = 1.0
     domain = TDomain.create(n, n, obstacle_mask=None if why ==
@@ -308,8 +308,14 @@ def test_fused_spectral_conflict_accepts_explicit_pcg():
 
 
 @pytest.mark.parametrize("h,w,fits", [(64, 64, True), (84, 84, True),
-                                      (85, 85, False), (32, 48, True),
-                                      (128, 128, False)])
+                                      (85, 85, True), (32, 48, True),
+                                      (128, 128, True), (136, 136, False)])
 def test_fused_fits_gate(h, w, fits):
+    """Sides up to 128 (K1's), in the small layout to 108² (K2) and 111²
+    (K3) and in the cluster core's large one beyond; the shared memory of
+    both layouts as the C source counts it (the build phase of
+    chip_smoke.py compares the two on the card)."""
     assert tcf.fused_step_fits(h, w) is fits
     assert tcf.fwd_shared_bytes(64, 64, 8, 512) == 99_360
+    assert tcf.fwd_shared_bytes(128, 128, 8, 512) == 209_728
+    assert tcf.bwd_shared_bytes(128, 128, 8, 512, 2) == 191_232

@@ -379,11 +379,16 @@ def test_fused_forward_plans_match_plain(h, w, case):
     _check_forward_plans(vy, vx, rho, ops, geom, _FUSED_CASES[case][4], want)
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (32, 48)])
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (96, 96), (112, 112),
+                                 (128, 128)])
 def test_fused_shared_memory_count_matches_source(h, w):
     """K2's and K3's plans count the bytes the kernels' source asks for,
     under every plan their launchers take and under their plan at batch 8:
-    `fused_fwd_shared_bytes` and `fused_bwd_shared_bytes`."""
+    `fused_fwd_shared_bytes` and `fused_bwd_shared_bytes`, in the layout
+    the grid takes, which `fused_fwd_large_layout` and
+    `fused_bwd_large_layout` report as `fwd_large_layout` and
+    `bwd_large_layout` do (small at 64², 32×48 and 96², large at 112² and
+    128²)."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
@@ -398,6 +403,35 @@ def test_fused_shared_memory_count_matches_source(h, w):
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     for plan in cuda_fluid.bwd_plans(h, w) + [cuda_fluid.bwd_plan(8, h, w)]:
         assert fn(h, w, plan.cluster, plan.threads, 2) == plan.shared_bytes
+    large = lib.fused_fwd_large_layout
+    large.argtypes, large.restype = [ctypes.c_int] * 3, ctypes.c_int
+    assert bool(large(h, w, 512)) is cuda_fluid.fwd_large_layout(h, w)
+    large = lib.fused_bwd_large_layout
+    large.argtypes, large.restype = [ctypes.c_int] * 4, ctypes.c_int
+    assert bool(large(h, w, 512, 2)) is cuda_fluid.bwd_large_layout(h, w, 2)
+    assert cuda_fluid.fwd_large_layout(h, w) is (h >= 112)
+
+
+@pytest.mark.parametrize("h,w,fwd,bwd", [
+    (104, 104, False, False), (108, 108, False, False),
+    (109, 109, True, False), (111, 111, True, False), (112, 112, True, True),
+    (128, 128, True, True), (64, 128, False, False), (128, 64, False, False)])
+def test_fused_large_layout_sides(h, w, fwd, bwd):
+    """Where K2 and K3 take the cluster core's large layout: where the
+    small one fits a block under no cluster size, K2 from 109², K3 (whose
+    window phase also shares the block) from 112²; a 64×128 or 128×64 grid
+    keeps the small layout. Every plan of a grid counts its layout, and
+    the large layout fits at 128² under C = 8 and 16, not 4."""
+    assert cuda_fluid.fwd_large_layout(h, w) is fwd
+    assert cuda_fluid.bwd_large_layout(h, w, 2) is bwd
+    for c in cuda_cg.CLUSTERS:
+        assert cuda_fluid.fwd_shared_bytes(h, w, c, 512) == (
+            cuda_fluid._fwd_bytes(h, w, c, 512, fwd))
+        assert cuda_fluid.bwd_shared_bytes(h, w, c, 512, 2) == (
+            cuda_fluid._bwd_bytes(h, w, c, 512, 2, bwd))
+    if (h, w) == (128, 128):
+        assert [p.cluster for p in cuda_fluid.fwd_plans(h, w)] == [8, 16]
+        assert [p.cluster for p in cuda_fluid.bwd_plans(h, w)] == [8, 16]
 
 
 # A stand-in for cudaOccupancyMaxActiveClusters on a 132-SM card that holds
@@ -412,7 +446,8 @@ def _no_resident_16(cluster, threads, shared_bytes):
 
 
 _BWD_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
-                    (8, 84, 84), (2, 8, 8)]
+                    (8, 84, 84), (2, 8, 8), (8, 96, 96), (8, 112, 112),
+                    (8, 128, 128), (200, 128, 128), (8, 64, 128)]
 
 
 def _check_bands(plans, h):
@@ -460,7 +495,8 @@ def test_bwd_plan_fills_the_card_and_is_cached():
     batch 8 and below, capped at H rows), the next smaller one while the
     card cannot hold `batch` clusters at once (8 when only 7 clusters of 16
     fit; 2 at batch 64), the smallest that fits shared memory at large
-    batch; one plan object per shape."""
+    batch (8 at 128², in the large layout, where 4 does not fit); one plan
+    object per shape."""
     def plan(batch, h, w, limit=_resident_clusters):
         return cuda_fluid.bwd_plan(batch, h, w, sm_count=132, max_clusters=limit)
 
@@ -471,6 +507,9 @@ def test_bwd_plan_fills_the_card_and_is_cached():
     assert plan(132, 64, 64).cluster == 1
     assert plan(200, 84, 84).cluster == 2  # one block per sample does not fit
     assert plan(8, 84, 84).cluster == 16
+    assert plan(8, 128, 128).cluster == 16
+    assert plan(8, 128, 128, _no_resident_16).cluster == 8
+    assert plan(200, 128, 128).cluster == 8
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
         plan(1, 8, 4096)
@@ -541,8 +580,9 @@ def test_fwd_plan_covers_the_rows_once(batch, h, w):
 def test_fwd_plan_fills_the_card_and_is_cached():
     """K2's plan by the rule of K1's and K3's: 16 at 64²×8 where 8 clusters
     of 16 fit, else 8; 2 at batch 64; 1 at batch 132; capped at H rows; the
-    smallest that fits at a large batch at 84² (2); one plan object per
-    shape; no plan beyond shared memory."""
+    smallest that fits at a large batch at 84² (2) and at 128² (8, in the
+    large layout, where 4 does not fit); at 128²×8 as at 64²×8; one plan
+    object per shape; no plan beyond shared memory."""
     def plan(batch, h, w, limit=_resident_clusters):
         return cuda_fluid.fwd_plan(batch, h, w, sm_count=132, max_clusters=limit)
 
@@ -552,6 +592,9 @@ def test_fwd_plan_fills_the_card_and_is_cached():
     assert plan(132, 64, 64).cluster == 1
     assert plan(1, 8, 8).cluster == 8
     assert plan(200, 84, 84).cluster == 2
+    assert plan(8, 128, 128).cluster == 16
+    assert plan(8, 128, 128, _no_resident_16).cluster == 8
+    assert plan(200, 128, 128).cluster == 8
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
         plan(1, 8, 4096)
@@ -561,7 +604,7 @@ def test_fwd_plan_fills_the_card_and_is_cached():
 # every batch has a plan of each kernel that runs there.
 _GATE_SHAPES = [(8, 8), (24, 30), (32, 48), (64, 64), (84, 84), (85, 85),
                 (96, 96), (98, 98), (99, 99), (112, 112), (64, 128),
-                (128, 128)]
+                (128, 128), (136, 136)]
 
 
 @pytest.mark.parametrize("h,w", _GATE_SHAPES,
@@ -581,7 +624,7 @@ def test_plans_exist_where_the_gates_say_yes(h, w):
             assert cuda_fluid.bwd_plan(b, h, w, sm_count=132,
                                        max_clusters=_resident_clusters)
     assert cuda_cg.cuda_solve_fits(h, w) is (max(h, w) <= 128)
-    assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 84)
+    assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 128)
 
 
 def test_fused_kernels_reject_bad_inputs():
@@ -606,12 +649,12 @@ def test_fused_kernels_reject_bad_inputs():
         cuda_fluid.fused_step_backward(vy, vx, rho, cots[1], cots[0], *cots[2:],
                                        *geom, has_force=True, has_inflow=False,
                                        **_FUSED)
-    big = Domain2D.create(128, 128, device=dev)
+    big = Domain2D.create(136, 136, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         cuda_fluid.fused_step_forward(
-            torch.zeros(1, 129, 128, device=dev),
-            torch.zeros(1, 128, 129, device=dev),
-            torch.zeros(1, 128, 128, device=dev), big.acc_y, big.acc_x,
+            torch.zeros(1, 137, 136, device=dev),
+            torch.zeros(1, 136, 137, device=dev),
+            torch.zeros(1, 136, 136, device=dev), big.acc_y, big.acc_x,
             big.fluid_mask, **_FUSED)
 
 
