@@ -25,9 +25,10 @@ prints no result):
      tol 1e-4 / 100, and at 128²×8 (tol 1e-4 / 200, smoke_128's) under
      every plan beside plain and the bound, and the plans;
   4. the fused step's forward (K2) and backward (K3) against their plain
-     versions: 64², 32², 32×48, 24×30, 8×8, 96², 112², 128² and 64×128
-     (112² and 128² in the cluster core's large layout), closed with the
-     plate, batch 8, cold and warm, with force, with inflow, at zero
+     versions: 64², 32², 32×48, 24×30, 8×8, 96², 110², 112², 127², 128²
+     and 64×128 (from 112² in the cluster core's large layout, its bands
+     of unequal rows at 127²; at 110² K2 large and K3 small), closed with
+     the plate, batch 8, cold and warm, with force, with inflow, at zero
      velocity (the tie points), and with a NaN and an infinity planted in
      the velocity (the non-finite cells must be the plain version's), at
      tol 1e-6 / 500, each under its plan (`fwd_plan`, `bwd_plan`) and under
@@ -795,11 +796,14 @@ FUSED_STEP = dict(dt=1.0, max_shift=2, buoyancy=0.08, closed=True)
 # grids: the main path's, a smaller square, two that are not square (one of
 # a width that is not a multiple of 4), one row a rank under C = 8; 96², the
 # small layout beyond the sides of the first fused PRs; 112² and 128²
-# (smoke_128's grid), the cluster core's large layout; and 64×128, the small
-# layout with a 128-wide basis.
+# (smoke_128's grid), the cluster core's large layout with even bands under
+# C = 8 and 16; 127², the large layout with bands of unequal rows under
+# both; 110², K2 in the large layout and K3 in the small one; and 64×128,
+# the small layout with a 128-wide basis.
 FUSED_BIG = 128
 FUSED_SHAPES = ((H, H), (32, 32), (32, 48), (24, 30), (8, 8), (96, 96),
-                (112, 112), (FUSED_BIG, FUSED_BIG), (64, 128))
+                (110, 110), (112, 112), (127, 127), (FUSED_BIG, FUSED_BIG),
+                (64, 128))
 # The JAX package's fused step and VJP: 32² (scripts/make_fused_goldens.py)
 # and 128² (scripts/make_fused_goldens_128.py), each batch 2.
 GOLDENS = {32: "tests/goldens/fused_step_32.npz",
@@ -970,6 +974,10 @@ def fused_kernel_phase(card: str) -> dict:
         geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
         plans = cuda_fluid.bwd_plans(h, w)
         fwd_plans = cuda_fluid.fwd_plans(h, w)
+        print(f"{h}x{w}: K2 in the "
+              f"{'large' if cuda_fluid.fwd_large_layout(h, w) else 'small'} "
+              f"layout, K3 in the "
+              f"{'large' if cuda_fluid.bwd_large_layout(h, w) else 'small'}")
         for case in FUSED_CASES:
             label = f"{h}x{w} {case}"
             nonfinite = case == "non-finite"

@@ -401,26 +401,23 @@ __host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T,
   return l;
 }
 
-// Whether K2 / K3 run an H x W grid in the large layout: where the small
-// one fits a block under no cluster size, as pcg.cu :: large_grid decides
-// for K1, so that every plan of a grid the small layout takes keeps it.
-// The two kernels cross over at different sides (K2 from 109^2, K3 from
-// 112^2 at max_shift 2); ops/cuda_fluid.py :: fwd_large_layout and
-// bwd_large_layout mirror these.
+// Whether K2 / K3 run an H x W grid in the large layout, by the rule K1
+// follows (pcg_cluster.cuh :: large_where_small_fits_none), each on its
+// own small layout: the two kernels cross over at different sides (K2 from
+// 109^2, K3 from 112^2 at max_shift 2). ops/cuda_fluid.py ::
+// fwd_large_layout and bwd_large_layout mirror these.
 inline bool fwd_large_grid(int h, int w, int T) {
-  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
-    if (static_cast<size_t>(fwd_layout(h, w, C, T, false).total) *
-            sizeof(float) <= kMaxSharedBytes)
-      return false;
-  return true;
+  return large_where_small_fits_none(h, [=](int C) {
+    return static_cast<size_t>(fwd_layout(h, w, C, T, false).total) *
+           sizeof(float);
+  });
 }
 
 inline bool bwd_large_grid(int h, int w, int T, int k) {
-  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
-    if (static_cast<size_t>(bwd_layout(h, w, C, T, k, false).total) *
-            sizeof(float) <= kMaxSharedBytes)
-      return false;
-  return true;
+  return large_where_small_fits_none(h, [=](int C) {
+    return static_cast<size_t>(bwd_layout(h, w, C, T, k, false).total) *
+           sizeof(float);
+  });
 }
 
 // K2's warm solve on this rank's band, the divergence in its rows of the

@@ -51,15 +51,13 @@ __host__ __device__ inline SolveLayout layout_of(int h, int w, int C, int T,
   return l;
 }
 
-// Whether K1 solves an H x W grid in the large layout: where the small one
-// fits a block under no cluster size (every plan of a grid the small
-// layout takes keeps it).
+// Whether K1 solves an H x W grid in the large layout
+// (pcg_cluster.cuh :: large_where_small_fits_none).
 __host__ __device__ inline bool large_grid(int h, int w, int T) {
-  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
-    if (static_cast<size_t>(layout_of(h, w, C, T, false).total) *
-            sizeof(float) <= kMaxSharedBytes)
-      return false;
-  return true;
+  return large_where_small_fits_none(h, [=](int C) {
+    return static_cast<size_t>(layout_of(h, w, C, T, false).total) *
+           sizeof(float);
+  });
 }
 
 __host__ __device__ inline SolveLayout solve_layout(int h, int w, int C,

@@ -394,6 +394,20 @@ __host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
   return c;
 }
 
+// Whether a kernel runs an H-row grid in the large layout: where its small
+// layout, of small_bytes(C) bytes a block at cluster size C, fits a block
+// under no cluster size, so that every plan of a grid the small layout
+// takes keeps it. K1 (pcg.cu :: large_grid), K2 and K3 (fused_step.cu ::
+// fwd_large_grid, bwd_large_grid) each decide by it; ops/cuda_cg.py ::
+// large_where_small_fits_none is the same rule.
+template <typename SmallBytes>
+__host__ __device__ inline bool large_where_small_fits_none(
+    int h, SmallBytes small_bytes) {
+  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
+    if (small_bytes(C) <= kMaxSharedBytes) return false;
+  return true;
+}
+
 __device__ inline ClusterCg cluster_cg(float* smem, const CgOffsets& c, int h,
                                        int w) {
   float* qy = c.qy < 0 ? nullptr : smem + c.qy;

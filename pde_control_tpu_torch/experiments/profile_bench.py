@@ -51,13 +51,12 @@ PEAK_BF16_FLOPS = 989e12
 def make_app(h: int, n: int, batch_size: int, device, maxiter: int = 100,
              fused: str = "auto", conv_impl: str = "xla",
              backend: str = "auto", sequence_class: str = "staggered",
-             dtype: torch.dtype = torch.bfloat16, **train):
+             **train):
     """The port's counterpart of `__graft_entry__._make_app`, with the
-    pressure solve's `backend` and the nets' compute `dtype` (bf16, as
-    there; the tests also build it with fp32 nets); `sequence_class` and
-    `train` (grad_clip, lr_schedule, …) go to `ControlTraining`. Every net
-    the class builds is trainable: the CFE and the OP nets, or under
-    'chain' and 'chain_final' the CFE alone."""
+    pressure solve's `backend`; `sequence_class` and `train` (grad_clip,
+    lr_schedule, …) go to `ControlTraining`. Every net the class builds is
+    trainable: the CFE and the OP nets, or under 'chain' and 'chain_final'
+    the CFE alone."""
     from pde_control_tpu_torch import (
         ControlTraining,
         Domain2D,
@@ -75,7 +74,7 @@ def make_app(h: int, n: int, batch_size: int, device, maxiter: int = 100,
     pde = IncompressibleFluidPDE(
         domain, cfg, control="buoyancy", unet_levels=2 if h <= 16 else 3,
         conv_impl=conv_impl, cfe_features=(32, 64, 64, 32),
-        op_base_features=16, dtype=dtype)
+        op_base_features=16)
     # The chain classes build the CFE alone (the curriculum's CFE stage).
     ops = () if sequence_class.startswith("chain") else tuple(
         f"OP{s}" for s in op_spans(n))

@@ -84,13 +84,21 @@ def _solve_bytes(h: int, w: int, cluster: int, threads: int,
                 + _cg_floats(h, w, -(-h // cluster), threads, large))
 
 
+def large_where_small_fits_none(h: int,
+                                small_bytes: Callable[[int], int]) -> bool:
+    """Whether a cluster kernel runs an H-row grid in the core's large
+    layout: where its small layout, of `small_bytes(cluster)` bytes a
+    block, fits a block under no cluster size, so that every plan of a grid
+    the small layout takes keeps it (`pcg_cluster.cuh ::
+    large_where_small_fits_none`). K1, K2 and K3 each decide by it."""
+    return all(small_bytes(c) > SMEM_LIMIT_BYTES for c in CLUSTERS if c <= h)
+
+
 def large_layout(h: int, w: int, threads: int = CLUSTER_THREADS) -> bool:
-    """Whether K1 solves an H x W grid in the core's large layout: where
-    the small one fits a block under no cluster size, so that every plan
-    of a grid the small layout takes keeps it (`pcg.cu :: large_grid`,
-    which `pcg_large_layout` reports in C)."""
-    return all(_solve_bytes(h, w, c, threads, False) > SMEM_LIMIT_BYTES
-               for c in CLUSTERS if c <= h)
+    """Whether K1 solves an H x W grid in the core's large layout
+    (`pcg.cu :: large_grid`, which `pcg_large_layout` reports in C)."""
+    return large_where_small_fits_none(
+        h, lambda c: _solve_bytes(h, w, c, threads, False))
 
 
 def solve_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:

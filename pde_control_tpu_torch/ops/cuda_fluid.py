@@ -77,12 +77,11 @@ def _fwd_bytes(h: int, w: int, cluster: int, threads: int,
 @functools.lru_cache(maxsize=None)
 def fwd_large_layout(h: int, w: int,
                      threads: int = cuda_cg.CLUSTER_THREADS) -> bool:
-    """Whether K2 runs an H x W grid in the cluster core's large layout:
-    where the small one fits a block under no cluster size
-    (`fused_step.cu :: fwd_large_grid`, which `fused_fwd_large_layout`
-    reports in C)."""
-    return all(_fwd_bytes(h, w, c, threads, False) > cuda_cg.SMEM_LIMIT_BYTES
-               for c in cuda_cg.CLUSTERS if c <= h)
+    """Whether K2 runs an H x W grid in the cluster core's large layout,
+    by `cuda_cg.large_where_small_fits_none` (`fused_step.cu ::
+    fwd_large_grid`, which `fused_fwd_large_layout` reports in C)."""
+    return cuda_cg.large_where_small_fits_none(
+        h, lambda c: _fwd_bytes(h, w, c, threads, False))
 
 
 def fwd_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
@@ -147,11 +146,10 @@ def _bwd_bytes(h: int, w: int, cluster: int, threads: int, max_shift: int,
 def bwd_large_layout(h: int, w: int, max_shift: int = 2,
                      threads: int = BWD_THREADS) -> bool:
     """Whether K3 runs an H x W grid at `max_shift` in the cluster core's
-    large layout: where the small one fits a block under no cluster size
-    (`fused_step.cu :: bwd_large_grid`, which `fused_bwd_large_layout`
-    reports in C)."""
-    return all(_bwd_bytes(h, w, c, threads, max_shift, False)
-               > cuda_cg.SMEM_LIMIT_BYTES for c in BWD_CLUSTERS if c <= h)
+    large layout, by `cuda_cg.large_where_small_fits_none` (`fused_step.cu
+    :: bwd_large_grid`, which `fused_bwd_large_layout` reports in C)."""
+    return cuda_cg.large_where_small_fits_none(
+        h, lambda c: _bwd_bytes(h, w, c, threads, max_shift, False))
 
 
 def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,

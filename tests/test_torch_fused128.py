@@ -23,19 +23,19 @@ in the cluster core's large layout on the card.
   also holds the kernels to the golden under their plan and every plan
   their launchers take: outputs within 1e-4 and cotangents within 1e-3 of
   the golden's largest entry, trips within 3.
-* The slice on the CPU: the port's `profile_bench.make_app(128, 2, 1,
-  "cpu", maxiter=200, fused="cuda")` (its fused step on the plain
-  versions) against the JAX package's app of `__graft_entry__._make_app(
-  128, 2, 1, maxiter=200, fused="pallas")` on the same weights (converted
-  by `params_from_flax`, the CFE's output layer perturbed so that OP2 gets
-  a gradient) and batch: the first iteration's loss at rtol 1e-4 and each
-  net's gradient at relative norm error 1e-3, the fused tolerances of
-  `tests/test_torch_training.py`. Both apps are built with fp32 nets,
-  otherwise at those settings: with the apps' bf16 nets the two packages'
-  gradients differ by 7–9% of their norm (the loss by 9.3e-5) though the
-  physics agrees to 1e-7, since bf16 rounds the nets' small differences
-  up to its own step; with fp32 nets they agree to 1.6e-6 (CFE) and
-  1.1e-5 (OP2).
+* The slice on the CPU: the port's app at the settings of
+  `profile_bench.make_app(128, 2, 1, "cpu", maxiter=200, fused="cuda")` (its
+  fused step on the plain versions) against the JAX package's app of
+  `__graft_entry__._make_app(128, 2, 1, maxiter=200, fused="pallas")` on the
+  same weights (converted by `params_from_flax`, the CFE's output layer
+  perturbed so that OP2 gets a gradient) and batch: the first iteration's
+  loss at rtol 1e-4 and each net's gradient at relative norm error 1e-3, the
+  fused tolerances of `tests/test_torch_training.py`. Both apps are built
+  with fp32 nets, otherwise at those settings: with the apps' bf16 nets the
+  two packages' gradients differ by 7–9% of their norm (the loss by 9.3e-5)
+  though the physics agrees to 1e-7, since bf16 rounds the nets' small
+  differences up to its own step; with fp32 nets they agree to 1.6e-6 (CFE)
+  and 1.1e-5 (OP2).
 * The route: `FluidConfig(fused='cuda')` takes a 128² domain and refuses
   a 136² one, naming the gate.
 
@@ -62,6 +62,13 @@ OUTS = ("vy4", "vx4", "rho1", "p")
 GRADS = ("vy", "vx", "rho", "fy", "fx", "inflow")
 H, N, B = 128, 2, 1
 NETS = ("CFE", "OP2")
+# The settings of both packages' `_make_app(128, 2, 1, maxiter=200)`.
+_CFG = dict(dt=1.0, buoyancy=0.08, pressure_tol=1e-4, pressure_maxiter=200,
+            warm_start_pressure=True)
+_PDE = dict(control="buoyancy", unet_levels=3, cfe_features=(32, 64, 64, 32),
+            op_base_features=16)
+_APP = dict(batch_size=B, trainable_networks=NETS, sequence_class="staggered",
+            obs_loss_frames=(N,))
 
 
 def _case(case: str, dev):
@@ -234,14 +241,8 @@ def _jax_iteration():
     # `__graft_entry__._make_app`'s app, its nets in fp32.
     pde = IncompressibleFluidPDE(
         Domain2D.create(H, H, obstacle_mask=jnp.asarray(_plate(H))),
-        FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
-                    pressure_maxiter=200, warm_start_pressure=True,
-                    fused="pallas"),
-        control="buoyancy", unet_levels=3, cfe_features=(32, 64, 64, 32),
-        op_base_features=16, dtype=jnp.float32)
-    app = ControlTraining(N, pde, batch_size=B, trainable_networks=NETS,
-                          sequence_class="staggered",
-                          obs_loss_frames=(N,)).prepare()
+        FluidConfig(**_CFG, fused="pallas"), dtype=jnp.float32, **_PDE)
+    app = ControlTraining(N, pde, **_APP).prepare()
     params = _perturbed(jax.tree_util.tree_map(np.array,
                                                jax.device_get(app.params)))
     (loss, _), grads = jax.jit(jax.value_and_grad(app._loss_fn, has_aux=True))(
@@ -254,11 +255,20 @@ def _jax_iteration():
 def _port_iteration():
     """The port's first iteration, fused on the plain versions, on the JAX
     app's weights: its loss and gradients, and the K2/K3 wrappers' calls."""
-    from pde_control_tpu_torch.experiments import profile_bench
+    from pde_control_tpu_torch import (
+        ControlTraining,
+        Domain2D,
+        FluidConfig,
+        IncompressibleFluidPDE,
+    )
 
     _, _, params = _jax_iteration()
-    app = profile_bench.make_app(H, N, B, "cpu", maxiter=200, fused="cuda",
-                                 dtype=torch.float32)
+    # `profile_bench.make_app(128, 2, 1, "cpu", maxiter=200, fused="cuda")`,
+    # its nets in fp32.
+    pde = IncompressibleFluidPDE(
+        Domain2D.create(H, H, obstacle_mask=_plate(H), device="cpu"),
+        FluidConfig(**_CFG, fused="cuda"), dtype=torch.float32, **_PDE)
+    app = ControlTraining(N, pde, **_APP).prepare()
     app.load_params(params)
     calls = []
     with pytest.MonkeyPatch.context() as mp:

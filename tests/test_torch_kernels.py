@@ -253,15 +253,21 @@ def _agree(a, b, limit, nonfinite):
     assert _rel(a[fin], b[fin]) < limit
 
 
+# The cluster sizes whose shared memory holds K2's and K3's blocks at the
+# larger grids of the plan tests; at the others every size up to H does.
+_FUSED_CLUSTERS = {("fwd", 110, 110): {4, 8, 16}, ("fwd", 127, 127): {8, 16},
+                   ("bwd", 110, 110): {16}, ("bwd", 127, 127): {8, 16}}
+
+
 def _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, want):
-    """K3 under every plan the launcher takes (every cluster size up to H
-    at these grids): each cotangent within 1e-3 of the
+    """K3 under every plan the launcher takes (every cluster size up to H,
+    or those of `_FUSED_CLUSTERS`): each cotangent within 1e-3 of the
     plain version's scale with its non-finite cells, trip counts within 3,
     the same bits in two calls; each launch counts once."""
     h, w = rho.shape[1:]
     plans = cuda_fluid.bwd_plans(h, w)
-    assert {p.cluster for p in plans} == {c for c in cuda_fluid.BWD_CLUSTERS
-                                          if c <= h}
+    assert {p.cluster for p in plans} == _FUSED_CLUSTERS.get(
+        ("bwd", h, w), {c for c in cuda_fluid.BWD_CLUSTERS if c <= h})
     for plan in plans:
         before = cuda_fluid.LAUNCHES_BWD
         got, again = (cuda_fluid._launch_backward(vy, vx, rho, *cots, *geom,
@@ -279,12 +285,14 @@ def _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, want):
 
 
 def _check_forward_plans(vy, vx, rho, ops, geom, nonfinite, want):
-    """K2 under every plan the launcher takes: each output within 1e-4 of
-    the plain version's scale with its non-finite cells, trip counts within
-    3, the same bits in two calls; each launch counts once."""
-    h = rho.shape[1]
-    plans = cuda_fluid.fwd_plans(h, rho.shape[2])
-    assert {p.cluster for p in plans} == {c for c in cuda_cg.CLUSTERS if c <= h}
+    """K2 under every plan the launcher takes (every cluster size up to H,
+    or those of `_FUSED_CLUSTERS`): each output within 1e-4 of the plain
+    version's scale with its non-finite cells, trip counts within 3, the
+    same bits in two calls; each launch counts once."""
+    h, w = rho.shape[1:]
+    plans = cuda_fluid.fwd_plans(h, w)
+    assert {p.cluster for p in plans} == _FUSED_CLUSTERS.get(
+        ("fwd", h, w), {c for c in cuda_cg.CLUSTERS if c <= h})
     for plan in plans:
         before = cuda_fluid.LAUNCHES_FWD
         got, again = (cuda_fluid._launch_forward(
@@ -339,13 +347,16 @@ def test_fused_kernels_match_plain(n, case):
     _check_backward_plans(vy, vx, rho, cots, geom, flags, nonfinite, g_p)
 
 
-@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30)])
+@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30), (110, 110),
+                                 (127, 127)])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
 def test_fused_backward_plans_match_plain(h, w, case):
     """K3 at a grid that is not square, at one smaller than a 16-rank
-    cluster's halo, and at a width that is not a multiple of 4 (the bands
-    are pushed by scalars, not float4), under every plan the launcher
-    takes, against the plain version (limits as above)."""
+    cluster's halo, at a width that is not a multiple of 4 (the bands
+    are pushed by scalars, not float4), at 110² (the small layout, beside
+    K2's large one) and at 127² (the large layout, its bands of unequal
+    rows under C = 8 and 16), under every plan the launcher takes, against
+    the plain version (limits as above)."""
     dev = _cuda()
     plate = np.zeros((h, w), np.float32)
     plate[h // 2, w // 4:w // 2] = 1.0
@@ -360,13 +371,16 @@ def test_fused_backward_plans_match_plain(h, w, case):
                           want)
 
 
-@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30)])
+@pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30), (110, 110),
+                                 (127, 127)])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
 def test_fused_forward_plans_match_plain(h, w, case):
     """K2 at a grid that is not square, at one row a rank under a cluster
-    of 8 (the windows reach past the neighbours' bands) and at a width that
-    is not a multiple of 4, under every plan the launcher takes, against
-    the plain version (limits as above)."""
+    of 8 (the windows reach past the neighbours' bands), at a width that
+    is not a multiple of 4, and in the large layout at 110² (beside K3's
+    small one) and 127² (its bands of unequal rows under C = 8 and 16),
+    under every plan the launcher takes, against the plain version (limits
+    as above)."""
     dev = _cuda()
     plate = np.zeros((h, w), np.float32)
     plate[h // 2, w // 4:w // 2] = 1.0
@@ -379,16 +393,16 @@ def test_fused_forward_plans_match_plain(h, w, case):
     _check_forward_plans(vy, vx, rho, ops, geom, _FUSED_CASES[case][4], want)
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (96, 96), (112, 112),
-                                 (128, 128)])
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (96, 96), (110, 110),
+                                 (112, 112), (127, 127), (128, 128)])
 def test_fused_shared_memory_count_matches_source(h, w):
     """K2's and K3's plans count the bytes the kernels' source asks for,
     under every plan their launchers take and under their plan at batch 8:
     `fused_fwd_shared_bytes` and `fused_bwd_shared_bytes`, in the layout
     the grid takes, which `fused_fwd_large_layout` and
     `fused_bwd_large_layout` report as `fwd_large_layout` and
-    `bwd_large_layout` do (small at 64², 32×48 and 96², large at 112² and
-    128²)."""
+    `bwd_large_layout` do (small at 64², 32×48 and 96²; at 110² K2 large
+    and K3 small; large from 112² to 128²)."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
@@ -409,7 +423,8 @@ def test_fused_shared_memory_count_matches_source(h, w):
     large = lib.fused_bwd_large_layout
     large.argtypes, large.restype = [ctypes.c_int] * 4, ctypes.c_int
     assert bool(large(h, w, 512, 2)) is cuda_fluid.bwd_large_layout(h, w, 2)
-    assert cuda_fluid.fwd_large_layout(h, w) is (h >= 112)
+    assert cuda_fluid.fwd_large_layout(h, w) is (h >= 109)
+    assert cuda_fluid.bwd_large_layout(h, w, 2) is (h >= 112)
 
 
 @pytest.mark.parametrize("h,w,fwd,bwd", [
@@ -432,6 +447,16 @@ def test_fused_large_layout_sides(h, w, fwd, bwd):
     if (h, w) == (128, 128):
         assert [p.cluster for p in cuda_fluid.fwd_plans(h, w)] == [8, 16]
         assert [p.cluster for p in cuda_fluid.bwd_plans(h, w)] == [8, 16]
+
+
+@pytest.mark.parametrize("kind,h,w", sorted(_FUSED_CLUSTERS))
+def test_fused_plan_clusters_at_large_grids(kind, h, w):
+    """The cluster sizes the plan tests run at 110² and 127²: K2 at 110²
+    (large layout) from C = 4, K3 there (small layout) at C = 16 only; both
+    at 127² (large layout, bands of 15 or 16 rows under C = 8) from C = 8."""
+    plans = (cuda_fluid.fwd_plans if kind == "fwd" else cuda_fluid.bwd_plans)(
+        h, w)
+    assert {p.cluster for p in plans} == _FUSED_CLUSTERS[(kind, h, w)]
 
 
 # A stand-in for cudaOccupancyMaxActiveClusters on a 132-SM card that holds
