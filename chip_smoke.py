@@ -11,9 +11,9 @@ prints no result):
      spills (a kernel the report does not know, a K1, K3, K4 or K5 kernel
      missing from it or one that spills fails), checks the kernels'
      shared-memory counts and K1's, K2's and K3's layouts (the large one
-     at 112² and 128², K2's from 109²) against the Python gates and plans,
-     and prints K3's plan at 64²×8 and ×64 and K1's, K2's and K3's at
-     128²×8;
+     at 112² and 128², K2's from 109²; K1's banded one from 154²) against
+     the Python gates and plans, and prints K3's plan at 64²×8 and ×64,
+     K1's, K2's and K3's at 128²×8 and K1's at 256²×8 and 351²×8;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed), 32² (open, with an obstacle), 48², 96² and
      128² (closed; 128² in the large layout), batch 8, warm and cold, at
@@ -60,7 +60,21 @@ prints no result):
      iterations, and `progress_multi`'s graph for 'staggered' and 'chain'
      on both apps (ms a step, peak and reserved memory, capture seconds,
      graph nodes; `python3 chip_smoke.py fused128` runs phases 2, 4 and
-     this one alone and prints no result);
+     this one alone and prints no result); then "K1 beyond 128² (banded
+     layout)": K1 against its plain version under every plan at 129² and
+     153² (the large layout), 154², 192², 256², 257², 288², 289², 351²,
+     362², 96×320 and 320×96 (the banded one) and 8×1000 (large, an open
+     box), batch
+     8, cold and warm, tol 1e-4 / 200 and 1e-5 / 500; the gradient through
+     `solve_pressure` at 256²; against `tests/goldens/pcg_256.npz` and
+     `pcg_edges.npz` (351² warm, 362² cold); its times at 256²×8 and
+     351²×8 under every plan beside plain, the 'pcg' route and the bound;
+     the 256² indirect-smoke app (`APP256`: the task's obstacles, inflow
+     and nets) on K1 against the 'pcg' route, first iteration (31 K1) and
+     `progress_multi`'s graph both ways; and `run_smoke_indirect(size=
+     256)` cut as `ENTRIES` cuts smoke_128 (`python3 chip_smoke.py k1big`
+     runs phase 2 and this one alone and prints its row of the kernels'
+     line, no result);
   9. the rest of the training step, on the 'refined' class (every net
      trainable, grad clip 1.0, cosine over 100 updates): its first
      iteration on the conv path against K1 with cuDNN; one op_supervised
@@ -167,7 +181,8 @@ prints no result):
 Each phase's seconds follow it. The line before the last is the kernels'
 JSON summary (with each kernel's launches in configs 3-5, in the OOD evals,
 in the 128² and 3D entries, in the 128² fused app and in the mesh,
-spatial and spatial3d phases, and K1's, K2's and K3's times at 128²x8);
+spatial and spatial3d phases, and K1's, K2's and K3's times at 128²x8;
+K1's banded layout in a row of its own, `pcg_pressure_solve_banded`);
 the last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -202,13 +217,15 @@ K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
 # K3's instantiations <threads, trip profile, large layout>: the main
 # path's in the small layout, the one `fused_bwd_trace` selects and the main
-# path's in the large layout (grids from 112² to 128²); K1's and K2's
-# <threads, large layout> (the large one on grids from 112² to 128² for K1,
-# from 109² for K2). Each must stand in ptxas's report, without spills.
+# path's in the large layout (grids from 112² to 128²); K1's <threads,
+# large layout> (the large one from 112²) and its banded kernel <threads>
+# (from 154²), and K2's <threads, large layout> (the large one from 109²).
+# Each must stand in ptxas's report, without spills.
 K3_KERNELS = {"fused_bwd_kernel<512, 0, 0>", "fused_bwd_kernel<512, 1, 0>",
               "fused_bwd_kernel<512, 0, 1>"}
 K1_K2_KERNELS = {"pcg_cluster_kernel<512, 0>", "pcg_cluster_kernel<512, 1>",
-                 "fused_fwd_kernel<512, 0>", "fused_fwd_kernel<512, 1>"}
+                 "pcg_banded_kernel<512>", "fused_fwd_kernel<512, 0>",
+                 "fused_fwd_kernel<512, 1>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -273,7 +290,8 @@ def build_phase() -> None:
     print(f"build_seconds {info.seconds:.2f} ({info.path.name})")
     seen = {}
     for block in info.log.split("Compiling entry function")[1:]:
-        name = re.search(r"((?:pcg_cluster|fused_fwd|fused_bwd|conv3x3_fwd_reduce|"
+        name = re.search(r"((?:pcg_cluster|pcg_banded|fused_fwd|fused_bwd|"
+                         r"conv3x3_fwd_reduce|"
                          r"conv3x3_fwd|conv3x3_dw_reduce|conv3x3_dw)_kernel)"
                          r"(?:I((?:L[a-z]+\d+E)+)E)?", block)
         regs = re.search(r"Used (\d+) registers", block)
@@ -329,22 +347,37 @@ def build_phase() -> None:
               "(cudaOccupancyMaxActiveClusters): " + ", ".join(
                   f"C={p.cluster}: {query(H, H, p.cluster, p.threads)}"
                   for p in plans(H, H)))
-    # K1's layout: the large one exactly where the Python count says so.
-    fn = lib.pcg_large_layout
+    # K1's layouts: each exactly where the Python count says so, and its
+    # byte counts beyond 128² (the large and banded layouts).
+    fn = lib.pcg_layout
     fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
-    for h, w in shapes:
-        large = cuda_cg.large_layout(h, w)
-        if bool(fn(h, w, cuda_cg.CLUSTER_THREADS)) is not large:
-            raise AssertionError(f"pcg_large_layout({h}, {w}) disagrees with "
-                                 f"cuda_cg.large_layout ({large})")
-    print("K1 large layout at " + ", ".join(
-        f"{h}x{w}" for h, w in shapes if cuda_cg.large_layout(h, w))
-          + " (the kernel's and the Python count agree)")
-    print(f"K1 plan at {K1_BIG}x{K1_BIG}x{BATCH}: "
-          f"{_plan_text(cuda_cg.solve_plan(BATCH, K1_BIG, K1_BIG))}; resident "
-          "clusters: " + ", ".join(
-              f"C={p.cluster}: {cuda_cg._kernel()[1](K1_BIG, K1_BIG, p.cluster, p.threads)}"
-              for p in cuda_cg.solve_plans(K1_BIG, K1_BIG)))
+    k1_shapes = shapes + tuple(K1_BANDED_SHAPES)
+    for h, w in k1_shapes:
+        want = cuda_cg.layout(h, w)
+        if fn(h, w, cuda_cg.CLUSTER_THREADS) != want:
+            raise AssertionError(f"pcg_layout({h}, {w}) = "
+                                 f"{fn(h, w, cuda_cg.CLUSTER_THREADS)}, "
+                                 f"cuda_cg.layout says {want}")
+    bytes_fn = lib.pcg_shared_bytes
+    cases = [(h, w, p) for h, w in k1_shapes[len(shapes):]
+             for p in cuda_cg.solve_plans(h, w)]
+    for h, w, p in cases:
+        if bytes_fn(h, w, p.cluster, p.threads) != p.shared_bytes:
+            raise AssertionError(f"pcg_shared_bytes({h}, {w}, {p.cluster}): "
+                                 f"{bytes_fn(h, w, p.cluster, p.threads)}, the "
+                                 f"plan counts {p.shared_bytes}")
+    print(f"pcg_shared_bytes equal to the plan's count at {len(cases)} more "
+          "cases beyond 128²")
+    for kind in (cuda_cg.LARGE, cuda_cg.BANDED):
+        print(f"K1 {cuda_cg.LAYOUT_NAMES[kind]} layout at " + ", ".join(
+            f"{h}x{w}" for h, w in k1_shapes if cuda_cg.layout(h, w) == kind)
+              + " (the kernel's and the Python count agree)")
+    for n in (K1_BIG, K1_BANDED_TIMED[0], K1_BANDED_TIMED[1]):
+        print(f"K1 plan at {n}x{n}x{BATCH}: "
+              f"{_plan_text(cuda_cg.solve_plan(BATCH, n, n))}; resident "
+              "clusters: " + ", ".join(
+                  f"C={p.cluster}: {cuda_cg._kernel()[1](n, n, p.cluster, p.threads)}"
+                  for p in cuda_cg.solve_plans(n, n)))
     # K2's and K3's layouts: the large one exactly where the Python
     # counts say so (K2 from 109², K3 from 112²), and each kernel's plan
     # and resident clusters at 128²×8.
@@ -520,7 +553,10 @@ def _nbytes(*tensors) -> int:
 K1_BIG = 128
 K1_SHAPES = ((H, True), (32, False), (48, True), (96, True), (K1_BIG, True))
 CG_GOLDENS = "tests/goldens/pcg_32.npz"
-CG_GOLDENS_128 = "tests/goldens/pcg_128.npz"
+# `scripts/make_cg_goldens_128.py`'s golden (closed box with the plate,
+# batch 2, tol 1e-6 / maxiter 200), as `cg_golden_files_check` takes it.
+CG_GOLDENS_128 = {"tests/goldens/pcg_128.npz": {"cold": (K1_BIG, False),
+                                                "warm": (K1_BIG, True)}}
 
 
 def cg_golden_check(dev) -> float:
@@ -557,45 +593,6 @@ def cg_golden_check(dev) -> float:
         if rel > 1e-4:
             raise AssertionError(f"K1 differs from the JAX golden {case}: "
                                  f"{rel:.3e} > 1e-4")
-    return worst
-
-
-def cg128_golden_check(dev) -> float:
-    """K1 at 128² under its plan and every plan its launcher takes against
-    the JAX package's solve, from `scripts/make_cg_goldens_128.py`'s golden
-    (closed box with the plate, batch 2, cold and warm, tol 1e-6 / maxiter
-    200): the pressure within 1e-4 of the golden's max|p|, trip counts
-    within 1 of the JAX package's CG. Returns the largest max|dp|."""
-    from pathlib import Path
-
-    from pde_control_tpu_torch.ops import cuda_cg
-
-    z = np.load(Path(__file__).resolve().parent / CG_GOLDENS_128)
-    kw = dict(json.loads(str(z["config"])), closed=True, precond=True)
-
-    def t(key):
-        return torch.tensor(z[key].astype(np.float32), device=dev)
-
-    geom = [t(k) for k in ("acc_y", "acc_x", "fluid")]
-    worst = 0.0
-    plans = cuda_cg.solve_plans(K1_BIG, K1_BIG)
-    for case in ("cold", "warm"):
-        want = t(f"{case}/p")
-        trips = z[f"{case}/trips"]
-        rel, dit = 0.0, 0
-        for plan in [None] + plans:
-            p, it = cuda_cg._launch_solve(t("div"), *geom,
-                                          t("x0") if case == "warm" else None,
-                                          plan, **kw)
-            d = float((p - want).abs().max())
-            worst, rel = max(worst, d), max(rel, d / float(want.abs().max()))
-            dit = max(dit, int(np.abs(it.cpu().numpy() - trips).max()))
-        print(f"golden {K1_BIG}x{K1_BIG}x2 {case} (JAX interpret-mode kernel, "
-              f"trips {trips.tolist()}): K1 worst max|dp|/max|p| over its plan "
-              f"and {len(plans)} others {rel:.2e}, trips within {dit}")
-        if rel > 1e-4 or dit > 1:
-            raise AssertionError(f"K1 at {K1_BIG}^2 differs from the JAX golden "
-                                 f"{case}: {rel:.3e} > 1e-4 or trips by {dit}")
     return worst
 
 
@@ -712,7 +709,8 @@ def kernel_phase(card: str) -> dict:
             raise AssertionError(f"gradient through the kernel differs: {g_err:.3e}")
     golden = cg_golden_check(dev)
     summary["cold"]["err"] = max(summary["cold"]["err"], golden)
-    summary["cold"]["err"] = max(summary["cold"]["err"], cg128_golden_check(dev))
+    summary["cold"]["err"] = max(summary["cold"]["err"],
+                                 cg_golden_files_check(dev, CG_GOLDENS_128))
 
     # Times at 128²×8 (smoke_128's solve: tol 1e-4, maxiter 200), under
     # solve_plan's plan and every other, beside plain and the bound.
@@ -753,7 +751,7 @@ def kernel_phase(card: str) -> dict:
     summary["big"] = dict(
         {f"{k}_{key}": v for k, s in big.items() for key, v in s.items()},
         plan=dict(main_plan._asdict(), batch=BATCH, h=n, w=n,
-                  large_layout=cuda_cg.large_layout(n, n)))
+                  layout=cuda_cg.LAYOUT_NAMES[cuda_cg.layout(n, n)]))
 
     # Times at batch 64 (the main path's step, tol 1e-4 / maxiter 100), and
     # each batch's plan.
@@ -1271,6 +1269,503 @@ def fused128_phase(card: str) -> dict:
               f"graph against unfused {ms['unfused']:.3f} "
               f"({ms['unfused'] / ms['fused']:.2f}x) [{card}]")
     return out
+
+
+# ------------------------------------------- K1 beyond 128² (banded layout)
+
+# K1's grids beyond 128², closed with the plate: the large layout's sides
+# beyond smoke_128's (129², and 153², its last), the banded layout's first
+# (154²), bands of unequal rows (192², 257²), the indirect-smoke task's
+# 256², the C = 8 / C = 16 boundary (288² takes both, 289² 16 alone), the
+# Pallas gate's edges (351², its largest warm square, and 362², its largest
+# cold one; both starts run at each), the non-square grids the gate admits
+# (96×320, 320×96) and 8×1000 (the large layout, one row a rank). Batch 8.
+# 8×1000 is an open box (`K1_OPEN`): in a closed one the spectral
+# preconditioner's lowest mode along the 1000 cells (1/λ ~ 1e5) amplifies
+# fp32 rounding so far that neither the plain version nor the kernel
+# converges (relative residuals 0.01-0.3 after 200 and 500 trips, with a
+# plate of w/4 or of h cells), which leaves nothing to hold the kernel to;
+# open, the walls' Dirichlet modes keep it well conditioned (18-23 trips).
+K1_BANDED_SHAPES = [(129, 129), (153, 153), (154, 154), (192, 192),
+                    (256, 256), (257, 257), (288, 288), (289, 289),
+                    (351, 351), (362, 362), (96, 320), (320, 96), (8, 1000)]
+# K1's timed grids there (batch 8, tol 1e-4 / maxiter 200, the task's).
+K1_OPEN = {(8, 1000)}
+K1_BANDED_TIMED = (256, 351)
+# `scripts/make_cg_goldens_big.py`'s goldens: file -> {case: (side, warm)};
+# pcg_256.npz keeps one set of operands, unprefixed, pcg_edges.npz one a
+# case, under the case's name.
+CG_GOLDENS_BIG = {"tests/goldens/pcg_256.npz": {"cold": (256, False),
+                                                "warm": (256, True)},
+                  "tests/goldens/pcg_edges.npz": {"351-warm": (351, True),
+                                                  "362-cold": (362, False)}}
+# The 256² app: `fluid2d.run_smoke_indirect(size=256)`'s task at full
+# widths (`default_obstacles`, an inflow plume, buoyancy control, CFE
+# 48-96-96-48, OP16-OP2 U-nets of 3 levels at base width 16, tol 1e-4 /
+# maxiter 200, warm start, bf16 nets on cuDNN), unfused; `k` steps a
+# `progress_multi` call.
+APP256 = dict(size=256, n=N, batch=BATCH, k=3)
+# `run_smoke_indirect(size=256)` cut as `ENTRIES` cuts smoke_128:
+# 32 + 16 trajectories (warm-up 8 steps, 16 recorded), 16 iterations a
+# stage (full: 256 + 32, 500).
+SMOKE256 = dict(size=256, n=16, batch=8, num_train=32, num_val=16,
+                iterations=16, warmup=8)
+
+
+def _k1_against_plain(dev, rng, h: int, w: int) -> dict:
+    """K1 at H x W, batch 8, with the plate, closed (open in `K1_OPEN`),
+    cold and warm (5% noise on the plain solution), tol 1e-4 / maxiter 200
+    (the task's) and
+    1e-5 / 500, under `solve_plan`'s plan and every plan its launcher
+    takes, against `pcg_plain` at `kernel_phase`'s limits. Not 1e-6 as
+    `kernel_phase` does to 128²: on these grids fp32 reaches a relative
+    residual of ~5e-5 (the plain version's at tol 1e-6), so there the
+    stopping trip is set by rounding (at 351² warm the kernel and the plain
+    version stopped 9 trips apart with the same residual, 5.20e-05 and
+    5.24e-05, and solutions 1.3e-06 apart). Returns the worst of each."""
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg
+    from pde_control_tpu_torch.physics.poisson import (
+        _projector,
+        masked_laplace_spd,
+    )
+
+    closed = (h, w) not in K1_OPEN
+    domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), closed=closed,
+                             device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    fluid = domain.fluid_mask > 0
+    div = torch.tensor(rng.normal(size=(BATCH, h, w)), dtype=torch.float32,
+                       device=dev)
+    b = torch.where(fluid, -div, 0.0)
+    if closed:
+        b = _projector(domain)(b)
+    p_prev = cuda_cg.pcg_plain(div, *geom, closed=closed, tol=1e-6,
+                               maxiter=500)[0]
+    x0 = (p_prev + 0.05 * p_prev.std() * torch.tensor(
+        rng.normal(size=(BATCH, h, w)), dtype=torch.float32,
+        device=dev)).contiguous()
+    plans = cuda_cg.solve_plans(h, w)
+
+    def rel_res(p):
+        r = torch.where(fluid, b - masked_laplace_spd(p, domain), 0.0)
+        return float((r.norm(dim=(1, 2)) / b.norm(dim=(1, 2))).max())
+
+    worst = dict(rel=0.0, res=0.0, dit=0, err=0.0)
+    for tol, maxiter in ((1e-4, 200), (1e-5, 500)):
+        for start, guess in (("cold", None), ("warm", x0)):
+            kw = dict(dx=domain.dx, closed=closed, tol=tol, maxiter=maxiter)
+            p_p, it_p = cuda_cg.pcg_plain(div, *geom, guess, **kw)
+            res_p = rel_res(p_p)
+            label = (f"{h}x{w} {cuda_cg.LAYOUT_NAMES[cuda_cg.layout(h, w)]} "
+                     f"{'closed' if closed else 'open'} {start} tol={tol:g}")
+            for plan in [None] + plans:
+                p_k, it_k = cuda_cg._launch_solve(div, *geom, guess, plan,
+                                                  precond=True, **kw)
+                torch.cuda.synchronize()
+                err = float((p_k - p_p).abs().max())
+                rel = err / float(p_p.abs().max())
+                res_k = rel_res(p_k)
+                dit = int((it_k - it_p).abs().max())
+                if not torch.isfinite(p_k).all():
+                    raise AssertionError(f"{label} {plan}: non-finite values")
+                if res_k > max(2.0 * tol, 2.0 * res_p):
+                    raise AssertionError(f"{label} {plan}: kernel residual "
+                                         f"{res_k:.3e} above tol {tol:g}")
+                if rel > 100 * tol:
+                    raise AssertionError(f"{label} {plan}: kernel differs "
+                                         f"from plain by {rel:.3e}")
+                if dit > 3:
+                    raise AssertionError(f"{label} {plan}: trip counts differ "
+                                         f"by {dit} > 3: kernel "
+                                         f"{it_k.tolist()}, plain "
+                                         f"{it_p.tolist()}")
+                for key, v in (("rel", rel), ("res", res_k), ("dit", dit),
+                               ("err", err)):
+                    worst[key] = max(worst[key], v)
+            print(f"{label}: {len(plans)} plans (C = "
+                  f"{', '.join(str(p.cluster) for p in plans)}) and solve_plan's;"
+                  f" residual plain {res_p:.2e}, trips plain "
+                  f"{it_p.tolist()}")
+    print(f"  {h}x{w}: worst max|dp|/max|p| {worst['rel']:.2e}, residual "
+          f"{worst['res']:.2e}, trip counts within {worst['dit']}")
+    return worst
+
+
+def cg_golden_files_check(dev, files: dict) -> float:
+    """K1 under its plan and every plan its launcher takes against the JAX
+    package's solves in `files` (`CG_GOLDENS_128`: 128², the large layout;
+    `CG_GOLDENS_BIG`: 256², 351² warm and 362² cold, the banded one; closed
+    boxes with the plate, tol 1e-6): the pressure within 1e-4 of the
+    golden's max|p|, trip counts within 1 of the JAX package's CG. Returns
+    the largest max|dp|."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    worst = 0.0
+    for path, cases in files.items():
+        z = np.load(Path(__file__).resolve().parent / path)
+        kw = dict(json.loads(str(z["config"])), closed=True, precond=True)
+        for case, (side, warm) in cases.items():
+            prefix = f"{case}/" if f"{case}/div" in z else ""
+
+            def t(key):
+                return torch.tensor(z[prefix + key].astype(np.float32),
+                                    device=dev)
+
+            geom = [t(k) for k in ("acc_y", "acc_x", "fluid")]
+            want = torch.tensor(z[f"{case}/p"], device=dev)
+            trips = z[f"{case}/trips"]
+            plans = cuda_cg.solve_plans(side, side)
+            rel, dit = 0.0, 0
+            for plan in [None] + plans:
+                p, it = cuda_cg._launch_solve(t("div"), *geom,
+                                              t("x0") if warm else None, plan,
+                                              **kw)
+                d = float((p - want).abs().max())
+                worst, rel = max(worst, d), max(rel, d / float(want.abs().max()))
+                dit = max(dit, int(np.abs(it.cpu().numpy() - trips).max()))
+            print(f"golden {side}x{side}x{len(trips)} {case} (JAX interpret-mode"
+                  f" kernel, trips {trips.tolist()}): K1 "
+                  f"{cuda_cg.LAYOUT_NAMES[cuda_cg.layout(side, side)]} worst "
+                  f"max|dp|/max|p| over its plan and {len(plans)} others "
+                  f"{rel:.2e}, trips within {dit}")
+            if rel > 1e-4 or dit > 1:
+                raise AssertionError(f"K1 at {side}^2 differs from the JAX "
+                                     f"golden {case}: {rel:.3e} > 1e-4 or "
+                                     f"trips by {dit}")
+    return worst
+
+
+def _k1_times(card: str, dev, rng, n: int) -> dict:
+    """K1 at n²×8 (tol 1e-4 / maxiter 200, cold and warm) under every plan,
+    beside the plain version, the bound and the 'pcg' route the port took
+    there before K1 did (`solve_pressure(backend='pcg')`, no gradient).
+    Returns solve_plan's plan's numbers."""
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg
+    from pde_control_tpu_torch.physics.poisson import solve_pressure
+
+    domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    div = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+                       device=dev)
+    p_prev = cuda_cg.pcg_plain(div, *geom, tol=1e-6, maxiter=500)[0]
+    x0 = (p_prev + 0.05 * p_prev.std() * torch.tensor(
+        rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+        device=dev)).contiguous()
+    main_plan = cuda_cg.solve_plan(BATCH, n, n)
+    out = {}
+    for start, guess in (("cold", None), ("warm", x0)):
+        kw = dict(dx=domain.dx, closed=True, tol=1e-4, maxiter=200)
+        p_p, it_p = cuda_cg.pcg_plain(div, *geom, guess, **kw)
+        plain_ms = _time_ms(lambda: cuda_cg.pcg_plain(div, *geom, guess, **kw), 3)
+        with torch.no_grad():
+            pcg_ms = _time_ms(lambda: solve_pressure(
+                div, domain, tol=1e-4, maxiter=200, backend="pcg", x0=guess), 3)
+        for plan in cuda_cg.solve_plans(n, n):
+            p_k, it_k = cuda_cg._launch_solve(div, *geom, guess, plan,
+                                              precond=True, **kw)
+            ms = _time_ms(lambda: cuda_cg._launch_solve(
+                div, *geom, guess, plan, precond=True, **kw), 10)
+            nbytes = _nbytes(div, guess, p_k) + 4 * BATCH + _geom_bytes(n, n)
+            bound_ms, bound_by = _bound(nbytes, _cg_flops(n, n, it_k))
+            mark = " (solve_plan's)" if plan == main_plan else ""
+            print(f"  time per solve {n}x{n}x{BATCH} {start} tol 1e-4 maxiter "
+                  f"200, {_plan_text(plan)}{mark}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, 'pcg' route {pcg_ms:.4f} ms, bound "
+                  f"{bound_ms:.6f} ms ({bound_by}); trips {it_k.tolist()} "
+                  f"(plain {it_p.tolist()}); max|dp|/max|p| "
+                  f"{float((p_k - p_p).abs().max() / p_p.abs().max()):.2e}"
+                  f" [{card}]")
+            if plan == main_plan:
+                out[start] = dict(ms=ms, plain_ms=plain_ms, pcg_ms=pcg_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  trips=float(it_k.float().mean()))
+    out["plan"] = dict(main_plan._asdict(), batch=BATCH, h=n, w=n,
+                       layout=cuda_cg.LAYOUT_NAMES[cuda_cg.layout(n, n)])
+    return out
+
+
+def _app256(backend: str):
+    """The 256² app (`APP256`) with the pressure solve on `backend`."""
+    from pde_control_tpu_torch import (
+        ControlTraining,
+        Domain2D,
+        FluidConfig,
+        IncompressibleFluidPDE,
+    )
+    from pde_control_tpu_torch.experiments.curriculum import op_spans
+    from pde_control_tpu_torch.experiments.fluid2d import default_obstacles
+
+    h, n = APP256["size"], APP256["n"]
+    domain = Domain2D.create(h, h, obstacle_mask=default_obstacles(h, h),
+                             device="cuda")
+    cfg = FluidConfig(dt=1.0, buoyancy=0.08, pressure_tol=1e-4,
+                      pressure_maxiter=200, warm_start_pressure=True,
+                      pressure_backend=backend)
+    pde = IncompressibleFluidPDE(
+        domain, cfg, control="buoyancy", with_inflow=True, unet_levels=3,
+        cfe_features=(48, 96, 96, 48), op_base_features=16)
+    return ControlTraining(
+        n, pde, batch_size=APP256["batch"],
+        trainable_networks=("CFE",) + tuple(f"OP{s}" for s in op_spans(n)),
+        sequence_class="staggered", obs_loss_frames=(n,)).prepare()
+
+
+def _batch256(seed: int) -> dict:
+    """Targets, zero start velocity and the task's inflow (a plume source
+    drawn as `generate_inflow_smoke_dataset` draws it) from a seed."""
+    from pde_control_tpu_torch.data.generate import (
+        inflow_draws,
+        inflow_from_draws,
+    )
+
+    h, n, b = APP256["size"], APP256["n"], APP256["batch"]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    inflow = inflow_from_draws(inflow_draws(gen, b, h), h, h)
+    return {"obs": rng.uniform(0, 1, size=(b, n + 1, h, h, 1)).astype(np.float32),
+            "vy0": np.zeros((b, h + 1, h), np.float32),
+            "vx0": np.zeros((b, h, h + 1), np.float32),
+            "inflow": inflow.cpu().numpy().astype(np.float32)}
+
+
+def app256_phase(card: str) -> dict:
+    """The 256² training iteration on K1 against the same app on the 'pcg'
+    route: the first iteration of both on the same perturbed weights and
+    batch (loss 1e-3 relative, each net's gradient norm within 2e-2), 31
+    K1 an iteration; then `progress_multi`'s CUDA graph on both (ms a step,
+    peak and reserved memory, capture seconds, graph nodes, K1 a replay).
+    Returns K1's launches in the first iteration and a replay's."""
+    h, n, b, k = (APP256[key] for key in ("size", "n", "batch", "k"))
+    batch = _batch256(SEED)
+    first = {}
+    for backend in ("auto", "pcg"):
+        app = _app256(backend)
+        perturb_cfe(app)
+        _zero_counts()
+        metrics = app.compute_gradients(app.to_batch(batch))
+        torch.cuda.synchronize()
+        first[backend] = ((float(metrics["loss"]), _grad_norms(app)), _counts())
+        del app, metrics
+    print(f"{h}x{h} n={n} batch={b} first iteration launches: K1 route "
+          f"{first['auto'][1]}, 'pcg' route {first['pcg'][1]}")
+    _compare_first(f"K1 {h}x{h}", first["auto"][0], first["pcg"][0])
+    want = {key: (2 * n - 1 if key == "K1" else 0) for key in first["auto"][1]}
+    if first["auto"][1] != want or any(first["pcg"][1].values()):
+        raise AssertionError(f"{h}x{h}: an iteration launched "
+                             f"{first['auto'][1]} on K1's route (expected "
+                             f"{want}) and {first['pcg'][1]} on 'pcg'")
+    stacked = [_batch256(SEED + 30 + i) for i in range(k)]
+    batches = {key: torch.tensor(np.stack([x[key] for x in stacked]),
+                                 device="cuda") for key in stacked[0]}
+    out = {"first": first["auto"][1]["K1"]}
+    ms = {}
+    for backend, path in (("auto", "K1"), ("pcg", "pcg")):
+        app = _app256(backend)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        app.progress_multi(batches)  # warm-up, capture and k replays
+        torch.cuda.synchronize()
+        first_call = time.perf_counter() - t0
+        graph = next(iter(app._graphs.values()))
+        capture = dict(capture_s=graph.capture_s,
+                       instantiate_s=graph.instantiate_s,
+                       nodes=_graph_nodes(graph.graph))
+        _zero_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        losses = app.progress_multi(batches)["loss"]
+        end.record()
+        torch.cuda.synchronize()
+        if any(_counts().values()) or not torch.isfinite(losses).all():
+            raise AssertionError(f"{h}x{h} {path}: a replay ran a wrapper "
+                                 f"({_counts()}) or lost finite values")
+        ms[path] = start.elapsed_time(end) / k
+        launches = dict(app.graph_launches)
+        print(f"{h}x{h} staggered on the '{backend}' route ({path}) under the "
+              f"graph: "
+              f"{ms[path]:.3f} ms a step ({k} replays, CUDA events), "
+              f"{n * b / (ms[path] / 1e3):.1f} steps/s; first progress_multi "
+              f"call {first_call:.2f} s, {_capture_text(capture)}; launches a "
+              f"replay {launches}; peak {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+              f" MiB, reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB; "
+              f"losses {[round(float(x), 7) for x in losses]} [{card}]")
+        if launches != {key: (want[key] if backend == "auto" else 0)
+                        for key in want}:
+            raise AssertionError(f"{h}x{h} {path}: launches a replay {launches}")
+        if backend == "auto":
+            out["graph"] = launches["K1"]
+        del app, graph
+        torch.cuda.empty_cache()
+    print(f"{h}x{h}: K1 {ms['K1']:.3f} ms a step under the graph against "
+          f"'pcg' {ms['pcg']:.3f} ({ms['pcg'] / ms['K1']:.2f}x) [{card}]")
+    out["ms"] = ms
+    return out
+
+
+def smoke256_run(card: str) -> dict:
+    """`fluid2d.run_smoke_indirect(size=256)` cut (`SMOKE256`): its data
+    generated on K1 into a disk cache first (launches counted), then the
+    run on that cache, every stage under its graph and recorded as
+    `entry_phase` records the entries' (K1 launches in the physics stages,
+    none in the OP stages, no K2-K5), and the eval block beside zero force.
+    Returns K1's launches: data, the run's eager ones (warm-ups, captures,
+    eval) and its replays' (a replay's times its steps)."""
+    import io
+    import shutil
+    from pathlib import Path
+
+    from pde_control_tpu_torch.experiments import curriculum, fluid2d
+
+    c = SMOKE256
+    size, n, batch = c["size"], c["n"], c["batch"]
+    workdir = Path(__file__).resolve().parent / "runs/chip_smoke_smoke256"
+    shutil.rmtree(workdir, ignore_errors=True)
+    datadir = str(workdir / "data")
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, train, _ = fluid2d._smoke_indirect_setup(
+        size, n, c["num_train"], c["num_val"], 1.0, datadir, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    data = _counts()
+    rollouts = -(-c["num_train"] // batch) + -(-c["num_val"] // batch)
+    want_k1 = rollouts * (c["warmup"] + n)
+    print(f"data: {c['num_train']} + {c['num_val']} trajectories of {n + 1} "
+          f"frames at {size}^2 ({rollouts} rollouts of {batch}, "
+          f"{c['warmup'] + n} unfused steps each) in {seconds:.2f} s, "
+          f"{data['K1']} K1 launches [{card}]")
+    if data["K1"] != want_k1 or any(v for k, v in data.items() if k != "K1"):
+        raise AssertionError(f"data generation: launches {data}, expected "
+                             f"{want_k1} K1 and no other")
+    if not (np.isfinite(train.obs).all()
+            and train.obs.shape == (c["num_train"], n + 1, size, size, 1)):
+        raise AssertionError("data generation: non-finite or misshapen obs")
+    stages: list = []
+    original = curriculum.ControlTraining
+    curriculum.ControlTraining = _stage_recorder(stages)
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            fluid2d.run_smoke_indirect(
+                str(workdir / "run"), size=size, n=n,
+                iterations=c["iterations"], num_train=c["num_train"],
+                num_val=c["num_val"], batch_size=batch, datadir=datadir,
+                device="cuda")
+    finally:
+        curriculum.ControlTraining = original
+    seconds = time.perf_counter() - t0
+    counted = _counts()
+    names = (["cfe_supervised"] + [f"op{s}_supervised" for s in
+                                   sorted(curriculum.op_spans(n))]
+             + [f"end_to_end_n{n}"])
+    if len(stages) != len(names):
+        raise AssertionError(f"run_smoke_indirect(size={size}): "
+                             f"{len(stages)} stages trained")
+    print(f"run_smoke_indirect(size={size}): {len(names)} stages in "
+          f"{seconds:.2f} s (the data above, from the disk cache); wrappers "
+          f"counted {counted} (warm-up steps, captures and the eval) [{card}]")
+    graph = 0
+    for stage, rec in zip(names, stages):
+        res = rec["result"]
+        if res.get("iterations_run") != c["iterations"] or not all(
+                np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{stage}: {res}")
+        _print_stage(stage, rec, batch, card)
+        gl = rec["graph_launches"]
+        physics = rec["class"] != "op_supervised"
+        if not (gl["K1"] > 0 if physics else gl["K1"] == 0) or any(
+                gl[k] for k in gl if k != "K1"):
+            raise AssertionError(f"{stage}: launches a replay {gl}")
+        graph += gl["K1"] * rec["steps"]
+    with open(workdir / "run" / "results.json") as f:
+        ev = json.load(f)["eval"]
+    if not all(np.all(np.isfinite(v)) for v in ev.values()):
+        raise AssertionError("run_smoke_indirect(size=256): non-finite eval")
+    print("eval (controlled beside zero force): " + json.dumps(
+        {k: v for k, v in ev.items() if not isinstance(v, list)}))
+    if counted["K1"] == 0 or any(v for k, v in counted.items() if k != "K1"):
+        raise AssertionError(f"run_smoke_indirect(size={size}): {counted}")
+    return dict(data=data["K1"], counted=counted["K1"], graph=graph)
+
+
+def k1big_phase(card: str) -> dict:
+    """K1 beyond 128² (the large layout to 153², the banded one from 154²):
+    against its plain version at `K1_BANDED_SHAPES` under every plan, the
+    gradient through `solve_pressure` at 256², 'auto' routed to it on the
+    card, against the goldens of `make_cg_goldens_big.py`, its times at
+    `K1_BANDED_TIMED`, the 256² app and the cut `run_smoke_indirect(size=
+    256)`. Returns the row of the kernels' line."""
+    _phase("K1 beyond 128² (banded layout)")
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg
+    from pde_control_tpu_torch.physics import poisson
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 19)
+    print("limits, under solve_plan's plan and under every plan the launcher "
+          "takes (kernel_phase's; tol 1e-4 / 200 and 1e-5 / 500): kernel "
+          "residual <= max(2*tol, 2*plain residual); max|dp|/max|p| <= "
+          "100*tol; trip counts within 3 of plain; gradient max|dg|/max|g| "
+          "<= 1e-3")
+    errs = {(h, w): _k1_against_plain(dev, rng, h, w)["err"]
+            for h, w in K1_BANDED_SHAPES}
+    n = APP256["size"]
+    domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
+    div = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+                       device=dev)
+    if poisson._pick_backend("auto", div, domain) != "cuda":
+        raise AssertionError(f"'auto' does not route {n}x{n} with obstacles "
+                             "on the card to K1")
+    w = torch.tensor(rng.normal(size=(BATCH, n, n)), dtype=torch.float32,
+                     device=dev)
+    grads = {}
+    for backend in ("cuda", "pcg"):
+        d = div.clone().requires_grad_(True)
+        before = cuda_cg.LAUNCHES
+        p = poisson.solve_pressure(d, domain, tol=1e-6, maxiter=500,
+                                   backend=backend)
+        (p * w).sum().backward()
+        if (cuda_cg.LAUNCHES - before) != (2 if backend == "cuda" else 0):
+            raise AssertionError(f"solve_pressure({backend!r}): "
+                                 f"{cuda_cg.LAUNCHES - before} K1 launches")
+        grads[backend] = d.grad
+    g_err = float((grads["cuda"] - grads["pcg"]).abs().max()
+                  / grads["pcg"].abs().max())
+    print(f"{n}x{n} grad of sum(w*p) through solve_pressure, 'cuda' (2 K1) "
+          f"against 'pcg': max|dg|/max|g| {g_err:.3e}")
+    if g_err > 1e-3:
+        raise AssertionError(f"gradient through the kernel differs: {g_err:.3e}")
+    # max|dp| at the timed grid's checks (256²) and against the goldens.
+    err = max(errs[(n, n)], cg_golden_files_check(dev, CG_GOLDENS_BIG))
+    times = {m: _k1_times(card, dev, rng, m) for m in K1_BANDED_TIMED}
+    app = app256_phase(card)
+    run = smoke256_run(card)
+    t = times[n]
+    row = {"name": "pcg_pressure_solve_banded", "route": "cuda",
+           "source": "pde_control_tpu_torch/csrc/pcg.cu",
+           "replaces": "pde_control_tpu/ops/pallas_cg.py:180",
+           "launches": app["first"], "max_abs_err": err,
+           **{key: float(np.mean([t[s][key] for s in ("cold", "warm")]))
+              for key in ("ms", "plain_ms", "bound_ms")},
+           "bound_by": t["warm"]["bound_by"], "library_ms": None,
+           "pcg_route_ms": float(np.mean([t[s]["pcg_ms"]
+                                          for s in ("cold", "warm")])),
+           "plan": t["plan"], "app256_graph_launches": app["graph"],
+           "app256_ms": app["ms"], "smoke256_data_launches": run["data"],
+           "smoke256_launches": run["counted"],
+           "smoke256_graph_launches": run["graph"]}
+    for m, tm in times.items():
+        row.update({f"{s}_{key}_{m}x{BATCH}": tm[s][key] for s in ("cold", "warm")
+                    for key in ("ms", "plain_ms", "pcg_ms", "bound_ms", "trips")})
+    return row
 
 
 # --------------------------------------------------------------- phase 10
@@ -4479,6 +4974,11 @@ def main() -> None:
         fused128_phase(card)
         _phase(None)
         return
+    if sys.argv[1:] == ["k1big"]:  # K1 beyond 128², no result line
+        build_phase()
+        print(json.dumps(k1big_phase(card)))
+        _phase(None)
+        return
     if sys.argv[1:] == ["mesh"]:  # the mesh and spatial phases, no result
         build_phase()
         with _nccl_world():
@@ -4503,6 +5003,7 @@ def main() -> None:
     fused_launches = fused_path_phase(card, batch, first)
     conv_launches = conv_path_phase(card, batch, first, shapes)
     fused128 = fused128_phase(card)
+    k1big = k1big_phase(card)
     training_phase(card, batch)
     configs, seen = {}, {3: {}, 5: {}}
     for number in (4, 3, 5):
@@ -4601,6 +5102,9 @@ def main() -> None:
         kern["mesh_graph_launches"] = sum(mesh["graph"][k] for k in keys)
         kern["spatial_launches"] = sum(spatial[k] for k in keys)
         kern["spatial3d_launches"] = sum(spatial3d[k] for k in keys)
+    # K1 beyond 128², in the banded layout: its own row (launches: the 256²
+    # app's first iteration; times at 256²x8, and at 351²x8 beside them).
+    kernels.append(k1big)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,9 +56,9 @@
 // whole basis and computes its band's rows, with K split over the threads
 // when the band is short and the slices added in order.
 //
-// The large layout (kLarge; K1 takes it on a grid where the buffers above
-// fit a block under no cluster size, as at 128^2). Two whole-field copies stay
-// (r in g1, the spectrum in g2); the basis and ga go. The basis is read
+// The large layout (kLayoutLarge; K1 takes it on a grid where the buffers
+// above fit a block under no cluster size, as at 128^2). Two whole-field
+// copies stay (r in g1, the spectrum in g2); the basis and ga go. The basis is read
 // from global memory through the read-only path (L2, shared by every
 // cluster), with Qx^T passed transposed so that every product's reads are
 // coalesced or warp-uniform. Without ga each rank updates only its band of
@@ -70,9 +70,31 @@
 // r.z barrier and the d.Ad barrier. (ga cannot share g2: a rank pushes its
 // spectrum into g2 while a slower peer may still be reading ga.)
 //
+// The banded layout (kLayoutBanded; K1 takes it on a grid where the large
+// layout fits a block under no cluster size, as at 256^2: its two whole
+// fields are 2 H W floats a rank, 524 KB at 256^2). No whole field stays in
+// shared memory: a rank keeps the band of r (rb) beside its band of x, d,
+// z and t. The two whole fields the products need, r for Qy r and the
+// scaled spectrum for Qy^T (.), move to a scratch in global memory, one
+// (H, W) pair per sample, which the launcher's caller allocates; at 351^2 x
+// 8 it is 7.9 MB, well inside the card's 50 MB L2. Each rank writes its band
+// of r (where it updates it) and of the spectrum (where the product stores
+// it) straight into the scratch, and the cluster barrier that published the
+// band in the large layout publishes these writes: its release/acquire at
+// cluster scope orders global memory too. The products read the scratch
+// through L2 (__ldcg, never __ldg, and never L1, which is not coherent
+// between the cluster's SMs). The scratch is free for the next write by
+// the argument that frees the peers' g1 in the large layout: since its
+// last read of a row, every rank has passed at least two cluster barriers.
+// Pulling the peers' bands through distributed shared memory was the other
+// design; the scratch was built because it keeps the products' loops and
+// their order of summation those of the large layout (the same B operand,
+// read from L2 in place of shared memory) and the trip keeps the large
+// layout's four cluster barriers.
+//
 // Read-only loads (__ldg) are used only for what no kernel writes: the
 // geometry, the basis and the warm start. Everything the solve computes is
-// read with plain loads.
+// read with plain loads, or from the banded layout's scratch through L2.
 
 #pragma once
 
@@ -88,6 +110,12 @@ namespace cgrp = cooperative_groups;
 constexpr int kClusterThreads = 512;
 constexpr int kMaxCluster = 16;
 constexpr size_t kMaxSharedBytes = 232448;
+
+// The layouts of a rank's shared memory (take_cg; the header): the small
+// one, the large one and the banded one.
+constexpr int kLayoutSmall = 0;
+constexpr int kLayoutLarge = 1;
+constexpr int kLayoutBanded = 2;
 
 struct Geometry {
   const float* acc_y;    // (H+1, W)
@@ -233,18 +261,27 @@ struct ClusterReducer {
 // the slices' sums go through `part` (8 kT floats) and are added in slice
 // order. Ends with a barrier.
 //
-// kGa / kGb: A / B lie in global memory and are read through the read-only
-// path (the large layout's basis); the loop over K is then unrolled at most
+// kA / kB: where A / B lie (kSmem: shared memory; kReadOnly: global memory
+// no kernel writes, read through the read-only path, as the basis of the
+// large and banded layouts; kL2: the banded layout's scratch, read through
+// L2). With one operand in global memory the loop over K is unrolled
 // twice, so that the loads in flight stay within the 128 registers a thread
-// of a 512-thread block has.
-template <bool kGlobal>
+// of a 512-thread block has; with both (the banded layout's Qy r and Qy^T
+// (.)) four times, the unroll at which ptxas keeps that kernel free of
+// spills (it spills unrolled once or twice).
+constexpr int kSmem = 0;
+constexpr int kReadOnly = 1;
+constexpr int kL2 = 2;
+
+template <int kSrc>
 __device__ __forceinline__ float load_f(const float* p) {
-  if constexpr (kGlobal) return __ldg(p);
+  if constexpr (kSrc == kReadOnly) return __ldg(p);
+  else if constexpr (kSrc == kL2) return __ldcg(p);
   else return *p;
 }
 
 // One step k of band_matmul's sums for one thread's 4 rows and 2 columns.
-template <bool kGa, bool kGb>
+template <int kA, int kB>
 __device__ __forceinline__ void band_fma(const float* a, int a_row, int a_col,
                                          const float* b, int b_row, int b_col,
                                          const int (&rows)[4],
@@ -252,16 +289,16 @@ __device__ __forceinline__ void band_fma(const float* a, int a_row, int a_col,
                                          float (&acc)[4][2]) {
   float av[4], bv[2];
 #pragma unroll
-  for (int m = 0; m < 4; ++m) av[m] = load_f<kGa>(a + rows[m] * a_row + k * a_col);
+  for (int m = 0; m < 4; ++m) av[m] = load_f<kA>(a + rows[m] * a_row + k * a_col);
 #pragma unroll
-  for (int c = 0; c < 2; ++c) bv[c] = load_f<kGb>(b + k * b_row + cols[c] * b_col);
+  for (int c = 0; c < 2; ++c) bv[c] = load_f<kB>(b + k * b_row + cols[c] * b_col);
 #pragma unroll
   for (int m = 0; m < 4; ++m)
 #pragma unroll
     for (int c = 0; c < 2; ++c) acc[m][c] = fmaf(av[m], bv[c], acc[m][c]);
 }
 
-template <int kT, bool kGa = false, bool kGb = false>
+template <int kT, int kA = kSmem, int kB = kSmem>
 __device__ void band_matmul(const float* a, int a_row, int a_col, const float* b,
                             int b_row, int b_col, float* out, int R, int K,
                             int n, const float* __restrict__ scale, float* part) {
@@ -283,13 +320,17 @@ __device__ void band_matmul(const float* a, int a_row, int a_col, const float* b
 #pragma unroll
     for (int c = 0; c < 2; ++c) cols[c] = min(j0 + c * half, n - 1);
     float acc[4][2] = {};
-    if constexpr (kGa || kGb) {
+    if constexpr (kA != kSmem && kB != kSmem) {
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k)
+        band_fma<kA, kB>(a, a_row, a_col, b, b_row, b_col, rows, cols, k, acc);
+    } else if constexpr (kA != kSmem || kB != kSmem) {
 #pragma unroll 2
       for (int k = k0; k < k1; ++k)
-        band_fma<kGa, kGb>(a, a_row, a_col, b, b_row, b_col, rows, cols, k, acc);
+        band_fma<kA, kB>(a, a_row, a_col, b, b_row, b_col, rows, cols, k, acc);
     } else {
       for (int k = k0; k < k1; ++k)
-        band_fma<false, false>(a, a_row, a_col, b, b_row, b_col, rows, cols, k,
+        band_fma<kSmem, kSmem>(a, a_row, a_col, b, b_row, b_col, rows, cols, k,
                                acc);
     }
 #pragma unroll
@@ -348,8 +389,10 @@ __device__ void push_band(float* full, const Band& bd) {
 
 // Shared-memory work space of one rank's solve.
 struct ClusterCg {
-  float* g1;    // (H, W): the residual r, whole on every rank
-  float* g2;    // (H, W): the scaled spectrum, gathered for Qy^T
+  float* g1;    // (H, W): the residual r, whole on every rank (the banded
+                // layout: the sample's scratch in global memory)
+  float* g2;    // (H, W): the scaled spectrum, gathered for Qy^T (the
+                // banded layout: the scratch's second field)
   float* ga;    // (H, W): A d, gathered for the residual's update (null in
                 // the large layout, where A d's band is in t)
   float* x;     // (R, W) band rows
@@ -365,41 +408,47 @@ struct ClusterCg {
   const float* gqy = nullptr;
   const float* gqx = nullptr;
   const float* gqxt = nullptr;
+  float* rb = nullptr;  // (R, W): the band of r (the banded layout only)
 };
 
 // Offsets (floats) of ClusterCg's buffers in a rank's shared memory; -1 for
-// a buffer the large layout does not have (the basis, ga).
+// a buffer the layout does not have (the large one: the basis, ga; the
+// banded one: those and g1, g2; rb only in the banded one).
 struct CgOffsets {
-  int qy, g1, g2, ga, x, d, z, t, zh, part;
+  int qy, g1, g2, ga, x, d, z, t, zh, part, rb;
 };
 
 // Takes ClusterCg's buffers from offset o on (o is advanced past them),
 // each 16-byte aligned, for H x W cells, bands of at most R rows and T
-// threads, in the small layout or, with `large`, without the basis and ga.
+// threads, in `layout` (kLayoutSmall, kLayoutLarge: without the basis and
+// ga; kLayoutBanded: without g1 and g2 either, with rb).
 // ops/cuda_cg.py :: _cg_floats counts the same.
 __host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
-                                             int T, bool large = false) {
+                                             int T, int layout = kLayoutSmall) {
   auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
+  const bool small = layout == kLayoutSmall, banded = layout == kLayoutBanded;
   CgOffsets c;
-  c.qy = large ? -1 : take(basis_floats(h, w));
-  c.g1 = take(h * w);
-  c.g2 = take(h * w);
-  c.ga = large ? -1 : take(h * w);
+  c.qy = small ? take(basis_floats(h, w)) : -1;
+  c.g1 = banded ? -1 : take(h * w);
+  c.g2 = banded ? -1 : take(h * w);
+  c.ga = small ? take(h * w) : -1;
   c.x = take(R * w);
   c.d = take((R + 2) * w);
   c.z = take(R * w);
   c.t = take(R * w);
   c.zh = take(2 * w);
   c.part = take(8 * T);
+  c.rb = banded ? take(R * w) : -1;
   return c;
 }
 
 // Whether a kernel runs an H-row grid in the large layout: where its small
 // layout, of small_bytes(C) bytes a block at cluster size C, fits a block
 // under no cluster size, so that every plan of a grid the small layout
-// takes keeps it. K1 (pcg.cu :: large_grid), K2 and K3 (fused_step.cu ::
-// fwd_large_grid, bwd_large_grid) each decide by it; ops/cuda_cg.py ::
-// large_where_small_fits_none is the same rule.
+// takes keeps it. K1 (pcg.cu :: grid_layout), K2 and K3 (fused_step.cu ::
+// fwd_large_grid, bwd_large_grid) each decide by it; K1 decides by it once
+// more between its large and banded layouts, with the large layout's
+// bytes. ops/cuda_cg.py :: large_where_small_fits_none is the same rule.
 template <typename SmallBytes>
 __host__ __device__ inline bool large_where_small_fits_none(
     int h, SmallBytes small_bytes) {
@@ -408,13 +457,41 @@ __host__ __device__ inline bool large_where_small_fits_none(
   return true;
 }
 
+// The banded layout has no g1 and g2 in shared memory (their offsets are
+// -1): its caller points them at its scratch before any use.
 __device__ inline ClusterCg cluster_cg(float* smem, const CgOffsets& c, int h,
                                        int w) {
   float* qy = c.qy < 0 ? nullptr : smem + c.qy;
-  return ClusterCg{smem + c.g1, smem + c.g2, c.ga < 0 ? nullptr : smem + c.ga,
-                   smem + c.x,  smem + c.d,  smem + c.z,  smem + c.t,
-                   smem + c.zh, smem + c.part, qy,
-                   qy == nullptr || h == w ? qy : qy + h * (h + 1)};
+  ClusterCg cg{smem + c.g1, smem + c.g2,
+               c.ga < 0 ? nullptr : smem + c.ga,
+               smem + c.x,  smem + c.d,  smem + c.z,  smem + c.t,
+               smem + c.zh, smem + c.part, qy,
+               qy == nullptr || h == w ? qy : qy + h * (h + 1)};
+  cg.rb = c.rb < 0 ? nullptr : smem + c.rb;
+  return cg;
+}
+
+// This rank's band of r: rows [a, b) of the whole-field copy g1 (w
+// columns), or the banded layout's own buffer rb.
+template <int kLayout>
+__device__ __forceinline__ float* r_band(const ClusterCg& cg, const Band& bd,
+                                         int w) {
+  if constexpr (kLayout == kLayoutBanded) return cg.rb;
+  else return cg.g1 + bd.a * w;
+}
+
+// Publishes this rank's band of r, complete (block barrier), for the next
+// cluster barrier: pushed into the peers' g1, or written into the banded
+// layout's scratch.
+template <int kT, int kLayout>
+__device__ void publish_r_band(const ClusterCg& cg, const Band& bd) {
+  if constexpr (kLayout == kLayoutBanded) {
+    float* dst = cg.g1 + bd.a * bd.w;
+    for (int idx = threadIdx.x; idx < bd.rows() * bd.w; idx += kT)
+      dst[idx] = cg.rb[idx];
+  } else {
+    push_band<kT>(cg.g1, bd);
+  }
 }
 
 // Copies the bases into the padded shared layout, with this block's
@@ -458,19 +535,24 @@ __device__ void apply_a_band(const float* p, float* out, const Geometry& g,
 // of z are pushed to the neighbours' halo rows, for the next cluster
 // barrier to publish. Ends with a block barrier.
 //
-// kLarge: the basis from global memory (ClusterCg::gqy, gqx, gqxt), the
-// same products in the same order of summation.
-template <int kT, bool kTrace, bool kLarge = false>
+// kLayout large and banded: the basis from global memory (ClusterCg::gqy,
+// gqx, gqxt), the same products in the same order of summation; banded,
+// r and the spectrum whole in the scratch, read through L2, and the
+// spectrum's band stored there (no push).
+template <int kT, bool kTrace, int kLayout = kLayoutSmall>
 __device__ void apply_m_band(const ClusterCg& cg, const Geometry& g,
                              const Band& bd, TripClock<kTrace> clk) {
   const int h = g.h, w = g.w, a = bd.a, R = bd.rows();
-  if constexpr (kLarge) {
-    band_matmul<kT, true, false>(cg.gqy + a * h, h, 1, cg.g1, w, 1, cg.t, R,
-                                 h, w, nullptr, cg.part);      // Qy r
+  // Where the whole r (g1) and the whole spectrum (g2) lie.
+  constexpr int kWhole = kLayout == kLayoutBanded ? kL2 : kSmem;
+  if constexpr (kLayout != kLayoutSmall) {
+    band_matmul<kT, kReadOnly, kWhole>(cg.gqy + a * h, h, 1, cg.g1, w, 1,
+                                       cg.t, R, h, w, nullptr,
+                                       cg.part);               // Qy r
     clk.mark(2);
-    band_matmul<kT, false, true>(cg.t, w, 1, cg.gqxt, w, 1, cg.g2 + a * w, R,
-                                 w, w, g.inv_lam + a * w,
-                                 cg.part);                     // (.) Qx^T * 1/lam
+    band_matmul<kT, kSmem, kReadOnly>(cg.t, w, 1, cg.gqxt, w, 1, cg.g2 + a * w,
+                                      R, w, w, g.inv_lam + a * w,
+                                      cg.part);                // (.) Qx^T * 1/lam
   } else {
     const int qs = h + 1, qxs = w + 1;
     band_matmul<kT>(cg.qy + a * qs, qs, 1, cg.g1, w, 1, cg.t, R, h, w, nullptr,
@@ -480,15 +562,15 @@ __device__ void apply_m_band(const ClusterCg& cg, const Geometry& g,
                     g.inv_lam + a * w, cg.part);               // (.) Qx^T * 1/lam
   }
   clk.mark(3);
-  push_band<kT>(cg.g2, bd);
+  if constexpr (kLayout != kLayoutBanded) push_band<kT>(cg.g2, bd);
   cgrp::this_cluster().sync();
   clk.mark(4);
-  if constexpr (kLarge) {
-    band_matmul<kT, true, false>(cg.gqy + a, 1, h, cg.g2, w, 1, cg.t, R, h, w,
-                                 nullptr, cg.part);            // Qy^T (.)
+  if constexpr (kLayout != kLayoutSmall) {
+    band_matmul<kT, kReadOnly, kWhole>(cg.gqy + a, 1, h, cg.g2, w, 1, cg.t, R,
+                                       h, w, nullptr, cg.part);  // Qy^T (.)
     clk.mark(5);
-    band_matmul<kT, false, true>(cg.t, w, 1, cg.gqx, w, 1, cg.z, R, w, w,
-                                 nullptr, cg.part);            // (.) Qx
+    band_matmul<kT, kSmem, kReadOnly>(cg.t, w, 1, cg.gqx, w, 1, cg.z, R, w, w,
+                                      nullptr, cg.part);         // (.) Qx
   } else {
     const int qs = h + 1, qxs = w + 1;
     band_matmul<kT>(cg.qy + a, 1, qs, cg.g2, w, 1, cg.t, R, h, w, nullptr,
@@ -509,18 +591,20 @@ __device__ void apply_m_band(const ClusterCg& cg, const Geometry& g,
   }
 }
 
-// z = r without the preconditioner: the band from the whole residual in g1,
-// and the halo rows zh from it too (every rank holds the same bits of r).
-// Each thread writes the entries it reads back later, so no barrier.
-template <int kT>
+// z = r without the preconditioner: the band from r's band, and the halo
+// rows zh from the whole residual in g1 (every rank holds the same bits of
+// r; banded, the scratch, through L2). Each thread writes the entries it
+// reads back later, so no barrier.
+template <int kT, int kLayout = kLayoutSmall>
 __device__ void copy_r_band(const ClusterCg& cg, const Geometry& g,
                             const Band& bd) {
+  constexpr int kWhole = kLayout == kLayoutBanded ? kL2 : kSmem;
   const int w = g.w, n = bd.rows() * w;
-  const float* r = cg.g1 + bd.a * w;
+  const float* r = r_band<kLayout>(cg, bd, w);
   for (int idx = threadIdx.x; idx < n; idx += kT) cg.z[idx] = r[idx];
   for (int j = threadIdx.x; j < w; j += kT) {
-    if (bd.a > 0) cg.zh[j] = cg.g1[(bd.a - 1) * w + j];
-    if (bd.b < g.h) cg.zh[w + j] = cg.g1[bd.b * w + j];
+    if (bd.a > 0) cg.zh[j] = load_f<kWhole>(cg.g1 + (bd.a - 1) * w + j);
+    if (bd.b < g.h) cg.zh[w + j] = load_f<kWhole>(cg.g1 + bd.b * w + j);
   }
 }
 
@@ -529,12 +613,12 @@ __device__ void copy_r_band(const ClusterCg& cg, const Geometry& g,
 // cluster reduction of r.z, r.r, fluid.z and fluid.r over the bands:
 // r.z' = r.z - mu fluid.r. Projects the band and its halo rows in place.
 // Returns (r.z', r.r).
-template <int kT>
+template <int kT, int kLayout = kLayoutSmall>
 __device__ float2 project_and_dot(const ClusterCg& cg, const Geometry& g,
                                   const Band& bd, float n_fluid, bool precond,
                                   ClusterReducer<kT>& red) {
   const int w = g.w, n = bd.rows() * w;
-  const float* r = cg.g1 + bd.a * w;
+  const float* r = r_band<kLayout>(cg, bd, w);
   const float* fluid = g.fluid + bd.a * w;
   float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int idx = threadIdx.x; idx < n; idx += kT) {
@@ -567,7 +651,7 @@ __device__ __forceinline__ float warm_x(const float* __restrict__ x0,
 }
 
 // The CG loop of ops/pallas_cg.py :: pcg_core for this cluster's system.
-// On entry the band's rows of cg.g1 hold `div` (the rhs is
+// On entry r's band (r_band) holds `div` (the rhs is
 // project(where(fluid, -div, 0))) and, with the preconditioner, the basis
 // is loading. x0 (global, read-only, the system's (H, W) field) is the
 // warm start, or null for a cold start, which reads nothing. The best
@@ -585,17 +669,18 @@ __device__ __forceinline__ float warm_x(const float* __restrict__ x0,
 // the band and halo rows of x before the reduction of |b|^2, whose barrier
 // publishes the residual's band.
 //
-// kLarge: the large layout (the header): A d in t, each rank updates its
-// band of r and pushes it, a fourth cluster barrier per trip.
-template <int kT, bool kTrace, bool kLarge = false>
+// kLayout large (the header): A d in t, each rank updates its band of r and
+// pushes it, a fourth cluster barrier per trip. Banded (the header): the
+// same, the band of r in rb and written into the scratch, not pushed.
+template <int kT, bool kTrace, int kLayout = kLayoutSmall>
 __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
                            const Band& bd, const float* __restrict__ x0,
                            float* best, float tol, int maxiter, bool precond,
                            ClusterReducer<kT>& red) {
   const int w = g.w, n = bd.rows() * w, hw = g.h * w;
   const float* fluid = g.fluid + bd.a * w;
-  float* r = cg.g1 + bd.a * w;
-  float* ad = kLarge ? cg.t : cg.ga + bd.a * w;
+  float* r = r_band<kLayout>(cg, bd, w);
+  float* ad = kLayout != kLayoutSmall ? cg.t : cg.ga + bd.a * w;
   float* x = cg.x;
   float* d = cg.d + w;  // the band's first row; d[-w..] and d[n..] are halo
   float* z = cg.z;
@@ -638,13 +723,13 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
     apply_a_band<kT>(cg.d, z, g, bd);
     for (int idx = threadIdx.x; idx < n; idx += kT) r[idx] -= z[idx];
   }
-  const float b2 = fmaxf(red.sum(bd, part, [&] { push_band<kT>(cg.g1, bd); }),
-                         1e-30f);
+  const float b2 = fmaxf(
+      red.sum(bd, part, [&] { publish_r_band<kT, kLayout>(cg, bd); }), 1e-30f);
   if (precond)
-    apply_m_band<kT, kTrace, kLarge>(cg, g, bd, TripClock<kTrace>{});
+    apply_m_band<kT, kTrace, kLayout>(cg, g, bd, TripClock<kTrace>{});
   else
-    copy_r_band<kT>(cg, g, bd);
-  float2 dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);
+    copy_r_band<kT, kLayout>(cg, g, bd);
+  float2 dots = project_and_dot<kT, kLayout>(cg, g, bd, n_fluid, precond, red);
   float rz = dots.x, rs = dots.y;
   for (int idx = threadIdx.x; idx < n; idx += kT) {
     d[idx] = z[idx];
@@ -665,13 +750,20 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
     part = 0.f;
     for (int idx = threadIdx.x; idx < n; idx += kT) part += d[idx] * ad[idx];
     const float dad = red.sum(bd, part, [&] {
-      if constexpr (!kLarge) push_band<kT>(cg.ga, bd);
+      if constexpr (kLayout == kLayoutSmall) push_band<kT>(cg.ga, bd);
     });
     clk.mark(0);
     const bool ok = dad > 0.f;
     const float alpha = ok ? rz / dad : 0.f;
     for (int idx = threadIdx.x; idx < n; idx += kT) x[idx] += alpha * d[idx];
-    if constexpr (kLarge) {
+    if constexpr (kLayout == kLayoutBanded) {
+      for (int idx = threadIdx.x; idx < n; idx += kT) {
+        const float v = __fmaf_rn(-alpha, ad[idx], r[idx]);
+        r[idx] = v;
+        cg.g1[bd.a * w + idx] = v;
+      }
+      cgrp::this_cluster().sync();  // r whole in the scratch
+    } else if constexpr (kLayout == kLayoutLarge) {
       for (int idx = threadIdx.x; idx < n; idx += kT)
         r[idx] = __fmaf_rn(-alpha, ad[idx], r[idx]);
       __syncthreads();  // the band of r complete
@@ -684,10 +776,10 @@ __device__ int pcg_cluster(const ClusterCg& cg, const Geometry& g,
     }
     clk.mark(1);
     if (precond)
-      apply_m_band<kT, kTrace, kLarge>(cg, g, bd, clk);
+      apply_m_band<kT, kTrace, kLayout>(cg, g, bd, clk);
     else
-      copy_r_band<kT>(cg, g, bd);
-    dots = project_and_dot<kT>(cg, g, bd, n_fluid, precond, red);
+      copy_r_band<kT, kLayout>(cg, g, bd);
+    dots = project_and_dot<kT, kLayout>(cg, g, bd, n_fluid, precond, red);
     const float rz_new = dots.x, rs_new = dots.y;
     const float beta = ok ? rz_new / (rz != 0.f ? rz : 1.f) : 0.f;
     const bool better = rs_new < rs_best;

@@ -6,16 +6,24 @@ pallas_pressure_solve` (body `_pcg_kernel` → `pcg_core`). One thread-block
 cluster solves one sample's masked pressure-Poisson system and runs the
 whole CG loop on the card: its C blocks each own a band of rows, with the
 iterates in shared memory (`csrc/pcg_cluster.cuh`, the loop K2 and K3 run
-too; the source's header gives the layout). `solve_plan` picks C. On a
-grid whose buffers fit a block under no cluster size (112² to 128²), every
-plan takes the core's large layout (`large_layout`): the basis read from
-L2 and the residual exchanged by bands, one more cluster barrier a trip.
+too; the source's header gives the layouts). `solve_plan` picks C. The
+grid picks the layout (`layout`): the small one where its buffers fit a
+block under some cluster size (to 111² on squares); else the core's large
+layout, the basis read from L2 and the residual exchanged by bands, one
+more cluster barrier a trip (112² to 153²); else the banded one, where no
+whole field stays in shared memory and the residual and the scaled
+spectrum go whole through a scratch in global memory (L2), which the
+wrapper allocates (from 154²). So K1 takes every grid the Pallas kernel's
+VMEM gate `pallas_solve_fits` admits (to 351² warm and 362² cold on
+squares) and wider ones, as far as a plan fits shared memory.
 
 What bounds it on this card: latency, not bytes or FLOPs. Each trip is a
 chain of cluster barriers around four small fp32 basis products; the
 cluster spreads a batch of B samples over B·C of the H100's 132 SMs, so
 each block computes 1/C of every product, and the loop and its per-sample
-exit live on the card (no host round trip, no launch per trip).
+exit live on the card (no host round trip, no launch per trip). In the
+large and banded layouts the products also read the basis from L2, in
+the banded one the whole residual and spectrum too.
 
 `pressure_solve` launches the kernel for CUDA tensors and runs `pcg_plain`,
 a transcription of `pcg_core` in torch, for CPU tensors; a CUDA tensor it
@@ -52,11 +60,9 @@ SMEM_LIMIT_BYTES = 232_448
 # refuse others).
 CLUSTERS = (1, 2, 4, 8, 16)
 CLUSTER_THREADS = 512
-# The largest side of a grid that K1 takes: its parity with the plain
-# version is held up to 128² on the card (the smoke_128 entries' grid,
-# small and large layouts). A larger grid waits for a parity test at its
-# size.
-MAX_SIDE = 128
+# K1's layouts of a rank's shared memory (`pcg_cluster.cuh :: kLayout*`).
+SMALL, LARGE, BANDED = 0, 1, 2
+LAYOUT_NAMES = ("small", "large", "banded")
 _RED_FLOATS = 2 * 4 * 16 + 4 * 16  # the cluster reduction's slots
 
 
@@ -65,23 +71,25 @@ def _align4(n: int) -> int:
 
 
 def _cg_floats(h: int, w: int, rows: int, threads: int,
-               large: bool = False) -> int:
+               layout: int = SMALL) -> int:
     """Floats of one rank's cluster-solve buffers (`pcg_cluster.cuh ::
     take_cg`): the basis, three whole fields, the band's iterates with d's
     halo rows, z's halo rows and the products' slices, each 16-byte
-    aligned; the large layout has neither the basis nor the third whole
-    field (A d)."""
+    aligned; the large layout (`layout` LARGE, or True) has neither the
+    basis nor the third whole field (A d), the banded one no whole field
+    but the band of r."""
     basis = h * (h + 1) + (0 if h == w else w * (w + 1))
-    whole = (h * w, h * w) if large else (basis, h * w, h * w, h * w)
+    whole = {SMALL: (basis, h * w, h * w, h * w), LARGE: (h * w, h * w),
+             BANDED: (rows * w,)}[int(layout)]
     return sum(_align4(n) for n in (
         *whole, rows * w, (rows + 2) * w, rows * w, rows * w, 2 * w,
         8 * threads))
 
 
 def _solve_bytes(h: int, w: int, cluster: int, threads: int,
-                 large: bool) -> int:
+                 layout: int) -> int:
     return 4 * (_align4(_RED_FLOATS)
-                + _cg_floats(h, w, -(-h // cluster), threads, large))
+                + _cg_floats(h, w, -(-h // cluster), threads, layout))
 
 
 def large_where_small_fits_none(h: int,
@@ -90,23 +98,28 @@ def large_where_small_fits_none(h: int,
     layout: where its small layout, of `small_bytes(cluster)` bytes a
     block, fits a block under no cluster size, so that every plan of a grid
     the small layout takes keeps it (`pcg_cluster.cuh ::
-    large_where_small_fits_none`). K1, K2 and K3 each decide by it."""
+    large_where_small_fits_none`). K1, K2 and K3 each decide by it; K1 once
+    more between its large and banded layouts."""
     return all(small_bytes(c) > SMEM_LIMIT_BYTES for c in CLUSTERS if c <= h)
 
 
-def large_layout(h: int, w: int, threads: int = CLUSTER_THREADS) -> bool:
-    """Whether K1 solves an H x W grid in the core's large layout
-    (`pcg.cu :: large_grid`, which `pcg_large_layout` reports in C)."""
-    return large_where_small_fits_none(
-        h, lambda c: _solve_bytes(h, w, c, threads, False))
+@functools.lru_cache(maxsize=None)
+def layout(h: int, w: int, threads: int = CLUSTER_THREADS) -> int:
+    """The layout in which K1 solves an H x W grid: SMALL where it fits a
+    block under some cluster size, else LARGE where that fits, else BANDED
+    (`pcg.cu :: grid_layout`, which `pcg_layout` reports in C)."""
+    for kind in (SMALL, LARGE):
+        if not large_where_small_fits_none(
+                h, lambda c: _solve_bytes(h, w, c, threads, kind)):
+            return kind
+    return BANDED
 
 
 def solve_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
     """Shared memory one rank of K1 needs: the reduction area and the
     solve's buffers for bands of ceil(H / cluster) rows, in the grid's
     layout — the count `pcg_shared_bytes` makes in C."""
-    return _solve_bytes(h, w, cluster, threads,
-                        large_layout(h, w, threads))
+    return _solve_bytes(h, w, cluster, threads, layout(h, w, threads))
 
 
 class ClusterPlan(NamedTuple):
@@ -181,16 +194,17 @@ def solve_plan(batch: int, h: int, w: int, *, sm_count: int | None = None,
 
 
 def cuda_solve_fits(h: int, w: int) -> bool:
-    """Whether K1 takes an H x W grid: no side above `MAX_SIDE` and some
-    cluster plan fits shared memory."""
-    return max(h, w) <= MAX_SIDE and bool(solve_plans(h, w))
+    """Whether K1 takes an H x W grid: some cluster plan of the grid's
+    layout fits shared memory. True wherever `pallas_solve_fits` is, warm
+    or cold."""
+    return bool(solve_plans(h, w))
 
 
 @functools.lru_cache(maxsize=16)
 def _tables(h: int, w: int, dx: float, closed: bool, device: torch.device):
     """(Qy, Qx, 1/λ, Qxᵀ) on `device`: DCT-II and the Neumann eigenvalues
     on a closed domain, DST-I and the Dirichlet ones on an open domain;
-    Qxᵀ (contiguous) for the kernel's large layout."""
+    Qxᵀ (contiguous) for the kernel's large and banded layouts."""
     if closed:
         qy, qx = _dct_matrix(h), _dct_matrix(w)
         inv_lam = _inv_neumann_eigenvalues(h, w, dx)
@@ -299,7 +313,7 @@ def _kernel():
     lib, _ = load()
     fn = lib.pcg_solve_f32
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 11 + [i32] * 3 + [
+    fn.argtypes = [ptr] * 12 + [i32] * 3 + [
         ctypes.c_float, i32, ctypes.c_float, i32, i32, i32, i32, ptr]
     fn.restype = i32
     clusters = lib.pcg_max_clusters
@@ -367,18 +381,23 @@ def _launch_solve(div, acc_y, acc_x, fluid, x0, plan: ClusterPlan | None, *,
     if x0 is not None:
         _check("x0", x0, (b, h, w), dev)
     if not cuda_solve_fits(h, w):
-        raise ValueError(f"a {h}x{w} solve is beyond K1's grids (sides up to "
-                         f"{MAX_SIDE}, a cluster's shared memory up to "
-                         f"{SMEM_LIMIT_BYTES} bytes a block)")
+        raise ValueError(f"a {h}x{w} solve is beyond K1's grids (no plan of "
+                         f"its {LAYOUT_NAMES[layout(h, w)]} layout fits a "
+                         f"cluster's shared memory, {SMEM_LIMIT_BYTES} bytes "
+                         f"a block)")
     if plan is None:
         plan = solve_plan(b, h, w)
     qy, qx, inv_lam, qxt = _tables(h, w, float(dx), bool(closed), dev)
     out = torch.empty_like(div)
     iters = torch.empty(b, dtype=torch.int32, device=dev)
+    # The banded layout's r and scaled spectrum, whole, for every sample.
+    scratch = (torch.empty((b, 2, h, w), dtype=torch.float32, device=dev)
+               if layout(h, w) == BANDED else None)
     rc = _kernel()[0](
         div.data_ptr(), None if x0 is None else x0.data_ptr(),
         acc_y.data_ptr(), acc_x.data_ptr(), fluid.data_ptr(), qy.data_ptr(),
-        qx.data_ptr(), qxt.data_ptr(), inv_lam.data_ptr(), out.data_ptr(),
+        qx.data_ptr(), qxt.data_ptr(), inv_lam.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         iters.data_ptr(),
         b, h, w, float(dx), int(closed), float(tol), int(maxiter),
         int(precond), plan.cluster, plan.threads,

@@ -175,7 +175,8 @@ def _pick_backend(backend: str, div: torch.Tensor, domain: Domain2D,
     """Resolve 'auto', as the JAX package does: the exact spectral solve on
     obstacle-free domains; with obstacles, the kernel where the field is
     on the card (`on_cuda`, by default `div.is_cuda`) and the grid fits
-    its shared memory (`cuda_cg.cuda_solve_fits`), and otherwise the
+    its shared memory (`cuda_cg.cuda_solve_fits`: every grid the JAX
+    package's Pallas gate admits, 256² among them), and otherwise the
     spectral-preconditioned CG (closed) or plain CG (open). An explicit
     'cuda' beyond the fit raises, as the JAX package's 'pallas' does.
     On a volume (B, D, H, W): the spectral solve without obstacles and

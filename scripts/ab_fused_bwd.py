@@ -9,8 +9,9 @@ imported, and built into its own `_build/`); each runs in a process of
 its own, in the order given. The operands, the step and the timers are
 this repo's `chip_smoke.py`'s (`_fused_operands`, `FUSED_STEP`, `_time_ms`,
 `_graph_ms`), so every tree gets the same inputs from the same seed: the
-64² closed box with the plate obstacle, warm operands with a force. For
-each tree, at batch 8 and at batch 64, tol 1e-4 / maxiter 100 (the main
+closed box with the plate obstacle, warm operands with a force, at 64²
+(batch 8 and 64; the small layouts) and at 128² (batch 8; the large
+layouts). For each tree, grid and batch, tol 1e-4 / maxiter 100 (the main
 path's settings) and at maxiter 0 (one preconditioner application and no
 CG trip, so that the difference is the solve's trips):
   * K3, the cold transpose solve on the operands' cotangents;
@@ -59,13 +60,13 @@ def _one(tree: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    h = smoke.H
-    domain = Domain2D.create(h, h, obstacle_mask=smoke._plate(h), device=dev)
-    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
     flags = dict(has_force=True, has_inflow=False)
     out = {"tree": tree}
-    for batch in (smoke.BATCH, 64):
-        rng = np.random.default_rng(SEED + batch)
+    for h, batch in ((smoke.H, smoke.BATCH), (smoke.H, 64), (128, smoke.BATCH)):
+        domain = Domain2D.create(h, h, obstacle_mask=smoke._plate(h), device=dev)
+        geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+        rng = np.random.default_rng(SEED + batch + (0 if h == smoke.H else h))
+        at = f"b{batch}" if h == smoke.H else f"{h}x{h} b{batch}"
         ops, cots = smoke._fused_operands(rng, h, h, "warm", domain, dev,
                                           batch=batch)
         state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
@@ -95,7 +96,7 @@ def _one(tree: str) -> dict:
                             tol=1e-4, maxiter=maxiter)
                 got = fn()
                 trips = got[-1]
-                label = f"{name} b{batch}" + (" maxiter 0" if not maxiter else "")
+                label = f"{name} {at}" + (" maxiter 0" if not maxiter else "")
                 out[label] = dict(
                     ms=smoke._time_ms(fn, 50), graph_ms=smoke._graph_ms(fn, 20),
                     trips=float(trips.float().mean()))
@@ -105,10 +106,10 @@ def _one(tree: str) -> dict:
                         if t is not None:
                             digest.update(t.cpu().numpy().tobytes())
                     out[label]["digest"] = digest.hexdigest()[:16]
-            full, rest = out[f"{name} b{batch}"], out[f"{name} b{batch} maxiter 0"]
+            full, rest = out[f"{name} {at}"], out[f"{name} {at} maxiter 0"]
             full["us_per_trip"] = (1e3 * (full["graph_ms"] - rest["graph_ms"])
                                    / full["trips"])
-        out[f"plans b{batch}"] = {
+        out[f"plans {at}"] = {
             "K1": smoke._plan_text(cuda_cg.solve_plan(batch, h, h)),
             "K2": smoke._plan_text(cuda_fluid.fwd_plan(batch, h, h)),
             "K3": smoke._plan_text(cuda_fluid.bwd_plan(

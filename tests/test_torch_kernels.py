@@ -133,11 +133,11 @@ def test_kernel_gradient_matches_plain():
     assert float((grads[0] - grads[1]).abs().max() / grads[1].abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (128, 128)])
+@pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (128, 128), (256, 256)])
 def test_shared_memory_count_matches_source(h, w):
     """K1's plans count the bytes the kernel's source asks for, under every
     plan its launcher takes and under `solve_plan`'s, and name the layout
-    the source takes (the large one at 128² only)."""
+    the source takes (the large one at 128², the banded one at 256²)."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
@@ -146,12 +146,13 @@ def test_shared_memory_count_matches_source(h, w):
     lib = _build.load()[0]
     fn = lib.pcg_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
-    large = lib.pcg_large_layout
-    large.argtypes, large.restype = [ctypes.c_int] * 3, ctypes.c_int
+    layout = lib.pcg_layout
+    layout.argtypes, layout.restype = [ctypes.c_int] * 3, ctypes.c_int
     for plan in cuda_cg.solve_plans(h, w) + [cuda_cg.solve_plan(8, h, w)]:
         assert fn(h, w, plan.cluster, plan.threads) == plan.shared_bytes
-    assert bool(large(h, w, cuda_cg.CLUSTER_THREADS)) is (h == 128)
-    assert cuda_cg.large_layout(h, w) is (h == 128)
+    want = {128: cuda_cg.LARGE, 256: cuda_cg.BANDED}.get(h, cuda_cg.SMALL)
+    assert layout(h, w, cuda_cg.CLUSTER_THREADS) == want
+    assert cuda_cg.layout(h, w) == want
 
 
 def test_kernel_rejects_bad_inputs():
@@ -165,9 +166,9 @@ def test_kernel_rejects_bad_inputs():
         cuda_cg.pressure_solve(div.transpose(1, 2), *geom)
     with pytest.raises(ValueError, match="shape"):
         cuda_cg.pressure_solve(div, domain.acc_x, domain.acc_y, domain.fluid_mask)
-    big = Domain2D.create(160, 160, device=dev)
+    big = Domain2D.create(8, 8192, device=dev)
     with pytest.raises(ValueError, match="shared memory"):
-        cuda_cg.pressure_solve(torch.zeros(1, 160, 160, device=dev), big.acc_y,
+        cuda_cg.pressure_solve(torch.zeros(1, 8, 8192, device=dev), big.acc_y,
                                big.acc_x, big.fluid_mask)
 
 
@@ -193,9 +194,14 @@ def test_cpu_tensors_run_the_plain_version():
 
 @pytest.mark.parametrize("h,w,fits", [(64, 64, True), (96, 96, True),
                                       (32, 48, True), (64, 128, True),
-                                      (128, 128, True), (136, 136, False),
-                                      (160, 160, False)])
+                                      (128, 128, True), (136, 136, True),
+                                      (160, 160, True), (362, 362, True),
+                                      (8, 1000, True), (402, 402, False),
+                                      (8, 8192, False)])
 def test_solve_fits_gate(h, w, fits):
+    """K1 takes a grid where some plan of its layout fits shared memory:
+    every grid the Pallas gate admits (`tests/test_torch_pcg_big.py`
+    sweeps it) and wider ones, not 402² or 8×8192."""
     assert cuda_cg.cuda_solve_fits(h, w) is fits
 
 
@@ -542,7 +548,8 @@ def test_bwd_plan_fills_the_card_and_is_cached():
 
 _SOLVE_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
                       (8, 96, 96), (2, 8, 8), (200, 96, 96), (8, 112, 112),
-                      (8, 128, 128), (200, 128, 128)]
+                      (8, 128, 128), (200, 128, 128), (8, 257, 257),
+                      (8, 320, 96), (1, 8, 1000)]
 
 
 @pytest.mark.parametrize("batch,h,w", _SOLVE_PLAN_SHAPES,
@@ -566,7 +573,8 @@ def test_solve_plan_fills_the_card_and_is_cached():
     """K1's plan by the rule of K3's (`cuda_cg.pick_plan`): 16 at 64²×8
     where 8 clusters of 16 fit, else 8; 2 at batch 64; 1 at batch 132; the
     smallest that fits shared memory at a large batch (4 at 96² and 128²);
-    at 128²×8 as at 64²×8; capped at H rows; one plan object per shape; no
+    at 128²×8 and 256²×8 (banded, C = 8 or 16) as at 64²×8; 16 at 351²,
+    where only 16 fits; capped at H rows; one plan object per shape; no
     plan beyond shared memory."""
     def plan(batch, h, w, limit=_resident_clusters):
         return cuda_cg.solve_plan(batch, h, w, sm_count=132, max_clusters=limit)
@@ -580,9 +588,12 @@ def test_solve_plan_fills_the_card_and_is_cached():
     assert plan(8, 128, 128).cluster == 16
     assert plan(8, 128, 128, _no_resident_16).cluster == 8
     assert plan(200, 128, 128).cluster == 4
+    assert plan(8, 256, 256).cluster == 16  # banded: C = 8 or 16
+    assert plan(8, 256, 256, _no_resident_16).cluster == 8
+    assert plan(8, 351, 351, _no_resident_16).cluster == 16  # 16 only
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 160, 160)
+        plan(1, 8, 8192)
 
 
 @pytest.mark.parametrize("batch,h,w", _BWD_PLAN_SHAPES,
@@ -629,7 +640,7 @@ def test_fwd_plan_fills_the_card_and_is_cached():
 # every batch has a plan of each kernel that runs there.
 _GATE_SHAPES = [(8, 8), (24, 30), (32, 48), (64, 64), (84, 84), (85, 85),
                 (96, 96), (98, 98), (99, 99), (112, 112), (64, 128),
-                (128, 128), (136, 136)]
+                (128, 128), (136, 136), (154, 154), (256, 256), (362, 362)]
 
 
 @pytest.mark.parametrize("h,w", _GATE_SHAPES,
@@ -648,7 +659,7 @@ def test_plans_exist_where_the_gates_say_yes(h, w):
                                        max_clusters=_resident_clusters)
             assert cuda_fluid.bwd_plan(b, h, w, sm_count=132,
                                        max_clusters=_resident_clusters)
-    assert cuda_cg.cuda_solve_fits(h, w) is (max(h, w) <= 128)
+    assert cuda_cg.cuda_solve_fits(h, w)
     assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 128)
 
 

@@ -93,7 +93,7 @@ def test_kernel_matches_golden(case):
     dev = torch.device("cuda")
     div, geom, x0, kw, want, trips = _case(case, dev)
     plans = cuda_cg.solve_plans(128, 128)
-    assert cuda_cg.large_layout(128, 128)
+    assert cuda_cg.layout(128, 128) == cuda_cg.LARGE
     assert {p.cluster for p in plans} == {4, 8, 16}
     for plan in [None] + plans:
         before = cuda_cg.LAUNCHES

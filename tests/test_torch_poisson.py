@@ -139,17 +139,16 @@ def test_pick_backend():
     with pytest.raises(ValueError, match="unknown pressure backend"):
         tpoisson._pick_backend("pallas", div, td)
     # 'auto' on the card, as the JAX package routes on a TPU: the kernel
-    # only where the grid fits its shared memory (128² the largest square),
-    # else the plain CG of the domain's kind; a CPU field never reaches it.
-    big = np.zeros((160, 160), np.float32)
-    big[80, 40:80] = 1.0
-    edge = np.zeros((128, 128), np.float32)
-    edge[64, 32:64] = 1.0
+    # where the grid fits its shared memory (every grid the Pallas gate
+    # admits: 160² and 256² among them), else the plain CG of the domain's
+    # kind (8×8192 fits no plan); a CPU field never reaches it.
+    big = np.zeros((8, 8192), np.float32)
+    big[4, 2048:4096] = 1.0
     for closed, fallback in ((True, "pcg"), (False, "jax")):
         small = _domains(True, closed)[0]
-        large = TDomain.create(160, 160, obstacle_mask=big, closed=closed,
+        large = TDomain.create(8, 8192, obstacle_mask=big, closed=closed,
                                device="cpu")
-        div_large = torch.zeros(1, 160, 160)
+        div_large = torch.zeros(1, 8, 8192)
         assert tpoisson._pick_backend("auto", div, small, on_cuda=True) == "cuda"
         assert tpoisson._pick_backend("auto", div_large, large,
                                       on_cuda=True) == fallback
@@ -157,10 +156,15 @@ def test_pick_backend():
         assert tpoisson._pick_backend("auto", div_large, large) == fallback
         with pytest.raises(ValueError, match="shared memory"):
             tpoisson._pick_backend("cuda", div_large, large)
-        at_edge = TDomain.create(128, 128, obstacle_mask=edge, closed=closed,
-                                 device="cpu")
-        assert tpoisson._pick_backend("auto", torch.zeros(1, 128, 128), at_edge,
-                                      on_cuda=True) == "cuda"
+        for n in (160, 256):
+            edge = np.zeros((n, n), np.float32)
+            edge[n // 2, n // 4:n // 2] = 1.0
+            at_edge = TDomain.create(n, n, obstacle_mask=edge, closed=closed,
+                                     device="cpu")
+            assert tpoisson._pick_backend("auto", torch.zeros(1, n, n), at_edge,
+                                          on_cuda=True) == "cuda"
+            assert tpoisson._pick_backend("cuda", torch.zeros(1, n, n),
+                                          at_edge) == "cuda"
     free_large = TDomain.create(160, 160, device="cpu")
     assert tpoisson._pick_backend("auto", torch.zeros(1, 160, 160), free_large,
                                   on_cuda=True) == "spectral"
