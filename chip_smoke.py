@@ -10,10 +10,11 @@ prints no result):
      (one nvcc per source, in parallel), prints each kernel's registers and
      spills (a kernel the report does not know, a K1, K3, K4 or K5 kernel
      missing from it or one that spills fails), checks the kernels'
-     shared-memory counts and K1's, K2's and K3's layouts (the large one
-     at 112² and 128², K2's from 109²; K1's banded one from 154²) against
-     the Python gates and plans, and prints K3's plan at 64²×8 and ×64,
-     K1's, K2's and K3's at 128²×8 and K1's at 256²×8 and 351²×8;
+     shared-memory counts, K3's banded scratch and K1's, K2's and K3's
+     layouts (the large one at 112² and 128², K2's from 109²; the banded
+     one from 154² for K1, from 146² and 152² for K2 and K3) against the
+     Python gates and plans, and prints K3's plan at 64²×8 and ×64, K1's,
+     K2's and K3's at 128²×8 and K1's at 256²×8 and 351²×8;
   3. the pressure solve (K1) against its plain torch version on the card:
      64² (bench plate, closed), 32² (open, with an obstacle), 48², 96² and
      128² (closed; 128² in the large layout), batch 8, warm and cold, at
@@ -74,7 +75,22 @@ prints no result):
      `progress_multi`'s graph both ways; and `run_smoke_indirect(size=
      256)` cut as `ENTRIES` cuts smoke_128 (`python3 chip_smoke.py k1big`
      runs phase 2 and this one alone and prints its row of the kernels'
-     line, no result);
+     line, no result); then "K2/K3 beyond 128² (banded)": K2 and K3
+     against their plain versions under every plan at 129² (large),
+     153², 154², 192², 224², 225², 227², 236² (the Pallas fluid gate's
+     square edge), 96×320, 320×96 and, in open boxes, the gate's edges
+     64×600 (banded), 8×990 (K2 large, K3 banded) and 430×8 (large),
+     batch 8, in phase 4's cases, tol 1e-6 / 500, trip counts within 3
+     or 10%; against `tests/goldens/fused_step_big.npz` (236² and
+     64×625); their times at 145², 146², 151² and 152² (each kernel's
+     last large and first banded grid), 192² and 236², batch 8 (warm,
+     force, tol 1e-4 / 200), beside plain and the bound, split into the
+     trips and the rest (maxiter 0); and the 232² app (`profile_bench.make_app(232, 16, 8,
+     maxiter=200)`, the largest square of the gate its U-nets take) fused
+     against unfused (K1, banded), first iteration (16 K2 + 16 K3 against
+     31 K1) and the 'staggered' graph both ways (`python3 chip_smoke.py
+     fusedbig` runs phase 2 and this one alone and prints its rows of the
+     kernels' line, no result);
   9. the rest of the training step, on the 'refined' class (every net
      trainable, grad clip 1.0, cosine over 100 updates): its first
      iteration on the conv path against K1 with cuDNN; one op_supervised
@@ -182,7 +198,9 @@ Each phase's seconds follow it. The line before the last is the kernels'
 JSON summary (with each kernel's launches in configs 3-5, in the OOD evals,
 in the 128² and 3D entries, in the 128² fused app and in the mesh,
 spatial and spatial3d phases, and K1's, K2's and K3's times at 128²x8;
-K1's banded layout in a row of its own, `pcg_pressure_solve_banded`);
+K1's banded layout in a row of its own, `pcg_pressure_solve_banded`, and
+K2's and K3's in two, `fused_step_forward_banded` and
+`fused_step_backward_banded`);
 the last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -215,17 +233,18 @@ PEAK_HBM_BYTES = 3.35e12
 # listed by `cuda_conv.FWD_TILES` in the build phase).
 K5_KERNELS = {f"conv3x3_dw_kernel<{cf}, {nf}>" for cf in (1, 2)
               for nf in (1, 2, 4)} | {"conv3x3_dw_reduce_kernel"}
-# K3's instantiations <threads, trip profile, large layout>: the main
-# path's in the small layout, the one `fused_bwd_trace` selects and the main
-# path's in the large layout (grids from 112² to 128²); K1's <threads,
+# K3's instantiations <threads, trip profile, layout (0 small, 1 large, 2
+# banded)>: the main path's in the small layout, the one `fused_bwd_trace`
+# selects, the main path's in the large layout (grids from 112²) and in the
+# banded one (from 152², the window phase in global memory); K1's <threads,
 # large layout> (the large one from 112²) and its banded kernel <threads>
-# (from 154²), and K2's <threads, large layout> (the large one from 109²).
-# Each must stand in ptxas's report, without spills.
+# (from 154²), and K2's <threads, layout> (large from 109², banded from
+# 146²). Each must stand in ptxas's report, without spills.
 K3_KERNELS = {"fused_bwd_kernel<512, 0, 0>", "fused_bwd_kernel<512, 1, 0>",
-              "fused_bwd_kernel<512, 0, 1>"}
+              "fused_bwd_kernel<512, 0, 1>", "fused_bwd_kernel<512, 0, 2>"}
 K1_K2_KERNELS = {"pcg_cluster_kernel<512, 0>", "pcg_cluster_kernel<512, 1>",
                  "pcg_banded_kernel<512>", "fused_fwd_kernel<512, 0>",
-                 "fused_fwd_kernel<512, 1>"}
+                 "fused_fwd_kernel<512, 1>", "fused_fwd_kernel<512, 2>"}
 # (batch, H, W, Cin, Cout) that the main path does not reach and K4's plan
 # could get wrong: positions the tiles do not divide, one row, one column,
 # an image cut into segments of columns (W = 700 and 4096), Cin 3 and 5
@@ -325,14 +344,15 @@ def build_phase() -> None:
                              f"{ {k: seen[k] for k in checked if seen[k]} }")
     shapes = ((H, H), (32, 32), (48, 48), (96, 96), (112, 112), (128, 128),
               (32, 48), (24, 30), (8, 8), (64, 128))
-    for name, c_name, plans, plan, query in (
+    for name, c_name, plans, plan, query, more in (
             ("K1", "pcg_shared_bytes", cuda_cg.solve_plans, cuda_cg.solve_plan,
-             cuda_cg._kernel()[1]),
+             cuda_cg._kernel()[1], ()),
             ("K2", "fused_fwd_shared_bytes", cuda_fluid.fwd_plans,
-             cuda_fluid.fwd_plan, cuda_fluid._kernels()[3])):
+             cuda_fluid.fwd_plan, cuda_fluid._kernels()[3],
+             tuple(FUSED_BANDED_SHAPES))):
         fn = getattr(lib, c_name)
         fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
-        cases = [(h, w, p) for h, w in shapes for p in plans(h, w)]
+        cases = [(h, w, p) for h, w in shapes + more for p in plans(h, w)]
         for h, w, p in cases:
             if fn(h, w, p.cluster, p.threads) != p.shared_bytes:
                 raise AssertionError(f"{c_name}({h}, {w}, {p.cluster}, "
@@ -378,27 +398,29 @@ def build_phase() -> None:
               "clusters: " + ", ".join(
                   f"C={p.cluster}: {cuda_cg._kernel()[1](n, n, p.cluster, p.threads)}"
                   for p in cuda_cg.solve_plans(n, n)))
-    # K2's and K3's layouts: the large one exactly where the Python
-    # counts say so (K2 from 109², K3 from 112²), and each kernel's plan
-    # and resident clusters at 128²×8.
+    # K2's and K3's layouts: each exactly where the Python counts say so
+    # (K2 large from 109² and banded from 146², K3 from 112² and 152²), and
+    # each kernel's plan and resident clusters at 128²×8.
     k = FUSED_STEP["max_shift"]
-    fwd_large, bwd_large = lib.fused_fwd_large_layout, lib.fused_bwd_large_layout
-    fwd_large.argtypes, fwd_large.restype = [ctypes.c_int] * 3, ctypes.c_int
-    bwd_large.argtypes, bwd_large.restype = [ctypes.c_int] * 4, ctypes.c_int
-    layout_shapes = shapes + ((104, 104), (108, 108), (109, 109), (111, 111))
+    fwd_layout, bwd_layout = lib.fused_fwd_layout, lib.fused_bwd_layout
+    fwd_layout.argtypes, fwd_layout.restype = [ctypes.c_int] * 3, ctypes.c_int
+    bwd_layout.argtypes, bwd_layout.restype = [ctypes.c_int] * 4, ctypes.c_int
+    layout_shapes = (shapes + ((104, 104), (108, 108), (109, 109), (111, 111),
+                               (145, 145), (146, 146), (151, 151))
+                     + tuple(FUSED_BANDED_SHAPES))
     for h, w in layout_shapes:
-        want = (cuda_fluid.fwd_large_layout(h, w),
-                cuda_fluid.bwd_large_layout(h, w, k))
-        got = (bool(fwd_large(h, w, cuda_cg.CLUSTER_THREADS)),
-               bool(bwd_large(h, w, cuda_fluid.BWD_THREADS, k)))
+        want = (cuda_fluid.fwd_layout(h, w), cuda_fluid.bwd_layout(h, w, k))
+        got = (fwd_layout(h, w, cuda_cg.CLUSTER_THREADS),
+               bwd_layout(h, w, cuda_fluid.BWD_THREADS, k))
         if got != want:
-            raise AssertionError(f"fused_*_large_layout({h}, {w}) = {got}, the "
+            raise AssertionError(f"fused_*_layout({h}, {w}) = {got}, the "
                                  f"Python count says {want}")
-    for name, large in (("K2", cuda_fluid.fwd_large_layout),
-                        ("K3", lambda h, w: cuda_fluid.bwd_large_layout(h, w, k))):
-        print(f"{name} large layout at " + ", ".join(
-            f"{h}x{w}" for h, w in layout_shapes if large(h, w))
-            + " (the kernel's and the Python count agree)")
+    for name, layout in (("K2", cuda_fluid.fwd_layout),
+                         ("K3", lambda h, w: cuda_fluid.bwd_layout(h, w, k))):
+        for kind in (cuda_cg.LARGE, cuda_cg.BANDED):
+            print(f"{name} {cuda_cg.LAYOUT_NAMES[kind]} layout at " + ", ".join(
+                f"{h}x{w}" for h, w in layout_shapes if layout(h, w) == kind)
+                + " (the kernel's and the Python count agree)")
     big = FUSED_BIG
     print(f"K2 plan at {big}x{big}x{BATCH}: "
           f"{_plan_text(cuda_fluid.fwd_plan(BATCH, big, big))}; resident "
@@ -412,9 +434,12 @@ def build_phase() -> None:
               for p in cuda_fluid.bwd_plans(big, big, k)))
     fn = lib.fused_bwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    scratch = lib.fused_bwd_scratch_floats
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     bwd_cases = [(h, w, c, cuda_fluid.BWD_THREADS)
                  for h, w in ((H, H), (32, 32), (32, 48), (8, 8), (84, 84),
-                              (96, 96), (112, 112), (128, 128), (64, 128))
+                              (96, 96), (112, 112), (128, 128), (64, 128),
+                              *FUSED_BANDED_SHAPES)
                  for c in cuda_fluid.BWD_CLUSTERS if c <= h]
     for h, w, c, t in bwd_cases:
         want = cuda_fluid.bwd_shared_bytes(h, w, c, t, FUSED_STEP["max_shift"])
@@ -422,14 +447,19 @@ def build_phase() -> None:
             raise AssertionError(f"fused_bwd_shared_bytes({h}, {w}, {c}, {t}): "
                                  f"kernel asks {fn(h, w, c, t, 2)} bytes, the "
                                  f"plan counts {want}")
+        want = cuda_fluid.bwd_scratch_floats(h, w, c, FUSED_STEP["max_shift"])
+        if scratch(h, w, c, t, FUSED_STEP["max_shift"]) != want:
+            raise AssertionError(f"fused_bwd_scratch_floats({h}, {w}, {c}): "
+                                 f"kernel {scratch(h, w, c, t, 2)}, the "
+                                 f"wrapper allocates {want}")
     for batch in (BATCH, 64):
         plan = cuda_fluid.bwd_plan(batch, H, H, FUSED_STEP["max_shift"])
         if fn(H, H, plan.cluster, plan.threads, 2) != plan.shared_bytes:
             raise AssertionError(f"bwd_plan {plan}: the kernel asks "
                                  f"{fn(H, H, plan.cluster, plan.threads, 2)} bytes")
         print(f"K3 plan at {H}x{H}x{batch}: {_plan_text(plan)}")
-    print(f"fused_bwd_shared_bytes equal to the plan's count at "
-          f"{len(bwd_cases)} cases")
+    print(f"fused_bwd_shared_bytes and fused_bwd_scratch_floats equal to the "
+          f"plan's and the wrapper's counts at {len(bwd_cases)} cases")
     fn = lib.conv3x3_fwd_shared_bytes
     fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_size_t
     fwd_cases = [(bn, fm, seg, w) for bn, fm in cuda_conv.FWD_TILES
@@ -841,11 +871,13 @@ def _plan_text(plan) -> str:
             f"{plan.rows_per_rank} rows a rank, {plan.shared_bytes} B shared")
 
 
-def _agree(label: str, got, want, names, limit: float, nonfinite: bool) -> tuple:
+def _agree(label: str, got, want, names, limit: float, nonfinite: bool,
+           trips_frac: float = 0.0) -> tuple:
     """Each output within `limit` of the reference's max|ref| over its
     finite cells, the non-finite cells exactly the reference's (none unless
-    `nonfinite`), trip counts within 3 when both sides return them. Returns
-    ({name: max|d|/max|ref|}, the largest max|d|, the non-finite cells)."""
+    `nonfinite`), trip counts within 3 (or `trips_frac` of the reference's
+    largest, if more) when both sides return them. Returns ({name:
+    max|d|/max|ref|}, the largest max|d|, the non-finite cells)."""
     rels, worst, n_bad = {}, 0.0, 0
     for name, a, b in zip(names, got, want):
         if (a is None) != (b is None):
@@ -866,8 +898,9 @@ def _agree(label: str, got, want, names, limit: float, nonfinite: bool) -> tuple
         raise AssertionError(f"{label}: {bad} > {limit}")
     if len(got) > len(names) and len(want) > len(names):
         dit = int((got[-1] - want[-1]).abs().max())
-        if dit > 3:
-            raise AssertionError(f"{label}: trip counts differ by {dit} > 3")
+        most = max(3, int(trips_frac * int(want[-1].max())))
+        if dit > most:
+            raise AssertionError(f"{label}: trip counts differ by {dit} > {most}")
     return rels, worst, n_bad
 
 
@@ -877,24 +910,30 @@ def _same_bits(label: str, a: tuple, b: tuple) -> None:
             raise AssertionError(f"{label}: two calls differ")
 
 
-def fused_golden_check(dev, n: int) -> dict:
+def fused_golden_check(dev, path: str, h: int, w: int, grid: str = "",
+                       trips_frac: float = 0.0) -> dict:
     """K2 and K3 (each under its plan and every plan its launcher takes at
-    n²) against the JAX package's fused step and VJP, from the goldens
-    `GOLDENS[n]`: outputs within 1e-4, cotangents within 1e-3 of the
-    golden's max|ref|; at 128², trip counts within 3 of the JAX package's
-    CG on the same systems (the golden's `trips`)."""
+    H x W) against the JAX package's fused step and VJP, from the golden
+    file `path` (its arrays under `grid/` where it holds more grids than
+    one): outputs within 1e-4, cotangents within 1e-3 of the golden's
+    max|ref|; where the golden has them (128² and beyond), trip counts
+    within 3 (or `trips_frac` of the golden's, if more) of the JAX
+    package's CG on the same systems (`trips`)."""
     from pathlib import Path
 
-    from pde_control_tpu_torch.ops import cuda_fluid
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
 
-    z = np.load(Path(__file__).resolve().parent / GOLDENS[n])
+    z = np.load(Path(__file__).resolve().parent / path)
     cfg = json.loads(str(z["config"]))
     trips = cfg.get("trips")
+    if trips is not None and grid:
+        trips = trips[grid]
+    prefix = f"{grid}/" if grid else ""
     kw = {k: cfg[k] for k in ("dt", "dx", "max_shift", "buoyancy", "closed",
                               "tol", "maxiter")}
 
     def t(key):
-        return torch.tensor(z[key].astype(np.float32), device=dev)
+        return torch.tensor(z[prefix + key].astype(np.float32), device=dev)
 
     geom = tuple(t(k) for k in ("acc_y", "acc_x", "fluid"))
     cots = [t(k) for k in ("g_vy4", "g_vx4", "g_rho1", "g_p")]
@@ -912,16 +951,16 @@ def fused_golden_check(dev, n: int) -> dict:
             if trips is None:
                 return 0
             d = int(np.abs(got.cpu().numpy() - trips[case][where]).max())
-            if d > 3:
-                raise AssertionError(f"golden {n}x{n} {case} {where} {plan}: "
+            if d > max(3, int(trips_frac * max(trips[case][where]))):
+                raise AssertionError(f"golden {h}x{w} {case} {where} {plan}: "
                                      f"trip counts {got.tolist()} against the "
                                      f"JAX CG's {trips[case][where]}")
             return d
 
-        for plan in [None] + cuda_fluid.fwd_plans(n, n):
+        for plan in [None] + cuda_fluid.fwd_plans(h, w):
             out = cuda_fluid._launch_forward(vy, vx, rho, *geom, fy, fx, inflow,
                                              x0, plan, **kw)
-            rels, worst, _ = _agree(f"golden {n}x{n} {case} fwd {plan}", out[:4],
+            rels, worst, _ = _agree(f"golden {h}x{w} {case} fwd {plan}", out[:4],
                                     want, names_f, 1e-4, False)
             err["fwd"] = max(err["fwd"], worst)
             rel_f = max(rel_f, max(rels.values()))
@@ -930,25 +969,103 @@ def fused_golden_check(dev, n: int) -> dict:
         want = [None if zero_v and n == "inflow" else t(f"{case}/d_{n}")
                 for n in names_b]
         rel_b = 0.0
-        for plan in [None] + cuda_fluid.bwd_plans(n, n):
+        for plan in [None] + cuda_fluid.bwd_plans(h, w):
             got = cuda_fluid._launch_backward(vy, vx, rho, *cots, *geom, plan,
                                               has_force=True, has_inflow=not zero_v,
                                               **kw)
-            rels_b, worst, _ = _agree(f"golden {n}x{n} {case} bwd {plan}",
+            rels_b, worst, _ = _agree(f"golden {h}x{w} {case} bwd {plan}",
                                       got[:6], want, names_b, 1e-3, False)
             err["bwd"] = max(err["bwd"], worst)
             rel_b = max(rel_b, max(rels_b.values()))
             dit = max(dit, trips_off(got[6], "bwd", plan))
-        layout = ("large" if cuda_fluid.fwd_large_layout(n, n) else "small",
-                  "large" if cuda_fluid.bwd_large_layout(n, n, kw["max_shift"])
-                  else "small")
-        print(f"golden {n}x{n}x2 {case} (JAX interpret-mode kernels): worst "
-              f"max|d|/max|ref| over the plan and every other: K2 {rel_f:.2e} "
-              f"({len(cuda_fluid.fwd_plans(n, n))} plans, {layout[0]} layout), "
-              f"K3 {rel_b:.2e} ({len(cuda_fluid.bwd_plans(n, n))} plans, "
-              f"{layout[1]} layout)"
+        layout = (cuda_cg.LAYOUT_NAMES[cuda_fluid.fwd_layout(h, w)],
+                  cuda_cg.LAYOUT_NAMES[cuda_fluid.bwd_layout(h, w,
+                                                             kw["max_shift"])])
+        print(f"golden {h}x{w}x{len(rho)} {case} (JAX interpret-mode kernels): "
+              f"worst max|d|/max|ref| over the plan and every other: K2 "
+              f"{rel_f:.2e} ({len(cuda_fluid.fwd_plans(h, w))} plans, "
+              f"{layout[0]} layout), K3 {rel_b:.2e} "
+              f"({len(cuda_fluid.bwd_plans(h, w))} plans, {layout[1]} layout)"
               + (f"; trip counts within {dit} of the JAX CG's" if trips else ""))
     return err
+
+
+def _fused_against_plain(dev, rng, h: int, w: int, err: dict, *,
+                         closed: bool = True, trips_frac: float = 0.0) -> None:
+    """K2 and K3 at H x W, batch 8, with the plate, in every case of
+    `FUSED_CASES`, against their plain versions on the card at tol 1e-6 /
+    500: under their plans and under every plan their launchers take, each
+    twice for the same bits, at `_agree`'s limits (outputs 1e-4,
+    cotangents 1e-3, trips within 3 or `trips_frac`). Raises `err`'s "fwd"
+    and "bwd" to the largest max|d|."""
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+
+    names_f = ("vy4", "vx4", "rho1", "p")
+    names_b = ("g_vy", "g_vx", "g_rho", "g_fy", "g_fx", "g_inflow")
+    domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), closed=closed,
+                             device=dev)
+    geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
+    plans = cuda_fluid.bwd_plans(h, w)
+    fwd_plans = cuda_fluid.fwd_plans(h, w)
+    print(f"{h}x{w}{'' if closed else ' open'}: K2 in the "
+          f"{cuda_cg.LAYOUT_NAMES[cuda_fluid.fwd_layout(h, w)]} layout, K3 "
+          f"in the {cuda_cg.LAYOUT_NAMES[cuda_fluid.bwd_layout(h, w)]}")
+    for case in FUSED_CASES:
+        label = f"{h}x{w} {case}"
+        nonfinite = case == "non-finite"
+        ops, cots = _fused_operands(rng, h, w, case, domain, dev)
+        kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-6, maxiter=500,
+                  closed=closed)
+        state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
+        out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
+        out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops, **kw)
+        rels, worst, n_bad = _agree(f"{label} fwd", out_k, out_p, names_f,
+                                    1e-4, nonfinite, trips_frac)
+        err["fwd"] = max(err["fwd"], worst)
+        worst_rel, trips = 0.0, set()
+        step_ops = [ops.get(k) for k in ("fy", "fx", "inflow", "x0")]
+        for plan in fwd_plans:
+            got, again = (cuda_fluid._launch_forward(
+                *state, *geom, *step_ops, plan, **kw) for _ in range(2))
+            r, d, _ = _agree(f"{label} fwd {plan}", got, out_p, names_f,
+                             1e-4, nonfinite, trips_frac)
+            _same_bits(f"{label} fwd {plan}", got, again)
+            err["fwd"] = max(err["fwd"], d)
+            worst_rel = max(worst_rel, max(r.values()))
+            trips.add(tuple(got[-1].tolist()))
+        plan = cuda_fluid.fwd_plan(BATCH, h, w)
+        print(f"{label} fwd ({_plan_text(plan)}): " + " ".join(
+            f"{k}={v:.2e}" for k, v in rels.items())
+            + f" | non-finite cells {n_bad} | iters kernel="
+            f"{out_k[-1].tolist()} plain={out_p[-1].tolist()} | "
+            f"{len(fwd_plans)} plans: worst {worst_rel:.2e}, {len(trips)} "
+            "distinct trip counts, each the same bits in two calls")
+        flags = dict(has_force=True, has_inflow="inflow" in ops)
+        g_p = cuda_fluid.fused_step_plain_backward(*state, *cots, *geom,
+                                                   **flags, **kw)
+        g_k = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags,
+                                             **kw)
+        rels, worst, n_bad = _agree(f"{label} bwd", g_k, g_p, names_b, 1e-3,
+                                    nonfinite, trips_frac)
+        err["bwd"] = max(err["bwd"], worst)
+        worst_rel, trips = 0.0, set()
+        for plan in plans:
+            got, again = (cuda_fluid._launch_backward(
+                *state, *cots, *geom, plan, **flags, **kw) for _ in range(2))
+            r, d, _ = _agree(f"{label} bwd {plan}", got, g_p, names_b, 1e-3,
+                             nonfinite, trips_frac)
+            _same_bits(f"{label} bwd {plan}", got, again)
+            err["bwd"] = max(err["bwd"], d)
+            worst_rel = max(worst_rel, max(r.values()))
+            trips.add(tuple(got[-1].tolist()))
+        plan = cuda_fluid.bwd_plan(BATCH, h, w, FUSED_STEP["max_shift"])
+        print(f"{label} bwd ({_plan_text(plan)}): " + " ".join(
+            f"{k}={v:.2e}" for k, v in rels.items())
+            + f" | non-finite cells {n_bad} | iters kernel="
+            f"{g_k[-1].tolist()} plain={g_p[-1].tolist()} | {len(plans)} "
+            f"plans: worst {worst_rel:.2e}, {len(trips)} distinct trip "
+            "counts, each the same bits in two calls")
 
 
 def fused_kernel_phase(card: str) -> dict:
@@ -964,77 +1081,11 @@ def fused_kernel_phase(card: str) -> dict:
           "every plan its launcher takes, the same bits in two calls; "
           "non-finite cells exactly the plain version's (none but in the "
           "non-finite case), errors over the finite cells")
-    names_f = ("vy4", "vx4", "rho1", "p")
-    names_b = ("g_vy", "g_vx", "g_rho", "g_fy", "g_fx", "g_inflow")
     err = {"fwd": 0.0, "bwd": 0.0}
     for h, w in FUSED_SHAPES:
-        domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), device=dev)
-        geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
-        plans = cuda_fluid.bwd_plans(h, w)
-        fwd_plans = cuda_fluid.fwd_plans(h, w)
-        print(f"{h}x{w}: K2 in the "
-              f"{'large' if cuda_fluid.fwd_large_layout(h, w) else 'small'} "
-              f"layout, K3 in the "
-              f"{'large' if cuda_fluid.bwd_large_layout(h, w) else 'small'}")
-        for case in FUSED_CASES:
-            label = f"{h}x{w} {case}"
-            nonfinite = case == "non-finite"
-            ops, cots = _fused_operands(rng, h, w, case, domain, dev)
-            kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-6, maxiter=500)
-            state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
-            out_k = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
-            out_p = cuda_fluid.fused_step_plain_forward(*state, *geom, **ops,
-                                                        **kw)
-            rels, worst, n_bad = _agree(f"{label} fwd", out_k, out_p, names_f,
-                                        1e-4, nonfinite)
-            err["fwd"] = max(err["fwd"], worst)
-            worst_rel, trips = 0.0, set()
-            step_ops = [ops.get(k) for k in ("fy", "fx", "inflow", "x0")]
-            for plan in fwd_plans:
-                got, again = (cuda_fluid._launch_forward(
-                    *state, *geom, *step_ops, plan, **kw) for _ in range(2))
-                r, d, _ = _agree(f"{label} fwd {plan}", got, out_p, names_f,
-                                 1e-4, nonfinite)
-                _same_bits(f"{label} fwd {plan}", got, again)
-                err["fwd"] = max(err["fwd"], d)
-                worst_rel = max(worst_rel, max(r.values()))
-                trips.add(tuple(got[-1].tolist()))
-            plan = cuda_fluid.fwd_plan(BATCH, h, w)
-            print(f"{label} fwd ({_plan_text(plan)}): " + " ".join(
-                f"{k}={v:.2e}" for k, v in rels.items())
-                + f" | non-finite cells {n_bad} | iters kernel="
-                f"{out_k[-1].tolist()} plain={out_p[-1].tolist()} | "
-                f"{len(fwd_plans)} plans: worst {worst_rel:.2e}, {len(trips)} "
-                "distinct trip counts, each the same bits in two calls")
-            flags = dict(has_force=True, has_inflow="inflow" in ops)
-            g_p = cuda_fluid.fused_step_plain_backward(*state, *cots, *geom,
-                                                       **flags, **kw)
-            g_k = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags,
-                                                 **kw)
-            rels, worst, n_bad = _agree(f"{label} bwd", g_k, g_p, names_b, 1e-3,
-                                        nonfinite)
-            err["bwd"] = max(err["bwd"], worst)
-            worst_rel, trips = 0.0, set()
-            for plan in plans:
-                got = cuda_fluid._launch_backward(*state, *cots, *geom, plan,
-                                                  **flags, **kw)
-                again = cuda_fluid._launch_backward(*state, *cots, *geom, plan,
-                                                    **flags, **kw)
-                r, d, _ = _agree(f"{label} bwd {plan}", got, g_p, names_b, 1e-3,
-                                 nonfinite)
-                _same_bits(f"{label} bwd {plan}", got, again)
-                err["bwd"] = max(err["bwd"], d)
-                worst_rel = max(worst_rel, max(r.values()))
-                trips.add(tuple(got[-1].tolist()))
-            plan = cuda_fluid.bwd_plan(BATCH, h, w, FUSED_STEP["max_shift"])
-            print(f"{label} bwd ({_plan_text(plan)}): " + " ".join(
-                f"{k}={v:.2e}" for k, v in rels.items())
-                + f" | non-finite cells {n_bad} | iters kernel="
-                f"{g_k[-1].tolist()} plain={g_p[-1].tolist()} | {len(plans)} "
-                f"plans: worst {worst_rel:.2e}, {len(trips)} distinct trip "
-                "counts, each the same bits in two calls")
-    for n in GOLDENS:
-        golden = fused_golden_check(dev, n)
+        _fused_against_plain(dev, rng, h, w, err)
+    for n, path in GOLDENS.items():
+        golden = fused_golden_check(dev, path, n, n)
         for key in err:
             err[key] = max(err[key], golden[key])
 
@@ -1109,107 +1160,101 @@ def fused_kernel_phase(card: str) -> dict:
               f"launch [{card}]")
         summary[where]["plan"] = dict(plan._asdict(), batch=BATCH)
 
-    # Times at 128²×8, the slice's settings (smoke_128's step: force, warm
-    # start, tol 1e-4 / maxiter 200, max_shift 2), both kernels in the large
-    # layout: events over a host loop, graph replay beside them, the plain
-    # versions and the bounds counted as at 64².
-    n = FUSED_BIG
+    # Times at 128²×8, smoke_128's step, both kernels in the large layout.
+    summary["fwd"]["128x8"], summary["bwd"]["128x8"] = _fused_times(
+        card, dev, rng, FUSED_BIG)
+    return summary
+
+
+def _fused_times(card: str, dev, rng, n: int) -> tuple[dict, dict]:
+    """K2's and K3's times at n²×8, the slices' settings (smoke_128's step:
+    force, warm start, tol 1e-4 / maxiter 200, max_shift 2): events over a
+    host loop, graph replay beside them, the plain versions and the bounds
+    counted as at 64², under the plan, in the grid's layout; and the split
+    into the rest (graph replay at maxiter 0: the windows, their adjoints
+    and one preconditioner application) and µs a trip of the sample with
+    the most. Returns each kernel's numbers."""
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+
     domain = Domain2D.create(n, n, obstacle_mask=_plate(n), device=dev)
     geom = (domain.acc_y, domain.acc_x, domain.fluid_mask)
     ops, cots = _fused_operands(rng, n, n, "warm", domain, dev)
     kw = dict(FUSED_STEP, dx=domain.dx, tol=1e-4, maxiter=200)
     state = (ops.pop("vy"), ops.pop("vx"), ops.pop("rho"))
+    flags = dict(has_force=True, has_inflow=False)
     out = cuda_fluid.fused_step_forward(*state, *geom, **ops, **kw)
     grads = cuda_fluid.fused_step_backward(*state, *cots, *geom, **flags, **kw)
     cells = _window_cells(BATCH, n, n)
-    big = {
+    k = FUSED_STEP["max_shift"]
+    kernels = {
         "fwd": ("K2", lambda: cuda_fluid.fused_step_forward(
                     *state, *geom, **ops, **kw),
                 lambda: cuda_fluid.fused_step_plain_forward(
                     *state, *geom, **ops, **kw),
                 _nbytes(*state, *ops.values(), *out[:4]), out[4], False,
-                cuda_fluid.fwd_plan(BATCH, n, n),
-                cuda_fluid.fwd_large_layout(n, n)),
+                cuda_fluid.fwd_plan(BATCH, n, n), cuda_fluid.fwd_layout(n, n)),
         "bwd": ("K3", lambda: cuda_fluid.fused_step_backward(
                     *state, *cots, *geom, **flags, **kw),
                 lambda: cuda_fluid.fused_step_plain_backward(
                     *state, *cots, *geom, **flags, **kw),
                 _nbytes(*state, *cots, *grads[:6]), grads[6], True,
-                cuda_fluid.bwd_plan(BATCH, n, n, FUSED_STEP["max_shift"]),
-                cuda_fluid.bwd_large_layout(n, n, FUSED_STEP["max_shift"])),
+                cuda_fluid.bwd_plan(BATCH, n, n, k),
+                cuda_fluid.bwd_layout(n, n, k)),
     }
+    times = {}
+    rest = {"fwd": lambda: cuda_fluid.fused_step_forward(
+                *state, *geom, **ops, **dict(kw, maxiter=0)),
+            "bwd": lambda: cuda_fluid.fused_step_backward(
+                *state, *cots, *geom, **flags, **dict(kw, maxiter=0))}
     for where, (name, kernel, plain, nbytes, iters, adjoint, plan,
-                large) in big.items():
+                layout) in kernels.items():
         kernel_ms, plain_ms = _time_ms(kernel, 20), _time_ms(plain, 3)
         graph_ms = _graph_ms(kernel, 10)
+        rest_ms = _graph_ms(rest[where], 10)
+        us_per_trip = 1e3 * (graph_ms - rest_ms) / max(int(iters.max()), 1)
         flops = cells * (_window_flops(adjoint) + 20) + _cg_flops(n, n, iters)
         nbytes += 4 * BATCH
         bound_ms, bound_by = _bound(nbytes + _geom_bytes(n, n), flops)
-        layout = "large" if large else "small"
+        layout = cuda_cg.LAYOUT_NAMES[layout]
         print(f"  time per {where} launch {n}x{n}x{BATCH} warm, force, tol 1e-4 "
               f"maxiter 200 (trips {iters.tolist()}): {name} {kernel_ms:.4f} ms "
               f"(graph replay {graph_ms:.4f}), plain {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by}; {flops / 1e6:.1f} MFLOP, "
-              f"{nbytes / 1e6:.2f} MB); {_plan_text(plan)}, {layout} layout "
-              f"[{card}]")
-        summary[where]["128x8"] = dict(
+              f"{nbytes / 1e6:.2f} MB); {_plan_text(plan)}, {layout} layout; "
+              f"at maxiter 0 {rest_ms:.4f} ms by graph replay, so "
+              f"{us_per_trip:.1f} µs a trip of the most [{card}]")
+        times[where] = dict(
             ms=kernel_ms, graph_ms=graph_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
+            bound_ms=bound_ms, bound_by=bound_by, rest_ms=rest_ms,
+            us_per_trip=us_per_trip,
             trips=float(iters.float().mean()),
             plan=dict(plan._asdict(), batch=BATCH, h=n, w=n, layout=layout))
-    return summary
+    return times["fwd"], times["bwd"]
 
 
-# ------------------------------------------------------- the 128² fused app
+# ------------------------------------------------ the 128² and 236² fused apps
 
-# The slice at smoke_128's grid: `profile_bench.make_app(128, 16, 8,
-# maxiter=200)` (the plate, buoyancy control, a warm-started solve at tol
-# 1e-4, CFE 32-64-64-32, OP16-OP2 at base 16 and 3 levels, bf16 nets), its
-# fused step on K2/K3 against the same app unfused on K1.
-BIG_APP = dict(h=FUSED_BIG, n=N, batch=BATCH, maxiter=200)
+# The slices at smoke_128's grid and at the Pallas fluid gate's square edge:
+# `profile_bench.make_app(h, 16, 8, maxiter=200)` (the plate, buoyancy
+# control, a warm-started solve at tol 1e-4, CFE 32-64-64-32, OP16-OP2 at
+# base 16 and 3 levels, bf16 nets), its fused step on K2/K3 against the
+# same app unfused on K1 (at 236² both in the banded layout).
+BIG_APP = dict(n=N, batch=BATCH, maxiter=200)
 
 
-def _app128(fused: str, sequence_class: str = "staggered"):
+def _fused_app(h: int, fused: str, sequence_class: str = "staggered"):
     from pde_control_tpu_torch.experiments import profile_bench
 
     return profile_bench.make_app(
-        BIG_APP["h"], BIG_APP["n"], BIG_APP["batch"], "cuda",
-        maxiter=BIG_APP["maxiter"], fused=fused, sequence_class=sequence_class)
+        h, BIG_APP["n"], BIG_APP["batch"], "cuda", maxiter=BIG_APP["maxiter"],
+        fused=fused, sequence_class=sequence_class)
 
 
-def fused128_phase(card: str) -> dict:
-    """The 128² training iteration under fused='cuda' (K2/K3) beside the
-    same app unfused (K1): the first iteration of both on the same perturbed
-    weights and batch (loss 1e-3 relative, each net's gradient norm within
-    2e-2), the launches of an iteration (16 K2, 16 K3, 0 K1 fused), eager
-    iterations, then `progress_multi`'s CUDA graph for 'staggered' and
-    'chain' on both apps: ms a step, peak and reserved memory, capture
-    seconds and graph nodes. Returns the fused app's launches per eager
-    iteration and per replay of each class."""
-    _phase("128², fused (K2 / K3)")
-    from pde_control_tpu_torch.experiments import profile_bench
-
-    h, n, b = BIG_APP["h"], BIG_APP["n"], BIG_APP["batch"]
-    batch = profile_bench.make_batch(h, n, b, SEED)
-    fused_iter = {"K1": 0, "K2": n, "K3": n, "K4 fwd": 0, "K4 dX": 0, "K5": 0}
-    first = {}
-    for fused in ("cuda", "auto"):
-        app = _app128(fused)
-        perturb_cfe(app)
-        _zero_counts()
-        metrics = app.compute_gradients(app.to_batch(batch))
-        torch.cuda.synchronize()
-        first[fused] = ((float(metrics["loss"]), _grad_norms(app)), _counts())
-        del app, metrics
-    print(f"{h}x{h} n={n} batch={b} first iteration launches: fused "
-          f"{first['cuda'][1]}, unfused {first['auto'][1]}")
-    _compare_first(f"fused {h}x{h}", first["cuda"][0], first["auto"][0])
-    if first["cuda"][1] != fused_iter:
-        raise AssertionError(f"fused {h}x{h}: an iteration launched "
-                             f"{first['cuda'][1]}, expected {fused_iter}")
-
-    # Eager iterations of the fused app: launches and time.
-    app = _app128("cuda")
+def _fused_app_eager(card: str, h: int, batch: dict, fused_iter: dict) -> dict:
+    """Two eager iterations of the fused h² app after a warm-up: ms an
+    iteration, peak memory, launches. Returns the launches an iteration."""
+    app = _fused_app(h, "cuda")
     on_card = app.to_batch(batch)
     app.progress(on_card)  # warm-up
     torch.cuda.synchronize()
@@ -1231,6 +1276,49 @@ def fused128_phase(card: str) -> dict:
     _expect(f"fused {h}x{h} eager", eager, fused_iter, iters=2)
     del app, on_card
     torch.cuda.empty_cache()
+    return {k: v // 2 for k, v in eager.items()}
+
+
+def fused128_phase(card: str) -> dict:
+    """`fused_app_phase` at 128², both classes, with eager iterations."""
+    _phase("128², fused (K2 / K3)")
+    return fused_app_phase(card, FUSED_BIG)
+
+
+def fused_app_phase(card: str, h: int, seqs=("staggered", "chain"),
+                    eager: bool = True) -> dict:
+    """The h² training iteration under fused='cuda' (K2/K3) beside the
+    same app unfused (K1): the first iteration of both on the same perturbed
+    weights and batch (loss 1e-3 relative, each net's gradient norm within
+    2e-2), the launches of an iteration (16 K2, 16 K3, 0 K1 fused), eager
+    iterations (if `eager`), then `progress_multi`'s CUDA graph for each
+    class of `seqs` on both apps: ms a step, peak and reserved memory,
+    capture seconds and graph nodes. Returns the fused app's launches in
+    the first iteration, per eager iteration and per replay of each class,
+    and ms a step under each graph."""
+    from pde_control_tpu_torch.experiments import profile_bench
+
+    n, b = BIG_APP["n"], BIG_APP["batch"]
+    batch = profile_bench.make_batch(h, n, b, SEED)
+    fused_iter = {"K1": 0, "K2": n, "K3": n, "K4 fwd": 0, "K4 dX": 0, "K5": 0}
+    first = {}
+    for fused in ("cuda", "auto"):
+        app = _fused_app(h, fused)
+        perturb_cfe(app)
+        _zero_counts()
+        metrics = app.compute_gradients(app.to_batch(batch))
+        torch.cuda.synchronize()
+        first[fused] = ((float(metrics["loss"]), _grad_norms(app)), _counts())
+        del app, metrics
+    print(f"{h}x{h} n={n} batch={b} first iteration launches: fused "
+          f"{first['cuda'][1]}, unfused {first['auto'][1]}")
+    _compare_first(f"fused {h}x{h}", first["cuda"][0], first["auto"][0])
+    if first["cuda"][1] != fused_iter:
+        raise AssertionError(f"fused {h}x{h}: an iteration launched "
+                             f"{first['cuda'][1]}, expected {fused_iter}")
+    out = {"first": first["cuda"][1]}
+    if eager:
+        out["eager"] = _fused_app_eager(card, h, batch, fused_iter)
 
     # progress_multi's CUDA graph: K_MULTI replays a call, after the call
     # that warms up and captures.
@@ -1238,11 +1326,10 @@ def fused128_phase(card: str) -> dict:
                for i in range(K_MULTI)]
     batches = {k: torch.tensor(np.stack([x[k] for x in stacked]), device="cuda")
                for k in stacked[0]}
-    out = {"eager": {k: v // 2 for k, v in eager.items()}}
-    for seq in ("staggered", "chain"):
+    for seq in seqs:
         ms = {}
         for fused, path in (("cuda", "fused"), ("auto", "unfused")):
-            app = _app128(fused, seq)
+            app = _fused_app(h, fused, seq)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1268,6 +1355,7 @@ def fused128_phase(card: str) -> dict:
         print(f"{h}x{h} {seq}: fused {ms['fused']:.3f} ms a step under the "
               f"graph against unfused {ms['unfused']:.3f} "
               f"({ms['unfused'] / ms['fused']:.2f}x) [{card}]")
+        out[f"{seq}_ms"] = ms
     return out
 
 
@@ -1305,11 +1393,11 @@ CG_GOLDENS_BIG = {"tests/goldens/pcg_256.npz": {"cold": (256, False),
 # maxiter 200, warm start, bf16 nets on cuDNN), unfused; `k` steps a
 # `progress_multi` call.
 APP256 = dict(size=256, n=N, batch=BATCH, k=3)
-# `run_smoke_indirect(size=256)` cut as `ENTRIES` cuts smoke_128:
-# 32 + 16 trajectories (warm-up 8 steps, 16 recorded), 16 iterations a
-# stage (full: 256 + 32, 500).
-SMOKE256 = dict(size=256, n=16, batch=8, num_train=32, num_val=16,
-                iterations=16, warmup=8)
+# `run_smoke_indirect(size=256)` cut as `ENTRIES` cuts the plated task:
+# 16 + 8 trajectories (warm-up 8 steps, 16 recorded), 8 iterations a
+# stage, one progress_multi call (full: 256 + 32, 500).
+SMOKE256 = dict(size=256, n=16, batch=8, num_train=16, num_val=8,
+                iterations=8, warmup=8)
 
 
 def _k1_against_plain(dev, rng, h: int, w: int) -> dict:
@@ -1766,6 +1854,110 @@ def k1big_phase(card: str) -> dict:
         row.update({f"{s}_{key}_{m}x{BATCH}": tm[s][key] for s in ("cold", "warm")
                     for key in ("ms", "plain_ms", "pcg_ms", "bound_ms", "trips")})
     return row
+
+
+# ------------------------------------ K2/K3 beyond 128² (banded layout)
+
+# K2's and K3's grids beyond 128², closed with the plate, batch 8: 129²
+# (both in the large layout), 153² and 154² (both banded: K2 from 146², K3
+# from 152²), bands of unequal rows (192², 227²), the last square where K2
+# takes C = 8 beside 16 (224²) and the first where it takes 16 alone
+# (225²), the Pallas fluid gate's square edge and the slice's grid (236²),
+# the non-square grids 96×320 and 320×96, and the gate's edges: 64 rows
+# (64×600, both banded, 4 rows a rank under C = 16), 8 rows (8×990: K2
+# large, K3 banded) and 8 columns (430×8, both large). The three edges
+# are open boxes (`FUSED_BIG_OPEN`): in a closed one the spectral
+# preconditioner's lowest mode along the long side (1/λ ~ 4e4 to 1e5)
+# amplifies fp32 rounding so far that the solves stall, in the plain
+# version as in K1: at 8×990 most run all 500 trips
+# at tol 1e-6, at 64×600 and 430×8 a cold solve of some samples stops
+# after 4–16 trips on the 4× rule where the others take ~185 and 12, and
+# on the card K1 itself is then 0.52 (C = 4) to 0.004 (C = 16) of max|p|
+# from the plain version at 64×600. That leaves nothing to hold the
+# kernels to; open, every solve converges (8–101 trips).
+FUSED_BANDED_SHAPES = [(129, 129), (153, 153), (154, 154), (192, 192),
+                       (224, 224), (225, 225), (227, 227), (236, 236),
+                       (96, 320), (320, 96), (64, 600), (8, 990), (430, 8)]
+FUSED_BIG_OPEN = {(64, 600), (8, 990), (430, 8)}
+# Trip counts beyond 128² agree within 3 or this share of the reference's:
+# at tol 1e-6 the residual of these systems is near fp32's floor when the
+# solve stops, and rounding then sets the stopping trip (at 192² zero
+# velocity, 46 trips, the kernel under C = 16 stopped 4 from the plain
+# version with outputs 1e-5 apart; against the JAX package's CG at 64×625,
+# ~210 trips, the plain version stops 13 apart).
+FUSED_BIG_TRIPS = 0.1
+# The timed grids (batch 8, warm, force, tol 1e-4 / 200): each kernel on
+# both sides of its crossing into the banded layout (K2 145² / 146², K3
+# 151² / 152²), where the work hardly differs, then 192² and the gate's
+# edge, 236²; and the slice's app: the largest square of the gate that its
+# 3-level U-nets take (236 = 4 · 59, so their third level's pooling and
+# upsampling give 60 rows against 59, in the JAX package's nets as in the
+# port's; 232 = 8 · 29).
+FUSED_BANDED_TIMED = (145, 146, 151, 152, 192, 236)
+APP_BANDED = 232
+# `scripts/make_fused_goldens_big.py`'s golden: 236² and 64×625, batch 1.
+FUSED_BIG_GOLDEN = "tests/goldens/fused_step_big.npz"
+
+
+def fusedbig_phase(card: str) -> list:
+    """K2 and K3 beyond 128² (the large layout to 145² and 151², the
+    banded one beyond): against their plain versions at
+    `FUSED_BANDED_SHAPES` under every plan, in every case of
+    `FUSED_CASES`, at `fused_kernel_phase`'s tol 1e-6 / 500; against
+    `FUSED_BIG_GOLDEN`; their times at `FUSED_BANDED_TIMED`; the 232² app
+    fused against unfused (K1, banded too). Returns the rows of the
+    kernels' line."""
+    _phase("K2/K3 beyond 128² (banded)")
+    from pathlib import Path
+
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    print("limits, under the plans and every plan the launchers take, each "
+          "twice for the same bits (fused_kernel_phase's, tol 1e-6 / 500): "
+          "each K2 output max|d|/max|ref| <= 1e-4, each K3 cotangent <= "
+          "1e-3, the non-finite cells the plain version's; trip counts "
+          f"within 3 or {FUSED_BIG_TRIPS:.0%} of the reference's, whichever "
+          "is more (against the golden too)")
+    err = {"fwd": 0.0, "bwd": 0.0}
+    for h, w in FUSED_BANDED_SHAPES:
+        _fused_against_plain(dev, rng, h, w, err, trips_frac=FUSED_BIG_TRIPS,
+                             closed=(h, w) not in FUSED_BIG_OPEN)
+    z = np.load(Path(__file__).resolve().parent / FUSED_BIG_GOLDEN)
+    for h, w in json.loads(str(z["config"]))["grids"]:
+        golden = fused_golden_check(dev, FUSED_BIG_GOLDEN, h, w, f"{h}x{w}",
+                                    FUSED_BIG_TRIPS)
+        for key in err:
+            err[key] = max(err[key], golden[key])
+    times = {n: _fused_times(card, dev, rng, n) for n in FUSED_BANDED_TIMED}
+    k, n = FUSED_STEP["max_shift"], APP_BANDED
+    if (cuda_fluid.fwd_layout(n, n),
+            cuda_fluid.bwd_layout(n, n, k)) != (cuda_cg.BANDED,) * 2:
+        raise AssertionError(f"{n}² is not banded for K2 and K3")
+    print(f"{n}x{n} app: K2 and K3 in the banded layout, the unfused app's "
+          f"K1 in the {cuda_cg.LAYOUT_NAMES[cuda_cg.layout(n, n)]}")
+    app = fused_app_phase(card, n, seqs=("staggered",), eager=False)
+    rows = []
+    for i, (name, key, where, line) in enumerate((
+            ("fused_step_forward_banded", "K2", "fwd", 482),
+            ("fused_step_backward_banded", "K3", "bwd", 516))):
+        t = times[FUSED_BANDED_TIMED[-1]][i]
+        row = {"name": name, "route": "cuda",
+               "source": "pde_control_tpu_torch/csrc/fused_step.cu",
+               "replaces": f"pde_control_tpu/ops/pallas_fluid.py:{line}",
+               "launches": app["first"][key], "max_abs_err": err[where],
+               **{f: t[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by")},
+               "library_ms": None, "graph_ms": t["graph_ms"],
+               "trips": t["trips"], "plan": t["plan"],
+               f"app{n}_graph_launches": app["staggered"][key],
+               f"app{n}_ms": app["staggered_ms"]}
+        for side, tn in times.items():
+            row.update({f"{f}_{side}x{BATCH}": tn[i][f] for f in (
+                "ms", "graph_ms", "plain_ms", "bound_ms", "trips", "rest_ms",
+                "us_per_trip")})
+        rows.append(row)
+    return rows
 
 
 # --------------------------------------------------------------- phase 10
@@ -3057,16 +3249,20 @@ def cli_phase(card: str) -> None:
 #      graph; no K1-K5 launch (full: 128 + 16 trajectories, 400
 #      iterations a stage, its fine-tune 600).
 # Each then `*_ft` from its ckpt_final with `ft_iterations` e2e iterations.
+# Iterations are one progress_multi call of 8 steps a stage (the fewest the
+# entries' K = 8 runs); the plated task's data is cut to 16 + 8
+# trajectories, one batch of validation, so that the whole script keeps
+# within its time limit.
 ENTRIES = {
     "smoke_128": dict(task="indirect smoke control at 128^2", size=128, n=16,
-                      batch=8, num_train=32, num_val=16, iterations=16,
+                      batch=8, num_train=32, num_val=16, iterations=8,
                       ft_iterations=8, warmup=8),
     "smoke3d": dict(task="3D smoke control, 24^3", size=24, n=8, batch=8,
-                    num_train=32, num_val=16, iterations=16, ft_iterations=8,
+                    num_train=32, num_val=16, iterations=8, ft_iterations=8,
                     warmup=0),
     "smoke3d_indirect": dict(task="plated 3D smoke control, 32^3", size=32,
-                             n=16, batch=8, num_train=32, num_val=16,
-                             iterations=16, ft_iterations=8, warmup=6),
+                             n=16, batch=8, num_train=16, num_val=8,
+                             iterations=8, ft_iterations=8, warmup=6),
 }
 
 
@@ -3642,7 +3838,7 @@ def profile_bench_phase(card: str) -> None:
     _phase("profile_bench at 64², n=16, batch 8")
     from pde_control_tpu_torch.experiments import profile_bench
 
-    res = profile_bench.run("cuda", blocks=5, inner=2)
+    res = profile_bench.run("cuda", blocks=3, inner=2)
     bad = [k for k, v in res.items() if k != "flops_per_step"
            and not v["ms"] > 0]
     if bad:
@@ -4974,6 +5170,11 @@ def main() -> None:
         fused128_phase(card)
         _phase(None)
         return
+    if sys.argv[1:] == ["fusedbig"]:  # K2/K3 beyond 128², no result line
+        build_phase()
+        print(json.dumps(fusedbig_phase(card)))
+        _phase(None)
+        return
     if sys.argv[1:] == ["k1big"]:  # K1 beyond 128², no result line
         build_phase()
         print(json.dumps(k1big_phase(card)))
@@ -5004,6 +5205,7 @@ def main() -> None:
     conv_launches = conv_path_phase(card, batch, first, shapes)
     fused128 = fused128_phase(card)
     k1big = k1big_phase(card)
+    fusedbig = fusedbig_phase(card)
     training_phase(card, batch)
     configs, seen = {}, {3: {}, 5: {}}
     for number in (4, 3, 5):
@@ -5105,6 +5307,10 @@ def main() -> None:
     # K1 beyond 128², in the banded layout: its own row (launches: the 256²
     # app's first iteration; times at 256²x8, and at 351²x8 beside them).
     kernels.append(k1big)
+    # K2 and K3 beyond 128², in the banded layout: a row each (launches:
+    # the 232² app's first iteration; times at 236²x8, and at 192²x8
+    # beside them).
+    kernels.extend(fusedbig)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

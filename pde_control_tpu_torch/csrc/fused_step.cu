@@ -26,13 +26,24 @@
 // ops/cuda_fluid.py :: fwd_shared_bytes); K3 for the window adjoints its
 // band widened by k + 1 rows (bwd_layout; 94,208 bytes at 64^2 and C = 8;
 // ops/cuda_fluid.py :: bwd_shared_bytes). On a grid where that fits a
-// block under no cluster size (K2 from 109^2, K3 from 112^2, up to 128^2),
-// every plan of the kernel takes the core's large layout, as K1 does
-// (pcg_cluster.cuh's header): the basis read from L2 and the residual
-// exchanged by bands, no basis and no copy of A d in shared memory
-// (fused_fwd_kernel<512, true>, 209,728 bytes at 128^2 and C = 8;
-// fused_bwd_kernel<512, false, true>, 191,232 bytes). K3's window phase
-// is the same in both layouts and fits the space the solve leaves.
+// block under no cluster size (K2 from 109^2, K3 from 112^2), every plan
+// of the kernel takes the core's large layout, as K1 does (pcg_cluster.cuh's
+// header): the basis read from L2 and the residual exchanged by bands, no
+// basis and no copy of A d in shared memory (fused_fwd_kernel<512, 1>,
+// 209,728 bytes at 128^2 and C = 8; fused_bwd_kernel<512, 0, 1>, 191,232
+// bytes). Where the large layout fits no cluster size either (K2 from
+// 146^2 on squares, K3 from 152^2, to the JAX package's fused gate's edge:
+// 236^2, 8 x 994, 431 x 8), every plan takes the banded layout
+// (fused_fwd_kernel<512, 2>, fused_bwd_kernel<512, 0, 2>): no whole field
+// in shared memory; the solve's residual and scaled spectrum whole in a
+// scratch in global memory that the wrapper allocates, as K1's banded
+// kernel holds them. K3's window phase, whose twelve arrays on the band
+// widened by k + 1 rows fit a block under no cluster size at 236^2
+// (231,920 bytes at C = 16 beside the persistent 14,928), moves into the
+// same scratch, each rank's part its own (bwd_layout). 138,048 bytes of
+// shared memory for K2 at 236^2 and C = 16, 105,888 for K3. The layouts
+// share every line of the windows and their adjoints; in the small and
+// large ones K3's window phase reuses the space the solve leaves.
 //
 // The step's inputs are read-only for the whole launch and are read from
 // global memory through L1 (__ldg), with clamped indices standing in for
@@ -61,9 +72,11 @@
 // What bounds them: latency. A sample spreads over C SMs (C up to 16,
 // chosen by ops/cuda_fluid.py :: fwd_plan and bwd_plan to fill the card):
 // a CG trip's products and stencil are 1/C of the work, around three
-// cluster barriers (four in the large layout), and the windows and their
-// adjoints run on C SMs with no exchange but one push of the pressure's
-// edge row (K2) or one pull of the solution's neighbouring rows (K3).
+// cluster barriers (four in the large and banded layouts), and the windows
+// and their adjoints run on C SMs with no exchange but one push of the
+// pressure's edge row (K2) or one pull of the solution's neighbouring rows
+// (K3). In the banded layout the solve's products and K3's window phase
+// also read L2.
 // Each kernel is one launch per direction with no host round trip. The
 // launch bounds allow one block per SM, which leaves each thread of a
 // 512-thread block up to 128 registers; K3's solve is a function of its
@@ -327,25 +340,41 @@ __device__ __forceinline__ float to_x_faces_T(const float* g, int base, int i,
   return v;
 }
 
+// v, which the compiler must treat as unknown: a value derived from it is
+// computed anew rather than kept live from an earlier equal one. The banded
+// K2 finds its cluster size and grid after the solve through it, so that
+// no register holds them (or the band and the layout they give) across the
+// solve: kept live, they made its inlined solve spill (36 bytes).
+__device__ __forceinline__ int opaque(int v) {
+  asm volatile("" : "+r"(v));
+  return v;
+}
+
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
 // Offsets (floats) into one rank's shared memory in K3, for H x W cells,
-// cluster size C, kT threads and max_shift k, in the core's small layout
-// or (large) its large one. A band has at most R = ceil(H / C) rows; the
-// window adjoints read E = k + 1 rows beyond it. The reduction area and
-// the best iterate persist; the solve's buffers and, once the solve is
-// done, the window phase's share the rest (the larger of the two sets the
-// total). ops/cuda_fluid.py :: bwd_shared_bytes counts the same.
+// cluster size C, kT threads and max_shift k, in the core's `layout`. A
+// band has at most R = ceil(H / C) rows; the window adjoints read E = k + 1
+// rows beyond it. The reduction area and the best iterate persist; in the
+// small and large layouts the solve's buffers and, once the solve is done,
+// the window phase's share the rest (the larger of the two sets the
+// total). In the banded layout the window phase's arrays, which grow with
+// W (R + 2E) and fit a block under no cluster size at 236^2, lie in the
+// rank's own part of a scratch in global memory instead (the offsets
+// gdiv .. tmp then count from its start; `window` floats a rank, after the
+// solve's two whole fields: bwd_scratch_floats). ops/cuda_fluid.py ::
+// bwd_shared_bytes and bwd_scratch_floats count the same.
 struct BwdLayout {
   int red, best;  // persistent
   CgOffsets cg;   // the solve
   int gdiv, gvy2, gvx2, grho, off, wy0, wy1, wx0, wx1, gvyc, gvxc, tmp;
-  int total;
+  int window;  // floats of the window phase
+  int total;   // floats of shared memory
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
-                                                int k, bool large) {
+                                                int k, int layout) {
   BwdLayout l;
   const int R = (h + C - 1) / C, E = k + 1;
   int o = 0;
@@ -353,9 +382,11 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
   l.red = take(kRedFloats);
   l.best = take(R * w);
   const int shared = o;
-  l.cg = take_cg(o, h, w, R, T, large);
+  l.cg = take_cg(o, h, w, R, T, layout);
   const int solve_end = o;
-  o = shared;
+  const bool banded = layout == kLayoutBanded;
+  o = banded ? 0 : shared;
+  const int window0 = o;
   l.gdiv = take(imin(R + 2 * E + 2, h) * w);
   l.gvy2 = take(imin(R + 2 * E + 1, h + 1) * w);
   l.gvx2 = take(imin(R + 2 * E, h) * (w + 1));
@@ -369,13 +400,22 @@ __host__ __device__ inline BwdLayout bwd_layout(int h, int w, int C, int T,
   l.gvyc = take(imin(R + 1, h) * w);
   l.gvxc = take(imin(R + 1, h) * w);
   l.tmp = take(imin(R + 1, h + 1) * (w + 1));
-  l.total = imax(o, solve_end);
+  l.window = o - window0;
+  l.total = banded ? solve_end : imax(o, solve_end);
   return l;
 }
 
+// Floats of K3's scratch a sample in the banded layout: the solve's two
+// whole fields (r and the scaled spectrum), then each rank's window phase.
+__host__ __device__ inline int bwd_scratch_floats(int h, int w, int C, int T,
+                                                  int k) {
+  return align4(2 * h * w) +
+         C * bwd_layout(h, w, C, T, k, kLayoutBanded).window;
+}
+
 // Offsets (floats) into one rank's shared memory in K2, for H x W cells,
-// cluster size C and T threads, in the core's small layout or (large) its
-// large one: the reduction area, the solve's buffers (take_cg), then the
+// cluster size C and T threads, in the core's `layout`: the reduction
+// area, the solve's buffers (take_cg), then the
 // step's fields on the band: vy3 on y-faces [a, b + 1), vx3 on rows
 // [a, b), rho1 on rows [a - 1, b + 1) clipped to the grid, and the row of
 // p above the band. A band has at most R = ceil(H / C) rows.
@@ -387,11 +427,11 @@ struct FwdLayout {
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T,
-                                                bool large) {
+                                                int layout) {
   FwdLayout l;
   const int R = (h + C - 1) / C;
   int o = align4(kRedFloats);
-  l.cg = take_cg(o, h, w, R, T, large);
+  l.cg = take_cg(o, h, w, R, T, layout);
   auto take = [&o](int n) { const int at = o; o += align4(n); return at; };
   l.vy3 = take((R + 1) * w);
   l.vx3 = take(R * (w + 1));
@@ -401,35 +441,37 @@ __host__ __device__ inline FwdLayout fwd_layout(int h, int w, int C, int T,
   return l;
 }
 
-// Whether K2 / K3 run an H x W grid in the large layout, by the rule K1
-// follows (pcg_cluster.cuh :: large_where_small_fits_none), each on its
-// own small layout: the two kernels cross over at different sides (K2 from
-// 109^2, K3 from 112^2 at max_shift 2). ops/cuda_fluid.py ::
-// fwd_large_layout and bwd_large_layout mirror these.
-inline bool fwd_large_grid(int h, int w, int T) {
-  return large_where_small_fits_none(h, [=](int C) {
-    return static_cast<size_t>(fwd_layout(h, w, C, T, false).total) *
+// The layout in which K2 / K3 run an H x W grid, by the rule K1 follows
+// (pcg_cluster.cuh :: layout_where_fits), each on its own bytes: the two
+// kernels cross over at different sides (K2 large from 109^2 and banded
+// from 146^2, K3 from 112^2 and 152^2 at max_shift 2). ops/cuda_fluid.py ::
+// fwd_layout and bwd_layout mirror these.
+inline int fwd_grid_layout(int h, int w, int T) {
+  return layout_where_fits(h, [=](int C, int layout) {
+    return static_cast<size_t>(fwd_layout(h, w, C, T, layout).total) *
            sizeof(float);
   });
 }
 
-inline bool bwd_large_grid(int h, int w, int T, int k) {
-  return large_where_small_fits_none(h, [=](int C) {
-    return static_cast<size_t>(bwd_layout(h, w, C, T, k, false).total) *
+inline int bwd_grid_layout(int h, int w, int T, int k) {
+  return layout_where_fits(h, [=](int C, int layout) {
+    return static_cast<size_t>(bwd_layout(h, w, C, T, k, layout).total) *
            sizeof(float);
   });
 }
 
-// K2's warm solve on this rank's band, the divergence in its rows of the
-// residual buffer: returns the trip count, leaves the best iterate's band
-// in p (global, the sample's (H, W) field) and the reducer's parity in
-// `parity`. kLarge: the core's large layout, its basis (q_y, q_x, q_xt =
-// Qx^T) read from global memory.
-template <int kT, bool kLarge>
+// K2's warm solve on this rank's band, the divergence in its band of the
+// residual: returns the trip count, leaves the best iterate's band in p
+// (global, the sample's (H, W) field) and the reducer's parity in
+// `parity`. kLayout large and banded: the basis (q_y, q_x, q_xt = Qx^T)
+// read from global memory; banded: the two whole fields in `scratch` (2 H
+// W floats a sample), as K1's banded kernel holds them.
+template <int kT, int kLayout>
 __device__ __forceinline__ int fwd_solve(const Geometry g, const float* q_y,
                                       const float* q_x, const float* q_xt,
-                                      const float* x0, float* p, float tol,
-                                      int maxiter, int& parity) {
+                                      float* scratch, const float* x0,
+                                      float* p, float tol, int maxiter,
+                                      int& parity) {
   extern __shared__ __align__(16) float smem_fwd[];
   float* smem = smem_fwd;
   auto cluster = cgrp::this_cluster();
@@ -439,13 +481,17 @@ __device__ __forceinline__ int fwd_solve(const Geometry g, const float* q_y,
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
                          parity};
   ClusterCg cg =
-      cluster_cg(smem, fwd_layout(g.h, g.w, C, kT, kLarge).cg, g.h, g.w);
-  if constexpr (kLarge) {
+      cluster_cg(smem, fwd_layout(g.h, g.w, C, kT, kLayout).cg, g.h, g.w);
+  if constexpr (kLayout != kLayoutSmall) {
     cg.gqy = q_y;
     cg.gqx = q_x;
     cg.gqxt = q_xt;
   }
-  const int trips = pcg_cluster<kT, false, kLarge>(
+  if constexpr (kLayout == kLayoutBanded) {
+    cg.g1 = scratch + static_cast<size_t>(blockIdx.x / C) * 2 * g.h * g.w;
+    cg.g2 = cg.g1 + g.h * g.w;
+  }
+  const int trips = pcg_cluster<kT, false, kLayout>(
       cg, g, bd, x0, p + bd.a * g.w, tol, maxiter, true, red);
   parity = red.parity;
   return trips;
@@ -455,23 +501,28 @@ __device__ __forceinline__ int fwd_solve(const Geometry g, const float* q_y,
 // best iterate's band in p_out: the rank pushes the last row of its p to
 // the rank below, whose first y-face needs it, and after one cluster
 // barrier corrects its own faces (_pgrad_closed: v4 = v3 - acc * grad p,
-// zero on the walls). It finds its band again from the launch, so that
-// nothing of the windows stays live across the solve: with those values
-// kept live the kernel spilled.
-template <int kT, bool kLarge>
+// zero on the walls). It finds its band again from the launch (the banded
+// layout through `opaque`), so that nothing of the windows stays live
+// across the solve: with those values kept live the kernel spilled.
+template <int kT, int kLayout>
 __device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
                                          float* vy4, float* vx4,
                                          float* p_out) {
   extern __shared__ __align__(16) float smem_fwd[];
   float* smem = smem_fwd;
   auto cluster = cgrp::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int h = g.h, w = g.w;
+  int C = static_cast<int>(cluster.num_blocks());
+  int h = g.h, w = g.w;
+  if constexpr (kLayout == kLayoutBanded) {
+    C = opaque(C);
+    h = opaque(h);
+    w = opaque(w);
+  }
   const int ny = (h + 1) * w, nx = h * (w + 1);
   const Band bd(static_cast<int>(cluster.block_rank()), C, h, w);
   const int a = bd.a, b1 = bd.b, R = bd.rows(), yb = bd.yb();
   const size_t b = blockIdx.x / C;
-  const FwdLayout L = fwd_layout(h, w, C, kT, kLarge);
+  const FwdLayout L = fwd_layout(h, w, C, kT, kLayout);
   const float* vy3 = smem + L.vy3;  // y-faces [a, b1 + 1)
   const float* vx3 = smem + L.vx3;  // rows [a, b1)
   const float* p = p_out + b * h * w;
@@ -507,14 +558,16 @@ __device__ __forceinline__ void fwd_correct(const Geometry g, float dx,
 // row of its p to the rank below, whose first y-face needs it, and after
 // one cluster barrier corrects its own faces. Each rank writes its own rows
 // of the outputs. The solve and the correction are inlined: with either as
-// a function of its own, as K3's solve is, the kernel spilled. kLarge: the
-// core's large layout (no basis in shared memory; q_xt, Qx^T, is read by
-// it only).
-template <int kT, bool kLarge>
+// a function of its own, as K3's solve is, the kernel spilled. kLayout: the
+// cluster core's layout (large: no basis in shared memory, q_xt, Qx^T, is
+// read by it only; banded: no whole field in shared memory either, the
+// solve's two in `scratch`, which the other layouts do not read).
+template <int kT, int kLayout>
 __global__ void __launch_bounds__(kT, 1)
 fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ q_x,
-                 const float* __restrict__ q_xt, const float* __restrict__ fy,
+                 const float* __restrict__ q_xt, float* scratch,
+                 const float* __restrict__ fy,
                  const float* __restrict__ fx,
                  const float* __restrict__ inflow,
                  const float* __restrict__ x0, float* vy4, float* vx4,
@@ -532,8 +585,8 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   st.vy += b * ny;
   st.vx += b * nx;
   st.rho += b * hw;
-  const FwdLayout L = fwd_layout(h, w, C, kT, kLarge);
-  if constexpr (!kLarge)
+  const FwdLayout L = fwd_layout(h, w, C, kT, kLayout);
+  if constexpr (kLayout == kLayoutSmall)
     load_basis_t<kT>(cluster_cg(smem, L.cg, h, w), q_y, q_x, h, w);
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
@@ -589,31 +642,38 @@ fused_fwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   }
   __syncthreads();
   // The divergence is the solve's `div`, in the band of its residual
-  // buffer; the solve reads each entry in the thread that wrote it.
-  float* div = smem + L.cg.g1 + a * w;
+  // (r_band); the solve reads each entry in the thread that wrote it.
+  float* div =
+      kLayout == kLayoutBanded ? smem + L.cg.rb : smem + L.cg.g1 + a * w;
   for (int t = threadIdx.x; t < R * w; t += kT) {
     const float* row = vx3 + (t / w) * (w + 1) + (t - (t / w) * w);
     div[t] = ((vy3[t + w] - vy3[t]) + (row[1] - row[0])) / st.dx;
   }
   int parity = red.parity;
-  const int trips = fwd_solve<kT, kLarge>(
-      g, q_y, q_x, q_xt, x0 == nullptr ? nullptr : x0 + b * hw, p_out + b * hw,
-      tol, maxiter, parity);
-  if (cluster.block_rank() == 0 && threadIdx.x == 0)
-    iters[blockIdx.x / C] = trips;
-  fwd_correct<kT, kLarge>(g, st.dx, vy4, vx4, p_out);
+  const int trips = fwd_solve<kT, kLayout>(
+      g, q_y, q_x, q_xt, scratch, x0 == nullptr ? nullptr : x0 + b * hw,
+      p_out + b * hw, tol, maxiter, parity);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    if constexpr (kLayout == kLayoutBanded)
+      iters[blockIdx.x / opaque(static_cast<int>(cluster.num_blocks()))] =
+          trips;
+    else
+      iters[blockIdx.x / C] = trips;
+  }
+  fwd_correct<kT, kLayout>(g, st.dx, vy4, vx4, p_out);
 }
 
 // K3's rhs and transpose solve on this rank's band: returns the trip count
 // and leaves the best iterate's band at bwd_layout's `best`, the reducer's
 // parity in `parity`. A function of its own (not inlined), so that the
 // registers of the solve and of the window phase are allocated apart.
-// kLarge: the core's large layout, its basis (q_y, q_x, q_xt = Qx^T) read
-// from global memory.
-template <int kT, bool kTrace, bool kLarge>
+// kLayout large and banded: the basis (q_y, q_x, q_xt = Qx^T) read from
+// global memory; banded: the two whole fields at the start of the sample's
+// `scratch` (bwd_scratch_floats a sample).
+template <int kT, bool kTrace, int kLayout>
 __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
                                       const float* q_x, const float* q_xt,
-                                      const float* g_vy4,
+                                      float* scratch, const float* g_vy4,
                                       const float* g_vx4, const float* g_p,
                                       float dx, int k, float tol, int maxiter,
                                       int& parity) {
@@ -629,17 +689,22 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
   g_p += b * h * w;
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
-  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLarge);
+  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLayout);
   ClusterCg cgb = cluster_cg(smem, L.cg, h, w);
-  if constexpr (kLarge) {
+  if constexpr (kLayout != kLayoutSmall) {
     cgb.gqy = q_y;
     cgb.gqx = q_x;
     cgb.gqxt = q_xt;
   } else {
     load_basis_t<kT>(cgb, q_y, q_x, h, w);
   }
+  if constexpr (kLayout == kLayoutBanded) {
+    cgb.g1 = scratch + b * bwd_scratch_floats(h, w, C, kT, k);
+    cgb.g2 = cgb.g1 + h * w;
+  }
   // Projection backward: cot_p = g_p + div(acc * g_v4); the transpose solve
-  // runs cold on -cot_p, so its `div` is -cot_p.
+  // runs cold on -cot_p, so its `div` (in r's band) is -cot_p.
+  float* rhs = r_band<kLayout>(cgb, bd, w);
   for (int t = threadIdx.x; t < bd.rows() * w; t += kT) {
     const int idx = bd.a * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
@@ -648,9 +713,9 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
                       g_vy4[idx] * __ldg(g.acc_y + idx);
     const float dvx = g_vx4[fx_ + 1] * __ldg(g.acc_x + fx_ + 1) -
                       g_vx4[fx_] * __ldg(g.acc_x + fx_);
-    cgb.g1[idx] = -(g_p[idx] + (dvy + dvx) / dx);
+    rhs[t] = -(g_p[idx] + (dvy + dvx) / dx);
   }
-  const int trips = pcg_cluster<kT, kTrace, kLarge>(
+  const int trips = pcg_cluster<kT, kTrace, kLayout>(
       cgb, g, bd, nullptr, smem + L.best, tol, maxiter, true, red);
   parity = red.parity;
   return trips;
@@ -665,14 +730,22 @@ __device__ __noinline__ int bwd_solve(const Geometry g, const float* q_y,
 // its band and one more row, without further exchange: a row outside the
 // band comes out as the same bits its owner computes. Each rank writes its
 // own rows of the outputs. kTrace: with the CG trip's profile
-// (pcg_cluster.cuh :: TripClock), for fused_bwd_trace only. kLarge: the
-// core's large layout for the solve (q_xt, Qx^T, is read by it only); the
-// window phase is the same in both.
-template <int kT, bool kTrace, bool kLarge>
+// (pcg_cluster.cuh :: TripClock), for fused_bwd_trace only. kLayout: the
+// cluster core's layout for the solve (large: q_xt, Qx^T, is read by it
+// only; banded: its two whole fields in `scratch`, which the other layouts
+// do not read). The window phase is the same in all three, on arrays in
+// shared memory, or in the banded layout in the rank's part of `scratch`
+// (bwd_layout): written and read by the rank's own threads around its
+// block barriers, through L1, but g_div's rows of the other ranks, which
+// the cluster barrier publishes (release/acquire at cluster scope orders
+// global memory too) and which are read through L2 (__ldcg: L1 is not
+// coherent across the cluster's SMs) where the other layouts read them
+// from the owner's shared memory.
+template <int kT, bool kTrace, int kLayout>
 __global__ void __launch_bounds__(kT, 1)
 fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
                  const float* __restrict__ q_x,
-                 const float* __restrict__ q_xt,
+                 const float* __restrict__ q_xt, float* scratch,
                  const float* __restrict__ g_vy4,
                  const float* __restrict__ g_vx4,
                  const float* __restrict__ g_rho1,
@@ -682,8 +755,9 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   extern __shared__ __align__(16) float smem_bwd[];
   float* smem = smem_bwd;
   int parity = 0;
-  const int trips = bwd_solve<kT, kTrace, kLarge>(
-      g, q_y, q_x, q_xt, g_vy4, g_vx4, g_p, st.dx, st.k, tol, maxiter, parity);
+  const int trips = bwd_solve<kT, kTrace, kLayout>(
+      g, q_y, q_x, q_xt, scratch, g_vy4, g_vx4, g_p, st.dx, st.k, tol, maxiter,
+      parity);
   auto cluster = cgrp::this_cluster();
   const int C = static_cast<int>(cluster.num_blocks());
   const int h = g.h, w = g.w, hw = h * w;
@@ -704,8 +778,13 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster),
                          parity};
-  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLarge);
+  const BwdLayout L = bwd_layout(h, w, C, kT, k, kLayout);
   const float* best = smem + L.best;
+  // Where the window phase's arrays lie (bwd_layout).
+  float* win = smem;
+  if constexpr (kLayout == kLayoutBanded)
+    win = scratch + b * bwd_scratch_floats(h, w, C, kT, k) + align4(2 * hw) +
+          bd.rank * L.window;
   // A non-finite input or window cotangent anywhere in the sample makes
   // every window sum all its taps (one vote over the cluster, below).
   bool bad = false;
@@ -717,7 +796,8 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
     bad |= !isfinite(__ldg(st.rho + a * w + t));
   // The closed domain's mean projection of the solution, then
   // g_div = -M(P(xt)) on the band. No rank pushes into the solve's buffers
-  // after the loop's last barrier, so the window phase may take them.
+  // after the loop's last barrier, so the window phase may take them (the
+  // small and large layouts).
   float mean = 0.f;
   if (g.closed) {
     float part_x = 0.f, part_f = 0.f;
@@ -730,7 +810,7 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
     red.sum2(bd, part_x, part_f, sum_x, sum_f);
     mean = sum_x / fmaxf(sum_f, 1.f);
   }
-  float* gdiv = smem + L.gdiv;  // cell rows [gd0, gd1)
+  float* gdiv = win + L.gdiv;  // cell rows [gd0, gd1)
   const int gd0 = imax(a - E - 1, 0), gd1 = imin(b1 + E + 1, h);
   for (int t = threadIdx.x; t < R * w; t += kT) {
     const bool fluid = __ldg(g.fluid + a * w + t) > 0.f;
@@ -745,7 +825,12 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
       const int i = rr < above ? gd0 + rr : b1 + (rr - above);
       const int o = bd.owner(i);
       const int o0 = imax(bd.row0(o) - E - 1, 0);
-      gdiv[(i - gd0) * w + j] = cluster.map_shared_rank(gdiv, o)[(i - o0) * w + j];
+      float v;
+      if constexpr (kLayout == kLayoutBanded)
+        v = __ldcg(gdiv + (o - bd.rank) * L.window + (i - o0) * w + j);
+      else
+        v = cluster.map_shared_rank(gdiv, o)[(i - o0) * w + j];
+      gdiv[(i - gd0) * w + j] = v;
     }
   }
   __syncthreads();
@@ -753,8 +838,8 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   // x-faces [X0, X1); the outputs on the band's rows.
   const int Y0 = imax(a - E, 0), Y1 = imin(b1 + E + 1, h + 1);
   const int X0 = imax(a - E, 0), X1 = imin(b1 + E, h);
-  float* gvy2 = smem + L.gvy2;  // cotangent of the forced, unmasked velocity
-  float* gvx2 = smem + L.gvx2;
+  float* gvy2 = win + L.gvy2;  // cotangent of the forced, unmasked velocity
+  float* gvx2 = win + L.gvx2;
   for (int t = threadIdx.x; t < (Y1 - Y0) * w; t += kT) {
     const int idx = Y0 * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
@@ -782,7 +867,7 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   __syncthreads();
   // Buoyancy backward onto the advected density, and the inflow cotangent:
   // cell rows [X0, X1).
-  float* grho = smem + L.grho;  // total cotangent of the advected density
+  float* grho = win + L.grho;  // total cotangent of the advected density
   for (int t = threadIdx.x; t < (X1 - X0) * w; t += kT) {
     const int idx = X0 * w + t;
     const int i = idx / w, j = idx - (idx / w) * w;
@@ -796,12 +881,12 @@ fused_bwd_kernel(Step st, Geometry g, const float* __restrict__ q_y,
   }
   const bool dense = red.sum(bd, bad ? 1.f : 0.f) > 0.f;
 
-  const Taps taps{reinterpret_cast<int*>(smem + L.off), smem + L.wy0,
-                  smem + L.wy1, smem + L.wx0, smem + L.wx1};
+  const Taps taps{reinterpret_cast<int*>(win + L.off), win + L.wy0,
+                  win + L.wy1, win + L.wx0, win + L.wx1};
   const int C0 = imax(a - 1, 0);  // the centred cotangents' first row
-  float* gvyc = smem + L.gvyc;    // cotangents of the centred velocity
-  float* gvxc = smem + L.gvxc;
-  float* tmp = smem + L.tmp;  // s * the cross-component displacement cotangent
+  float* gvyc = win + L.gvyc;     // cotangents of the centred velocity
+  float* gvxc = win + L.gvxc;
+  float* tmp = win + L.tmp;  // s * the cross-component displacement cotangent
   // Density window: taps on [X0, X1); displacement cotangents on [C0, b1),
   // which start the centred-velocity cotangents; the field cotangent.
   for (int t = threadIdx.x; t < (X1 - X0) * w; t += kT) {
@@ -916,43 +1001,58 @@ Step make_step(const float* vy, const float* vx, const float* rho, int h,
 bool bwd_traced = false;
 
 using BwdKernel = void (*)(Step, Geometry, const float*, const float*,
-                           const float*, const float*, const float*,
+                           const float*, float*, const float*, const float*,
                            const float*, const float*, float*, float*, float*,
                            float*, float*, float*, int*, float, int);
 
 // K3's kernel at H x W: 512 threads a block, the grid's layout; with the
 // trip's profile on, its instantiation with clock marks, which exists for
-// the small layout only (null on a large grid: the launch is refused).
+// the small layout only (null on a large or banded grid: the launch is
+// refused).
 BwdKernel bwd_kernel(int h, int w, int threads, int k) {
-  if (bwd_large_grid(h, w, threads, k))
-    return bwd_traced ? nullptr
-                      : fused_bwd_kernel<kClusterThreads, false, true>;
-  return bwd_traced ? fused_bwd_kernel<kClusterThreads, true, false>
-                    : fused_bwd_kernel<kClusterThreads, false, false>;
+  switch (bwd_grid_layout(h, w, threads, k)) {
+    case kLayoutSmall:
+      return bwd_traced
+                 ? fused_bwd_kernel<kClusterThreads, true, kLayoutSmall>
+                 : fused_bwd_kernel<kClusterThreads, false, kLayoutSmall>;
+    case kLayoutLarge:
+      return bwd_traced
+                 ? nullptr
+                 : fused_bwd_kernel<kClusterThreads, false, kLayoutLarge>;
+    default:
+      return bwd_traced
+                 ? nullptr
+                 : fused_bwd_kernel<kClusterThreads, false, kLayoutBanded>;
+  }
 }
 
 using FwdKernel = void (*)(Step, Geometry, const float*, const float*,
-                           const float*, const float*, const float*,
+                           const float*, float*, const float*, const float*,
                            const float*, const float*, float*, float*, float*,
                            float*, int*, float, int);
 
 // K2's kernel at H x W: 512 threads a block, the grid's layout.
 FwdKernel fwd_kernel(int h, int w, int threads) {
-  return fwd_large_grid(h, w, threads)
-             ? fused_fwd_kernel<kClusterThreads, true>
-             : fused_fwd_kernel<kClusterThreads, false>;
+  switch (fwd_grid_layout(h, w, threads)) {
+    case kLayoutSmall:
+      return fused_fwd_kernel<kClusterThreads, kLayoutSmall>;
+    case kLayoutLarge:
+      return fused_fwd_kernel<kClusterThreads, kLayoutLarge>;
+    default:
+      return fused_fwd_kernel<kClusterThreads, kLayoutBanded>;
+  }
 }
 
 size_t fwd_bytes(int h, int w, int cluster, int threads) {
   return static_cast<size_t>(fwd_layout(h, w, cluster, threads,
-                                        fwd_large_grid(h, w, threads))
+                                        fwd_grid_layout(h, w, threads))
                                  .total) *
          sizeof(float);
 }
 
 size_t bwd_bytes(int h, int w, int cluster, int threads, int k) {
   return static_cast<size_t>(bwd_layout(h, w, cluster, threads, k,
-                                        bwd_large_grid(h, w, threads, k))
+                                        bwd_grid_layout(h, w, threads, k))
                                  .total) *
          sizeof(float);
 }
@@ -967,10 +1067,10 @@ size_t fused_fwd_shared_bytes(int h, int w, int cluster, int threads) {
   return fwd_bytes(h, w, cluster, threads);
 }
 
-// 1 where K2 runs an H x W grid in the large layout, else 0
-// (ops/cuda_fluid.py :: fwd_large_layout mirrors this).
-int fused_fwd_large_layout(int h, int w, int threads) {
-  return fwd_large_grid(h, w, threads) ? 1 : 0;
+// The layout in which K2 runs an H x W grid: 0 small, 1 large, 2 banded
+// (fwd_grid_layout; ops/cuda_fluid.py :: fwd_layout mirrors this).
+int fused_fwd_layout(int h, int w, int threads) {
+  return fwd_grid_layout(h, w, threads);
 }
 
 // How many clusters of K2 under this plan the card can hold at once
@@ -984,21 +1084,26 @@ int fused_fwd_max_clusters(int h, int w, int cluster, int threads) {
 // K2 for `batch` samples on `stream`, one cluster of `cluster` blocks of
 // `threads` threads per sample. fy/fx, inflow and x0 may be null (no
 // force, no inflow, cold solve). q_y, q_x and q_xt are Qy, Qx and Qx^T,
-// unpadded (q_xt is read only on a grid of the large layout). Returns the
+// unpadded (q_xt is read only on a grid of the large or banded layout).
+// `scratch` holds batch x 2 x H x W floats for the banded layout
+// (fused_fwd_layout 2; it may be null in the others). Returns the
 // cudaError_t of the launch: cudaErrorInvalidValue, with nothing launched,
 // for a plan the kernel cannot run (a cluster size other than 1, 2, 4, 8,
 // 16 or above H, a thread count other than 512, or more shared memory than
-// a block may have).
+// a block may have) or a banded grid without a scratch.
 int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* fy, const float* fx, const float* inflow,
                        const float* x0, const float* acc_y, const float* acc_x,
                        const float* fluid, const float* q_y, const float* q_x,
-                       const float* q_xt, const float* inv_lam, float* vy4,
-                       float* vx4, float* rho1, float* p, int* iters,
-                       int batch, int h, int w, float dx, float s, float dt,
-                       float dt_buoy, int buoy, int k, int closed, float tol,
-                       int maxiter, int cluster, int threads, void* stream) {
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+                       const float* q_xt, const float* inv_lam, float* scratch,
+                       float* vy4, float* vx4, float* rho1, float* p,
+                       int* iters, int batch, int h, int w, float dx, float s,
+                       float dt, float dt_buoy, int buoy, int k, int closed,
+                       float tol, int maxiter, int cluster, int threads,
+                       void* stream) {
+  if (k < 0 ||
+      (scratch == nullptr && fwd_grid_layout(h, w, threads) == kLayoutBanded))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const FwdKernel kernel = fwd_kernel(h, w, threads);
@@ -1009,15 +1114,16 @@ int fused_step_fwd_f32(const float* vy, const float* vx, const float* rho,
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
   err = cudaLaunchKernelEx(
       &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
-      g, q_y, q_x, q_xt, fy, fx, inflow, x0, vy4, vx4, rho1, p, iters, tol,
-      maxiter);
+      g, q_y, q_x, q_xt, scratch, fy, fx, inflow, x0, vy4, vx4, rho1, p, iters,
+      tol, maxiter);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Turns the profile of K3's CG trip on (clocks: kTripPhases counters in
 // device memory, which the next launches add their cycles to; they run the
-// kernel instantiated with the profile, on grids of the small layout only)
+// kernel instantiated with the profile, on grids of the small layout only:
+// a grid of the large or banded layout refuses the launch)
 // or off (null: the main path's kernel again); see pcg_cluster.cuh ::
 // TripClock. Returns the cudaError_t.
 int fused_bwd_trace(unsigned long long* clocks) {
@@ -1032,10 +1138,19 @@ size_t fused_bwd_shared_bytes(int h, int w, int cluster, int threads, int k) {
   return bwd_bytes(h, w, cluster, threads, k);
 }
 
-// 1 where K3 runs an H x W grid at max_shift k in the large layout, else 0
-// (ops/cuda_fluid.py :: bwd_large_layout mirrors this).
-int fused_bwd_large_layout(int h, int w, int threads, int k) {
-  return bwd_large_grid(h, w, threads, k) ? 1 : 0;
+// The layout in which K3 runs an H x W grid at max_shift k: 0 small, 1
+// large, 2 banded (bwd_grid_layout; ops/cuda_fluid.py :: bwd_layout
+// mirrors this).
+int fused_bwd_layout(int h, int w, int threads, int k) {
+  return bwd_grid_layout(h, w, threads, k);
+}
+
+// Floats of K3's scratch a sample in the banded layout under a plan
+// (bwd_scratch_floats; ops/cuda_fluid.py :: bwd_scratch_floats mirrors
+// this).
+size_t fused_bwd_scratch_floats(int h, int w, int cluster, int threads,
+                                int k) {
+  return static_cast<size_t>(bwd_scratch_floats(h, w, cluster, threads, k));
 }
 
 // How many clusters of K3 under this plan the card can hold at once
@@ -1052,23 +1167,28 @@ int fused_bwd_max_clusters(int h, int w, int cluster, int threads, int k) {
 // K3 for `batch` samples on `stream`, one cluster of `cluster` blocks of
 // `threads` threads per sample. g_fy/g_fx and g_inflow may be null (not
 // wanted). q_y, q_x and q_xt are Qy, Qx and Qx^T, unpadded (q_xt is read
-// only on a grid of the large layout). Returns the cudaError_t of the
+// only on a grid of the large or banded layout). `scratch` holds batch x
+// fused_bwd_scratch_floats floats for the banded layout (fused_bwd_layout
+// 2; it may be null in the others). Returns the cudaError_t of the
 // launch: cudaErrorInvalidValue, with nothing launched, for a plan the
 // kernel cannot run (a cluster size other than 1, 2, 4, 8, 16 or above H,
 // a thread count other than 512, more shared memory than a block may have,
-// or the trip's profile on a grid of the large layout).
+// the trip's profile on a grid of the large or banded layout, or a banded
+// grid without a scratch).
 int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
                        const float* g_vy4, const float* g_vx4,
                        const float* g_rho1, const float* g_p,
                        const float* acc_y, const float* acc_x,
                        const float* fluid, const float* q_y, const float* q_x,
-                       const float* q_xt, const float* inv_lam, float* g_vy,
-                       float* g_vx, float* g_rho, float* g_fy, float* g_fx,
-                       float* g_inflow, int* iters, int batch, int h, int w,
-                       float dx, float s, float dt, float dt_buoy, int buoy,
-                       int k, int closed, float tol, int maxiter, int cluster,
-                       int threads, void* stream) {
-  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+                       const float* q_xt, const float* inv_lam, float* scratch,
+                       float* g_vy, float* g_vx, float* g_rho, float* g_fy,
+                       float* g_fx, float* g_inflow, int* iters, int batch,
+                       int h, int w, float dx, float s, float dt,
+                       float dt_buoy, int buoy, int k, int closed, float tol,
+                       int maxiter, int cluster, int threads, void* stream) {
+  if (k < 0 || (scratch == nullptr &&
+                bwd_grid_layout(h, w, threads, k) == kLayoutBanded))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const BwdKernel kernel = bwd_kernel(h, w, threads, k);
@@ -1080,8 +1200,8 @@ int fused_step_bwd_f32(const float* vy, const float* vx, const float* rho,
   Geometry g{acc_y, acc_x, fluid, inv_lam, h, w, 1.f / (dx * dx), closed != 0};
   err = cudaLaunchKernelEx(
       &cfg, kernel, make_step(vy, vx, rho, h, w, dx, s, dt, dt_buoy, buoy, k),
-      g, q_y, q_x, q_xt, g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho, g_fy,
-      g_fx, g_inflow, iters, tol, maxiter);
+      g, q_y, q_x, q_xt, scratch, g_vy4, g_vx4, g_rho1, g_p, g_vy, g_vx, g_rho,
+      g_fy, g_fx, g_inflow, iters, tol, maxiter);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,21 +55,15 @@ __host__ __device__ inline SolveLayout layout_of(int h, int w, int C, int T,
   return l;
 }
 
-// Whether no plan of `layout` fits a block at H x W (pcg_cluster.cuh ::
-// large_where_small_fits_none, with that layout's bytes).
-__host__ __device__ inline bool fits_no_plan(int h, int w, int T, int layout) {
-  return large_where_small_fits_none(h, [=](int C) {
+// The layout in which K1 solves an H x W grid (pcg_cluster.cuh ::
+// layout_where_fits on its bytes): the small one where it fits a block
+// under some cluster size, else the large one where that fits, else the
+// banded one.
+__host__ __device__ inline int grid_layout(int h, int w, int T) {
+  return layout_where_fits(h, [=](int C, int layout) {
     return static_cast<size_t>(layout_of(h, w, C, T, layout).total) *
            sizeof(float);
   });
-}
-
-// The layout in which K1 solves an H x W grid: the small one where it fits
-// a block under some cluster size, else the large one where that fits,
-// else the banded one.
-__host__ __device__ inline int grid_layout(int h, int w, int T) {
-  if (!fits_no_plan(h, w, T, kLayoutSmall)) return kLayoutSmall;
-  return fits_no_plan(h, w, T, kLayoutLarge) ? kLayoutBanded : kLayoutLarge;
 }
 
 __host__ __device__ inline SolveLayout solve_layout(int h, int w, int C,
@@ -99,7 +93,7 @@ pcg_cluster_kernel(const float* __restrict__ div, const float* __restrict__ x0,
   ClusterReducer<kT> red{reinterpret_cast<float4*>(smem),
                          reinterpret_cast<float4*>(smem + 8 * kMaxCluster)};
   ClusterCg cg = cluster_cg(
-      smem, layout_of(h, w, C, kT, fits_no_plan(h, w, kT, kLayoutSmall)).cg, h,
+      smem, layout_of(h, w, C, kT, kLarge ? kLayoutLarge : kLayoutSmall).cg, h,
       w);
   if constexpr (kLarge) {
     cg.gqy = q_y;

@@ -56,8 +56,8 @@
 // whole basis and computes its band's rows, with K split over the threads
 // when the band is short and the slices added in order.
 //
-// The large layout (kLayoutLarge; K1 takes it on a grid where the buffers
-// above fit a block under no cluster size, as at 128^2). Two whole-field
+// The large layout (kLayoutLarge; a kernel takes it on a grid where the
+// buffers above fit a block under no cluster size, as K1 does at 128^2). Two whole-field
 // copies stay (r in g1, the spectrum in g2); the basis and ga go. The basis is read
 // from global memory through the read-only path (L2, shared by every
 // cluster), with Qx^T passed transposed so that every product's reads are
@@ -70,9 +70,10 @@
 // r.z barrier and the d.Ad barrier. (ga cannot share g2: a rank pushes its
 // spectrum into g2 while a slower peer may still be reading ga.)
 //
-// The banded layout (kLayoutBanded; K1 takes it on a grid where the large
-// layout fits a block under no cluster size, as at 256^2: its two whole
-// fields are 2 H W floats a rank, 524 KB at 256^2). No whole field stays in
+// The banded layout (kLayoutBanded; a kernel takes it on a grid where the
+// large layout fits a block under no cluster size, as K1 does at 256^2: its
+// two whole fields are 2 H W floats a rank, 524 KB at 256^2; K2 from
+// 146^2, K3 from 152^2). No whole field stays in
 // shared memory: a rank keeps the band of r (rb) beside its band of x, d,
 // z and t. The two whole fields the products need, r for Qy r and the
 // scaled spectrum for Qy^T (.), move to a scratch in global memory, one
@@ -442,19 +443,19 @@ __host__ __device__ inline CgOffsets take_cg(int& o, int h, int w, int R,
   return c;
 }
 
-// Whether a kernel runs an H-row grid in the large layout: where its small
-// layout, of small_bytes(C) bytes a block at cluster size C, fits a block
-// under no cluster size, so that every plan of a grid the small layout
-// takes keeps it. K1 (pcg.cu :: grid_layout), K2 and K3 (fused_step.cu ::
-// fwd_large_grid, bwd_large_grid) each decide by it; K1 decides by it once
-// more between its large and banded layouts, with the large layout's
-// bytes. ops/cuda_cg.py :: large_where_small_fits_none is the same rule.
-template <typename SmallBytes>
-__host__ __device__ inline bool large_where_small_fits_none(
-    int h, SmallBytes small_bytes) {
-  for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
-    if (small_bytes(C) <= kMaxSharedBytes) return false;
-  return true;
+// The layout in which a cluster kernel runs an H-row grid whose shared
+// memory is bytes(C, layout) a block at cluster size C: the small one where
+// it fits a block under some cluster size, else the large one where that
+// fits, else the banded one; so that every plan of a grid keeps one layout.
+// K1 (pcg.cu :: grid_layout), K2 and K3 (fused_step.cu :: fwd_grid_layout,
+// bwd_grid_layout) each decide by it on their own bytes.
+// ops/cuda_cg.py :: layout_where_fits is the same rule.
+template <typename Bytes>
+__host__ __device__ inline int layout_where_fits(int h, Bytes bytes) {
+  for (int layout = kLayoutSmall; layout < kLayoutBanded; ++layout)
+    for (int C = 1; C <= kMaxCluster && C <= h; C *= 2)
+      if (bytes(C, layout) <= kMaxSharedBytes) return layout;
+  return kLayoutBanded;
 }
 
 // The banded layout has no g1 and g2 in shared memory (their offsets are

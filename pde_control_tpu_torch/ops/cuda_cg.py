@@ -92,27 +92,25 @@ def _solve_bytes(h: int, w: int, cluster: int, threads: int,
                 + _cg_floats(h, w, -(-h // cluster), threads, layout))
 
 
-def large_where_small_fits_none(h: int,
-                                small_bytes: Callable[[int], int]) -> bool:
-    """Whether a cluster kernel runs an H-row grid in the core's large
-    layout: where its small layout, of `small_bytes(cluster)` bytes a
-    block, fits a block under no cluster size, so that every plan of a grid
-    the small layout takes keeps it (`pcg_cluster.cuh ::
-    large_where_small_fits_none`). K1, K2 and K3 each decide by it; K1 once
-    more between its large and banded layouts."""
-    return all(small_bytes(c) > SMEM_LIMIT_BYTES for c in CLUSTERS if c <= h)
+def layout_where_fits(h: int, count: Callable[[int, int], int]) -> int:
+    """The layout of a cluster kernel at an H-row grid whose shared memory
+    is `count(cluster, layout)` bytes a block: SMALL where it fits a block
+    under some cluster size, else LARGE where that fits, else BANDED; so
+    that every plan of a grid keeps one layout (`pcg_cluster.cuh ::
+    layout_where_fits`). K1, K2 and K3 each decide by it, on their own
+    bytes."""
+    for kind in (SMALL, LARGE):
+        if any(count(c, kind) <= SMEM_LIMIT_BYTES for c in CLUSTERS if c <= h):
+            return kind
+    return BANDED
 
 
 @functools.lru_cache(maxsize=None)
 def layout(h: int, w: int, threads: int = CLUSTER_THREADS) -> int:
-    """The layout in which K1 solves an H x W grid: SMALL where it fits a
-    block under some cluster size, else LARGE where that fits, else BANDED
+    """The layout in which K1 solves an H x W grid, by `layout_where_fits`
     (`pcg.cu :: grid_layout`, which `pcg_layout` reports in C)."""
-    for kind in (SMALL, LARGE):
-        if not large_where_small_fits_none(
-                h, lambda c: _solve_bytes(h, w, c, threads, kind)):
-            return kind
-    return BANDED
+    return layout_where_fits(
+        h, lambda c, kind: _solve_bytes(h, w, c, threads, kind))
 
 
 def solve_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:

@@ -20,12 +20,16 @@ chain of cluster barriers around four small basis products; `fwd_plan`
 and `bwd_plan` pick C by `cuda_cg.pick_plan` (the smallest C up to 16
 that fills the card, if that many clusters can be resident), so a trip
 and the windows are 1/C of the work on each SM. The design keeps the
-whole step in one launch per direction with no host round trip. On a grid
-whose buffers fit a block under no cluster size (K2 from 109², K3 from
-112², up to 128² at max_shift 2), every plan of that kernel takes the
-cluster core's large layout, as K1 does (`fwd_large_layout`,
-`bwd_large_layout`): the basis read from L2 and the residual exchanged by
-bands.
+whole step in one launch per direction with no host round trip. Each
+kernel takes a layout of the cluster core per grid, by K1's rule
+(`fwd_layout`, `bwd_layout`): small where its buffers fit a block under
+some cluster size; else the large layout (K2 from 109², K3 from 112² at
+max_shift 2), the basis read from L2 and the residual exchanged by
+bands; else the banded one (K2 from 146², K3 from 152²), the solve's two
+whole fields in a scratch in global memory that the wrapper allocates
+and, in K3, the window phase's arrays too (`bwd_scratch_floats`). The
+grids are those of the JAX package's fused gate (`pallas_fused_domain`),
+to 236² on squares, every one of which has a plan of each kernel.
 
 `fused_step_forward` / `fused_step_backward` launch K2 / K3 for CUDA
 tensors and run the plain versions below for CPU tensors; a CUDA tensor
@@ -58,30 +62,41 @@ from pde_control_tpu_torch.ops.interp import (
 LAUNCHES_FWD = 0
 LAUNCHES_BWD = 0
 
-# The largest side of a grid the fused step takes: K2 and K3 are held to
-# their plain versions and to the JAX package's goldens up to it, in the
-# small and large layouts. Beyond it the large layout soon fits no block;
-# K1's banded layout (`cuda_cg.BANDED`) is not yet theirs.
-FUSED_MAX_SIDE = 128
+# The JAX package's fused-step domain, `pde_control_tpu/ops/pallas_fluid.py
+# :: fused_step_fits`: its conservative count of the Pallas kernels' VMEM
+# (~40 field-size values padded to the TPU's (8, 128) tiles and the two
+# spectral bases) under a 10 MiB budget. A TPU bound, not a fit of this
+# card; `fused_step_fits` keeps the port's fused step to it, so that
+# fused='cuda' takes exactly the grids fused='pallas' takes.
+_PALLAS_VMEM_BUDGET_BYTES = 10 * 1024 * 1024
+
+
+def pallas_fused_domain(h: int, w: int) -> bool:
+    """Whether the JAX package's fused-step gate admits an H x W grid (a
+    copy of its formula; the port imports nothing of the JAX package):
+    squares to 236², tall grids to ~431 rows, wide ones to ~994 columns."""
+    per_field = (h + 8) * max(w + 8, 128) * 4
+    basis = (h * max(h, 128) + w * max(w, 128)) * 4
+    return 40 * per_field + 2 * basis < _PALLAS_VMEM_BUDGET_BYTES
 
 
 def _fwd_bytes(h: int, w: int, cluster: int, threads: int,
-               large: bool) -> int:
+               layout: int) -> int:
     r, align4 = -(-h // cluster), cuda_cg._align4
     return 4 * (align4(cuda_cg._RED_FLOATS)
-                + cuda_cg._cg_floats(h, w, r, threads, large)
+                + cuda_cg._cg_floats(h, w, r, threads, layout)
                 + align4((r + 1) * w) + align4(r * (w + 1))
                 + align4(min(r + 2, h) * w) + align4(w))
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_large_layout(h: int, w: int,
-                     threads: int = cuda_cg.CLUSTER_THREADS) -> bool:
-    """Whether K2 runs an H x W grid in the cluster core's large layout,
-    by `cuda_cg.large_where_small_fits_none` (`fused_step.cu ::
-    fwd_large_grid`, which `fused_fwd_large_layout` reports in C)."""
-    return cuda_cg.large_where_small_fits_none(
-        h, lambda c: _fwd_bytes(h, w, c, threads, False))
+def fwd_layout(h: int, w: int, threads: int = cuda_cg.CLUSTER_THREADS) -> int:
+    """The cluster core's layout in which K2 runs an H x W grid
+    (`cuda_cg.SMALL`, `LARGE` or `BANDED`), by `cuda_cg.layout_where_fits`
+    on K2's bytes (`fused_step.cu :: fwd_grid_layout`, which
+    `fused_fwd_layout` reports in C)."""
+    return cuda_cg.layout_where_fits(
+        h, lambda c, kind: _fwd_bytes(h, w, c, threads, kind))
 
 
 def fwd_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
@@ -89,7 +104,7 @@ def fwd_shared_bytes(h: int, w: int, cluster: int, threads: int) -> int:
     buffers in the grid's layout, then the band's vy3 (one more y-face),
     vx3, rho1 (one more row each side, clipped to the grid) and the row of
     p above the band — the count `fused_fwd_shared_bytes` makes in C."""
-    return _fwd_bytes(h, w, cluster, threads, fwd_large_layout(h, w, threads))
+    return _fwd_bytes(h, w, cluster, threads, fwd_layout(h, w, threads))
 
 
 def fwd_plans(h: int, w: int) -> list[cuda_cg.ClusterPlan]:
@@ -114,12 +129,14 @@ def fwd_plan(batch: int, h: int, w: int, *, sm_count: int | None = None,
 
 
 @functools.lru_cache(maxsize=None)
-def fused_step_fits(h: int, w: int) -> bool:
-    """Whether the fused step takes an H x W grid: no side above
-    `FUSED_MAX_SIDE` (128), and both K2 and K3 have a plan that fits shared
-    memory (in the small or the large layout). Cached: every launch asks."""
-    return (max(h, w) <= FUSED_MAX_SIDE and bool(fwd_plans(h, w))
-            and bool(bwd_plans(h, w)))
+def fused_step_fits(h: int, w: int, max_shift: int = 2) -> bool:
+    """Whether the fused step takes an H x W grid at `max_shift`: the JAX
+    package's fused gate admits it (`pallas_fused_domain`; it ignores
+    max_shift), and both K2 and K3 (at this max_shift) have a plan that
+    fits shared memory. Outside that domain it says no even where a plan
+    fits (237², 256²). Cached: every launch asks."""
+    return (pallas_fused_domain(h, w) and bool(fwd_plans(h, w))
+            and bool(bwd_plans(h, w, max_shift)))
 
 
 # K3's cluster sizes and its threads per block (the launcher refuses others).
@@ -127,29 +144,38 @@ BWD_CLUSTERS = cuda_cg.CLUSTERS
 BWD_THREADS = cuda_cg.CLUSTER_THREADS
 
 
-def _bwd_bytes(h: int, w: int, cluster: int, threads: int, max_shift: int,
-               large: bool) -> int:
-    r, e = -(-h // cluster), max_shift + 1
-    align4 = cuda_cg._align4
-    persistent = align4(cuda_cg._RED_FLOATS) + align4(r * w)
-    solve = cuda_cg._cg_floats(h, w, r, threads, large)
+def _window_floats(h: int, w: int, rows: int, max_shift: int) -> int:
+    """Floats of one rank's window phase in K3 (`fused_step.cu ::
+    bwd_layout`, gdiv to tmp): twelve arrays on the band of `rows` rows
+    widened by max_shift + 1 rows, each 16-byte aligned."""
+    r, e, align4 = rows, max_shift + 1, cuda_cg._align4
     taps = min(r + 2 * e + 1, h + 1) * (w + 1)
-    window = sum(align4(n) for n in (
+    return sum(align4(n) for n in (
         min(r + 2 * e + 2, h) * w, min(r + 2 * e + 1, h + 1) * w,
         min(r + 2 * e, h) * (w + 1), min(r + 2 * e, h) * w, taps, taps, taps,
         taps, taps, min(r + 1, h) * w, min(r + 1, h) * w,
         min(r + 1, h + 1) * (w + 1)))
-    return 4 * (persistent + max(solve, window))
+
+
+def _bwd_bytes(h: int, w: int, cluster: int, threads: int, max_shift: int,
+               layout: int) -> int:
+    r, align4 = -(-h // cluster), cuda_cg._align4
+    persistent = align4(cuda_cg._RED_FLOATS) + align4(r * w)
+    solve = cuda_cg._cg_floats(h, w, r, threads, layout)
+    if layout == cuda_cg.BANDED:  # the window phase in global memory
+        return 4 * (persistent + solve)
+    return 4 * (persistent + max(solve, _window_floats(h, w, r, max_shift)))
 
 
 @functools.lru_cache(maxsize=None)
-def bwd_large_layout(h: int, w: int, max_shift: int = 2,
-                     threads: int = BWD_THREADS) -> bool:
-    """Whether K3 runs an H x W grid at `max_shift` in the cluster core's
-    large layout, by `cuda_cg.large_where_small_fits_none` (`fused_step.cu
-    :: bwd_large_grid`, which `fused_bwd_large_layout` reports in C)."""
-    return cuda_cg.large_where_small_fits_none(
-        h, lambda c: _bwd_bytes(h, w, c, threads, max_shift, False))
+def bwd_layout(h: int, w: int, max_shift: int = 2,
+               threads: int = BWD_THREADS) -> int:
+    """The cluster core's layout in which K3 runs an H x W grid at
+    `max_shift`, by `cuda_cg.layout_where_fits` on K3's bytes
+    (`fused_step.cu :: bwd_grid_layout`, which `fused_bwd_layout` reports
+    in C). BANDED takes the window phase out of shared memory too."""
+    return cuda_cg.layout_where_fits(
+        h, lambda c, kind: _bwd_bytes(h, w, c, threads, max_shift, kind))
 
 
 def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
@@ -159,9 +185,20 @@ def bwd_shared_bytes(h: int, w: int, cluster: int, threads: int,
     layout (the small one: the basis, three whole fields, the band's
     iterates, the products' slices; the large one without the basis and the
     third whole field) and the window phase's (the band widened by
-    max_shift + 1 rows) — the count `fused_bwd_shared_bytes` makes in C."""
+    max_shift + 1 rows); in the banded layout the solve's buffers alone,
+    its window phase being in `bwd_scratch_floats`' scratch — the count
+    `fused_bwd_shared_bytes` makes in C."""
     return _bwd_bytes(h, w, cluster, threads, max_shift,
-                      bwd_large_layout(h, w, max_shift, threads))
+                      bwd_layout(h, w, max_shift, threads))
+
+
+def bwd_scratch_floats(h: int, w: int, cluster: int, max_shift: int) -> int:
+    """Floats of global scratch one sample of K3 needs in the banded
+    layout: the solve's two whole fields (H x W each), then each rank's
+    window phase (`_window_floats`) — the count `fused_bwd_scratch_floats`
+    makes in C."""
+    return cuda_cg._align4(2 * h * w) + cluster * _window_floats(
+        h, w, -(-h // cluster), max_shift)
 
 
 def bwd_plans(h: int, w: int,
@@ -424,10 +461,10 @@ def _kernels():
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tail = [i32] * 3 + [f32] * 4 + [i32] * 3 + [f32, i32, i32, i32, ptr]
     fwd = lib.fused_step_fwd_f32
-    fwd.argtypes = [ptr] * 19 + tail
+    fwd.argtypes = [ptr] * 20 + tail
     fwd.restype = i32
     bwd = lib.fused_step_bwd_f32
-    bwd.argtypes = [ptr] * 21 + tail
+    bwd.argtypes = [ptr] * 22 + tail
     bwd.restype = i32
     bwd_clusters = lib.fused_bwd_max_clusters
     bwd_clusters.argtypes = [i32] * 5
@@ -442,7 +479,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_cuda(vy, vx, rho, fields: dict, geom) -> tuple[int, int, int]:
+def _check_cuda(vy, vx, rho, fields: dict, geom,
+                max_shift: int) -> tuple[int, int, int]:
     """Checks every operand of a launch; returns (B, H, W)."""
     if rho.dim() != 3:
         raise ValueError(f"rho: want (B, H, W), got {tuple(rho.shape)}")
@@ -459,9 +497,11 @@ def _check_cuda(vy, vx, rho, fields: dict, geom) -> tuple[int, int, int]:
     cuda_cg._check("acc_y", acc_y, (h + 1, w), dev)
     cuda_cg._check("acc_x", acc_x, (h, w + 1), dev)
     cuda_cg._check("fluid", fluid, (h, w), dev)
-    if not fused_step_fits(h, w):
-        raise ValueError(f"a {h}x{w} fused step is beyond its grids (sides up "
-                         f"to {FUSED_MAX_SIDE}, a cluster's shared memory up to "
+    if not fused_step_fits(h, w, max_shift):
+        raise ValueError(f"a {h}x{w} fused step at max_shift {max_shift} is "
+                         f"beyond its grids (the JAX package's fused gate, "
+                         f"squares up to 236², and a plan of K2 and K3 in a "
+                         f"cluster's shared memory, up to "
                          f"{cuda_cg.SMEM_LIMIT_BYTES} bytes a block)")
     return b, h, w
 
@@ -498,7 +538,7 @@ def _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow, x0,
     if (fy is None) != (fx is None):
         raise ValueError("fy and fx go together")
     b, h, w = _check_cuda(vy, vx, rho, dict(fy=fy, fx=fx, inflow=inflow, x0=x0),
-                          (acc_y, acc_x, fluid))
+                          (acc_y, acc_x, fluid), int(kw["max_shift"]))
     if plan is None:
         plan = fwd_plan(b, h, w)
     qy, qx, inv_lam, qxt = cuda_cg._tables(h, w, float(kw["dx"]),
@@ -506,9 +546,12 @@ def _launch_forward(vy, vx, rho, acc_y, acc_x, fluid, fy, fx, inflow, x0,
     vy4, vx4 = torch.empty_like(vy), torch.empty_like(vx)
     rho1, p = torch.empty_like(rho), torch.empty_like(rho)
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
+    # The banded layout's residual and scaled spectrum, whole, a sample.
+    scratch = (torch.empty((b, 2, h, w), dtype=torch.float32, device=rho.device)
+               if fwd_layout(h, w) == cuda_cg.BANDED else None)
     rc = _kernels()[0](
         *map(_ptr, (vy, vx, rho, fy, fx, inflow, x0, acc_y, acc_x, fluid, qy,
-                    qx, qxt, inv_lam, vy4, vx4, rho1, p, iters)),
+                    qx, qxt, inv_lam, scratch, vy4, vx4, rho1, p, iters)),
         b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)
     if rc != 0:
@@ -544,11 +587,12 @@ def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
     tests and `sweep_dw_plan.py bwd` pass other plans; a plan the launcher
     refuses raises."""
     global LAUNCHES_BWD
+    k = int(kw["max_shift"])
     b, h, w = _check_cuda(
         vy, vx, rho, dict(g_vy4=g_vy4, g_vx4=g_vx4, g_rho1=g_rho1, g_p=g_p),
-        (acc_y, acc_x, fluid))
+        (acc_y, acc_x, fluid), k)
     if plan is None:
-        plan = bwd_plan(b, h, w, int(kw["max_shift"]))
+        plan = bwd_plan(b, h, w, k)
     qy, qx, inv_lam, qxt = cuda_cg._tables(h, w, float(kw["dx"]),
                                            bool(kw["closed"]), rho.device)
     g_vy, g_vx, g_rho = (torch.empty_like(t) for t in (vy, vx, rho))
@@ -556,11 +600,14 @@ def _launch_backward(vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
     g_fx = torch.empty_like(vx) if has_force else None
     g_inflow = torch.empty_like(rho) if has_inflow else None
     iters = torch.empty(b, dtype=torch.int32, device=rho.device)
+    # The banded layout's solve fields and each rank's window phase.
+    scratch = (torch.empty((b, bwd_scratch_floats(h, w, plan.cluster, k)),
+                           dtype=torch.float32, device=rho.device)
+               if bwd_layout(h, w, k) == cuda_cg.BANDED else None)
     rc = _kernels()[1](
         *map(_ptr, (vy, vx, rho, g_vy4, g_vx4, g_rho1, g_p, acc_y, acc_x,
-                    fluid, qy, qx, qxt, inv_lam, g_vy, g_vx, g_rho, g_fy,
-                    g_fx,
-                    g_inflow, iters)),
+                    fluid, qy, qx, qxt, inv_lam, scratch, g_vy, g_vx, g_rho,
+                    g_fy, g_fx, g_inflow, iters)),
         b, h, w, *_statics(**kw), plan.cluster, plan.threads,
         torch.cuda.current_stream(rho.device).cuda_stream)
     if rc != 0:

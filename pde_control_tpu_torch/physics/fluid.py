@@ -19,7 +19,6 @@ from pde_control_tpu_torch.grids import (
     resolve_device,
 )
 from pde_control_tpu_torch.ops.cuda_fluid import (
-    FUSED_MAX_SIDE,
     fused_fluid_step,
     fused_step_fits,
 )
@@ -98,14 +97,14 @@ def _fused_applicable(state: FluidState, domain: Domain2D, cfg: FluidConfig,
         and not cfg.viscosity
         and domain.closed
         and state.density.dim() == 3
-        and fused_step_fits(*domain.grid_shape)
+        and fused_step_fits(*domain.grid_shape, cfg.max_shift)
     )
     if not supported:
         raise ValueError(
             "FluidConfig.fused='cuda' but this configuration is not supported "
             "by the fused kernel (needs 2D closed domain, shift advection, "
             "viscosity=0, static buoyancy, a grid fused_step_fits takes: "
-            f"sides up to {FUSED_MAX_SIDE})")
+            "the JAX package's fused gate, squares up to 236²)")
     if not domain.has_obstacles and cfg.pressure_backend in ("auto", "spectral"):
         # The unfused step would take the exact spectral solve here; the
         # fused kernel always runs tol-bounded PCG.

@@ -278,7 +278,7 @@ def test_fused_pallas_name_raises():
 @pytest.mark.parametrize("why", ["viscosity", "open", "buoyancy_factor",
                                  "too_large", "spectral_conflict"])
 def test_fused_refuses_what_it_does_not_implement(why):
-    n = 136 if why == "too_large" else H
+    n = 237 if why == "too_large" else H
     m = np.zeros((n, n), np.float32)
     m[n // 2, 2:6] = 1.0
     domain = TDomain.create(n, n, obstacle_mask=None if why ==
@@ -309,13 +309,28 @@ def test_fused_spectral_conflict_accepts_explicit_pcg():
 
 @pytest.mark.parametrize("h,w,fits", [(64, 64, True), (84, 84, True),
                                       (85, 85, True), (32, 48, True),
-                                      (128, 128, True), (136, 136, False)])
+                                      (128, 128, True), (136, 136, True),
+                                      (237, 237, False)])
 def test_fused_fits_gate(h, w, fits):
-    """Sides up to 128 (K1's), in the small layout to 108² (K2) and 111²
-    (K3) and in the cluster core's large one beyond; the shared memory of
-    both layouts as the C source counts it (the build phase of
-    chip_smoke.py compares the two on the card)."""
+    """The JAX package's fused gate (squares to 236²): in the small layout
+    to 108² (K2) and 111² (K3), in the cluster core's large one beyond, and
+    in the banded one from 146² (K2) and 152² (K3); the shared memory of
+    the three layouts, and K3's banded scratch, as the C source counts them
+    (the build phase of chip_smoke.py compares the two on the card): at
+    236² and C = 16 the reduction area, the solve's bands (x, z, t, r:
+    15 rows; d: 17; z's halo rows: 2) and slices (8·512) and K2's band
+    fields (vy3 16 rows, vx3 15 × 237 = 3,555 floats, 16-byte aligned to
+    3,556, rho1 17, a row of p), or K3's best
+    iterate (15 rows); K3's window phase (231,920 B a rank) in the
+    scratch beside the solve's two whole fields."""
     assert tcf.fused_step_fits(h, w) is fits
     assert tcf.fwd_shared_bytes(64, 64, 8, 512) == 99_360
     assert tcf.fwd_shared_bytes(128, 128, 8, 512) == 209_728
     assert tcf.bwd_shared_bytes(128, 128, 8, 512, 2) == 191_232
+    band = 4 * 15 * 236 + 17 * 236 + 2 * 236 + 8 * 512
+    assert tcf.fwd_shared_bytes(236, 236, 16, 512) == 4 * (
+        192 + band + 16 * 236 + 3_556 + 17 * 236 + 236) == 138_048
+    assert tcf.bwd_shared_bytes(236, 236, 16, 512, 2) == 4 * (
+        192 + 15 * 236 + band) == 105_888
+    assert tcf.bwd_scratch_floats(236, 236, 16, 2) == (
+        2 * 236 * 236 + 16 * 231_920 // 4)

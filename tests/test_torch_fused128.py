@@ -36,8 +36,8 @@ in the cluster core's large layout on the card.
   though the physics agrees to 1e-7, since bf16 rounds the nets' small
   differences up to its own step; with fp32 nets they agree to 1.6e-6 (CFE)
   and 1.1e-5 (OP2).
-* The route: `FluidConfig(fused='cuda')` takes a 128² domain and refuses
-  a 136² one, naming the gate.
+* The route: `FluidConfig(fused='cuda')` takes a 136² domain and refuses
+  a 237² one, naming the gate.
 
 The golden tests import neither JAX nor the JAX package; the slice's
 tests import them inside and skip where the JAX package cannot be
@@ -52,7 +52,7 @@ import numpy as np
 import pytest
 import torch
 
-from pde_control_tpu_torch.ops import cuda_fluid
+from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
 
 torch.set_num_threads(1)
 
@@ -170,8 +170,8 @@ def test_kernels_match_golden(case):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     state, ops, geom, cots, cfg, outs, grads, trips = _case(case, dev)
-    assert cuda_fluid.fwd_large_layout(H, H)
-    assert cuda_fluid.bwd_large_layout(H, H, cfg["max_shift"])
+    assert cuda_fluid.fwd_layout(H, H) == cuda_cg.LARGE
+    assert cuda_fluid.bwd_layout(H, H, cfg["max_shift"]) == cuda_cg.LARGE
     plans = cuda_fluid.fwd_plans(H, H)
     assert [p.cluster for p in plans] == [8, 16]
     step_ops = [ops[k] for k in ("fy", "fx", "inflow", "x0")]
@@ -303,11 +303,12 @@ def test_slice_gradients_match_jax(net):
     assert float((tg - jg).norm() / jg.norm()) < 1e-3
 
 
-@pytest.mark.parametrize("n,fits", [(128, True), (136, False)])
+@pytest.mark.parametrize("n,fits", [(136, True), (237, False)])
 def test_fused_route_takes_128_and_refuses_136(n, fits):
-    """`FluidConfig(fused='cuda')` on a CPU domain with the plate: at 128²
-    one step runs on the plain K2 (no launch); at 136² the step raises,
-    naming the gate and its side."""
+    """`FluidConfig(fused='cuda')` on a CPU domain with the plate: beyond
+    the old edge of 128, at 136², one step runs on the plain K2 (no
+    launch); at 237², outside the JAX package's fused gate, the step
+    raises, naming the gate and its edge."""
     from pde_control_tpu_torch.grids import Domain2D
     from pde_control_tpu_torch.physics import fluid
 
@@ -318,7 +319,8 @@ def test_fused_route_takes_128_and_refuses_136(n, fits):
     state.density[0, 8:16, 40:56] = 1.0
     assert cuda_fluid.fused_step_fits(n, n) is fits
     if not fits:
-        with pytest.raises(ValueError, match="fused_step_fits takes: sides up to 128"):
+        with pytest.raises(ValueError, match="fused_step_fits takes: the JAX "
+                           "package's fused gate, squares up to 236²"):
             fluid.fluid_step(state, domain, cfg)
         return
     before = (cuda_fluid.LAUNCHES_FWD, cuda_fluid.LAUNCHES_BWD)

@@ -400,15 +400,17 @@ def test_fused_forward_plans_match_plain(h, w, case):
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (96, 96), (110, 110),
-                                 (112, 112), (127, 127), (128, 128)])
+                                 (112, 112), (127, 127), (128, 128),
+                                 (236, 236), (8, 990)])
 def test_fused_shared_memory_count_matches_source(h, w):
     """K2's and K3's plans count the bytes the kernels' source asks for,
     under every plan their launchers take and under their plan at batch 8:
     `fused_fwd_shared_bytes` and `fused_bwd_shared_bytes`, in the layout
-    the grid takes, which `fused_fwd_large_layout` and
-    `fused_bwd_large_layout` report as `fwd_large_layout` and
-    `bwd_large_layout` do (small at 64², 32×48 and 96²; at 110² K2 large
-    and K3 small; large from 112² to 128²)."""
+    the grid takes, which `fused_fwd_layout` and `fused_bwd_layout` report
+    as `fwd_layout` and `bwd_layout` do (small at 64², 32×48 and 96²; at
+    110² K2 large and K3 small; large from 112² to 128²; banded at 236²;
+    at 8×990 K2 large and K3 banded), and K3's banded scratch as
+    `fused_bwd_scratch_floats` counts it."""
     import ctypes
 
     from pde_control_tpu_torch.ops import _build
@@ -423,14 +425,22 @@ def test_fused_shared_memory_count_matches_source(h, w):
     fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
     for plan in cuda_fluid.bwd_plans(h, w) + [cuda_fluid.bwd_plan(8, h, w)]:
         assert fn(h, w, plan.cluster, plan.threads, 2) == plan.shared_bytes
-    large = lib.fused_fwd_large_layout
-    large.argtypes, large.restype = [ctypes.c_int] * 3, ctypes.c_int
-    assert bool(large(h, w, 512)) is cuda_fluid.fwd_large_layout(h, w)
-    large = lib.fused_bwd_large_layout
-    large.argtypes, large.restype = [ctypes.c_int] * 4, ctypes.c_int
-    assert bool(large(h, w, 512, 2)) is cuda_fluid.bwd_large_layout(h, w, 2)
-    assert cuda_fluid.fwd_large_layout(h, w) is (h >= 109)
-    assert cuda_fluid.bwd_large_layout(h, w, 2) is (h >= 112)
+    layout = lib.fused_fwd_layout
+    layout.argtypes, layout.restype = [ctypes.c_int] * 3, ctypes.c_int
+    assert layout(h, w, 512) == cuda_fluid.fwd_layout(h, w)
+    layout = lib.fused_bwd_layout
+    layout.argtypes, layout.restype = [ctypes.c_int] * 4, ctypes.c_int
+    assert layout(h, w, 512, 2) == cuda_fluid.bwd_layout(h, w, 2)
+    fn = lib.fused_bwd_scratch_floats
+    fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_size_t
+    for plan in cuda_fluid.bwd_plans(h, w):
+        assert fn(h, w, plan.cluster, plan.threads, 2) == (
+            cuda_fluid.bwd_scratch_floats(h, w, plan.cluster, 2))
+    sides = {(8, 990): (cuda_cg.LARGE, cuda_cg.BANDED)}
+    assert (cuda_fluid.fwd_layout(h, w), cuda_fluid.bwd_layout(h, w, 2)) == (
+        sides.get((h, w)) or tuple(
+            cuda_cg.BANDED if h >= banded else cuda_cg.LARGE if h >= large
+            else cuda_cg.SMALL for large, banded in ((109, 146), (112, 152))))
 
 
 @pytest.mark.parametrize("h,w,fwd,bwd", [
@@ -443,8 +453,8 @@ def test_fused_large_layout_sides(h, w, fwd, bwd):
     window phase also shares the block) from 112²; a 64×128 or 128×64 grid
     keeps the small layout. Every plan of a grid counts its layout, and
     the large layout fits at 128² under C = 8 and 16, not 4."""
-    assert cuda_fluid.fwd_large_layout(h, w) is fwd
-    assert cuda_fluid.bwd_large_layout(h, w, 2) is bwd
+    assert cuda_fluid.fwd_layout(h, w) == int(fwd)
+    assert cuda_fluid.bwd_layout(h, w, 2) == int(bwd)
     for c in cuda_cg.CLUSTERS:
         assert cuda_fluid.fwd_shared_bytes(h, w, c, 512) == (
             cuda_fluid._fwd_bytes(h, w, c, 512, fwd))
@@ -527,7 +537,8 @@ def test_bwd_plan_fills_the_card_and_is_cached():
     card cannot hold `batch` clusters at once (8 when only 7 clusters of 16
     fit; 2 at batch 64), the smallest that fits shared memory at large
     batch (8 at 128², in the large layout, where 4 does not fit); one plan
-    object per shape."""
+    object per shape; no plan beyond shared memory (8×8192: the banded
+    layout, whose window phase is in global memory, fits 8×4096)."""
     def plan(batch, h, w, limit=_resident_clusters):
         return cuda_fluid.bwd_plan(batch, h, w, sm_count=132, max_clusters=limit)
 
@@ -543,7 +554,7 @@ def test_bwd_plan_fills_the_card_and_is_cached():
     assert plan(200, 128, 128).cluster == 8
     assert plan(8, 64, 64) is plan(8, 64, 64)
     with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 8, 4096)
+        plan(1, 8, 8192)
 
 
 _SOLVE_PLAN_SHAPES = [(1, 8, 8), (8, 64, 64), (64, 64, 64), (8, 32, 48),
@@ -660,7 +671,8 @@ def test_plans_exist_where_the_gates_say_yes(h, w):
             assert cuda_fluid.bwd_plan(b, h, w, sm_count=132,
                                        max_clusters=_resident_clusters)
     assert cuda_cg.cuda_solve_fits(h, w)
-    assert cuda_fluid.fused_step_fits(h, w) is (max(h, w) <= 128)
+    assert cuda_fluid.fused_step_fits(h, w) is cuda_fluid.pallas_fused_domain(
+        h, w)
 
 
 def test_fused_kernels_reject_bad_inputs():
@@ -685,12 +697,12 @@ def test_fused_kernels_reject_bad_inputs():
         cuda_fluid.fused_step_backward(vy, vx, rho, cots[1], cots[0], *cots[2:],
                                        *geom, has_force=True, has_inflow=False,
                                        **_FUSED)
-    big = Domain2D.create(136, 136, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    big = Domain2D.create(237, 237, device=dev)
+    with pytest.raises(ValueError, match="fused gate"):
         cuda_fluid.fused_step_forward(
-            torch.zeros(1, 137, 136, device=dev),
-            torch.zeros(1, 136, 137, device=dev),
-            torch.zeros(1, 136, 136, device=dev), big.acc_y, big.acc_x,
+            torch.zeros(1, 238, 237, device=dev),
+            torch.zeros(1, 237, 238, device=dev),
+            torch.zeros(1, 237, 237, device=dev), big.acc_y, big.acc_x,
             big.fluid_mask, **_FUSED)
 
 

@@ -164,5 +164,6 @@ def test_routes_at_256():
     assert poisson._pick_backend("cuda", div, domain) == "cuda"
     cfg = fluid.FluidConfig(fused="cuda", **_CFG)
     state = fluid.FluidState.zeros(1, H, H, device="cpu")
-    with pytest.raises(ValueError, match="fused_step_fits takes: sides up to 128"):
+    with pytest.raises(ValueError, match="fused_step_fits takes: the JAX "
+                       "package's fused gate, squares up to 236²"):
         fluid.fluid_step(state, domain, cfg)
