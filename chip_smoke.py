@@ -45,15 +45,22 @@ prints no result):
      conv path's run records the shape of every conv its kernels compute;
   6. the main path, unfused: the 64² smoke-control training iteration
      (n=16, batch 8, full widths, bf16 nets) with the pressure solve on K1;
-     the first iteration against the plain solve, 2 warm-up and 5 timed
-     iterations, K1's launches;
+     the first iteration against the plain solve, then against the JAX
+     package's (`tests/goldens/main_path_64.npz`, written on the CPU by
+     `scripts/make_main_path_golden.py`; its weights drawn again here and
+     held to its digest, loaded through `params_from_flax`): with fp32
+     nets the loss within 1e-3 relative and each net's gradient norm
+     within 2e-2, with bf16 nets the loss within 1e-3 (`golden_check`),
+     trip means beside the JAX CG's; 2 warm-up and 5 timed iterations,
+     K1's launches;
   7. the main path, fused (`FluidConfig.fused='cuda'`): the same
      iteration with each step on K2 and K3; the first iteration against
-     the unfused one, 2 warm-up and 5 timed iterations, K2's and K3's
-     launches;
+     the unfused one and against the JAX golden as in 6, 2 warm-up and 5
+     timed iterations, K2's and K3's launches;
   8. the main path, fused, with the nets' 3×3 stride-1 convs on K4/K5
      (`conv_impl='cuda'`): the first iteration against the fused cuDNN
-     path, 2 warm-up and 5 timed iterations, the launches of all five
+     path and, bf16 alone (K4/K5 take no fp32), against the JAX golden as
+     in 6, 2 warm-up and 5 timed iterations, the launches of all five
      kernels; then "128², fused (K2 / K3)": `profile_bench.make_app(128,
      16, 8, maxiter=200)` with `fused='cuda'` against the same app unfused
      (K1), the first iteration of both (CFE perturbed; loss 1e-3 relative,
@@ -68,7 +75,11 @@ prints no result):
      box), batch
      8, cold and warm, tol 1e-4 / 200 and 1e-5 / 500; the gradient through
      `solve_pressure` at 256²; against `tests/goldens/pcg_256.npz` and
-     `pcg_edges.npz` (351² warm, 362² cold); its times at 256²×8 and
+     `pcg_edges.npz` (351² warm, 362² cold) and, on a closed 64×600 box
+     where the 4× rule stops a sample's solve after a few trips in the
+     JAX package's kernel too, `pcg_closed.npz` (each converged sample
+     within 1e-4 of its max|p|, trips within 3 or 10% of its best
+     iterate's; the stopped one converged, or stopped no worse); its times at 256²×8 and
      351²×8 under every plan beside plain, the 'pcg' route and the bound;
      the 256² indirect-smoke app (`APP256`: the task's obstacles, inflow
      and nets) on K1 against the 'pcg' route, first iteration (31 K1) and
@@ -1526,6 +1537,83 @@ def cg_golden_files_check(dev, files: dict) -> float:
     return worst
 
 
+CG_GOLDEN_CLOSED = "tests/goldens/pcg_closed.npz"
+
+
+def cg_closed_golden_check(dev) -> float:
+    """K1 under its plan and every plan its launcher takes against the JAX
+    package's cold solve on a closed 64×600 box with the plate
+    (`scripts/make_cg_goldens_closed.py`, tol 1e-6 / 500, batch 4), where
+    the 4× rule stops one sample's solve at its best iterate of trip 7 in
+    the Pallas kernel and in the plain version alike. The samples the
+    golden converged: the pressure within 1e-4 of the sample's max|p|,
+    trips within 3 or 10% of the trip of the Pallas kernel's best iterate.
+    The sample it stopped: K1 converges (relative residual ‖b − A p‖ / ‖b‖
+    within 1e-3; the golden's converged samples reach 2-3e-4), or it stops
+    too, within 3 or 10% of the golden's trip, at a residual no larger
+    than the golden's. The safeguard fires on an fp32 rounding event and
+    the iterate it keeps is as sensitive to rounding: K1's sums run in
+    another order (on the card K1 converged under two of its plans and
+    stopped at trip 10, 7.8e-3 of max|p| from the golden, under the
+    third). Returns the largest max|dp| over the converged samples."""
+    from pathlib import Path
+
+    from pde_control_tpu_torch.grids import Domain2D
+    from pde_control_tpu_torch.ops import cuda_cg
+    from pde_control_tpu_torch.physics.poisson import (
+        _projector,
+        masked_laplace_spd,
+    )
+
+    z = np.load(Path(__file__).resolve().parent / CG_GOLDEN_CLOSED)
+    kw = dict(json.loads(str(z["config"])), precond=True)
+    del kw["warm"]
+    t = {k: torch.tensor(z[k].astype(np.float32), device=dev)
+         for k in ("div", "acc_y", "acc_x", "fluid", "p")}
+    h, w = z["div"].shape[1:]
+    domain = Domain2D.create(h, w, obstacle_mask=_plate(h, w), device=dev)
+    if not all(torch.equal(getattr(domain, k), t[g]) for k, g in (
+            ("acc_y", "acc_y"), ("acc_x", "acc_x"), ("fluid_mask", "fluid"))):
+        raise AssertionError("the golden's geometry is not the plate's")
+    fluid = domain.fluid_mask > 0
+    b = _projector(domain)(torch.where(fluid, -t["div"], 0.0))
+
+    def rel_res(p):
+        r = torch.where(fluid, b - masked_laplace_spd(p, domain), 0.0)
+        return (r.norm(dim=(1, 2)) / b.norm(dim=(1, 2))).cpu().numpy()
+
+    trips = z["trips"]
+    stopped = z["rel_res"] > 1e-2
+    scale = t["p"].abs().amax(dim=(1, 2))
+    worst, rel, dit = 0.0, 0.0, 0
+    plans = cuda_cg.solve_plans(h, w)
+    for plan in [None] + plans:
+        p, it = cuda_cg._launch_solve(t["div"], t["acc_y"], t["acc_x"],
+                                      t["fluid"], None, plan, **kw)
+        d = (p - t["p"]).abs().amax(dim=(1, 2))
+        d_rel = (d / scale).cpu().numpy()
+        it, res = it.cpu().numpy(), rel_res(p)
+        near = np.abs(it - trips) <= np.maximum(3, 0.1 * trips)
+        close = (d_rel <= 1e-4) & near
+        as_good = (res <= 1e-3) | (near & (res <= z["rel_res"]))
+        print(f"  {_plan_text(plan) if plan else 'its plan'}: trips {it.tolist()},"
+              f" max|dp|/max|p| {[f'{x:.2e}' for x in d_rel]}, relative "
+              f"residuals {[f'{x:.2e}' for x in res]}")
+        if not close[~stopped].all() or not as_good[stopped].all():
+            raise AssertionError(f"K1 at {h}x{w} closed differs from the JAX "
+                                 "golden")
+        worst = max(worst, float(d[torch.tensor(~stopped, device=dev)].max()))
+        rel = max(rel, float(d_rel[~stopped].max()))
+        dit = max(dit, int(np.abs(it - trips)[~stopped].max()))
+    print(f"golden {h}x{w}x{len(trips)} closed (JAX interpret-mode kernel, best"
+          f" trips {trips.tolist()}, relative residuals "
+          f"{[f'{x:.2e}' for x in z['rel_res']]}): K1 "
+          f"{cuda_cg.LAYOUT_NAMES[cuda_cg.layout(h, w)]} over its plan and "
+          f"{len(plans)} others: converged samples max|dp|/max|p| {rel:.2e}, "
+          f"trips within {dit}; the stopped sample as printed")
+    return worst
+
+
 def _k1_times(card: str, dev, rng, n: int) -> dict:
     """K1 at n²×8 (tol 1e-4 / maxiter 200, cold and warm) under every plan,
     beside the plain version, the bound and the 'pcg' route the port took
@@ -1832,7 +1920,8 @@ def k1big_phase(card: str) -> dict:
     if g_err > 1e-3:
         raise AssertionError(f"gradient through the kernel differs: {g_err:.3e}")
     # max|dp| at the timed grid's checks (256²) and against the goldens.
-    err = max(errs[(n, n)], cg_golden_files_check(dev, CG_GOLDENS_BIG))
+    err = max(errs[(n, n)], cg_golden_files_check(dev, CG_GOLDENS_BIG),
+              cg_closed_golden_check(dev))
     times = {m: _k1_times(card, dev, rng, m) for m in K1_BANDED_TIMED}
     app = app256_phase(card)
     run = smoke256_run(card)
@@ -2325,6 +2414,158 @@ def perturb_cfe(app) -> None:
         w.copy_(torch.tensor(k.transpose(3, 2, 0, 1), dtype=torch.float32))
 
 
+# The JAX package's first iteration of the main path (64², n=16, batch 8,
+# 'pcg' on the CPU), written by scripts/make_main_path_golden.py.
+GOLDEN_64 = "tests/goldens/main_path_64.npz"
+GOLDEN_PARAM_SEED = 21
+
+
+def golden_params(shapes: dict) -> dict:
+    """The golden's weights, {"net/module path/kernel|bias": float32 array}
+    in flax's layout, shaped as `shapes` says: each kernel N(0, 1/fan_in)
+    (flax's default lecun-normal scale), each bias 0, drawn from
+    `np.random.default_rng(GOLDEN_PARAM_SEED)` leaf by leaf in sorted order;
+    then the CFE's output layer Conv_4 as `perturb_cfe` sets it. The main
+    path's nets hold 3.0 M parameters, 12 MB in float32: the golden keeps
+    the seed and a digest instead."""
+    rng = np.random.default_rng(GOLDEN_PARAM_SEED)
+    out = {}
+    for path in sorted(shapes):
+        shape = tuple(shapes[path])
+        if path.endswith("/kernel"):
+            out[path] = (rng.normal(size=shape)
+                         / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+        else:
+            out[path] = np.zeros(shape, np.float32)
+    out["CFE/Conv_4/kernel"] = (0.05 * np.random.default_rng(3).normal(
+        size=shapes["CFE/Conv_4/kernel"])).astype(np.float32)
+    return out
+
+
+def digest(arrays: dict) -> str:
+    """sha256 of float32 arrays' bytes in sorted order of their keys."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(arrays[k], np.float32).tobytes())
+    return h.hexdigest()
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def load_golden() -> dict:
+    """The golden's numbers: loss, each net's gradient norm and the mean
+    trips of the warm forward and cold backward solves, by case ('bf16',
+    'fp32' nets), and its seeds and digests."""
+    from pathlib import Path
+
+    z = np.load(Path(__file__).resolve().parent / GOLDEN_64)
+    return dict(json.loads(str(z["config"])))
+
+
+def _nets_in(app, dtype) -> None:
+    """Sets every net's compute dtype: the `dtype` of each of its modules,
+    which `models/nets.py` reads in their forward passes."""
+    for module in app.nets.modules():
+        if hasattr(module, "dtype"):
+            module.dtype = dtype
+
+
+def golden_first(golden: dict, device: str, fused: str, conv_impl: str,
+                 case: str, trips: dict | None = None) -> tuple[float, dict]:
+    """Loss and gradient norms of the main path's first iteration on
+    `device` (on the CPU the kernels' plain versions), on the golden's
+    weights (loaded through `params_from_flax`) and batch, with the nets
+    in the golden case's dtype ('bf16' or 'fp32'); with `trips`, each
+    solve's trip counts by 'warm' and 'cold' (K1 on the unfused path, K2
+    / K3 on the fused ones)."""
+    from pde_control_tpu_torch.experiments import profile_bench
+    from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
+    from pde_control_tpu_torch.utils.convert import params_from_flax, params_to_flax
+
+    # 'cuda': K1 (its plain version on the CPU), as 'auto' takes on the card.
+    app = profile_bench.make_app(H, N, BATCH, device, fused=fused,
+                                 conv_impl=conv_impl, backend="cuda")
+    _nets_in(app, {"bf16": torch.bfloat16, "fp32": torch.float32}[case])
+    shapes = {k: v.shape for k, v in _flat(params_to_flax(app.state_dicts())).items()}
+    params = golden_params(shapes)
+    batch = make_batch(golden["seed"])
+    for what, got, want in (("weights", digest(params), golden["params_sha256"]),
+                            ("batch", digest(batch), golden["batch_sha256"])):
+        if got != want:
+            raise AssertionError(f"the golden's {what} drawn here differ from "
+                                 "the ones it was written with (numpy's draws?)")
+    app.load_params(params_from_flax(_nest(params)))
+    patched = []
+    if trips is not None and fused == "cuda":
+        for name, key in (("fused_step_forward", "warm"),
+                          ("fused_step_backward", "cold")):
+            patched.append((cuda_fluid, name,
+                            _record_trips(cuda_fluid, name, trips[key])))
+    elif trips is not None:
+        patched.append((cuda_cg, "pressure_solve", _record_solves(trips)))
+    try:
+        metrics = app.compute_gradients(app.to_batch(batch))
+    finally:
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+    return float(metrics["loss"]), _grad_norms(app)
+
+
+def golden_check(label: str, golden: dict, fused: str,
+                 conv_impl: str = "xla") -> None:
+    """The path's first iteration against the JAX package's. With fp32
+    nets: the loss within 1e-3 relative and each net's gradient norm within
+    2e-2 (`_compare_first`). With the main path's bf16 nets: the loss
+    within 1e-3; the gradient norms are printed beside the golden's, not
+    held: the JAX package's bf16 gradients on the CPU sum each bias's
+    cotangent in bf16 (XLA's reduce_sum of the bf16 broadcast-add's
+    transpose), 45-82% off their fp32 sums by net, and the kernels' carry
+    3-15% of bf16 rounding on either side (ROADMAP C16). K4/K5 take bf16
+    alone, so the conv path has no fp32 case. Trip means of the bf16 run
+    beside the golden's."""
+    trips = {"warm": [], "cold": []}
+    loss, norms = golden_first(golden, "cuda", fused, conv_impl, "bf16", trips)
+    ref = golden["cases"]["bf16"]
+    means = {k: float(torch.cat(v).float().mean()) for k, v in trips.items()}
+    print(f"{label} on the golden (bf16 nets): trip means warm {means['warm']:.2f}"
+          f" over {len(trips['warm'])} solves, cold {means['cold']:.2f} over "
+          f"{len(trips['cold'])}; the JAX package's CG {ref['trips_warm_mean']:.2f}"
+          f" over {N}, {ref['trips_cold_mean']:.2f} over {ref['cold_solves']}")
+    print(f"first iteration loss: {label}, bf16 nets, {loss:.7e} JAX golden "
+          f"{ref['loss']:.7e}; grad norms relative to the golden's: "
+          f"{ {k: round(norms[k] / ref['grad_norms'][k] - 1, 4) for k in norms} }")
+    if abs(loss - ref["loss"]) > 1e-3 * abs(ref["loss"]):
+        raise AssertionError(f"{label}: bf16 first-iteration loss differs from "
+                             "the JAX golden")
+    if conv_impl != "cuda":
+        ref = golden["cases"]["fp32"]
+        _compare_first(f"{label}, fp32 nets, vs the JAX golden",
+                       golden_first(golden, "cuda", fused, conv_impl, "fp32"),
+                       (ref["loss"], ref["grad_norms"]))
+
+
 def _record_conv_shapes(shapes: dict):
     """Wraps the conv's three directions so that each call counts its
     (B, H, W, Cin, Cout) in `shapes[key][direction]`; returns the
@@ -2381,6 +2622,23 @@ def _compare_first(label: str, got: tuple, ref: tuple) -> None:
             raise AssertionError(f"{label}: {name} gradient norm is not positive")
         if abs(gn_k[name] - gn_p[name]) > 2e-2 * gn_p[name]:
             raise AssertionError(f"{label}: {name} gradient norm differs")
+
+
+def _record_solves(trips: dict):
+    """Wraps `cuda_cg.pressure_solve` (K1) so that each call appends its
+    trip counts to `trips['warm']` or `trips['cold']`, by whether it had a
+    guess; returns the original."""
+    from pde_control_tpu_torch.ops import cuda_cg
+
+    solve = cuda_cg.pressure_solve
+
+    def recording(*args, **kw):
+        p, it = solve(*args, **kw)
+        trips["warm" if kw.get("x0") is not None else "cold"].append(it)
+        return p, it
+
+    cuda_cg.pressure_solve = recording
+    return solve
 
 
 def _record_trips(module, name: str, trips: list):
@@ -2460,21 +2718,15 @@ def _expect(label: str, launches: dict, per_iter: dict, iters: int = 5) -> None:
                                  f"{n * iters}")
 
 
-def main_path_phase(card: str, batch: dict, first: dict) -> dict:
+def main_path_phase(card: str, batch: dict, first: dict, golden: dict) -> dict:
     _phase("main path, unfused (K1)")
     from pde_control_tpu_torch.ops import cuda_cg
 
     _compare_first("K1", first["auto"], first["pcg"])
+    golden_check("K1", golden, "auto")
     app = make_app("auto")
     trips = {"warm": [], "cold": []}
-    solve = cuda_cg.pressure_solve
-
-    def recording(*args, **kw):
-        p, it = solve(*args, **kw)
-        trips["warm" if kw.get("x0") is not None else "cold"].append(it)
-        return p, it
-
-    cuda_cg.pressure_solve = recording
+    solve = _record_solves(trips)
     try:
         app.progress(batch)  # first warm-up iteration
     finally:
@@ -2494,11 +2746,12 @@ def main_path_phase(card: str, batch: dict, first: dict) -> dict:
     return launches
 
 
-def fused_path_phase(card: str, batch: dict, first: dict) -> dict:
+def fused_path_phase(card: str, batch: dict, first: dict, golden: dict) -> dict:
     _phase("main path, fused (K2 / K3)")
     from pde_control_tpu_torch.ops import cuda_fluid
 
     _compare_first("fused", first["fused"], first["auto"])
+    golden_check("fused", golden, "cuda")
     app = make_app("auto", fused="cuda")
     fwd_trips, bwd_trips = [], []
     fwd = _record_trips(cuda_fluid, "fused_step_forward", fwd_trips)
@@ -2523,9 +2776,11 @@ def fused_path_phase(card: str, batch: dict, first: dict) -> dict:
     return launches
 
 
-def conv_path_phase(card: str, batch: dict, first: dict, shapes: dict) -> dict:
+def conv_path_phase(card: str, batch: dict, first: dict, shapes: dict,
+                    golden: dict) -> dict:
     _phase("main path, fused, conv kernels (K2 / K3 / K4 / K5)")
     _compare_first("conv", first["conv"], first["fused"])
+    golden_check("conv", golden, "cuda", "cuda")
     per_iter = conv_launches_per_iteration()
     recorded = {d: sum(v[k] for v in shapes.values())
                 for d, k in (("K4 fwd", "fwd"), ("K4 dX", "dx"), ("K5", "dw"))}
@@ -5200,9 +5455,10 @@ def main() -> None:
              "auto": _first_iteration(batch, "auto", "auto"),
              "fused": _first_iteration(batch, "auto", "cuda"),
              "conv": _first_iteration(batch, "auto", "cuda", "cuda", shapes)}
-    unfused_launches = main_path_phase(card, batch, first)
-    fused_launches = fused_path_phase(card, batch, first)
-    conv_launches = conv_path_phase(card, batch, first, shapes)
+    golden = load_golden()
+    unfused_launches = main_path_phase(card, batch, first, golden)
+    fused_launches = fused_path_phase(card, batch, first, golden)
+    conv_launches = conv_path_phase(card, batch, first, shapes, golden)
     fused128 = fused128_phase(card)
     k1big = k1big_phase(card)
     fusedbig = fusedbig_phase(card)

@@ -161,6 +161,7 @@ def test_plain_fused_step_matches_golden(case):
 
 
 @pytest.mark.parametrize("case", CASES)
+@pytest.mark.requires_cuda
 def test_kernels_match_golden(case):
     """K2 and K3 on the card, each in the large layout under its plan and
     every plan its launcher takes at 128² (C = 8 and 16), against the JAX

@@ -11,14 +11,23 @@ edge.
   zero velocity): on the CPU the plain versions, which the wrappers run
   for CPU tensors, rho1 at `tests/test_torch_fused128.py`'s atol 5e-6 /
   rtol 1e-5 and the rest at `LIMITS`, wider than that file's beyond 128²,
-  where the two fp32 CG loops (the JAX kernel's preconditioner products
-  with bf16 inputs, the port's in fp32), stopped at tol 1e-7, differ more:
-  at 236² p by 3.1e-6 of its largest entry, which the pressure gradient
-  carries into vy4 and vx4 (7.6e-6 at a face, 1.4e-6 of max|p|, 4e-5 of
-  their own largest entry at zero velocity), the VJP by up to 2.5e-5; at
-  64×625, where the transpose solve needs ~210 trips with its residual
-  near fp32's floor, the trips by up to 13, p by 1.4e-5 and the VJP by
-  up to 2.1e-4. On a machine with a GPU
+  where the two fp32 CG loops, stopped at tol 1e-7, differ more: at 236²
+  p by 3.1e-6 of its largest entry, which the pressure gradient carries
+  into vy4 and vx4 (7.6e-6 at a face, 1.4e-6 of max|p|, 4e-5 of their own
+  largest entry at zero velocity), the VJP by up to 2.5e-5; at 64×625,
+  where the transpose solve needs ~210 trips with its residual near fp32's
+  floor, the trips by up to 13, p by 1.4e-5 and the VJP by up to 2.1e-4.
+  Both loops round in fp32, and each is as far from the same step in
+  float64 as from the other (`scripts/fused_big_precision.py`, 8 CPU
+  threads): at 64×625 the worst cotangent, dfy, is 2.35e-4 of its largest
+  entry from the golden, 1.50e-4 from the port's float64 step, and the
+  golden 1.57e-4 from it; p 1.22e-5, 1.10e-5 and 4.6e-6; the float64
+  solves need 135-137 trips against 192-220 in fp32. The golden was
+  written on the CPU, whose dots compute in fp32 whatever their precision
+  says; rounding the preconditioner products' inputs to bf16, as the
+  Pallas kernel's default precision would on a TPU, widens the gap (the
+  cold solve stops after 18 trips, dfy 1.30 of its max), so bf16 is not
+  its cause. On a machine with a GPU
 
       python -m pytest tests/test_torch_fused_big.py --noconftest -q
 
@@ -165,6 +174,7 @@ def test_plain_fused_step_matches_golden():
             assert (cuda_fluid.LAUNCHES_FWD, cuda_fluid.LAUNCHES_BWD) == before
 
 
+@pytest.mark.requires_cuda
 def test_kernels_match_golden():
     """K2 and K3 on the card, in the banded layout under their plan and
     every plan their launchers take at 236² and 64×625, against the JAX

@@ -135,6 +135,7 @@ def test_goldens_are_small_and_whole():
 
 
 @pytest.mark.parametrize("case", CASES)
+@pytest.mark.requires_cuda
 def test_kernels_match_goldens(case):
     """K2 and K3, each under its plan and every plan its launcher takes, on
     the card against the JAX package."""
@@ -198,6 +199,7 @@ def test_cg_goldens_are_small_and_whole():
 
 
 @pytest.mark.parametrize("case", CG_CASES)
+@pytest.mark.requires_cuda
 def test_solve_kernel_matches_goldens(case):
     """K1 on the card, under its plan and every plan its launcher takes,
     against the JAX package's solve."""
@@ -294,6 +296,7 @@ def _run_conv_plan(ops, direction: str, plan):
 
 
 @pytest.mark.parametrize("case", CONV_CASES)
+@pytest.mark.requires_cuda
 def test_conv_kernels_match_goldens(case):
     """K4 (forward and dX) and K5 on the card, under their wrappers' plan
     and every plan their launchers take, against the JAX package's conv."""
@@ -323,6 +326,7 @@ K3_DIGESTS = {
 }
 
 
+@pytest.mark.requires_cuda
 def test_k3_cold_solve_keeps_its_bits():
     """The cold path of the cluster CG core computes what it computed
     before the warm start and the unpreconditioned path joined it: K3 gives

@@ -38,6 +38,7 @@ def _plate(n):
 
 @pytest.mark.parametrize("n,closed", [(64, True), (32, False), (48, True)])
 @pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.requires_cuda
 def test_kernel_matches_plain(n, closed, warm):
     """Solution within 1e-3 of the plain version's scale at tol 1e-6, trip
     counts within 3 (the order of summation differs)."""
@@ -73,6 +74,7 @@ _SOLVE_PLAN_CASES = [(64, True, True), (32, False, True), (48, True, True),
 
 @pytest.mark.parametrize("n,closed,precond", _SOLVE_PLAN_CASES)
 @pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.requires_cuda
 def test_kernel_plans_match_plain(n, closed, precond, warm):
     """K1 under every plan its launcher takes: the solution within 1e-3 of
     the plain version's scale at tol 1e-6, trip counts within 3, the same
@@ -101,6 +103,7 @@ def test_kernel_plans_match_plain(n, closed, precond, warm):
         assert torch.equal(it_k, it_again), plan
 
 
+@pytest.mark.requires_cuda
 def test_solve_launcher_refuses_a_plan_it_cannot_run():
     """A cluster size the launcher does not take, or one above H, raises
     and launches nothing."""
@@ -119,6 +122,7 @@ def test_solve_launcher_refuses_a_plan_it_cannot_run():
     assert cuda_cg.LAUNCHES == before
 
 
+@pytest.mark.requires_cuda
 def test_kernel_gradient_matches_plain():
     dev = _cuda()
     rng = np.random.default_rng(1)
@@ -134,6 +138,7 @@ def test_kernel_gradient_matches_plain():
 
 
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (128, 128), (256, 256)])
+@pytest.mark.requires_cuda
 def test_shared_memory_count_matches_source(h, w):
     """K1's plans count the bytes the kernel's source asks for, under every
     plan its launcher takes and under `solve_plan`'s, and name the layout
@@ -155,6 +160,7 @@ def test_shared_memory_count_matches_source(h, w):
     assert cuda_cg.layout(h, w) == want
 
 
+@pytest.mark.requires_cuda
 def test_kernel_rejects_bad_inputs():
     dev = _cuda()
     domain = Domain2D.create(64, 64, obstacle_mask=_plate(64), device=dev)
@@ -315,6 +321,7 @@ def _check_forward_plans(vy, vx, rho, ops, geom, nonfinite, want):
 
 @pytest.mark.parametrize("n", [64, 32])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
+@pytest.mark.requires_cuda
 def test_fused_kernels_match_plain(n, case):
     """K2's outputs within 1e-4 of the plain version's scale and its trip
     counts within 3; K3's cotangents within 1e-3; each under its plan
@@ -356,6 +363,7 @@ def test_fused_kernels_match_plain(n, case):
 @pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30), (110, 110),
                                  (127, 127)])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
+@pytest.mark.requires_cuda
 def test_fused_backward_plans_match_plain(h, w, case):
     """K3 at a grid that is not square, at one smaller than a 16-rank
     cluster's halo, at a width that is not a multiple of 4 (the bands
@@ -380,6 +388,7 @@ def test_fused_backward_plans_match_plain(h, w, case):
 @pytest.mark.parametrize("h,w", [(32, 48), (8, 8), (24, 30), (110, 110),
                                  (127, 127)])
 @pytest.mark.parametrize("case", list(_FUSED_CASES))
+@pytest.mark.requires_cuda
 def test_fused_forward_plans_match_plain(h, w, case):
     """K2 at a grid that is not square, at one row a rank under a cluster
     of 8 (the windows reach past the neighbours' bands), at a width that
@@ -402,6 +411,7 @@ def test_fused_forward_plans_match_plain(h, w, case):
 @pytest.mark.parametrize("h,w", [(64, 64), (32, 48), (96, 96), (110, 110),
                                  (112, 112), (127, 127), (128, 128),
                                  (236, 236), (8, 990)])
+@pytest.mark.requires_cuda
 def test_fused_shared_memory_count_matches_source(h, w):
     """K2's and K3's plans count the bytes the kernels' source asks for,
     under every plan their launchers take and under their plan at batch 8:
@@ -675,6 +685,7 @@ def test_plans_exist_where_the_gates_say_yes(h, w):
         h, w)
 
 
+@pytest.mark.requires_cuda
 def test_fused_kernels_reject_bad_inputs():
     dev = _cuda()
     domain = Domain2D.create(64, 64, obstacle_mask=_plate(64), device=dev)
@@ -783,6 +794,7 @@ def _conv_counts():
 
 @pytest.mark.parametrize("shape", _CONV_SHAPES,
                          ids=["x".join(map(str, s)) for s in _CONV_SHAPES])
+@pytest.mark.requires_cuda
 def test_conv_kernels_match_plain(shape):
     """y and dX within 1e-2 of the plain version's max|ref| (one bf16 ulp is
     2^-8 and the fp32 sums run in another order), dW within 2e-2 (it sums
@@ -809,6 +821,7 @@ def test_conv_kernels_match_plain(shape):
 
 
 @pytest.mark.parametrize("needs_x", [True, False])
+@pytest.mark.requires_cuda
 def test_conv_autograd_matches_cpu(needs_x):
     """`conv3x3` on the card against the same call on the CPU (the plain
     versions): output and the gradients of x, kernel and bias within the
@@ -840,6 +853,7 @@ def test_conv_autograd_matches_cpu(needs_x):
     assert _rel_max(gpu[3].cpu(), cpu[3]) <= 2e-2
 
 
+@pytest.mark.requires_cuda
 def test_conv_kernels_reject_bad_inputs():
     dev = _cuda()
     x, wflat, bias, g = _conv_inputs(2, 8, 8, 16, 16, dev)
@@ -1046,6 +1060,7 @@ def _training_batches(k: int, n: int = 4, h: int = 32, seed: int = 0) -> dict:
 
 
 @pytest.mark.parametrize("path", list(_PATHS))
+@pytest.mark.requires_cuda
 def test_progress_multi_replays_equal_progress_calls(path):
     """Three graph replays from a given state against three eager
     `progress` calls from a copy of it, cuDNN deterministic: the counts and
@@ -1082,6 +1097,7 @@ def test_progress_multi_replays_equal_progress_calls(path):
         assert torch.equal(v, torch.stack([m[key] for m in steps])), key
 
 
+@pytest.mark.requires_cuda
 def test_progress_multi_skips_a_nonfinite_batch():
     """A replay on a batch with a NaN leaves parameters, moments and the
     count as they were and advances both not-finite counters."""

@@ -84,6 +84,7 @@ def test_plain_solve_matches_golden(case):
 
 
 @pytest.mark.parametrize("case", CASES)
+@pytest.mark.requires_cuda
 def test_kernel_matches_golden(case):
     """K1 on the card, under its plan and every plan its launcher takes at
     128², against the JAX package's solve; each launch counts once."""

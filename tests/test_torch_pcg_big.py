@@ -105,6 +105,7 @@ def test_plain_solve_matches_goldens():
         assert int(np.abs(iters.numpy() - trips).max()) <= 1, label
 
 
+@pytest.mark.requires_cuda
 def test_kernel_matches_goldens():
     """K1 on the card, in the banded layout under its plan and every plan
     its launcher takes (C = 8 and 16 at 256², 16 at 351² and 362²),
