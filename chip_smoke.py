@@ -49,10 +49,14 @@ prints no result):
      package's (`tests/goldens/main_path_64.npz`, written on the CPU by
      `scripts/make_main_path_golden.py`; its weights drawn again here and
      held to its digest, loaded through `params_from_flax`): with fp32
-     nets the loss within 1e-3 relative and each net's gradient norm
-     within 2e-2, with bf16 nets the loss within 1e-3 (`golden_check`),
-     trip means beside the JAX CG's; 2 warm-up and 5 timed iterations,
-     K1's launches;
+     nets the loss within 1e-3 relative, each net's gradient norm within
+     2e-2 and its gradient's projections on 16 ±1 directions within 1e-4
+     of its norm beyond twice the JAX package's own spread
+     (`tests/goldens/main_path_64_grads.npz`), with bf16 nets the loss
+     within 1e-3 and, per net and kind of leaf, the distance of the bf16
+     gradient from the fp32 one within 1.25 × the JAX package's own +
+     1e-3 (`golden_check`), trip means beside the JAX CG's; 2 warm-up and
+     5 timed iterations, K1's launches;
   7. the main path, fused (`FluidConfig.fused='cuda'`): the same
      iteration with each step on K2 and K3; the first iteration against
      the unfused one and against the JAX golden as in 6, 2 warm-up and 5
@@ -60,7 +64,8 @@ prints no result):
   8. the main path, fused, with the nets' 3×3 stride-1 convs on K4/K5
      (`conv_impl='cuda'`): the first iteration against the fused cuDNN
      path and, bf16 alone (K4/K5 take no fp32), against the JAX golden as
-     in 6, 2 warm-up and 5 timed iterations, the launches of all five
+     in 6, its bf16 gradient's distance taken from the unfused path's fp32
+     one, 2 warm-up and 5 timed iterations, the launches of all five
      kernels; then "128², fused (K2 / K3)": `profile_bench.make_app(128,
      16, 8, maxiter=200)` with `fused='cuda'` against the same app unfused
      (K1), the first iteration of both (CFE perturbed; loss 1e-3 relative,
@@ -2492,18 +2497,29 @@ def _nets_in(app, dtype) -> None:
             module.dtype = dtype
 
 
+# Each first iteration `golden_first` ran in this process, by (device,
+# fused, conv_impl, case): the conv path's bf16 gradient is held against
+# the unfused path's fp32 one, and the CPU tests share their runs.
+_FIRST: dict = {}
+
+
 def golden_first(golden: dict, device: str, fused: str, conv_impl: str,
-                 case: str, trips: dict | None = None) -> tuple[float, dict]:
-    """Loss and gradient norms of the main path's first iteration on
-    `device` (on the CPU the kernels' plain versions), on the golden's
-    weights (loaded through `params_from_flax`) and batch, with the nets
-    in the golden case's dtype ('bf16' or 'fp32'); with `trips`, each
-    solve's trip counts by 'warm' and 'cold' (K1 on the unfused path, K2
-    / K3 on the fused ones)."""
+                 case: str) -> dict:
+    """The main path's first iteration on `device` (on the CPU the kernels'
+    plain versions), on the golden's weights (loaded through
+    `params_from_flax`) and batch, with the nets in the golden case's dtype
+    ('bf16' or 'fp32'): {'loss', 'norms' (each net's gradient norm),
+    'grads' (every gradient leaf, float32 numpy in flax's layout, keyed
+    "net/module path/kernel|bias" as the golden's weights), 'trips' (each
+    solve's trip counts by 'warm' and 'cold': K1 on the unfused path, K2 /
+    K3 on the fused ones)}. Runs once a process for each path and case."""
     from pde_control_tpu_torch.experiments import profile_bench
     from pde_control_tpu_torch.ops import cuda_cg, cuda_fluid
     from pde_control_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
+    key = (device, fused, conv_impl, case)
+    if key in _FIRST:
+        return _FIRST[key]
     # 'cuda': K1 (its plain version on the CPU), as 'auto' takes on the card.
     app = profile_bench.make_app(H, N, BATCH, device, fused=fused,
                                  conv_impl=conv_impl, backend="cuda")
@@ -2517,36 +2533,151 @@ def golden_first(golden: dict, device: str, fused: str, conv_impl: str,
             raise AssertionError(f"the golden's {what} drawn here differ from "
                                  "the ones it was written with (numpy's draws?)")
     app.load_params(params_from_flax(_nest(params)))
-    patched = []
-    if trips is not None and fused == "cuda":
-        for name, key in (("fused_step_forward", "warm"),
-                          ("fused_step_backward", "cold")):
-            patched.append((cuda_fluid, name,
-                            _record_trips(cuda_fluid, name, trips[key])))
-    elif trips is not None:
-        patched.append((cuda_cg, "pressure_solve", _record_solves(trips)))
+    trips = {"warm": [], "cold": []}
+    if fused == "cuda":
+        patched = [(cuda_fluid, name, _record_trips(cuda_fluid, name, trips[k]))
+                   for name, k in (("fused_step_forward", "warm"),
+                                   ("fused_step_backward", "cold"))]
+    else:
+        patched = [(cuda_cg, "pressure_solve", _record_solves(trips))]
     try:
         metrics = app.compute_gradients(app.to_batch(batch))
     finally:
         for module, name, fn in patched:
             setattr(module, name, fn)
-    return float(metrics["loss"]), _grad_norms(app)
+    grads = _flat(params_to_flax(
+        {n: {k: p.grad for k, p in net.named_parameters()}
+         for n, net in app.nets.items()}))
+    _FIRST[key] = dict(loss=float(metrics["loss"]), norms=_grad_norms(app),
+                       grads=grads, trips=trips)
+    return _FIRST[key]
+
+
+# The JAX package's bf16 error and fp32 gradient direction on the golden's
+# first iteration (scripts/make_main_path_golden.py): by net and kind of
+# leaf, bf16_dist = ||g_bf16 - g_fp32|| / ||g_fp32||; by net, the fp32
+# gradient's projections on SKETCH_DIRECTIONS directions of ±1, and how far
+# they move, over each net's norm, when the JAX package's own solves are
+# tightened from tol 1e-4 to 1e-6 (the sketch's spread).
+GOLDEN_GRADS_64 = "tests/goldens/main_path_64_grads.npz"
+SKETCH_SEED, SKETCH_DIRECTIONS = 22, 16
+# A path's bf16 gradient may part from its fp32 one by no more than the
+# JAX package's does from its own: the limit per net and kind.
+BF16_DIST_SCALE, BF16_DIST_SLACK = 1.25, 1e-3
+# Two fp32 gradients each carry up to the JAX package's own spread: the
+# sketch's limit is a floor plus this many times the largest spread.
+SKETCH_SPREAD_SCALE = 2.0
+
+
+def load_golden_grads() -> dict:
+    """`GOLDEN_GRADS_64`'s config: `bf16_dist` {net: {kernel, bias}},
+    `fp32_sketch` {net: [SKETCH_DIRECTIONS floats]}, `fp32_norms` {net},
+    `fp32_sketch_spread` {net}, `sketch_seed`, `directions`."""
+    from pathlib import Path
+
+    z = np.load(Path(__file__).resolve().parent / GOLDEN_GRADS_64)
+    return dict(json.loads(str(z["config"])))
+
+
+def rel_dist(got: dict, ref: dict, group) -> dict:
+    """{group(path): ||got - ref|| / ||ref||} over the leaves of each group
+    together, in float64."""
+    num, den = {}, {}
+    for path, r in ref.items():
+        g, r = np.asarray(got[path], np.float64), np.asarray(r, np.float64)
+        k = group(path)
+        num[k] = num.get(k, 0.0) + float(np.sum((g - r) ** 2))
+        den[k] = den.get(k, 0.0) + float(np.sum(r ** 2))
+    return {k: float(np.sqrt(num[k] / den[k])) for k in sorted(num)}
+
+
+def bf16_dist(g16: dict, g32: dict) -> dict:
+    """{net: {'kernel': d, 'bias': d}}, d = ||g16 - g32|| / ||g32|| over all
+    of the net's leaves of that kind."""
+    out: dict = {}
+    flat = rel_dist(g16, g32, lambda p: (p.split("/")[0], p.rsplit("/", 1)[1]))
+    for (net, kind), d in flat.items():
+        out.setdefault(net, {})[kind] = d
+    return out
+
+
+def grad_sketch(grads: dict, seed: int = SKETCH_SEED,
+                directions: int = SKETCH_DIRECTIONS) -> dict:
+    """{net: [d_j · g, j < directions]}: each net's gradient projected on
+    ±1 directions, drawn from `np.random.default_rng(seed)` leaf by leaf in
+    sorted order of the leaves' paths, as `golden_params` draws them (so
+    two trees pair leaf for leaf only in flax's layout)."""
+    rng = np.random.default_rng(seed)
+    out: dict = {}
+    for path in sorted(grads):
+        g = np.asarray(grads[path], np.float64).ravel()
+        signs = rng.integers(0, 2, size=(directions, g.size), dtype=np.int8)
+        net = path.split("/")[0]
+        out[net] = out.get(net, 0.0) + (2.0 * signs - 1.0) @ g
+    return {net: v.tolist() for net, v in out.items()}
+
+
+def bf16_grads_check(label: str, g16: dict, g32: dict, ref: dict) -> dict:
+    """The path's bf16 gradient against an fp32 one on the same weights
+    and batch: bf16_dist per net and kind within BF16_DIST_SCALE × the
+    JAX package's own + BF16_DIST_SLACK. Prints each figure beside its
+    limit; returns the distances."""
+    dist, bad = bf16_dist(g16, g32), []
+    for net, kinds in sorted(ref["bf16_dist"].items()):
+        for kind, want in sorted(kinds.items()):
+            limit = BF16_DIST_SCALE * want + BF16_DIST_SLACK
+            got = dist[net][kind]
+            print(f"{label} bf16_dist {net} {kind}: {got:.4e} limit "
+                  f"{limit:.4e} (JAX package {want:.4e})")
+            if not got <= limit:
+                bad.append(f"{net} {kind} {got:.4e} > {limit:.4e}")
+    if bad:
+        raise AssertionError(f"{label}: bf16 gradients farther from fp32 "
+                             f"than the JAX package's: {bad}")
+    return dist
+
+
+def sketch_check(label: str, g32: dict, ref: dict, floor: float) -> float:
+    """The path's fp32 gradient projected as the JAX package's was: each
+    net's projections within `floor` + SKETCH_SPREAD_SCALE × the largest
+    spread of the JAX package's own sketch (its fp32 gradient moves by up
+    to that, over each net's norm, when its solves are tightened from tol
+    1e-4 to 1e-6), of that net's fp32 gradient norm. Returns the largest
+    such error."""
+    got = grad_sketch(g32, ref["sketch_seed"], ref["directions"])
+    limit = floor + SKETCH_SPREAD_SCALE * max(ref["fp32_sketch_spread"].values())
+    worst = 0.0
+    for net, want in sorted(ref["fp32_sketch"].items()):
+        err = float(np.max(np.abs(np.subtract(got[net], want)))
+                    / ref["fp32_norms"][net])
+        worst = max(worst, err)
+        print(f"{label} fp32 sketch {net}: max|d·(g - g_JAX)| / ||g_JAX|| "
+              f"{err:.3e} limit {limit:.3e} (JAX package's own spread "
+              f"{ref['fp32_sketch_spread'][net]:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"{label}: {net}'s fp32 gradient parts "
+                                 f"from the JAX package's ({err:.3e})")
+    return worst
 
 
 def golden_check(label: str, golden: dict, fused: str,
                  conv_impl: str = "xla") -> None:
     """The path's first iteration against the JAX package's. With fp32
-    nets: the loss within 1e-3 relative and each net's gradient norm within
-    2e-2 (`_compare_first`). With the main path's bf16 nets: the loss
-    within 1e-3; the gradient norms are printed beside the golden's, not
-    held: the JAX package's bf16 gradients on the CPU sum each bias's
-    cotangent in bf16 (XLA's reduce_sum of the bf16 broadcast-add's
-    transpose), 45-82% off their fp32 sums by net, and the kernels' carry
-    3-15% of bf16 rounding on either side (ROADMAP C16). K4/K5 take bf16
-    alone, so the conv path has no fp32 case. Trip means of the bf16 run
-    beside the golden's."""
-    trips = {"warm": [], "cold": []}
-    loss, norms = golden_first(golden, "cuda", fused, conv_impl, "bf16", trips)
+    nets: the loss within 1e-3 relative, each net's gradient norm within
+    2e-2 (`_compare_first`) and its gradient's sketch within 1e-4 of each
+    net's norm beyond twice the JAX package's own spread (`sketch_check`).
+    With the main path's bf16 nets: the loss within 1e-3, and the
+    gradient's distance from the fp32 one on the same path within 1.25 ×
+    the JAX package's own + 1e-3, per net and kind of leaf
+    (`bf16_grads_check`): two implementations of bf16 do not agree with
+    each other to 2e-2, and the JAX package's bias gradients on the CPU are
+    summed in bf16, so each is held to its own fp32 gradient. K4/K5 take
+    bf16 alone: the conv path's bf16 gradient is held against the unfused
+    path's fp32 one. The bf16 gradient norms and the bf16 run's trip means
+    are printed beside the golden's."""
+    grads_golden = load_golden_grads()
+    bf16 = golden_first(golden, "cuda", fused, conv_impl, "bf16")
+    loss, norms, trips = bf16["loss"], bf16["norms"], bf16["trips"]
     ref = golden["cases"]["bf16"]
     means = {k: float(torch.cat(v).float().mean()) for k, v in trips.items()}
     print(f"{label} on the golden (bf16 nets): trip means warm {means['warm']:.2f}"
@@ -2559,11 +2690,18 @@ def golden_check(label: str, golden: dict, fused: str,
     if abs(loss - ref["loss"]) > 1e-3 * abs(ref["loss"]):
         raise AssertionError(f"{label}: bf16 first-iteration loss differs from "
                              "the JAX golden")
-    if conv_impl != "cuda":
-        ref = golden["cases"]["fp32"]
-        _compare_first(f"{label}, fp32 nets, vs the JAX golden",
-                       golden_first(golden, "cuda", fused, conv_impl, "fp32"),
-                       (ref["loss"], ref["grad_norms"]))
+    if conv_impl == "cuda":
+        fp32 = golden_first(golden, "cuda", "auto", "xla", "fp32")
+        bf16_grads_check(f"{label} (against the unfused path's fp32)",
+                         bf16["grads"], fp32["grads"], grads_golden)
+        return
+    fp32 = golden_first(golden, "cuda", fused, conv_impl, "fp32")
+    ref = golden["cases"]["fp32"]
+    _compare_first(f"{label}, fp32 nets, vs the JAX golden",
+                   (fp32["loss"], fp32["norms"]),
+                   (ref["loss"], ref["grad_norms"]))
+    sketch_check(label, fp32["grads"], grads_golden, 1e-4)
+    bf16_grads_check(label, bf16["grads"], fp32["grads"], grads_golden)
 
 
 def _record_conv_shapes(shapes: dict):

@@ -1,6 +1,7 @@
-"""Where the main path's bf16 gradients part from the JAX package's: the
-64² first iteration on the golden's weights (`chip_smoke.golden_params`,
-batch seed 0), on the CPU, by net and by kind of leaf.
+"""Where the main path's bf16 gradients part from fp32, in both packages:
+the 64² first iteration on the golden's weights (`chip_smoke.golden_params`,
+batch seed 0), on the CPU, by net and by kind of leaf, and the kernels by
+layer.
 
     JAX_PLATFORMS=cpu python scripts/bf16_grads_probe.py
 
@@ -8,11 +9,14 @@ Computes every leaf's gradient four ways, the JAX package's app
 (`__graft_entry__._make_app(64, 16, 8)`, 'pcg' on the CPU) and the port's
 (`profile_bench.make_app(64, 16, 8, "cpu")`, K1's plain version), each
 with bf16 and with fp32 nets, and prints for each net the relative L2
-error against the JAX package's fp32 gradient of its kernels and of its
-biases (all leaves of a kind together): JAX bf16, port bf16, port fp32.
+distance of its kernels and of its biases (all leaves of a kind
+together): JAX bf16 and port bf16 against their own fp32 gradient (the
+`bf16_dist` that `chip_smoke.golden_check` holds, with its limit), then
+JAX bf16, port bf16 and port fp32 against the JAX package's fp32; then
+the same two `bf16_dist` figures for each conv's kernel.
 Then the transpose of a bf16 bias add alone, `zeros(8, 64, 64, 16) +
 bias.astype(bf16)`, as XLA's CPU backend runs it, against the fp32 sum of
-the same bf16 cotangent. Takes ~4 min and a few GB (two JAX compiles of
+the same bf16 cotangent. Takes ~5 min and a few GB (two JAX compiles of
 the iteration).
 """
 
@@ -59,19 +63,36 @@ def main() -> None:
         grads["port", case] = chip_smoke._flat(params_to_flax(
             {n: {k: p.grad for k, p in net.named_parameters()}
              for n, net in app.nets.items()}))
-    ref = grads["jax", "fp32"]
-    others = [("jax", "bf16"), ("port", "bf16"), ("port", "fp32")]
-    print("relative L2 error against the JAX package's fp32 gradient, by net "
-          "and kind of leaf: " + ", ".join(f"{a} {b}" for a, b in others))
-    for net in sorted({k.split("/")[0] for k in ref}):
-        for kind in ("kernel", "bias"):
-            keys = [k for k in ref if k.startswith(net + "/") and k.endswith(kind)]
-            want = np.concatenate([np.ravel(ref[k]) for k in keys]).astype(np.float64)
-            errs = []
-            for o in others:
-                got = np.concatenate([np.ravel(grads[o][k]) for k in keys])
-                errs.append(np.linalg.norm(got - want) / np.linalg.norm(want))
-            print(f"  {net:<5} {kind:<6} " + " ".join(f"{e:.3e}" for e in errs))
+
+    def dist(a, b, group):
+        return chip_smoke.rel_dist(grads[a], grads[b], group)
+
+    def by_kind(path):
+        return path.split("/")[0], path.rsplit("/", 1)[1]
+
+    own = {side: dist((side, "bf16"), (side, "fp32"), by_kind)
+           for side in ("jax", "port")}
+    vs_jax = {o: dist(o, ("jax", "fp32"), by_kind)
+              for o in (("jax", "bf16"), ("port", "bf16"), ("port", "fp32"))}
+    print("relative L2 distance by net and kind of leaf: bf16_dist (JAX bf16 "
+          "vs JAX fp32, port bf16 vs port fp32, the limit 1.25 x JAX + 1e-3); "
+          "against the JAX package's fp32: JAX bf16, port bf16, port fp32")
+    for key in sorted(own["jax"]):
+        limit = (chip_smoke.BF16_DIST_SCALE * own["jax"][key]
+                 + chip_smoke.BF16_DIST_SLACK)
+        print(f"  {key[0]:<5} {key[1]:<6} {own['jax'][key]:.3e} "
+              f"{own['port'][key]:.3e} {limit:.3e} | "
+              + " ".join(f"{vs_jax[o][key]:.3e}" for o in vs_jax))
+    kernels = [k for k in grads["jax", "fp32"] if k.endswith("/kernel")]
+    layer = {side: chip_smoke.rel_dist(
+        {k: grads[side, "bf16"][k] for k in kernels},
+        {k: grads[side, "fp32"][k] for k in kernels},
+        lambda p: p.rsplit("/", 1)[0])
+        for side in ("jax", "port")}
+    print("bf16_dist of each conv's kernel: JAX, port, port / JAX")
+    for name in sorted(layer["jax"]):
+        j, q = layer["jax"][name], layer["port"][name]
+        print(f"  {name:<28} {j:.4f} {q:.4f} {q / j:.3f}")
     rng = np.random.default_rng(0)
     dy = jnp.asarray(rng.normal(size=(8, 64, 64, 16)) * 1e-3 + 2e-4,
                      jnp.bfloat16)

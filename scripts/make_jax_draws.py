@@ -1,15 +1,21 @@
 """Writes the JAX package's random draws for the datasets of BASELINE configs
-4 and 3, in the port's `*_draws` layouts, so that the port can generate the
-JAX package's own training and validation sets on a machine without JAX.
+1-2, 3, 4 and 5, in the port's `*_draws` layouts, so that the port can
+generate the JAX package's own training and validation sets on a machine
+without JAX.
 
     JAX_PLATFORMS=cpu python scripts/make_jax_draws.py
 
-The datasets themselves (config 4: 512 + 32 trajectories of 17 frames at
-64²) are hundreds of MB; their draws are a few KB. This script repeats the
-JAX package's key splits, chunk by chunk, at the seeds of the two setups
+A file whose arrays and config are already those on disk is left as it
+is (`savez_if_changed`: a zip written anew differs in its timestamps
+alone). The datasets themselves (config 4:
+512 + 32 trajectories of 17 frames at 64²; config 5: 3,584 + 64 of 129
+frames) are hundreds of MB to GB; their draws are KB. This script repeats
+the JAX package's key splits, chunk by chunk, at the seeds of the setups
 (train 0, val 999; `pde_control_tpu/experiments/fluid2d.py ::
-_smoke_indirect_setup, _shape_transition_setup`), at 64² and 8 trajectories
-a chunk (`generate_*_dataset(batch=8)`):
+_smoke_indirect_setup, _shape_transition_setup, _natural_flow_setup`,
+`pde_control_tpu/experiments/burgers.py :: make_datasets`), in the
+generators' chunks (`generate_*_dataset(batch=...)`'s defaults: 64 for
+Burgers, 8 for the smoke sets):
 
 * `tests/goldens/jax_draws_config4.npz`, from
   `pde_control_tpu/data/generate.py :: generate_inflow_smoke_dataset`:
@@ -24,14 +30,26 @@ a chunk (`generate_*_dataset(batch=8)`):
   `<split>/pos` (chunks, 8, 2) as (y, x), half-sizes `<split>/r`, box
   aspects `<split>/aspect` (chunks, 8, 1, 1) and `<split>/is_circle`
   (bool); k2 and k3 → the two force fields' draws, two calls a chunk (fy,
-  then fx) in `<split>/amps`, `phy`, `phx`.
+  then fx) in `<split>/amps`, `phy`, `phx`;
+* `tests/goldens/jax_draws_config5.npz`, from
+  `generate_forced_smoke_dataset(init='blobs', force_amplitude=0.05)`
+  (3,584 + 64 trajectories, 448 + 8 chunks): k1 → `random_smoke_blobs`'
+  centres `<split>/pos` (chunks, 8, 2) and widths `<split>/sig` (chunks,
+  8, 1, 1); k2 and k3 as config 3's;
+* `tests/goldens/jax_draws_burgers.npz` (configs 1 and 2 draw the same
+  sets), from `generate_burgers_dataset` at N = 32 (1,024 + 128
+  trajectories, 16 + 2 chunks of 64): `key, k1, k2 = split(key, 3)` a
+  chunk; k1 → `random_burgers_states`' unit-normal amplitudes
+  `<split>/amps` and phases `<split>/phases` (calls, 64, 3) of the initial
+  states, k2 → those of the forces, two calls a chunk (state, then force).
 
 The layouts are those of `pde_control_tpu_torch/data/generate.py ::
-inflow_draws, shape_draws, smooth_field_draws`; fed through the matching
-`*_from_draws` they give the JAX generators' fields (within 1e-6,
-`tests/test_torch_fullsize.py`). `config` holds the grid, the chunk size,
-the seeds and the counts as JSON. `scripts/quality_torch.py` replaces the
-port's draw functions by pops from these files.
+inflow_draws, shape_draws, blob_draws, burgers_draws,
+smooth_field_draws`; fed through the matching `*_from_draws` they give the
+JAX generators' fields (within 1e-6, `tests/test_torch_fullsize.py`,
+`tests/test_torch_quality_draws.py`). `config` holds the grid, the chunk
+size, the seeds and the counts as JSON. `scripts/quality_torch.py`
+replaces the port's draw functions by pops from these files.
 """
 
 from __future__ import annotations
@@ -44,10 +62,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
-SIZE, CHUNK = 64, 8
-# The reference runs' counts (scripts/run_quality11.sh): 512 training
-# trajectories; the setups' 32 validation ones.
-SPLITS = {"train": (0, 512), "val": (999, 32)}
+# file name -> (grid, chunk, {split: (seed, trajectories)}): the reference
+# runs' counts. Configs 4 and 3: 512 training trajectories
+# (scripts/run_quality11.sh) and the setups' 32 validation ones; config 5:
+# 3,584 + 64 (scripts/run_queue_r3c.sh); Burgers: `run_chain_supervised`'s
+# and `run_hierarchical`'s defaults, 1,024 + 128.
+FILES = {"config4": (64, 8, {"train": (0, 512), "val": (999, 32)}),
+         "config3": (64, 8, {"train": (0, 512), "val": (999, 32)}),
+         "config5": (64, 8, {"train": (0, 3584), "val": (999, 64)}),
+         "burgers": (32, 64, {"train": (0, 1024), "val": (999, 128)})}
 
 
 def smooth_field_draws(key, batch: int, modes: int = 3):
@@ -90,11 +113,37 @@ def shape_draws(key, batch: int, h: int, w: int, size_range=(5.0, 10.0),
             jax.random.bernoulli(k_kind, 0.5, (batch, 1, 1)))
 
 
-def chunk_draws(config: int, seed: int, num: int, h: int = SIZE,
-                chunk: int = CHUNK) -> dict:
-    """The draws of every chunk of one dataset, stacked along a leading
-    axis: {'xs' or 'pos', 'r', 'aspect', 'is_circle'; 'amps', 'phy',
-    'phx'} as numpy arrays."""
+def blob_draws(key, batch: int, h: int, w: int, sigma_range=(4.0, 8.0),
+               margin: int = 8):
+    """`random_smoke_blobs`' draws from `key`: centres (B, 2) as (y, x) and
+    widths (B, 1, 1)."""
+    import jax
+    import jax.numpy as jnp
+
+    margin = min(margin, h // 4, w // 4)
+    k_pos, k_sig = jax.random.split(key)
+    pos = jax.random.uniform(
+        k_pos, (batch, 2), minval=jnp.array([margin, margin], jnp.float32),
+        maxval=jnp.array([h - margin, w - margin], jnp.float32))
+    return pos, jax.random.uniform(k_sig, (batch, 1, 1),
+                                   minval=sigma_range[0],
+                                   maxval=sigma_range[1])
+
+
+def burgers_draws(key, batch: int, modes: int = 3):
+    """`random_burgers_states`' draws from `key`: unit-normal amplitudes
+    and phases in [0, 2π), (B, M) each."""
+    import jax
+    import jax.numpy as jnp
+
+    k_amp, k_phase = jax.random.split(key)
+    return (jax.random.normal(k_amp, (batch, modes)),
+            jax.random.uniform(k_phase, (batch, modes), maxval=2 * jnp.pi))
+
+
+def chunk_draws(name: str, seed: int, num: int, h: int, chunk: int) -> dict:
+    """The draws of every chunk of one dataset of FILES[name], stacked
+    along a leading axis, as numpy arrays."""
     import jax
 
     assert num % chunk == 0, (num, chunk)
@@ -106,33 +155,60 @@ def chunk_draws(config: int, seed: int, num: int, h: int = SIZE,
 
     key = jax.random.PRNGKey(seed)
     for _ in range(num // chunk):
-        if config == 4:
+        if name == "burgers":
+            key, k1, k2 = jax.random.split(key, 3)
+            for k in (k1, k2):
+                add(**dict(zip(("amps", "phases"), burgers_draws(k, chunk))))
+            continue
+        if name == "config4":
             key, k1, k2 = jax.random.split(key, 3)
             add(xs=inflow_draws(k1, chunk, h))
             fields = (k2,)
         else:
             key, k1, k2, k3 = jax.random.split(key, 4)
-            pos, r, aspect, is_circle = shape_draws(k1, chunk, h, h)
-            add(pos=pos, r=r, aspect=aspect, is_circle=is_circle)
+            if name == "config3":
+                pos, r, aspect, is_circle = shape_draws(k1, chunk, h, h)
+                add(pos=pos, r=r, aspect=aspect, is_circle=is_circle)
+            else:
+                pos, sig = blob_draws(k1, chunk, h, h)
+                add(pos=pos, sig=sig)
             fields = (k2, k3)
         for k in fields:
             add(**dict(zip(("amps", "phy", "phx"), smooth_field_draws(k, chunk))))
     return {k: np.stack(v) for k, v in out.items()}
 
 
+def savez_if_changed(path: str, data: dict) -> bool:
+    """`np.savez_compressed(path, **data)`, unless the file there already
+    holds the same arrays, bit for bit, under the same names (a zip
+    written anew differs in its timestamps alone). Returns whether it
+    wrote."""
+    if os.path.exists(path):
+        with np.load(path) as old:
+            if set(old.files) == set(data) and all(
+                    old[k].dtype == np.asarray(data[k]).dtype
+                    and old[k].shape == np.shape(data[k])
+                    and old[k].tobytes() == np.asarray(data[k]).tobytes()
+                    for k in data):
+                print(f"{path}: unchanged ({os.path.getsize(path)} bytes)",
+                      flush=True)
+                return False
+    np.savez_compressed(path, **data)
+    print(f"wrote {path}: {os.path.getsize(path)} bytes", flush=True)
+    return True
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
-    for config in (4, 3):
+    for name, (size, chunk, splits) in FILES.items():
         data = {"config": json.dumps(dict(
-            config=config, size=SIZE, chunk=CHUNK,
-            splits={s: dict(seed=seed, num=num)
-                    for s, (seed, num) in SPLITS.items()}))}
-        for split, (seed, num) in SPLITS.items():
-            for k, v in chunk_draws(config, seed, num).items():
+            config=int(name[-1]) if name != "burgers" else name, size=size,
+            chunk=chunk, splits={s: dict(seed=seed, num=num)
+                                 for s, (seed, num) in splits.items()}))}
+        for split, (seed, num) in splits.items():
+            for k, v in chunk_draws(name, seed, num, size, chunk).items():
                 data[f"{split}/{k}"] = v
-        out = os.path.join(GOLDENS, f"jax_draws_config{config}.npz")
-        np.savez_compressed(out, **data)
-        print(f"wrote {out}: {os.path.getsize(out)} bytes", flush=True)
+        savez_if_changed(os.path.join(GOLDENS, f"jax_draws_{name}.npz"), data)
 
 
 if __name__ == "__main__":

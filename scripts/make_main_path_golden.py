@@ -38,8 +38,30 @@ weights: the card draws them again and checks the digest. The batch is
     cotangent);
 and beside it, per case, `<case>/trips_warm` and `<case>/trips_cold`,
 (16, 8) int32 arrays of those trip counts.
-Takes ~4 min and a few GB on the CPU (two JAX compiles of the
-iteration).
+
+`tests/goldens/main_path_64_grads.npz` holds `config`, JSON, from the
+same two runs' gradients, each leaf in flax's layout:
+  * `bf16_dist`, per net and kind of leaf ('kernel', 'bias'),
+    ||g_bf16 - g_fp32|| / ||g_fp32|| over all the net's leaves of that
+    kind: how far the JAX package's bf16 gradient is from its own fp32
+    one (`scripts/bf16_grads_probe.py` prints the same figures);
+  * `fp32_sketch`, per net, the fp32 gradient projected on `directions`
+    (16) directions of ±1 drawn from `np.random.default_rng(sketch_seed)`
+    leaf by leaf in sorted order of the leaves' paths
+    (`chip_smoke.grad_sketch`), and `fp32_norms`, each net's fp32
+    gradient norm: the gradient held by direction, in 1 KB;
+  * `fp32_sketch_spread`, per net, how far that sketch moves, over the
+    net's norm, when every pressure solve of the fp32 iteration is
+    tightened to tol `spread_tol` (1e-6, maxiter 500): the JAX package's
+    own fp32 gradient is defined by direction no closer than that (the
+    OP nets' gradients move by up to ~4e-4 of their norms);
+  * `params_sha256` and `batch_sha256`, as in the golden.
+`chip_smoke.py :: golden_check` holds each path's bf16 gradient to
+`bf16_dist` and its fp32 gradient to the sketch.
+
+A file whose arrays and config come out as those already on disk is left
+as it is (`make_jax_draws.savez_if_changed`). Takes ~6 min and a few GB on
+the CPU (three JAX compiles of the iteration).
 """
 
 from __future__ import annotations
@@ -53,13 +75,18 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "goldens", "main_path_64.npz")
+OUT_GRADS = os.path.join(ROOT, "tests", "goldens", "main_path_64_grads.npz")
 H, N, B = 64, 16, 8
 SEED = 0
 TOL, MAXITER = 1e-4, 100
+TIGHT_TOL = 1e-6
 
 
-def fp32_app(graft):
-    """`graft._make_app(H, N, B)` with the nets in fp32."""
+def fp32_app(graft, **solve):
+    """`graft._make_app(H, N, B)` with the nets in fp32; `solve` replaces
+    fields of its `FluidConfig` (`pressure_tol`, `pressure_maxiter`)."""
+    import dataclasses
+
     import jax.numpy as jnp
 
     from pde_control_tpu.control.pde_fluid import IncompressibleFluidPDE
@@ -67,7 +94,8 @@ def fp32_app(graft):
 
     ref = graft._make_app(H, N, B).pde
     pde = IncompressibleFluidPDE(
-        ref.domain, ref.cfg, control="buoyancy", unet_levels=3,
+        ref.domain, dataclasses.replace(ref.cfg, **solve), control="buoyancy",
+        unet_levels=3,
         cfe_features=(32, 64, 64, 32), op_base_features=16,
         dtype=jnp.float32)
     return ControlTraining(
@@ -118,6 +146,7 @@ def main() -> None:
     jfluid.solve_pressure = recording_solve
 
     import chip_smoke
+    from make_jax_draws import savez_if_changed
 
     apps = {"bf16": graft._make_app(H, N, B), "fp32": fp32_app(graft)}
     domain = apps["bf16"].pde.domain
@@ -155,7 +184,7 @@ def main() -> None:
         return cg(matvec, project(ct), tol=TOL, maxiter=MAXITER,
                   precond=precond, return_iters=True)[1]
 
-    data = {}
+    data, flat_grads = {}, {}
     config = dict(h=H, n=N, batch=B, tol=TOL, maxiter=MAXITER,
                   backend="pcg (XLA)", seed=SEED,
                   params_sha256=chip_smoke.digest(flat_params),
@@ -170,6 +199,7 @@ def main() -> None:
         jax.block_until_ready(grads)
         recording["on"] = False
         grads = jax.device_get(grads)
+        flat_grads[case] = chip_smoke._flat(grads)
         # The rematerialised step body runs its forward solve's callback
         # again in the backward sweep: keep each system once, in order.
         warm, seen = [], set()
@@ -201,8 +231,29 @@ def main() -> None:
         print(case, json.dumps(config["cases"][case]),
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     data["config"] = json.dumps(config)
-    np.savez_compressed(OUT, **data)
-    print(f"wrote {OUT}: {os.path.getsize(OUT)} bytes", flush=True)
+    savez_if_changed(OUT, data)
+    dist = chip_smoke.bf16_dist(flat_grads["bf16"], flat_grads["fp32"])
+    print("bf16_dist (JAX bf16 against JAX fp32):", json.dumps(dist), flush=True)
+    # The sketch's spread: the fp32 iteration again with every solve
+    # tightened to tol 1e-6 (maxiter 500).
+    tight_app = fp32_app(graft, pressure_tol=TIGHT_TOL, pressure_maxiter=500)
+    _, grads = jax.jit(jax.value_and_grad(tight_app._loss_fn, has_aux=True))(
+        params, batch)
+    norms = config["cases"]["fp32"]["grad_norms"]
+    loose = chip_smoke.grad_sketch(flat_grads["fp32"])
+    tight = chip_smoke.grad_sketch(chip_smoke._flat(jax.device_get(grads)))
+    spread = {net: float(np.max(np.abs(np.subtract(loose[net], tight[net])))
+                         / norms[net]) for net in sorted(loose)}
+    print("fp32 sketch spread (tol 1e-4 against 1e-6):", json.dumps(spread),
+          flush=True)
+    savez_if_changed(OUT_GRADS, {"config": json.dumps(dict(
+        sketch_seed=chip_smoke.SKETCH_SEED,
+        directions=chip_smoke.SKETCH_DIRECTIONS,
+        params_sha256=config["params_sha256"],
+        batch_sha256=config["batch_sha256"], bf16_dist=dist,
+        fp32_sketch=loose,
+        fp32_norms=norms, fp32_sketch_spread=spread,
+        spread_tol=TIGHT_TOL, spread_maxiter=500))})
 
 
 if __name__ == "__main__":

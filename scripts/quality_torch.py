@@ -1,47 +1,64 @@
-"""Trains BASELINE config 4 (indirect smoke control) or config 3 (shape
-transition) with the port at the JAX package's published counts, and
-prints the result beside the JAX package's.
+"""Trains a BASELINE config with the port at the JAX package's published
+counts, and prints the result beside the JAX package's.
 
-    python3 scripts/quality_torch.py config4|config3 [--draws jax|port]
+    python3 scripts/quality_torch.py config1|config2|config3|config4|config5 [--draws jax|port]
 
-The counts are those of the JAX package's published runs
-(`scripts/run_quality11.sh`): config 4 `--iterations 4000
---e2e-iterations 8000 --num-train 512`, config 3 `--iterations 3500
---num-train 512`, seed 0, 32 validation trajectories, on the entries'
-default routes.
+The counts are those of the JAX package's published runs, seed 0, on the
+entries' default routes:
+* config 1 (`burgers.run_chain_supervised`): 2,000 iterations, 1,024 +
+  128 trajectories, batch 32 (the entry's defaults); reference the row of
+  `RESULTS.md` (no `results.json` was kept);
+* config 2 (`burgers.run_hierarchical`): 1,000 iterations a stage, 1,024
+  + 128, batch 32; reference `artifacts/runs/burgers_hierarchical`;
+* config 3: `--iterations 3500 --num-train 512`, and config 4:
+  `--iterations 4000 --e2e-iterations 8000 --num-train 512`, 32
+  validation trajectories (`scripts/run_quality11.sh`); references the
+  seeds 0, 1 and 2 of `artifacts/runs/{shape_transition,smoke_indirect}`;
+* config 5 (`fluid2d.run_natural_flow_128`): 300 iterations a supervised
+  stage, 4,500 at each e2e horizon (32, 64, 128), 3,584 + 64
+  trajectories, batch 8, through the disk cache
+  (`scripts/run_queue_r3c.sh`), here `<run>/data`; reference
+  `artifacts/runs/natural_flow_128_final`. Its data take ~9 GB on disk
+  and ~15 min to make on an H100, and the whole run more than an hour.
+Every stage runs 8 steps a call, so 300 and 4,500 become 304 and 4,504,
+as in the JAX package's runs.
 
 * `--draws jax` (the default) trains on the JAX package's own datasets:
-  the port's draw functions (`data/generate.py :: inflow_draws,
-  smooth_field_draws`, and `INITS['shapes']`'s draws) are replaced in this
-  process by pops from `tests/goldens/jax_draws_config{4,3}.npz`
+  the port's draw functions (`data/generate.py :: burgers_draws,
+  inflow_draws, smooth_field_draws`, and `INITS['shapes']`'s and
+  `INITS['blobs']`'s draws) are replaced in this process by pops from
+  `tests/goldens/jax_draws_{burgers,config3,config4,config5}.npz`
   (`scripts/make_jax_draws.py`), chunk by chunk, the training set's from
   the generator seeded 0 and the validation set's from the one seeded
-  999; then `fluid2d.run_smoke_indirect` / `run_shape_transition` run in
-  `runs/quality_torch/config{4,3}_jax`. The zero-force MSE must then equal
-  the JAX package's within 1e-2 relative: that holds the data path.
+  999; a pop past the file's end, or a draw the run's counts need and did
+  not pop, is an error. The run is in `runs/quality_torch/<config>_jax`.
+  The zero-force MSE must then equal the JAX package's (within 1e-4
+  relative for Burgers, 1e-2 for the smoke configs): that holds the data
+  path.
 * `--draws port` runs the port's CLI, unpatched, in a subprocess, as a
   user would (`python -m pde_control_tpu_torch.experiments.run
   smoke_indirect …` into `runs/quality_torch/config4_port`): the port's
   own draws, so the data differs from the JAX package's and only the
   controlled / zero-force ratio compares.
 
-Printed: the card's name and power limit (`nvidia-smi`), each stage's
-final training loss and steps/s beside the JAX package's seeds 0, 1 and 2
-(`artifacts/runs/{smoke_indirect,shape_transition}{,_s1,_s2}/results.json`),
-the eval block (controlled final MSE ± sem, zero force, ratio) beside
-theirs, whether the controlled MSE lies within the band around the seeds'
-mean (config 4 ±15%, config 3 ±25%) and, with the JAX draws, whether the
-zero force matches; the wall time; and last a JSON summary line, also
-written to `summary.json` in the run directory. The exit code is 0 once
-the run has finished, whatever the comparison says.
+Printed: the card's name and power limit (`nvidia-smi`), the bytes and
+dtype of each dataset put on the device, each stage's final training
+loss, steps/s and iterations run beside the JAX package's, the eval block
+(controlled final MSE ± sem, zero force, ratio, mean |F|) beside theirs,
+whether the controlled MSE lies within the band around the JAX runs'
+mean (configs 1-3 ±25%, config 4 ±15%, config 5 ±30%) and, with the JAX
+draws, whether the zero force matches; the wall time; and last a JSON
+summary line, also written to `summary.json` in the run directory. The
+exit code is 0 once the run has finished, whatever the comparison says.
 
-With `--draws port --cross-eval`, the run's final networks are evaluated
-again on the JAX package's validation set (its draws), which tells a
-harder validation set from a worse controller.
+With `--draws port --cross-eval` (configs 3 and 4), the run's final
+networks are evaluated again on the JAX package's validation set (its
+draws), which tells a harder validation set from a worse controller.
 
 `--iterations`, `--e2e-iterations`, `--num-train`, `--num-val` and
 `--device` cut a quick check (the comparison is then not meaningful);
-with `--draws jax` the counts must be multiples of the draws' chunk of 8.
+with `--draws jax` the counts must be multiples of the draws' chunk (8;
+64 for Burgers).
 """
 
 from __future__ import annotations
@@ -58,25 +75,52 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDENS = os.path.join(ROOT, "tests", "goldens")
 RUNS = os.path.join(ROOT, "artifacts", "runs")
-# config: (entry, the JAX package's runs of seeds 0, 1, 2, reference
-# counts, the band around the seeds' mean controlled MSE)
+# config: the CLI entry, the JAX package's runs (seeds 0, 1, 2 where there
+# are three), the reference counts, the band around their mean controlled
+# MSE, the draws' file and the zero force's relative tolerance.
 CONFIGS = {
-    "config4": ("smoke_indirect",
-                ("smoke_indirect", "smoke_indirect_s1", "smoke_indirect_s2"),
-                dict(iterations=4000, e2e_iterations=8000, num_train=512,
-                     num_val=32), 0.15),
-    "config3": ("shape_transition",
-                ("shape_transition", "shape_transition_s1",
-                 "shape_transition_s2"),
-                dict(iterations=3500, e2e_iterations=None, num_train=512,
-                     num_val=32), 0.25),
+    "config1": dict(entry="burgers_chain", refs=(),
+                    counts=dict(iterations=2000, e2e_iterations=None,
+                                num_train=1024, num_val=128),
+                    band=0.25, draws="burgers", zero_rtol=1e-4),
+    "config2": dict(entry="burgers_hierarchical",
+                    refs=("burgers_hierarchical",),
+                    counts=dict(iterations=1000, e2e_iterations=None,
+                                num_train=1024, num_val=128),
+                    band=0.25, draws="burgers", zero_rtol=1e-4),
+    "config3": dict(entry="shape_transition",
+                    refs=("shape_transition", "shape_transition_s1",
+                          "shape_transition_s2"),
+                    counts=dict(iterations=3500, e2e_iterations=None,
+                                num_train=512, num_val=32),
+                    band=0.25, draws="config3", zero_rtol=1e-2),
+    "config4": dict(entry="smoke_indirect",
+                    refs=("smoke_indirect", "smoke_indirect_s1",
+                          "smoke_indirect_s2"),
+                    counts=dict(iterations=4000, e2e_iterations=8000,
+                                num_train=512, num_val=32),
+                    band=0.15, draws="config4", zero_rtol=1e-2),
+    "config5": dict(entry="natural_flow_128", refs=("natural_flow_128_final",),
+                    counts=dict(iterations=300, e2e_iterations=4500,
+                                num_train=3584, num_val=64),
+                    band=0.30, draws="config5", zero_rtol=1e-2),
 }
-STAGES = ("cfe_supervised", "op2_supervised", "op4_supervised",
-          "op8_supervised", "op16_supervised", "end_to_end")
-ZERO_FORCE_RTOL = 1e-2
+# Config 1's published result (`RESULTS.md`, the table of the post-reset
+# regenerations, row 1): its run kept no `results.json`. Its zero force is
+# config 2's run's, on the same validation set (`burgers.make_datasets`:
+# the same seeds and counts), to all its digits.
+CONFIG1_EVAL = dict(final_state_mse=3.17e-6, final_state_mse_sem=0.22e-6,
+                    mean_abs_force=0.29)
+STAGES = ("train", "cfe_supervised",
+          *(f"op{2 ** k}_supervised" for k in range(1, 8)),
+          *(f"end_to_end_n{n}" for n in (32, 64, 128)), "end_to_end")
 # The draws' arrays a pop returns, by the port's draw function.
 DRAW_KEYS = {"inflow": ("xs",), "field": ("amps", "phy", "phx"),
-             "shapes": ("pos", "r", "aspect", "is_circle")}
+             "shapes": ("pos", "r", "aspect", "is_circle"),
+             "blobs": ("pos", "sig"), "burgers": ("amps", "phases")}
+# The draw functions each file's datasets call, by its `config`.
+KINDS = {"burgers": ("burgers",), "3": ("shapes", "field"),
+         "4": ("inflow", "field"), "5": ("blobs", "field")}
 
 
 def card_line() -> str:
@@ -89,14 +133,17 @@ def card_line() -> str:
         return f"nvidia-smi unavailable ({e.__class__.__name__})"
 
 
-def patch_draws(config: str) -> dict:
+def patch_draws(config: str):
     """Replaces the port's draw functions by pops from the JAX package's
-    draws; returns the pops made, by (split, draw function)."""
+    draws; returns the pops made, by (split, draw function), and the
+    draws file."""
     import torch
 
     from pde_control_tpu_torch.data import generate
 
-    z = np.load(os.path.join(GOLDENS, f"jax_draws_{config}.npz"))
+    with np.load(os.path.join(GOLDENS,
+                              f"jax_draws_{CONFIGS[config]['draws']}.npz")) as f:
+        z = dict(f)
     meta = json.loads(str(z["config"]))
     split_of = {v["seed"]: split for split, v in meta["splits"].items()}
     pops: dict = {}
@@ -107,49 +154,134 @@ def patch_draws(config: str) -> dict:
             raise ValueError(f"a chunk of {batch}: the JAX draws come in "
                              f"chunks of {meta['chunk']}")
         i = pops.get((split, kind), 0)
+        have = z[f"{split}/{DRAW_KEYS[kind][0]}"].shape[0]
+        if i >= have:
+            raise IndexError(f"{split}/{kind}: pop {i + 1} of {have} draws")
         pops[split, kind] = i + 1
         return tuple(torch.from_numpy(np.array(z[f"{split}/{k}"][i]))
                      for k in DRAW_KEYS[kind])
 
     generate.smooth_field_draws = lambda gen, b, modes=3: pop(gen, "field", b)
-    if config == "config4":
-        generate.inflow_draws = (
-            lambda gen, b, w, x_range=(0.15, 0.85): pop(gen, "inflow", b)[0])
-    else:
-        generate.INITS["shapes"] = (
-            lambda gen, b, h, w, *a, **k: pop(gen, "shapes", b),
-            generate.shapes_from_draws)
-    return pops
+    generate.burgers_draws = lambda gen, b, modes=3: pop(gen, "burgers", b)
+    generate.inflow_draws = (
+        lambda gen, b, w, x_range=(0.15, 0.85): pop(gen, "inflow", b)[0])
+    for init in ("shapes", "blobs"):
+        generate.INITS[init] = (
+            lambda gen, b, h, w, *a, _kind=init, **k: pop(gen, _kind, b),
+            generate.INITS[init][1])
+    return pops, z
+
+
+def check_pops(pops: dict, z, counts: dict) -> None:
+    """Every draw the run's counts need was popped, no more: a chunk of
+    each split per `chunk` trajectories, times the calls a chunk makes
+    (the file's draws over its chunks). At the files' own counts that is
+    every draw in the file. A split with no pop at all was read from the
+    run's own disk cache (config 5's `<run>/data`)."""
+    meta = json.loads(str(z["config"]))
+    wanted = {}
+    for split, v in meta["splits"].items():
+        if not any(s == split for s, _ in pops):
+            print(f"{split}: no draws popped (read from the disk cache)")
+            continue
+        num = counts["num_train" if split == "train" else "num_val"]
+        for kind in KINDS[str(meta["config"])]:
+            calls = (z[f"{split}/{DRAW_KEYS[kind][0]}"].shape[0]
+                     // (v["num"] // meta["chunk"]))
+            wanted[split, kind] = num // meta["chunk"] * calls
+    if pops != wanted:
+        raise AssertionError(f"draws popped {sorted(pops.items())}, the "
+                             f"counts need {sorted(wanted.items())}")
+
+
+def report_device_datasets(t0: float) -> None:
+    """Prints the bytes and dtype of each dataset as it is put on the
+    device (`DeviceDataset.wrap`), and the seconds since `t0`."""
+    from pde_control_tpu_torch.data import scene
+
+    wrap = scene.DeviceDataset.wrap.__func__
+    seen = set()
+
+    def reporting(cls, ds, device=None):
+        view = wrap(cls, ds, device)
+        if id(view) not in seen:
+            seen.add(id(view))
+            if isinstance(view, cls):
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in view._arrays.values())
+                print(f"dataset on {view.device}: {len(view)} trajectories, "
+                      f"obs {tuple(view.obs.shape)} {view.obs.dtype}, "
+                      f"{nbytes} bytes, {time.perf_counter() - t0:.1f} s "
+                      "into the run", flush=True)
+            else:
+                print(f"dataset of {len(ds)} trajectories kept on the host",
+                      flush=True)
+        return view
+
+    scene.DeviceDataset.wrap = classmethod(reporting)
+
+
+def report_stages(t0: float) -> None:
+    """Prints each training stage's class, horizon, iterations, seconds and
+    final loss as it ends, and the seconds since `t0`
+    (`ControlTraining.train`)."""
+    from pde_control_tpu_torch.control.training import ControlTraining
+
+    train = ControlTraining.train
+
+    def reporting(self, iterations, *args, **kwargs):
+        t = time.perf_counter()
+        out = train(self, iterations, *args, **kwargs)
+        print(f"stage {self.sequence_class}, n={self.n}, trains "
+              f"{sorted(self.trainable_networks)}: "
+              f"{out.get('iterations_run', iterations)} iterations in "
+              f"{time.perf_counter() - t:.1f} s, final loss {out.get('loss')}, "
+              f"{time.perf_counter() - t0:.1f} s into the run", flush=True)
+        return out
+
+    ControlTraining.train = reporting
 
 
 def run_jax_draws(config: str, counts: dict, device: str, workdir: str
                   ) -> dict:
-    from pde_control_tpu_torch.experiments import fluid2d
+    from pde_control_tpu_torch.experiments import burgers, fluid2d
 
-    pops = patch_draws(config)
+    pops, z = patch_draws(config)
     kw = dict(iterations=counts["iterations"], num_train=counts["num_train"],
-              num_val=counts["num_val"], seed=0, device=device)
-    if config == "config4":
+              num_val=counts["num_val"], device=device)
+    if config == "config1":  # the CLI writes this entry's results.json
+        results = burgers.run_chain_supervised(workdir, **kw)
+        with open(os.path.join(workdir, "results.json"), "w") as f:
+            json.dump(results, f, indent=2, default=float)
+    elif config == "config2":
+        results = burgers.run_hierarchical(workdir, **kw)
+    elif config == "config3":
+        results = fluid2d.run_shape_transition(workdir, seed=0, **kw)
+    elif config == "config4":
         results = fluid2d.run_smoke_indirect(
-            workdir, e2e_iterations=counts["e2e_iterations"], **kw)
+            workdir, e2e_iterations=counts["e2e_iterations"], seed=0, **kw)
     else:
-        results = fluid2d.run_shape_transition(workdir, **kw)
-    print(f"draws popped from jax_draws_{config}.npz: "
+        results = fluid2d.run_natural_flow_128(
+            workdir, e2e_iterations=counts["e2e_iterations"], seed=0,
+            datadir=os.path.join(workdir, "data"), **kw)
+    print(f"draws popped from jax_draws_{CONFIGS[config]['draws']}.npz: "
           f"{ {f'{s}/{k}': n for (s, k), n in sorted(pops.items())} }",
           flush=True)
+    check_pops(pops, z, counts)
     return results
 
 
 def run_cli(config: str, counts: dict, device: str, workdir: str) -> dict:
-    entry = CONFIGS[config][0]
+    entry = CONFIGS[config]["entry"]
     cmd = [sys.executable, "-m", "pde_control_tpu_torch.experiments.run",
-           entry, "--iterations", str(counts["iterations"]),
-           "--num-train", str(counts["num_train"]), "--workdir", workdir,
-           "--device", device]
+           entry, "--iterations", str(counts["iterations"]), "--workdir",
+           workdir, "--device", device]
+    if not entry.startswith("burgers"):  # the Burgers entries fix theirs
+        cmd += ["--num-train", str(counts["num_train"])]
+        if counts["num_val"] != 32:
+            cmd += ["--num-val", str(counts["num_val"])]
     if counts["e2e_iterations"]:
         cmd += ["--e2e-iterations", str(counts["e2e_iterations"])]
-    if counts["num_val"] != 32:
-        cmd += ["--num-val", str(counts["num_val"])]
     print("running:", " ".join(cmd[1:]), flush=True)
     subprocess.run(cmd, cwd=ROOT, check=True, stdout=subprocess.DEVNULL)
     with open(os.path.join(workdir, "results.json")) as f:
@@ -188,50 +320,73 @@ def cross_eval(config: str, counts: dict, device: str, workdir: str) -> dict:
                 zero_force_final_mse=zero, ratio=zero / mse)
 
 
-def compare(config: str, draws: str, results: dict) -> dict:
-    """Prints the port's stages and eval beside the JAX package's seeds;
-    returns the summary."""
-    _, refs, _, band = CONFIGS[config]
-    jax_runs = []
-    for name in refs:
+def jax_runs(config: str) -> list:
+    """The JAX package's published results of `config`: its runs'
+    `results.json`, or for config 1 the eval of `RESULTS.md`'s row."""
+    def load(name):
         with open(os.path.join(RUNS, name, "results.json")) as f:
-            jax_runs.append(json.load(f))
-    print(f"{'stage':<16} {'port loss':>12} {'steps/s':>9} "
-          + " ".join(f"{'JAX seed ' + str(i):>12}" for i in range(3)))
-    for stage in STAGES:
+            return json.load(f)
+
+    if config == "config1":
+        zero = load("burgers_hierarchical")["eval"]["zero_force_final_mse"]
+        return [{"eval": dict(CONFIG1_EVAL, zero_force_final_mse=zero)}]
+    return [load(name) for name in CONFIGS[config]["refs"]]
+
+
+def compare(config: str, draws: str, results: dict) -> dict:
+    """Prints the port's stages and eval beside the JAX package's runs;
+    returns the summary."""
+    band, zero_rtol = CONFIGS[config]["band"], CONFIGS[config]["zero_rtol"]
+    refs = jax_runs(config)
+    stages = [s for s in STAGES if isinstance(results.get(s), dict)
+              or any(s in r for r in refs)]
+    print(f"{'stage':<18} {'port loss':>12} {'steps/s':>9} {'its':>6} "
+          + " ".join(f"{'JAX run ' + str(i):>12}" for i in range(len(refs))))
+    for stage in stages:
         got = results.get(stage, {})
-        print(f"{stage:<16} {got.get('loss', float('nan')):>12.4e} "
+        print(f"{stage:<18} {got.get('loss', float('nan')):>12.4e} "
               f"{got.get('steps_per_sec', float('nan')):>9.2f} "
-              + " ".join(f"{r[stage]['loss']:>12.4e}" for r in jax_runs))
+              f"{got.get('iterations_run', '-')!s:>6} "
+              + " ".join(f"{r.get(stage, {}).get('loss', float('nan')):>12.4e}"
+                         for r in refs))
     ev = results["eval"]
     mse, zero = ev["final_state_mse"], ev["zero_force_final_mse"]
-    jmse = [r["eval"]["final_state_mse"] for r in jax_runs]
-    jzero = jax_runs[0]["eval"]["zero_force_final_mse"]
+    jmse = [r["eval"]["final_state_mse"] for r in refs]
+    jzero = refs[0]["eval"]["zero_force_final_mse"]
+    jforce = [r["eval"].get("mean_abs_force") for r in refs]
     mean = float(np.mean(jmse))
     lo, hi = (1 - band) * mean, (1 + band) * mean
     summary = dict(
         config=config, draws=draws,
         final_state_mse=mse, final_state_mse_sem=ev["final_state_mse_sem"],
         zero_force_final_mse=zero, ratio=zero / mse,
+        mean_abs_force=ev.get("mean_abs_force"),
         eval_samples=ev["eval_samples"],
-        stage_loss={s: results.get(s, {}).get("loss") for s in STAGES},
-        jax_final_state_mse=jmse, jax_zero_force_final_mse=jzero,
+        stage_loss={s: results.get(s, {}).get("loss") for s in stages},
+        stage_steps_per_sec={s: results.get(s, {}).get("steps_per_sec")
+                             for s in stages},
+        stage_iterations_run={s: results.get(s, {}).get("iterations_run")
+                              for s in stages},
+        jax_final_state_mse=jmse,
+        jax_final_state_mse_sem=[r["eval"].get("final_state_mse_sem")
+                                 for r in refs],
+        jax_zero_force_final_mse=jzero, jax_mean_abs_force=jforce,
         jax_ratio=[jzero / m for m in jmse],
         band=[lo, hi], controlled_in_band=bool(lo <= mse <= hi))
     print(f"eval: controlled final MSE {mse:.4e} ± {ev['final_state_mse_sem']:.2e} "
           f"(sem, {ev['eval_samples']} samples), zero force {zero:.6e}, "
-          f"ratio {zero / mse:.1f}x")
-    print(f"JAX package, seeds 0-2: controlled {[f'{m:.4e}' for m in jmse]}, "
+          f"ratio {zero / mse:.1f}x, mean |F| {ev.get('mean_abs_force')}")
+    print(f"JAX package: controlled {[f'{m:.4e}' for m in jmse]}, "
           f"zero force {jzero:.6e}, ratios "
-          f"{[f'{jzero / m:.1f}x' for m in jmse]}")
-    print(f"controlled within ±{band:.0%} of the seeds' mean {mean:.4e} "
+          f"{[f'{jzero / m:.1f}x' for m in jmse]}, mean |F| {jforce}")
+    print(f"controlled within ±{band:.0%} of the JAX runs' mean {mean:.4e} "
           f"[{lo:.3e}, {hi:.3e}]: {summary['controlled_in_band']}")
     if draws == "jax":
         rel = abs(zero - jzero) / jzero
         summary.update(zero_force_rel_err=rel,
-                       zero_force_matches=bool(rel <= ZERO_FORCE_RTOL))
+                       zero_force_matches=bool(rel <= zero_rtol))
         print(f"zero force against the JAX package's: {rel:.3e} relative "
-              f"(limit {ZERO_FORCE_RTOL:g}): {summary['zero_force_matches']}")
+              f"(limit {zero_rtol:g}): {summary['zero_force_matches']}")
     return summary
 
 
@@ -241,13 +396,16 @@ def main() -> None:
     p.add_argument("--draws", choices=("jax", "port"), default="jax")
     p.add_argument("--device", default="cuda")
     p.add_argument("--cross-eval", action="store_true",
-                   help="with --draws port, also evaluate the run's final "
-                        "networks on the JAX package's validation set")
+                   help="with --draws port (configs 3 and 4), also evaluate "
+                        "the run's final networks on the JAX package's "
+                        "validation set")
     for flag in ("iterations", "e2e_iterations", "num_train", "num_val"):
         p.add_argument(f"--{flag.replace('_', '-')}", type=int, default=None)
     args = p.parse_args()
+    if args.cross_eval and args.config not in ("config3", "config4"):
+        p.error("--cross-eval takes config3 or config4")
     sys.path.insert(0, ROOT)
-    counts = dict(CONFIGS[args.config][2])
+    counts = dict(CONFIGS[args.config]["counts"])
     for k in counts:
         if getattr(args, k) is not None:
             counts[k] = getattr(args, k)
@@ -257,8 +415,12 @@ def main() -> None:
     workdir = os.path.join(ROOT, "runs", "quality_torch",
                            f"{args.config}_{args.draws}")
     t0 = time.perf_counter()
-    run = run_jax_draws if args.draws == "jax" else run_cli
-    results = run(args.config, counts, args.device, workdir)
+    if args.draws == "jax":
+        report_device_datasets(t0)
+        report_stages(t0)
+        results = run_jax_draws(args.config, counts, args.device, workdir)
+    else:
+        results = run_cli(args.config, counts, args.device, workdir)
     wall = time.perf_counter() - t0
     summary = compare(args.config, args.draws, results)
     summary.update(wall_s=wall, counts=counts, card=card_line())
