@@ -55,6 +55,30 @@ With `--draws port --cross-eval` (configs 3 and 4), the run's final
 networks are evaluated again on the JAX package's validation set (its
 draws), which tells a harder validation set from a worse controller.
 
+A run longer than one call of the chip (config 5) is split over calls
+by its stage checkpoints (`run_curriculum(resume=True)` skips every stage
+whose checkpoint exists and restores a mid-stage autosave):
+* `--save-to DIR` copies each stage checkpoint (`ckpt_*`, but
+  `ckpt_final`) and each autosave (`autosave_*`, dropped once its stage's
+  checkpoint is there) into DIR as it is written, with the stages'
+  results (`stages.json`) and the datasets' digests (`digests.json`), so
+  that a call cut by a time limit still leaves them. At config 5's widths
+  the four checkpoints that e2e n = 128 resumes from take ~51 MB, an
+  autosave of that stage ~60 MB;
+* `--stop-after STAGE` (a key of `results.json`: `cfe_supervised`,
+  `op2_supervised` ... `end_to_end_n64`) ends the call cleanly once that
+  stage's checkpoint is written;
+* `--resume-from DIR` starts from an earlier call's DIR: its `ckpt_*` and
+  `autosave_*` are copied into the run directory, the data is made again
+  from the same draws, each dataset's digest must equal the earlier
+  call's, and the run resumes; the earlier calls' stage results are
+  printed beside this call's. A mid-stage resume sees another batch order
+  than an unbroken stage;
+* `--no-render` leaves out the log points' PNG renders (an eager rollout
+  at the stage's n each), and says so.
+Every call prints the digest (sha256 of the arrays) of the training and
+validation sets.
+
 `--iterations`, `--e2e-iterations`, `--num-train`, `--num-val` and
 `--device` cut a quick check (the comparison is then not meaningful);
 with `--draws jax` the counts must be multiples of the draws' chunk (8;
@@ -64,8 +88,11 @@ with `--draws jax` the counts must be multiples of the draws' chunk (8;
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -242,13 +269,205 @@ def report_stages(t0: float) -> None:
     ControlTraining.train = reporting
 
 
-def run_jax_draws(config: str, counts: dict, device: str, workdir: str
-                  ) -> dict:
-    from pde_control_tpu_torch.experiments import burgers, fluid2d
+class StopAfterStage(Exception):
+    """Raised once the checkpoint of `--stop-after`'s stage is written."""
 
+
+def stage_tag(app) -> str:
+    """The tag of the curriculum stage `app` trains, as `run_curriculum`
+    names its autosave (`autosave_<tag>`): `cfe`, `op<span>`, `e2e_n<n>`."""
+    if app.sequence_class == "chain":
+        return "cfe"
+    if app.sequence_class == "op_supervised":
+        return app.trainable_networks[0].lower()
+    return f"e2e_n{app.n}"
+
+
+def stage_key(app) -> str:
+    """The `results.json` key of the curriculum stage `app` trains."""
+    tag = stage_tag(app)
+    if tag.startswith(("cfe", "op")):
+        return f"{tag}_supervised"
+    return f"end_to_end_n{app.n}"
+
+
+def dataset_digest(ds) -> str:
+    """sha256 of a trajectory dataset's arrays (names, shapes, dtypes and
+    bytes), read in chunks of ~64 MB."""
+    h = hashlib.sha256()
+    for name, a in [("obs", ds.obs), *sorted(ds.extras.items())]:
+        a = np.asarray(a)
+        h.update(f"{name} {a.shape} {a.dtype};".encode())
+        step = max(1, (64 << 20) // max(1, a[:1].nbytes))
+        for i in range(0, len(a), step):
+            h.update(memoryview(np.ascontiguousarray(a[i:i + step])))
+    return h.hexdigest()
+
+
+def _mirror(src: str, dst: str) -> None:
+    """Copy the directory `src` to `dst` through a temporary sibling, so
+    that a kill leaves `dst` (or its `.old`) whole."""
+    tmp, old = dst + ".tmp", dst + ".old"
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.copytree(src, tmp)
+    shutil.rmtree(old, ignore_errors=True)
+    if os.path.isdir(dst):
+        os.replace(dst, old)
+    os.replace(tmp, dst)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def _write_json(path: str, obj) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f, indent=1, default=float)
+    os.replace(path + ".tmp", path)
+
+
+def _read_json(path: str) -> dict:
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
+@contextlib.contextmanager
+def split_run(workdir: str, save_to: str | None = None,
+              stop_after: str | None = None, resume_from: str | None = None,
+              render: bool = True):
+    """Hooks that split a curriculum run over calls (module docstring):
+    within the block, each fluid dataset's digest is printed (and held to
+    `resume_from`'s), each stage checkpoint and autosave is copied into
+    `save_to` as it is written, and `StopAfterStage` is raised once
+    `stop_after`'s checkpoint is written. With `resume_from`, its
+    `ckpt_*` and `autosave_*` are first copied into `workdir`. Yields a
+    dict: the digests, the stage results of this call and of the earlier
+    ones (`earlier`)."""
+    from pde_control_tpu_torch.control.training import ControlTraining
+    from pde_control_tpu_torch.experiments import fluid2d
+    from pde_control_tpu_torch.experiments.curriculum import clear_autosave
+
+    state = {"digests": {}, "stages": {}, "earlier": {}, "earlier_digests": {}}
+    if resume_from:
+        os.makedirs(workdir, exist_ok=True)
+        names = set(os.listdir(resume_from))
+        for name in sorted(names):
+            base = name.removesuffix(".old")
+            # A `.old` stands in for its copy only where a kill took that.
+            if (not name.startswith(("ckpt_", "autosave_"))
+                    or name.endswith(".tmp") or (name != base and base in names)):
+                continue
+            shutil.copytree(os.path.join(resume_from, name),
+                            os.path.join(workdir, base), dirs_exist_ok=True)
+            print(f"resume: {base} from {os.path.join(resume_from, name)}",
+                  flush=True)
+        state["earlier"] = _read_json(os.path.join(resume_from, "stages.json"))
+        state["earlier_digests"] = _read_json(
+            os.path.join(resume_from, "digests.json"))
+    if save_to:
+        os.makedirs(save_to, exist_ok=True)
+        if resume_from and os.path.abspath(resume_from) != os.path.abspath(
+                save_to):
+            # The earlier calls' records travel on with this call's.
+            _write_json(os.path.join(save_to, "stages.json"),
+                        state["earlier"])
+    cached = fluid2d._maybe_cached
+    train, save, autosave = (ControlTraining.train, ControlTraining.save,
+                             ControlTraining.autosave)
+    render_progress = ControlTraining._render_progress
+
+    def digesting(datadir, split, params, build):
+        ds = cached(datadir, split, params, build)
+        d = state["digests"][split] = dataset_digest(ds)
+        was = state["earlier_digests"].get(split)
+        print(f"{split} set: {len(ds)} trajectories, digest sha256 {d}"
+              + (f", the earlier call's {'the same' if was == d else was}"
+                 if resume_from else ""), flush=True)
+        if resume_from and was != d:
+            raise AssertionError(f"the {split} set's digest {d} is not the "
+                                 f"earlier call's {was}")
+        if save_to:
+            _write_json(os.path.join(save_to, "digests.json"),
+                        state["digests"])
+        return ds
+
+    def training(self, iterations, *args, **kwargs):
+        out = train(self, iterations, *args, **kwargs)
+        self._split_result = out
+        return out
+
+    def saving(self, directory, names=None):
+        save(self, directory, names)
+        key, final = stage_key(self), os.path.basename(directory) == "ckpt_final"
+        if hasattr(self, "_split_result"):
+            state["stages"][key] = self._split_result
+            if save_to:
+                _write_json(os.path.join(save_to, "stages.json"),
+                            {**state["earlier"], **state["stages"]})
+        if save_to and not final:
+            # A stage's checkpoint replaces its autosave (as run_curriculum
+            # drops it), and `ckpt_final` repeats the last stage's: what a
+            # later call needs stays small (~51 MB at config 5's widths).
+            _mirror(directory, os.path.join(save_to,
+                                            os.path.basename(directory)))
+            clear_autosave(save_to, stage_tag(self))
+        if key == stop_after and not final:
+            raise StopAfterStage(key)
+
+    def autosaving(self, directory):
+        autosave(self, directory)
+        if save_to:
+            _mirror(directory, os.path.join(save_to,
+                                            os.path.basename(directory)))
+
+    fluid2d._maybe_cached = digesting
+    ControlTraining.train, ControlTraining.save = training, saving
+    ControlTraining.autosave = autosaving
+    if not render:
+        print("the log points' PNG renders are left out (--no-render)",
+              flush=True)
+        ControlTraining._render_progress = lambda self, batch: None
+    try:
+        yield state
+    finally:
+        fluid2d._maybe_cached = cached
+        ControlTraining.train, ControlTraining.save = train, save
+        ControlTraining.autosave = autosave
+        ControlTraining._render_progress = render_progress
+
+
+def merge_earlier(results: dict, earlier: dict) -> dict:
+    """`results` with each stage that this call skipped (`resumed`) taken
+    from the earlier calls' records, marked `from_earlier_call`."""
+    out = dict(results)
+    for key, rec in earlier.items():
+        if out.get(key, {}).get("resumed") and isinstance(rec, dict):
+            out[key] = dict(rec, from_earlier_call=True)
+    return out
+
+
+def run_jax_draws(config: str, counts: dict, device: str, workdir: str,
+                  resume: bool = False) -> dict:
     pops, z = patch_draws(config)
     kw = dict(iterations=counts["iterations"], num_train=counts["num_train"],
               num_val=counts["num_val"], device=device)
+    stopped = results = None
+    try:
+        results = _run_entry(config, counts, workdir, resume, kw)
+    except StopAfterStage as e:  # the data was all made: check its draws
+        stopped = e
+    print(f"draws popped from jax_draws_{CONFIGS[config]['draws']}.npz: "
+          f"{ {f'{s}/{k}': n for (s, k), n in sorted(pops.items())} }",
+          flush=True)
+    check_pops(pops, z, counts)
+    if stopped:
+        raise stopped
+    return results
+
+
+def _run_entry(config: str, counts: dict, workdir: str, resume: bool,
+               kw: dict) -> dict:
+    from pde_control_tpu_torch.experiments import burgers, fluid2d
+
     if config == "config1":  # the CLI writes this entry's results.json
         results = burgers.run_chain_supervised(workdir, **kw)
         with open(os.path.join(workdir, "results.json"), "w") as f:
@@ -256,18 +475,16 @@ def run_jax_draws(config: str, counts: dict, device: str, workdir: str
     elif config == "config2":
         results = burgers.run_hierarchical(workdir, **kw)
     elif config == "config3":
-        results = fluid2d.run_shape_transition(workdir, seed=0, **kw)
+        results = fluid2d.run_shape_transition(workdir, seed=0, resume=resume,
+                                               **kw)
     elif config == "config4":
         results = fluid2d.run_smoke_indirect(
-            workdir, e2e_iterations=counts["e2e_iterations"], seed=0, **kw)
+            workdir, e2e_iterations=counts["e2e_iterations"], seed=0,
+            resume=resume, **kw)
     else:
         results = fluid2d.run_natural_flow_128(
             workdir, e2e_iterations=counts["e2e_iterations"], seed=0,
-            datadir=os.path.join(workdir, "data"), **kw)
-    print(f"draws popped from jax_draws_{CONFIGS[config]['draws']}.npz: "
-          f"{ {f'{s}/{k}': n for (s, k), n in sorted(pops.items())} }",
-          flush=True)
-    check_pops(pops, z, counts)
+            datadir=os.path.join(workdir, "data"), resume=resume, **kw)
     return results
 
 
@@ -401,9 +618,22 @@ def main() -> None:
                         "validation set")
     for flag in ("iterations", "e2e_iterations", "num_train", "num_val"):
         p.add_argument(f"--{flag.replace('_', '-')}", type=int, default=None)
+    p.add_argument("--save-to", default=None,
+                   help="copy each checkpoint and autosave here as written")
+    p.add_argument("--stop-after", default=None, choices=STAGES[1:-2],
+                   help="end the call once this stage's checkpoint is written")
+    p.add_argument("--resume-from", default=None,
+                   help="an earlier call's --save-to directory")
+    p.add_argument("--no-render", action="store_true",
+                   help="leave out the log points' PNG renders")
     args = p.parse_args()
     if args.cross_eval and args.config not in ("config3", "config4"):
         p.error("--cross-eval takes config3 or config4")
+    split = (args.save_to, args.stop_after, args.resume_from, args.no_render)
+    if any(split) and (args.draws != "jax" or args.config in ("config1",
+                                                              "config2")):
+        p.error("--save-to, --stop-after, --resume-from and --no-render take "
+                "config3, config4 or config5 with --draws jax")
     sys.path.insert(0, ROOT)
     counts = dict(CONFIGS[args.config]["counts"])
     for k in counts:
@@ -418,18 +648,37 @@ def main() -> None:
     if args.draws == "jax":
         report_device_datasets(t0)
         report_stages(t0)
-        results = run_jax_draws(args.config, counts, args.device, workdir)
+        with split_run(workdir, args.save_to, args.stop_after,
+                       args.resume_from, not args.no_render) as state:
+            try:
+                results = run_jax_draws(args.config, counts, args.device,
+                                        workdir, resume=bool(args.resume_from))
+            except StopAfterStage as e:
+                print(f"stopped after {e} (--stop-after): "
+                      f"{time.perf_counter() - t0:.1f} s; checkpoints, "
+                      f"autosaves and records in {args.save_to}; go on with "
+                      f"--resume-from {args.save_to}", flush=True)
+                return
+        results = merge_earlier(results, state["earlier"])
     else:
         results = run_cli(args.config, counts, args.device, workdir)
     wall = time.perf_counter() - t0
     summary = compare(args.config, args.draws, results)
     summary.update(wall_s=wall, counts=counts, card=card_line())
+    if args.draws == "jax":
+        summary.update(digests=state["digests"],
+                       resumed_from=args.resume_from,
+                       stages_from_earlier_calls=sorted(
+                           k for k, v in results.items()
+                           if isinstance(v, dict) and v.get("from_earlier_call")))
     if args.cross_eval and args.draws == "port":
         summary["on_jax_val"] = cross_eval(args.config, counts, args.device,
                                            workdir)
     print(f"wall time {wall:.1f} s", flush=True)
-    with open(os.path.join(workdir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    for where in (workdir, args.save_to):
+        if where:
+            with open(os.path.join(where, "summary.json"), "w") as f:
+                json.dump(summary, f, indent=2)
     print(json.dumps(summary))
 
 
