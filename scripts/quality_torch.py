@@ -83,6 +83,28 @@ validation sets.
 `--device` cut a quick check (the comparison is then not meaningful);
 with `--draws jax` the counts must be multiples of the draws' chunk (8;
 64 for Burgers).
+
+`--route kernel` (configs 4 and 5, with `--draws jax`) trains on every
+kernel of the port, the route of `scripts/config5_routes.py :: ROUTES`:
+the setup (`fluid2d._smoke_indirect_setup`, `_natural_flow_setup`) is
+called with `fused='cuda', conv_impl='cuda'`, so that the fused step and
+its VJP (K2/K3) and the hand-written 3×3 convs (K4/K5) train, and on
+config 5 also `pressure_backend='cuda'`, so that the PCG kernel (K1)
+makes the data in place of the exact spectral solve (part of the data's
+cache key) and the fused step may run there. Config 4's data is made on
+its default route whatever `fused` says (K1 on the plate), so its digest
+is the default route's. The entries themselves are not changed. The run
+is in `runs/quality_torch/<config>_jax_kernel`. Beside the default
+route's prints, the data and each stage print their launches of each
+kernel (the delta of `ops.launch_counts()`: eager calls and graph
+captures), and each stage its `notfinite_total` and iterations a second
+beside the default route's full-count run (`DEFAULT_ROUTE_RUNS`). On the
+card a stage that launched none of the kernels its class runs (K2-K5 in
+the CFE and e2e stages, K4/K5 in the OP stages), or data made without
+K1, stops the run with an error (`RouteNotTaken`): the route did not
+run. After the eval the stages' losses and pace are printed beside the
+default route's, and the controlled MSE beside its run's. The summary
+says `"route": "kernel"`.
 """
 
 from __future__ import annotations
@@ -148,6 +170,43 @@ DRAW_KEYS = {"inflow": ("xs",), "field": ("amps", "phy", "phx"),
 # The draw functions each file's datasets call, by its `config`.
 KINDS = {"burgers": ("burgers",), "3": ("shapes", "field"),
          "4": ("inflow", "field"), "5": ("blobs", "field")}
+# `--route kernel`: the setup each config's entry calls, and the routes it
+# is given there.
+KERNEL_ROUTE = {
+    "config4": ("_smoke_indirect_setup", dict(fused="cuda", conv_impl="cuda")),
+    "config5": ("_natural_flow_setup", dict(fused="cuda", conv_impl="cuda",
+                                            pressure_backend="cuda")),
+}
+# The kernels a stage of each class launches on the kernel route: the
+# physics steps (K2/K3) and the nets (K4/K5), or the nets alone.
+ALL_KERNELS = ("K2", "K3", "K4 fwd", "K4 dX", "K5")
+STAGE_KERNELS = {"op_supervised": ("K4 fwd", "K4 dX", "K5")}
+# The default route's full-count runs on the JAX package's draws, on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md §5-§6): the controlled final MSE
+# and, by stage, iterations a second and final loss where the run's records
+# kept them (config 4's: the CFE and e2e paces alone).
+DEFAULT_ROUTE_RUNS = {
+    "config4": dict(
+        final_state_mse=1.1586e-04,
+        steps_per_sec={"cfe_supervised": 13.3, "end_to_end_n16": 12.1},
+        loss={}),
+    "config5": dict(
+        final_state_mse=2.4488e-03,
+        steps_per_sec={
+            "cfe_supervised": 1.8276, "op2_supervised": 9.2842,
+            "op4_supervised": 19.279, "op8_supervised": 37.788,
+            "op16_supervised": 73.557, "op32_supervised": 151.34,
+            "op64_supervised": 268.19, "op128_supervised": 294.66,
+            "end_to_end_n32": 8.1319, "end_to_end_n64": 4.1064,
+            "end_to_end_n128": 2.0451},
+        loss={
+            "cfe_supervised": 7.4094e-02, "op2_supervised": 6.9654e-05,
+            "op4_supervised": 4.1885e-05, "op8_supervised": 1.2575e-04,
+            "op16_supervised": 2.0716e-04, "op32_supervised": 5.0162e-04,
+            "op64_supervised": 3.4010e-03, "op128_supervised": 1.2393e-02,
+            "end_to_end_n32": 1.0720e-04, "end_to_end_n64": 4.6436e-04,
+            "end_to_end_n128": 1.0301e-02}),
+}
 
 
 def card_line() -> str:
@@ -435,6 +494,121 @@ def split_run(workdir: str, save_to: str | None = None,
         ControlTraining._render_progress = render_progress
 
 
+class RouteNotTaken(RuntimeError):
+    """A kernel of the kernel route was not launched where it must be."""
+
+
+def _launch_delta(before: dict) -> dict:
+    from pde_control_tpu_torch.ops import launch_counts
+
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+@contextlib.contextmanager
+def kernel_route(config: str, device: str = "cuda"):
+    """`--route kernel` (module docstring): within the block, `config`'s
+    setup is called with the kernel route, and the data and each stage
+    print their launches by kernel; each stage also its `notfinite_total`
+    and pace beside the default route's run; a stage's launches go into
+    its result (`launches`). Where `device` is a card, a kernel the data
+    or a stage must launch and did not raises `RouteNotTaken` (the
+    wrappers count only there: on the CPU they run the kernels' plain
+    versions). Yields a dict whose `data` holds the data's launches and
+    the sets it made."""
+    from pde_control_tpu_torch.control.training import ControlTraining
+    from pde_control_tpu_torch.experiments import fluid2d
+    from pde_control_tpu_torch.ops import launch_counts
+
+    name, route = KERNEL_ROUTE[config]
+    setup, train = getattr(fluid2d, name), ControlTraining.train
+    counted = str(device).startswith("cuda")
+    ref = DEFAULT_ROUTE_RUNS[config]["steps_per_sec"]
+    state = {"data": {}}
+
+    def require(where: str, launches: dict, kernels) -> None:
+        missing = [k for k in kernels if not launches[k]]
+        if counted and missing:
+            raise RouteNotTaken(f"{where} launched no {', '.join(missing)} on "
+                                f"the kernel route: {launches}")
+
+    def routed_setup(*args, **kwargs):
+        cached, seen, built = fluid2d._maybe_cached, [], []
+
+        def building(datadir, split, params, build):
+            seen.append(split)
+            return cached(datadir, split, params,
+                          lambda: built.append(split) or build())
+
+        fluid2d._maybe_cached = building
+        before = launch_counts()
+        try:
+            out = setup(*args, **{**kwargs, **route})
+        finally:
+            fluid2d._maybe_cached = cached
+        launches = _launch_delta(before)
+        state["data"] = dict(launches=launches, generated=built)
+        cache = [split for split in seen if split not in built]
+        print(f"route kernel, data: made {built or 'none'}, read from the "
+              f"disk cache {cache or 'none'}; launches {launches}", flush=True)
+        if built:
+            require("the data", launches, ("K1",))
+        return out
+
+    def training(self, iterations, *args, **kwargs):
+        before = launch_counts()
+        out = train(self, iterations, *args, **kwargs)
+        if out.get("resumed_mid_stage", -1) >= out.get("iterations_run", 0):
+            return out  # its autosave had every iteration: nothing ran
+        key = stage_key(self)
+        # In the stage's result, so that a later call's records keep it.
+        launches = out["launches"] = _launch_delta(before)
+        print(f"route kernel, stage {key}: launches {launches}, "
+              f"notfinite_total {out.get('notfinite_total')}, "
+              f"{out['steps_per_sec']:.3f} it/s, the default route's "
+              f"{ref.get(key) or 'not recorded'}", flush=True)
+        require(f"stage {key}", launches,
+                STAGE_KERNELS.get(self.sequence_class, ALL_KERNELS))
+        return out
+
+    setattr(fluid2d, name, routed_setup)
+    ControlTraining.train = training
+    try:
+        yield state
+    finally:
+        setattr(fluid2d, name, setup)
+        ControlTraining.train = train
+
+
+def compare_default_route(config: str, summary: dict, results: dict,
+                          data: dict) -> None:
+    """Prints the kernel route's stages (this call's and the earlier
+    calls') and eval beside the default route's full-count run, and adds
+    the route's records to `summary`."""
+    ref = DEFAULT_ROUTE_RUNS[config]
+    nan = float("nan")
+    stages = [s for s, v in results.items() if s != "end_to_end"
+              and isinstance(v, dict) and "launches" in v]
+    print(f"{'stage':<18} {'kernel loss':>12} {'default':>12} "
+          f"{'kernel it/s':>11} {'default':>8} {'notfinite':>9}")
+    for stage in stages:
+        got = results[stage]
+        print(f"{stage:<18} {got.get('loss', nan):>12.4e} "
+              f"{ref['loss'].get(stage, nan):>12.4e} "
+              f"{got.get('steps_per_sec', nan):>11.3f} "
+              f"{ref['steps_per_sec'].get(stage, nan):>8.3f} "
+              f"{got.get('notfinite_total')!s:>9}")
+    mse = summary["final_state_mse"]
+    print(f"controlled final MSE {mse:.4e}, the default route's run "
+          f"{ref['final_state_mse']:.4e} ({mse / ref['final_state_mse']:.3f}x)",
+          flush=True)
+    summary.update(
+        route="kernel", route_data=data,
+        route_stages={s: {k: results[s].get(k) for k in (
+            "launches", "notfinite_total", "steps_per_sec")} for s in stages},
+        default_route=ref)
+
+
 def merge_earlier(results: dict, earlier: dict) -> dict:
     """`results` with each stage that this call skipped (`resumed`) taken
     from the earlier calls' records, marked `from_earlier_call`."""
@@ -626,7 +800,13 @@ def main() -> None:
                    help="an earlier call's --save-to directory")
     p.add_argument("--no-render", action="store_true",
                    help="leave out the log points' PNG renders")
+    p.add_argument("--route", choices=("default", "kernel"), default="default",
+                   help="kernel: train on K2-K5 (and on config 5 make the "
+                        "data on K1), configs 4 and 5 with --draws jax")
     args = p.parse_args()
+    if args.route == "kernel" and (args.config not in KERNEL_ROUTE
+                                   or args.draws != "jax"):
+        p.error("--route kernel takes config4 or config5 with --draws jax")
     if args.cross_eval and args.config not in ("config3", "config4"):
         p.error("--cross-eval takes config3 or config4")
     split = (args.save_to, args.stop_after, args.resume_from, args.no_render)
@@ -640,16 +820,20 @@ def main() -> None:
         if getattr(args, k) is not None:
             counts[k] = getattr(args, k)
     print(card_line(), flush=True)
+    kernel = args.route == "kernel"
     print(f"{args.config}, draws {args.draws}, counts {counts}, device "
-          f"{args.device}", flush=True)
+          f"{args.device}" + (", route kernel" if kernel else ""), flush=True)
     workdir = os.path.join(ROOT, "runs", "quality_torch",
-                           f"{args.config}_{args.draws}")
+                           f"{args.config}_{args.draws}"
+                           + ("_kernel" if kernel else ""))
     t0 = time.perf_counter()
     if args.draws == "jax":
         report_device_datasets(t0)
         report_stages(t0)
-        with split_run(workdir, args.save_to, args.stop_after,
-                       args.resume_from, not args.no_render) as state:
+        with (kernel_route(args.config, args.device) if kernel
+              else contextlib.nullcontext()) as route, \
+                split_run(workdir, args.save_to, args.stop_after,
+                          args.resume_from, not args.no_render) as state:
             try:
                 results = run_jax_draws(args.config, counts, args.device,
                                         workdir, resume=bool(args.resume_from))
@@ -664,6 +848,8 @@ def main() -> None:
         results = run_cli(args.config, counts, args.device, workdir)
     wall = time.perf_counter() - t0
     summary = compare(args.config, args.draws, results)
+    if kernel:
+        compare_default_route(args.config, summary, results, route["data"])
     summary.update(wall_s=wall, counts=counts, card=card_line())
     if args.draws == "jax":
         summary.update(digests=state["digests"],
