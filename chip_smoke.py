@@ -110,8 +110,8 @@ prints no result):
   9. the rest of the training step, on the 'refined' class (every net
      trainable, grad clip 1.0, cosine over 100 updates): its first
      iteration on the conv path against K1 with cuDNN; one op_supervised
-     step on the conv path; `progress_multi` (K = 8 replays of one CUDA
-     graph of the step) against 8 `progress` calls from the same state;
+     step on the conv path; `progress_multi` (K = 4 replays of one CUDA
+     graph of the step) against 4 `progress` calls from the same state;
      both timed on the three paths (CUDA events and the host clock over
      the K steps, steps/s, peak memory, launches a step: counted by the
      wrappers for eager steps, the captured step's times K for replays);
@@ -1408,11 +1408,11 @@ CG_GOLDENS_BIG = {"tests/goldens/pcg_256.npz": {"cold": (256, False),
 # 48-96-96-48, OP16-OP2 U-nets of 3 levels at base width 16, tol 1e-4 /
 # maxiter 200, warm start, bf16 nets on cuDNN), unfused; `k` steps a
 # `progress_multi` call.
-APP256 = dict(size=256, n=N, batch=BATCH, k=3)
+APP256 = dict(size=256, n=N, batch=BATCH, k=2)
 # `run_smoke_indirect(size=256)` cut as `ENTRIES` cuts the plated task:
-# 16 + 8 trajectories (warm-up 8 steps, 16 recorded), 8 iterations a
+# 8 + 8 trajectories (warm-up 8 steps, 16 recorded), 8 iterations a
 # stage, one progress_multi call (full: 256 + 32, 500).
-SMOKE256 = dict(size=256, n=16, batch=8, num_train=16, num_val=8,
+SMOKE256 = dict(size=256, n=16, batch=8, num_train=8, num_val=8,
                 iterations=8, warmup=8)
 
 
@@ -2944,7 +2944,9 @@ REFINED = dict(sequence_class="refined", grad_clip=1.0, lr_schedule="cosine",
 # (pressure backend, fused, conv_impl) of the three paths.
 PATHS = {"unfused": ("auto", "auto", "xla"), "fused": ("auto", "cuda", "xla"),
          "conv": ("auto", "cuda", "cuda")}
-K_MULTI = 8
+# Steps a `progress_multi` call where this script times or compares one
+# (the entries' own calls take 8).
+K_MULTI = 4
 
 
 def refined_launches_per_iteration(path: str) -> dict:
@@ -3643,18 +3645,18 @@ def cli_phase(card: str) -> None:
 #      iterations a stage, its fine-tune 600).
 # Each then `*_ft` from its ckpt_final with `ft_iterations` e2e iterations.
 # Iterations are one progress_multi call of 8 steps a stage (the fewest the
-# entries' K = 8 runs); the plated task's data is cut to 16 + 8
-# trajectories, one batch of validation, so that the whole script keeps
-# within its time limit.
+# entries' K = 8 runs); the data is cut to 16 + 8 trajectories (the
+# plated task's to 8 + 8), two batches of training and one of validation
+# at most, so that the whole script keeps within its time limit.
 ENTRIES = {
     "smoke_128": dict(task="indirect smoke control at 128^2", size=128, n=16,
-                      batch=8, num_train=32, num_val=16, iterations=8,
+                      batch=8, num_train=16, num_val=8, iterations=8,
                       ft_iterations=8, warmup=8),
     "smoke3d": dict(task="3D smoke control, 24^3", size=24, n=8, batch=8,
-                    num_train=32, num_val=16, iterations=8, ft_iterations=8,
+                    num_train=16, num_val=8, iterations=8, ft_iterations=8,
                     warmup=0),
     "smoke3d_indirect": dict(task="plated 3D smoke control, 32^3", size=32,
-                             n=16, batch=8, num_train=16, num_val=8,
+                             n=16, batch=8, num_train=8, num_val=8,
                              iterations=8, ft_iterations=8, warmup=6),
 }
 
@@ -3945,8 +3947,8 @@ def entry_phase(card: str, name: str) -> dict:
 # checkpoints that configs 3 and 4 leave in `runs/chip_smoke_config{3,4}`, at
 # the entries' sizes (64², n=16, config 4's CFE 48-96-96-48, OP16 ... OP2,
 # the horizon rows 24 and 32). Cut: `num_val`, 32 trajectories a row in the
-# entries, to 16.
-OOD = dict(num_val=16)
+# entries, to 8 (`scripts/quality_torch.py --ood` runs the 32).
+OOD = dict(num_val=8)
 # `results.json` keys of the JAX package's entries at full size.
 OOD_KEYS = {
     "generalize_shapes": {"init_from", "protocol", "shapes", "shapes_chain",
@@ -4231,7 +4233,7 @@ def profile_bench_phase(card: str) -> None:
     _phase("profile_bench at 64², n=16, batch 8")
     from pde_control_tpu_torch.experiments import profile_bench
 
-    res = profile_bench.run("cuda", blocks=3, inner=2)
+    res = profile_bench.run("cuda", blocks=2, inner=2)
     bad = [k for k, v in res.items() if k != "flops_per_step"
            and not v["ms"] > 0]
     if bad:
@@ -4240,14 +4242,15 @@ def profile_bench_phase(card: str) -> None:
 
 
 # BASELINE configs 1-2 (Burgers, `experiments/burgers.py`): N=32, dx 1/32,
-# dt 0.03, viscosity 0.01, periodic; n=32, batch 32, 1024 + 128
-# trajectories (the reference's, not cut); the CFE 32-64-64-32 and the
-# U-nets OP32 ... OP2 (3 levels, base 16), fp32 nets with TF32 off. Cut:
-# the iterations, 2000 (config 1) and 1000 (config 2) a stage in the
-# reference, to `iterations` at K = 8 (the entries' steps a call).
-# `eager_steps`: eager steps timed after each stage, its state restored
-# after them.
-BURGERS = dict(n=32, batch=32, num_train=1024, num_val=128, iterations=16,
+# dt 0.03, viscosity 0.01, periodic; n=32, batch 32; the CFE 32-64-64-32
+# and the U-nets OP32 ... OP2 (3 levels, base 16), fp32 nets with TF32 off.
+# Cut: the iterations, 2000 (config 1) and 1000 (config 2) a stage in the
+# reference, to `iterations` at K = 8 (the entries' steps a call), and
+# the validation set, 128 trajectories, to `num_val`, one batch (the
+# training set keeps the reference's 1024; `scripts/quality_torch.py`
+# runs both at full counts). `eager_steps`: eager steps timed after each
+# stage, its state restored after them.
+BURGERS = dict(n=32, batch=32, num_train=1024, num_val=32, iterations=16,
                eager_steps=3)
 # The adjoint (`control/adjoint.py`) on the 32-trajectory eval prefix, at
 # config 1's size (lr 0.1, force_reg 1e-4; 500 iterations in the
@@ -4256,12 +4259,15 @@ BURGERS = dict(n=32, batch=32, num_train=1024, num_val=128, iterations=16,
 # `smoke_iterations`; eager runs of `eager_iterations`. Then
 # `compare_burgers` and `compare_smoke` at `compare_iterations` a stage
 # (1000 and 500 in the reference), compare_smoke's adjoint row at
-# `smoke_adjoint` iterations (300) and its training set cut to
-# `smoke_train` trajectories (256); everything else, compare_burgers'
-# 500-iteration adjoint row included, at the reference's sizes.
+# `smoke_adjoint` iterations (300), compare_burgers' sets cut to
+# `burgers_train` + `burgers_val` trajectories (1024 + 128; its
+# 500-iteration adjoint row as the reference's), compare_smoke's to
+# `smoke_train` + `smoke_val` (256 + 32), and the smoke adjoint's batch to
+# `smoke_val` trajectories (32). `scripts/quality_torch.py
+# compare_burgers` runs the reference's counts.
 ADJOINT = dict(burgers_iterations=100, smoke_iterations=20,
                eager_iterations=3, compare_iterations=8, smoke_adjoint=20,
-               smoke_train=32)
+               burgers_train=64, burgers_val=32, smoke_train=32, smoke_val=8)
 
 
 def _device_ops(fn) -> tuple[int, float, float]:
@@ -4608,9 +4614,9 @@ def adjoint_phase(card: str, burgers_data: dict) -> None:
                       pressure_maxiter=200, warm_start_pressure=True)
     _zero_counts()
     t0 = time.perf_counter()
-    val = generate_inflow_smoke_dataset(domain, cfg, 32, N, seed=999,
-                                        control_amplitude=0.6)
-    print(f"smoke data: 32 trajectories at 64^2, n={N}, on K1: "
+    val = generate_inflow_smoke_dataset(domain, cfg, a["smoke_val"], N,
+                                        seed=999, control_amplitude=0.6)
+    print(f"smoke data: {a['smoke_val']} trajectories at 64^2, n={N}, on K1: "
           f"{time.perf_counter() - t0:.2f} s, {_counts()['K1']} K1 launches "
           f"[{card}]")
     batch = on_card(compare_schemes._eval_batch(val))
@@ -4648,9 +4654,10 @@ def adjoint_phase(card: str, burgers_data: dict) -> None:
 
     root = Path(__file__).resolve().parent / "runs"
     for name, fn, extra in (
-            ("compare_burgers", compare_schemes.compare_burgers, {}),
+            ("compare_burgers", compare_schemes.compare_burgers,
+             dict(num_train=a["burgers_train"], num_val=a["burgers_val"])),
             ("compare_smoke", compare_schemes.compare_smoke,
-             dict(num_train=a["smoke_train"],
+             dict(num_train=a["smoke_train"], num_val=a["smoke_val"],
                   adjoint_iterations=a["smoke_adjoint"]))):
         workdir = root / f"chip_smoke_{name}"
         shutil.rmtree(workdir, ignore_errors=True)

@@ -2,6 +2,8 @@
 counts, and prints the result beside the JAX package's.
 
     python3 scripts/quality_torch.py config1|config2|config3|config4|config5 [--draws jax|port]
+    python3 scripts/quality_torch.py compare_burgers
+    python3 scripts/quality_torch.py config3|config4 --ood [--route kernel]
 
 The counts are those of the JAX package's published runs, seed 0, on the
 entries' default routes:
@@ -20,13 +22,18 @@ entries' default routes:
   (`scripts/run_queue_r3c.sh`), here `<run>/data`; reference
   `artifacts/runs/natural_flow_128_final`. Its data take ~9 GB on disk
   and ~15 min to make on an H100, and the whole run more than an hour.
+* `compare_burgers` (`compare_schemes.compare_burgers`, the paper's
+  scheme table): 1,000 iterations a stage (the CFE, OP2 ... OP32, then an
+  e2e stage per scheme), 500 adjoint iterations, 1,024 + 128
+  trajectories, batch 32 (the entry's defaults); reference
+  `artifacts/runs/compare_burgers/comparison.json`.
 Every stage runs 8 steps a call, so 300 and 4,500 become 304 and 4,504,
 as in the JAX package's runs.
 
 * `--draws jax` (the default) trains on the JAX package's own datasets:
   the port's draw functions (`data/generate.py :: burgers_draws,
-  inflow_draws, smooth_field_draws`, and `INITS['shapes']`'s and
-  `INITS['blobs']`'s draws) are replaced in this process by pops from
+  inflow_draws, smooth_field_draws`, and the draws of the `INITS`
+  families) are replaced, for the run, by pops from
   `tests/goldens/jax_draws_{burgers,config3,config4,config5}.npz`
   (`scripts/make_jax_draws.py`), chunk by chunk, the training set's from
   the generator seeded 0 and the validation set's from the one seeded
@@ -55,6 +62,37 @@ With `--draws port --cross-eval` (configs 3 and 4), the run's final
 networks are evaluated again on the JAX package's validation set (its
 draws), which tells a harder validation set from a worse controller.
 
+`compare_burgers` prints each stage's final loss and steps/s, then the
+rows chain_final, staggered, refined, adjoint and zero_force (controlled
+final MSE ± sem, mean |F|, force cost) beside `comparison.json`'s, the
+ratios chain/staggered and staggered/adjoint, the launches of K1-K5 in
+the run (Burgers runs none), and its checks (`scheme_checks`): each zero
+force within 1e-4 relative of the JAX package's (the scheme rows' over
+128 samples, the `zero_force` row's over the first 32), the adjoint row
+within 5%, each scheme row against ±25% around its JAX value (a miss is
+recorded with its side and sem, not re-run), and the paper's order:
+chain_final the worst scheme by at least 3x, the adjoint below every
+scheme.
+
+`--ood` (configs 3 and 4, `--draws jax`): after the training run's eval,
+the run's `ckpt_final` goes through the port's out-of-distribution entry
+(`generalize.generalize_shapes` for config 3, `generalize_smoke` for
+config 4, on their own route) into `<run>/ood`, on the JAX package's
+draws of those sets (`tests/goldens/jax_draws_ood_{shapes,smoke}.npz`).
+Each row (controlled final MSE ± sem, zero force, ratio, mean |F|) is
+printed beside the JAX package's runs (`generalize_shapes` and
+`generalize_shapes_s0r5`; `generalize_smoke`), with its checks
+(`ood_checks`): every zero force within 1e-2 relative of the JAX
+package's; the in-distribution row (`shapes`, `in_dist`) equal to the
+same nets' eval on the same validation set on the same route (on
+`--route kernel`, an eval of `ckpt_final` on the default route, made
+here), with the gap to the training run's own eval printed beside it;
+each controlled row against ±25% around the JAX runs' mean where there
+are two runs, ±30% where there is one; the chain_final rows by MSE and
+ratio alone; and `RESULTS.md`'s findings (shapes > crosses > rings by
+ratio; obstacles_ood within 1.5x of in_dist's ratio; inflow_shifted below
+5x) as true or false.
+
 A run longer than one call of the chip (config 5) is split over calls
 by its stage checkpoints (`run_curriculum(resume=True)` skips every stage
 whose checkpoint exists and restores a mid-stage autosave):
@@ -79,10 +117,15 @@ whose checkpoint exists and restores a mid-stage autosave):
 Every call prints the digest (sha256 of the arrays) of the training and
 validation sets.
 
-`--iterations`, `--e2e-iterations`, `--num-train`, `--num-val` and
-`--device` cut a quick check (the comparison is then not meaningful);
-with `--draws jax` the counts must be multiples of the draws' chunk (8;
-64 for Burgers).
+`--iterations`, `--e2e-iterations`, `--num-train`, `--num-val`,
+`--adjoint-iterations` (compare_burgers) and `--device` cut a quick check
+(the comparison is then not meaningful); with `--draws jax` the counts
+must be multiples of the draws' chunk (8; 64 for Burgers). `--num-val`
+also cuts the `--ood` rows, whose draws are at 64², n = 16.
+
+`--seed N` (configs 3-5, `--draws jax`) trains at another seed, as the
+JAX package's runs at seeds 1 and 2 did (the CLI's `--seed`), into
+`<run>_sN`; the comparison is against the same JAX runs.
 
 `--route kernel` (configs 4 and 5, with `--draws jax`) trains on every
 kernel of the port, the route of `scripts/config5_routes.py :: ROUTES`:
@@ -153,7 +196,40 @@ CONFIGS = {
                     counts=dict(iterations=300, e2e_iterations=4500,
                                 num_train=3584, num_val=64),
                     band=0.30, draws="config5", zero_rtol=1e-2),
+    "compare_burgers": dict(entry="compare_burgers", refs=("compare_burgers",),
+                            counts=dict(iterations=1000, e2e_iterations=None,
+                                        num_train=1024, num_val=128,
+                                        adjoint_iterations=500),
+                            band=0.25, draws="burgers", zero_rtol=1e-4),
 }
+# `compare_burgers`: its scheme rows, the adjoint row's tolerance around the
+# JAX package's (it trains no net: the draws, lr, force_reg and Adam steps
+# alone set it), and the paper's order (chain_final worse than the other
+# schemes by at least this factor).
+SCHEMES = ("chain_final", "staggered", "refined")
+ADJOINT_RTOL = 0.05
+CHAIN_FACTOR = 3.0
+# `--ood`: each config's out-of-distribution entry, the draws file of its
+# sets, the JAX package's runs of it (`artifacts/runs`), how many sets the
+# entry makes from each case's draws (generalize_smoke makes `in_dist`
+# twice: its staggered and its chain_final rows), its in-distribution
+# row, and the in-distribution row's tolerance against the same nets' eval
+# on the same route.
+OOD = {
+    "config3": dict(entry="generalize_shapes", draws="ood_shapes",
+                    refs=("generalize_shapes", "generalize_shapes_s0r5"),
+                    sets={}, in_dist="shapes"),
+    "config4": dict(entry="generalize_smoke", draws="ood_smoke",
+                    refs=("generalize_smoke",), sets={"in_dist": 2},
+                    in_dist="in_dist"),
+}
+OOD_ZERO_RTOL = 1e-2
+OOD_IN_DIST_RTOL = 1e-4
+# The bands: ±25% around the mean of two JAX runs, ±30% around one.
+OOD_BANDS = {1: 0.30, 2: 0.25}
+# The route gap measured on config 4's zero force at full counts (the eval's
+# physics on K2 against K1; PERF.md §6), printed beside this run's.
+ROUTE_GAP_ZERO = 4.76e-4
 # Config 1's published result (`RESULTS.md`, the table of the post-reset
 # regenerations, row 1): its run kept no `results.json`. Its zero force is
 # config 2's run's, on the same validation set (`burgers.make_datasets`:
@@ -166,10 +242,14 @@ STAGES = ("train", "cfe_supervised",
 # The draws' arrays a pop returns, by the port's draw function.
 DRAW_KEYS = {"inflow": ("xs",), "field": ("amps", "phy", "phx"),
              "shapes": ("pos", "r", "aspect", "is_circle"),
-             "blobs": ("pos", "sig"), "burgers": ("amps", "phases")}
-# The draw functions each file's datasets call, by its `config`.
+             "blobs": ("pos", "sig"), "burgers": ("amps", "phases"),
+             "crosses": ("pos", "arm", "thick_frac"),
+             "rings": ("pos", "r_out", "in_frac")}
+# The draw functions each file's datasets call, by its `config` (the OOD
+# files name them by split, as `kinds`).
 KINDS = {"burgers": ("burgers",), "3": ("shapes", "field"),
          "4": ("inflow", "field"), "5": ("blobs", "field")}
+INFLOW_X_RANGE = (0.15, 0.85)  # `inflow_draws`' default
 # `--route kernel`: the setup each config's entry calls, and the routes it
 # is given there.
 KERNEL_ROUTE = {
@@ -219,51 +299,86 @@ def card_line() -> str:
         return f"nvidia-smi unavailable ({e.__class__.__name__})"
 
 
-def patch_draws(config: str):
-    """Replaces the port's draw functions by pops from the JAX package's
-    draws; returns the pops made, by (split, draw function), and the
-    draws file."""
+@contextlib.contextmanager
+def patch_draws(name: str):
+    """Within the block, the port's draw functions are replaced by pops
+    from the JAX package's draws in `tests/goldens/jax_draws_<name>.npz`;
+    yields the pops made, by (split, draw function), and the draws file.
+    Each generator pops its split's chunks from the first: the split is
+    the one whose seed seeded it (an unknown seed is an error that names
+    it), and a set made twice from one seed pops its draws twice. An
+    inflow set whose sources are drawn in another band than the draws'
+    (`inflow_kwargs`' x_range) is an error."""
     import torch
 
     from pde_control_tpu_torch.data import generate
 
-    with np.load(os.path.join(GOLDENS,
-                              f"jax_draws_{CONFIGS[config]['draws']}.npz")) as f:
+    with np.load(os.path.join(GOLDENS, f"jax_draws_{name}.npz")) as f:
         z = dict(f)
     meta = json.loads(str(z["config"]))
     split_of = {v["seed"]: split for split, v in meta["splits"].items()}
     pops: dict = {}
+    # id(generator) -> (the generator, kept so that its id stays its own;
+    # its split; pops by kind)
+    gens: dict = {}
+
+    def split_for(gen) -> tuple:
+        if id(gen) not in gens:
+            seed = gen.initial_seed()
+            if seed not in split_of:
+                raise KeyError(f"jax_draws_{name}.npz holds no split of seed "
+                               f"{seed} (its splits: {split_of})")
+            gens[id(gen)] = (gen, split_of[seed], {})
+        return gens[id(gen)][1:]
 
     def pop(gen, kind: str, batch: int):
-        split = split_of[gen.initial_seed()]
+        split, popped = split_for(gen)
         if batch != meta["chunk"]:
             raise ValueError(f"a chunk of {batch}: the JAX draws come in "
                              f"chunks of {meta['chunk']}")
-        i = pops.get((split, kind), 0)
+        i = popped.get(kind, 0)
         have = z[f"{split}/{DRAW_KEYS[kind][0]}"].shape[0]
         if i >= have:
             raise IndexError(f"{split}/{kind}: pop {i + 1} of {have} draws")
-        pops[split, kind] = i + 1
+        popped[kind] = i + 1
+        pops[split, kind] = pops.get((split, kind), 0) + 1
         return tuple(torch.from_numpy(np.array(z[f"{split}/{k}"][i]))
                      for k in DRAW_KEYS[kind])
 
+    def inflow(gen, b, w, x_range=INFLOW_X_RANGE):
+        split, _ = split_for(gen)
+        want = meta["splits"][split].get("inflow_kwargs", {}).get(
+            "x_range", INFLOW_X_RANGE)
+        if tuple(x_range) != tuple(want):
+            raise ValueError(f"{split}: sources drawn in {tuple(x_range)}, "
+                             f"the JAX draws in {tuple(want)}")
+        return pop(gen, "inflow", b)[0]
+
+    names = ("smooth_field_draws", "burgers_draws", "inflow_draws")
+    saved = [getattr(generate, k) for k in names], dict(generate.INITS)
     generate.smooth_field_draws = lambda gen, b, modes=3: pop(gen, "field", b)
     generate.burgers_draws = lambda gen, b, modes=3: pop(gen, "burgers", b)
-    generate.inflow_draws = (
-        lambda gen, b, w, x_range=(0.15, 0.85): pop(gen, "inflow", b)[0])
-    for init in ("shapes", "blobs"):
+    generate.inflow_draws = inflow
+    for init in ("shapes", "blobs", "crosses", "rings"):
         generate.INITS[init] = (
             lambda gen, b, h, w, *a, _kind=init, **k: pop(gen, _kind, b),
             generate.INITS[init][1])
-    return pops, z
+    try:
+        yield pops, z
+    finally:
+        for k, f in zip(names, saved[0]):
+            setattr(generate, k, f)
+        generate.INITS.update(saved[1])
 
 
-def check_pops(pops: dict, z, counts: dict) -> None:
+def check_pops(pops: dict, z, counts: dict, sets: dict | None = None
+               ) -> None:
     """Every draw the run's counts need was popped, no more: a chunk of
     each split per `chunk` trajectories, times the calls a chunk makes
-    (the file's draws over its chunks). At the files' own counts that is
-    every draw in the file. A split with no pop at all was read from the
-    run's own disk cache (config 5's `<run>/data`)."""
+    (the file's draws over its chunks), times the sets made from the
+    split (`sets`, 1 unless given). At the files' own counts that is
+    every draw in the file, once a set. A split with no pop at all was
+    read from the run's own disk cache (config 5's `<run>/data`)."""
     meta = json.loads(str(z["config"]))
     wanted = {}
     for split, v in meta["splits"].items():
@@ -271,10 +386,11 @@ def check_pops(pops: dict, z, counts: dict) -> None:
             print(f"{split}: no draws popped (read from the disk cache)")
             continue
         num = counts["num_train" if split == "train" else "num_val"]
-        for kind in KINDS[str(meta["config"])]:
+        for kind in v.get("kinds") or KINDS[str(meta["config"])]:
             calls = (z[f"{split}/{DRAW_KEYS[kind][0]}"].shape[0]
                      // (v["num"] // meta["chunk"]))
-            wanted[split, kind] = num // meta["chunk"] * calls
+            wanted[split, kind] = (num // meta["chunk"] * calls
+                                   * (sets or {}).get(split, 1))
     if pops != wanted:
         raise AssertionError(f"draws popped {sorted(pops.items())}, the "
                              f"counts need {sorted(wanted.items())}")
@@ -307,17 +423,20 @@ def report_device_datasets(t0: float) -> None:
     scene.DeviceDataset.wrap = classmethod(reporting)
 
 
-def report_stages(t0: float) -> None:
+def report_stages(t0: float) -> dict:
     """Prints each training stage's class, horizon, iterations, seconds and
     final loss as it ends, and the seconds since `t0`
-    (`ControlTraining.train`)."""
+    (`ControlTraining.train`). Returns a dict that gathers each stage's
+    result with its seconds, by `comparison_tag`."""
     from pde_control_tpu_torch.control.training import ControlTraining
 
     train = ControlTraining.train
+    stages: dict = {}
 
     def reporting(self, iterations, *args, **kwargs):
         t = time.perf_counter()
         out = train(self, iterations, *args, **kwargs)
+        stages[comparison_tag(self)] = dict(out, seconds=time.perf_counter() - t)
         print(f"stage {self.sequence_class}, n={self.n}, trains "
               f"{sorted(self.trainable_networks)}: "
               f"{out.get('iterations_run', iterations)} iterations in "
@@ -326,6 +445,7 @@ def report_stages(t0: float) -> None:
         return out
 
     ControlTraining.train = reporting
+    return stages
 
 
 class StopAfterStage(Exception):
@@ -340,6 +460,14 @@ def stage_tag(app) -> str:
     if app.sequence_class == "op_supervised":
         return app.trainable_networks[0].lower()
     return f"e2e_n{app.n}"
+
+
+def comparison_tag(app) -> str:
+    """`stage_tag`, but `e2e_<scheme>` for a scheme's e2e stage, as
+    `run_comparison` names its autosaves."""
+    if app.sequence_class in SCHEMES:
+        return f"e2e_{app.sequence_class}"
+    return stage_tag(app)
 
 
 def stage_key(app) -> str:
@@ -620,15 +748,15 @@ def merge_earlier(results: dict, earlier: dict) -> dict:
 
 
 def run_jax_draws(config: str, counts: dict, device: str, workdir: str,
-                  resume: bool = False) -> dict:
-    pops, z = patch_draws(config)
+                  resume: bool = False, seed: int = 0) -> dict:
     kw = dict(iterations=counts["iterations"], num_train=counts["num_train"],
               num_val=counts["num_val"], device=device)
     stopped = results = None
-    try:
-        results = _run_entry(config, counts, workdir, resume, kw)
-    except StopAfterStage as e:  # the data was all made: check its draws
-        stopped = e
+    with patch_draws(CONFIGS[config]["draws"]) as (pops, z):
+        try:
+            results = _run_entry(config, counts, workdir, resume, kw, seed)
+        except StopAfterStage as e:  # the data was all made: check its draws
+            stopped = e
     print(f"draws popped from jax_draws_{CONFIGS[config]['draws']}.npz: "
           f"{ {f'{s}/{k}': n for (s, k), n in sorted(pops.items())} }",
           flush=True)
@@ -639,7 +767,7 @@ def run_jax_draws(config: str, counts: dict, device: str, workdir: str,
 
 
 def _run_entry(config: str, counts: dict, workdir: str, resume: bool,
-               kw: dict) -> dict:
+               kw: dict, seed: int = 0) -> dict:
     from pde_control_tpu_torch.experiments import burgers, fluid2d
 
     if config == "config1":  # the CLI writes this entry's results.json
@@ -648,17 +776,45 @@ def _run_entry(config: str, counts: dict, workdir: str, resume: bool,
             json.dump(results, f, indent=2, default=float)
     elif config == "config2":
         results = burgers.run_hierarchical(workdir, **kw)
+    elif config == "compare_burgers":
+        results = _compare_burgers(workdir, counts, resume, kw)
     elif config == "config3":
-        results = fluid2d.run_shape_transition(workdir, seed=0, resume=resume,
-                                               **kw)
+        results = fluid2d.run_shape_transition(workdir, seed=seed,
+                                               resume=resume, **kw)
     elif config == "config4":
         results = fluid2d.run_smoke_indirect(
-            workdir, e2e_iterations=counts["e2e_iterations"], seed=0,
+            workdir, e2e_iterations=counts["e2e_iterations"], seed=seed,
             resume=resume, **kw)
     else:
         results = fluid2d.run_natural_flow_128(
-            workdir, e2e_iterations=counts["e2e_iterations"], seed=0,
+            workdir, e2e_iterations=counts["e2e_iterations"], seed=seed,
             datadir=os.path.join(workdir, "data"), resume=resume, **kw)
+    return results
+
+
+def _compare_burgers(workdir: str, counts: dict, resume: bool,
+                     kw: dict) -> dict:
+    """`compare_schemes.compare_burgers` at `counts`; the adjoint row at
+    `counts['adjoint_iterations']` (the entry's own 500 unless cut), and
+    the launches of K1-K5 over the run in `launches`."""
+    from pde_control_tpu_torch.experiments import compare_schemes
+    from pde_control_tpu_torch.ops import launch_counts
+
+    comparison = compare_schemes.run_comparison
+    if counts["adjoint_iterations"] != 500:
+        compare_schemes.run_comparison = (
+            lambda *a, **k: comparison(
+                *a, **k, adjoint_iterations=counts["adjoint_iterations"]))
+    if not resume:  # a stale ckpt_ops would seed the OP stages
+        shutil.rmtree(workdir, ignore_errors=True)
+    before = launch_counts()
+    try:
+        results = compare_schemes.compare_burgers(workdir, resume=resume, **kw)
+    finally:
+        compare_schemes.run_comparison = comparison
+    results["launches"] = _launch_delta(before)
+    print(f"launches of K1-K5 over the run (Burgers runs none): "
+          f"{results['launches']}", flush=True)
     return results
 
 
@@ -689,14 +845,14 @@ def cross_eval(config: str, counts: dict, device: str, workdir: str) -> dict:
         op_spans,
     )
 
-    patch_draws(config)
     # One training chunk: the setups generate a training set too.
-    if config == "config4":
-        pde, _, val = fluid2d._smoke_indirect_setup(
-            64, 16, 8, counts["num_val"], 1.0, None, device=device)
-    else:
-        pde, _, val = fluid2d._shape_transition_setup(
-            64, 16, 8, counts["num_val"], None, device=device)
+    with patch_draws(CONFIGS[config]["draws"]):
+        if config == "config4":
+            pde, _, val = fluid2d._smoke_indirect_setup(
+                64, 16, 8, counts["num_val"], 1.0, None, device=device)
+        else:
+            pde, _, val = fluid2d._shape_transition_setup(
+                64, 16, 8, counts["num_val"], None, device=device)
     app = ControlTraining(
         16, pde, dataset=val, val_dataset=val, batch_size=8,
         trainable_networks=("CFE",) + tuple(f"OP{s}" for s in op_spans(16)),
@@ -781,6 +937,239 @@ def compare(config: str, draws: str, results: dict) -> dict:
     return summary
 
 
+def _rel(got: float, want: float) -> float:
+    return abs(got - want) / abs(want)
+
+
+def _band(got: float, centre: float, band: float) -> dict:
+    """`got` against ±`band` around `centre`: the band, whether it holds
+    `got`, and on which side `got` lies."""
+    lo, hi = (1 - band) * centre, (1 + band) * centre
+    return dict(band=[lo, hi], in_band=bool(lo <= got <= hi),
+                side="inside" if lo <= got <= hi else (
+                    "below" if got < lo else "above"))
+
+
+def scheme_checks(results: dict, ref: dict) -> dict:
+    """`compare_burgers`' checks (module docstring) on the port's
+    `comparison.json` rows against the JAX package's `ref`: the verdicts
+    and the figures they rest on."""
+    spec = CONFIGS["compare_burgers"]
+    zero = {s: (results[s]["zero_force_final_mse"],
+                ref[s]["zero_force_final_mse"]) for s in SCHEMES}
+    zero["zero_force"] = (results["zero_force"]["final_state_mse"],
+                          ref["zero_force"]["final_state_mse"])
+    zero_err = {k: _rel(a, b) for k, (a, b) in zero.items()}
+    adj, jadj = (r["adjoint"]["final_state_mse"] for r in (results, ref))
+    rows = {s: dict(final_state_mse=results[s]["final_state_mse"],
+                    final_state_mse_sem=results[s].get("final_state_mse_sem"),
+                    jax=ref[s]["final_state_mse"],
+                    over_jax=results[s]["final_state_mse"]
+                    / ref[s]["final_state_mse"],
+                    **_band(results[s]["final_state_mse"],
+                            ref[s]["final_state_mse"], spec["band"]))
+            for s in SCHEMES}
+    mse = {s: results[s]["final_state_mse"] for s in SCHEMES}
+    jmse = {s: ref[s]["final_state_mse"] for s in SCHEMES}
+    worst_by = mse["chain_final"] / max(mse["staggered"], mse["refined"])
+    return dict(
+        zero_force_rel_err=zero_err,
+        zero_force_matches=all(e <= spec["zero_rtol"]
+                               for e in zero_err.values()),
+        adjoint_rel_err=_rel(adj, jadj),
+        adjoint_matches=_rel(adj, jadj) <= ADJOINT_RTOL,
+        rows=rows, schemes_in_band=all(r["in_band"] for r in rows.values()),
+        chain_over_staggered=mse["chain_final"] / mse["staggered"],
+        staggered_over_adjoint=mse["staggered"] / adj,
+        jax_chain_over_staggered=jmse["chain_final"] / jmse["staggered"],
+        jax_staggered_over_adjoint=jmse["staggered"] / jadj,
+        chain_worst_by=worst_by, chain_worst=worst_by >= CHAIN_FACTOR,
+        adjoint_below_schemes=adj < min(mse.values()))
+
+
+def compare_schemes_table(results: dict, stages: dict) -> dict:
+    """Prints `compare_burgers`' stages, rows and checks beside
+    `comparison.json`'s; returns the summary."""
+    with open(os.path.join(RUNS, "compare_burgers", "comparison.json")) as f:
+        ref = json.load(f)
+    nan = float("nan")
+    print(f"{'stage':<18} {'final loss':>12} {'steps/s':>9} {'its':>6} "
+          f"{'s':>8}")
+    for tag, got in stages.items():
+        print(f"{tag:<18} {got.get('loss', nan):>12.4e} "
+              f"{got.get('steps_per_sec', nan):>9.2f} "
+              f"{got.get('iterations_run', '-')!s:>6} {got['seconds']:>8.1f}")
+    print(f"{'row':<12} {'port MSE':>11} {'± sem':>9} {'mean |F|':>9} "
+          f"{'cost':>8} | {'JAX MSE':>11} {'± sem':>9} {'mean |F|':>9} "
+          f"{'cost':>8}")
+
+    def cells(row: dict) -> str:
+        return (f"{row.get('final_state_mse', nan):>11.4e} "
+                f"{row.get('final_state_mse_sem', nan):>9.2e} "
+                f"{row.get('mean_abs_force', nan):>9.4f} "
+                f"{row.get('mean_force_cost', nan):>8.4f}")
+
+    for name in (*SCHEMES, "adjoint", "zero_force"):
+        print(f"{name:<12} {cells(results[name])} | {cells(ref[name])}")
+    c = scheme_checks(results, ref)
+    zero_rtol = CONFIGS["compare_burgers"]["zero_rtol"]
+    print("zero force against the JAX package's (the scheme rows' over "
+          f"{results['chain_final']['eval_samples']} samples, the "
+          "zero_force row's over the first 32): "
+          + ", ".join(f"{k} {e:.3e}" for k, e in c["zero_force_rel_err"].items())
+          + f" relative (limit {zero_rtol:g}): {c['zero_force_matches']}")
+    print(f"adjoint {results['adjoint']['final_state_mse']:.4e} against "
+          f"{ref['adjoint']['final_state_mse']:.4e}: {c['adjoint_rel_err']:.3e}"
+          f" relative (limit {ADJOINT_RTOL:g}): {c['adjoint_matches']}; mean "
+          f"|F| {results['adjoint']['mean_abs_force']:.4f} against "
+          f"{ref['adjoint']['mean_abs_force']:.4f}")
+    for s, r in c["rows"].items():
+        print(f"{s}: {r['final_state_mse']:.4e} ± "
+              f"{r['final_state_mse_sem']:.2e} (sem), {r['over_jax']:.3f}x the "
+              f"JAX package's {r['jax']:.4e}; ±{CONFIGS['compare_burgers']['band']:.0%}"
+              f" band [{r['band'][0]:.3e}, {r['band'][1]:.3e}]: {r['side']}")
+    print(f"chain/staggered {c['chain_over_staggered']:.2f}x (JAX "
+          f"{c['jax_chain_over_staggered']:.2f}x), staggered/adjoint "
+          f"{c['staggered_over_adjoint']:.2f}x (JAX "
+          f"{c['jax_staggered_over_adjoint']:.2f}x)")
+    print(f"chain_final the worst scheme by >= {CHAIN_FACTOR:g}x: "
+          f"{c['chain_worst']} ({c['chain_worst_by']:.2f}x); the adjoint below "
+          f"every scheme: {c['adjoint_below_schemes']}", flush=True)
+    rows = {k: {f: v for f, v in results[k].items() if not isinstance(v, list)}
+            for k in (*SCHEMES, "adjoint", "zero_force")}
+    return dict(config="compare_burgers", draws="jax", rows=rows, checks=c,
+                stages={t: {k: v for k, v in got.items()
+                            if k in ("loss", "steps_per_sec", "iterations_run",
+                                     "seconds")}
+                        for t, got in stages.items()},
+                launches=results.get("launches"))
+
+
+def ood_refs(config: str) -> list:
+    """The JAX package's out-of-distribution runs of `config`."""
+    out = []
+    for name in OOD[config]["refs"]:
+        with open(os.path.join(RUNS, name, "results.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def ood_checks(config: str, got: dict, refs: list, same_route: dict,
+               train_eval: dict) -> dict:
+    """`--ood`'s checks (module docstring) of the port's rows `got`
+    against the JAX package's runs `refs`; `same_route` is the same nets'
+    eval on the in-distribution set on the entry's route, `train_eval`
+    the training run's own eval."""
+    rows = {}
+    for name, r in got.items():
+        if not isinstance(r, dict):
+            continue
+        js = [ref[name] for ref in refs if name in ref]
+        jmse = [j["final_state_mse"] for j in js]
+        jzero = js[0]["zero_force_final_mse"]
+        rows[name] = dict(
+            final_state_mse=r["final_state_mse"],
+            final_state_mse_sem=r["final_state_mse_sem"],
+            zero_force_final_mse=r["zero_force_final_mse"],
+            ratio=r["ratio_vs_zero_force"], mean_abs_force=r["mean_abs_force"],
+            chain=name.endswith("_chain") or r.get("scheme") == "chain_final",
+            jax_final_state_mse=jmse,
+            jax_final_state_mse_sem=[j["final_state_mse_sem"] for j in js],
+            jax_ratio=[j["ratio_vs_zero_force"] for j in js],
+            jax_mean_abs_force=[j["mean_abs_force"] for j in js],
+            jax_zero_force_final_mse=jzero,
+            zero_force_rel_err=_rel(r["zero_force_final_mse"], jzero),
+            **_band(r["final_state_mse"], float(np.mean(jmse)),
+                    OOD_BANDS[min(len(js), 2)]))
+    ind = got[OOD[config]["in_dist"]]
+    gaps = {k: {"same_route": _rel(ind[k], same_route[k]),
+                "training_eval": _rel(ind[k], train_eval[k])}
+            for k in ("final_state_mse", "zero_force_final_mse")}
+    ratio = {k: v["ratio"] for k, v in rows.items()}
+    if config == "config3":
+        findings = {"shapes > crosses > rings by ratio":
+                    ratio["shapes"] > ratio["crosses"] > ratio["rings"]}
+    else:
+        a, b = ratio["obstacles_ood"], ratio["in_dist"]
+        findings = {"obstacles_ood within 1.5x of in_dist's ratio":
+                    max(a, b) / min(a, b) <= 1.5}
+        if "inflow_shifted" in ratio:
+            findings["inflow_shifted below 5x"] = ratio["inflow_shifted"] < 5
+    return dict(
+        rows=rows,
+        zero_force_matches=all(r["zero_force_rel_err"] <= OOD_ZERO_RTOL
+                               for r in rows.values()),
+        in_dist_gaps=gaps,
+        in_dist_equal=all(g["same_route"] <= OOD_IN_DIST_RTOL
+                          for g in gaps.values()),
+        controlled_in_band=all(r["in_band"] for r in rows.values()),
+        findings=findings)
+
+
+def run_ood(config: str, counts: dict, device: str, workdir: str,
+            route: str, train_eval: dict) -> dict:
+    """`--ood`: the port's out-of-distribution entry on `workdir`'s
+    `ckpt_final` and the JAX package's draws of its sets, into
+    `workdir/ood`; prints each row beside the JAX package's runs and the
+    checks, and returns them."""
+    from pde_control_tpu_torch.experiments import generalize
+    from pde_control_tpu_torch.ops import launch_counts
+
+    spec = OOD[config]
+    # The same nets on the same validation set on the entry's own route:
+    # the training run's eval, or on the kernel route one made here.
+    same_route = (train_eval if route == "default"
+                  else cross_eval(config, counts, device, workdir))
+    before, t = launch_counts(), time.perf_counter()
+    with patch_draws(spec["draws"]) as (pops, z):
+        got = getattr(generalize, spec["entry"])(
+            os.path.join(workdir, "ood"), os.path.join(workdir, "ckpt_final"),
+            num_val=counts["num_val"], device=device)
+    seconds, launches = time.perf_counter() - t, _launch_delta(before)
+    print(f"{spec['entry']}: {seconds:.1f} s, launches {launches}; draws "
+          f"popped from jax_draws_{spec['draws']}.npz: "
+          f"{ {f'{s}/{k}': n for (s, k), n in sorted(pops.items())} }",
+          flush=True)
+    check_pops(pops, z, counts, spec["sets"])
+    refs = ood_refs(config)
+    c = ood_checks(config, got, refs, same_route, train_eval)
+    nan = float("nan")
+    print(f"{'row':<15} {'port MSE':>11} {'± sem':>9} {'zero force':>12} "
+          f"{'ratio':>8} {'mean |F|':>10} | JAX runs "
+          + ", ".join(spec["refs"]) + ": MSE ± sem, ratio, mean |F|")
+    for name, r in c["rows"].items():
+        jax = "; ".join(f"{m:.4e} ± {e:.2e}, {q:.2f}x, {f:.3e}" for m, e, q, f
+                        in zip(r["jax_final_state_mse"],
+                               r["jax_final_state_mse_sem"], r["jax_ratio"],
+                               r["jax_mean_abs_force"]))
+        print(f"{name:<15} {r['final_state_mse']:>11.4e} "
+              f"{r['final_state_mse_sem']:>9.2e} "
+              f"{r['zero_force_final_mse']:>12.6e} {r['ratio']:>8.2f} "
+              f"{r.get('mean_abs_force', nan):>10.3e} | {jax}")
+    for name, r in c["rows"].items():
+        how = "by MSE and ratio (a chain_final row), " if r["chain"] else ""
+        print(f"{name}: zero force {r['zero_force_rel_err']:.3e} relative to "
+              f"{r['jax_zero_force_final_mse']:.6e} (limit {OOD_ZERO_RTOL:g}); "
+              f"{how}controlled against ±{OOD_BANDS[min(len(r['jax_ratio']), 2)]:.0%}"
+              f" [{r['band'][0]:.3e}, {r['band'][1]:.3e}]: {r['side']}")
+    g = c["in_dist_gaps"]
+    print(f"in-distribution row {spec['in_dist']} against the same nets' eval "
+          f"on the same set and route: controlled "
+          f"{g['final_state_mse']['same_route']:.3e}, zero force "
+          f"{g['zero_force_final_mse']['same_route']:.3e} relative (limit "
+          f"{OOD_IN_DIST_RTOL:g}): {c['in_dist_equal']}; against the training "
+          f"run's own eval (route {route}): controlled "
+          f"{g['final_state_mse']['training_eval']:.3e}, zero force "
+          f"{g['zero_force_final_mse']['training_eval']:.3e} (the route gap; "
+          f"{ROUTE_GAP_ZERO:g} on config 4's zero force at full counts)")
+    print(f"every zero force within {OOD_ZERO_RTOL:g}: {c['zero_force_matches']}"
+          f"; every controlled row in its band: {c['controlled_in_band']}; "
+          + "; ".join(f"{k}: {v}" for k, v in c["findings"].items()),
+          flush=True)
+    return dict(c, seconds=seconds, launches=launches,
+                same_route_eval=same_route, workdir=os.path.join(workdir, "ood"))
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("config", choices=sorted(CONFIGS))
@@ -790,8 +1179,16 @@ def main() -> None:
                    help="with --draws port (configs 3 and 4), also evaluate "
                         "the run's final networks on the JAX package's "
                         "validation set")
-    for flag in ("iterations", "e2e_iterations", "num_train", "num_val"):
+    for flag in ("iterations", "e2e_iterations", "num_train", "num_val",
+                 "adjoint_iterations"):
         p.add_argument(f"--{flag.replace('_', '-')}", type=int, default=None)
+    p.add_argument("--ood", action="store_true",
+                   help="configs 3 and 4 with --draws jax: then evaluate "
+                        "ckpt_final out of distribution (generalize_shapes, "
+                        "generalize_smoke) on the JAX package's draws")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the training seed of configs 3-5 with --draws jax "
+                        "(the JAX package's runs: 0, 1 and 2)")
     p.add_argument("--save-to", default=None,
                    help="copy each checkpoint and autosave here as written")
     p.add_argument("--stop-after", default=None, choices=STAGES[1:-2],
@@ -809,34 +1206,46 @@ def main() -> None:
         p.error("--route kernel takes config4 or config5 with --draws jax")
     if args.cross_eval and args.config not in ("config3", "config4"):
         p.error("--cross-eval takes config3 or config4")
+    if args.ood and (args.config not in OOD or args.draws != "jax"):
+        p.error("--ood takes config3 or config4 with --draws jax")
+    if args.seed and (args.config not in ("config3", "config4", "config5")
+                      or args.draws != "jax"):
+        p.error("--seed takes config3, config4 or config5 with --draws jax")
+    if args.config == "compare_burgers" and args.draws != "jax":
+        p.error("compare_burgers runs on the JAX package's draws")
     split = (args.save_to, args.stop_after, args.resume_from, args.no_render)
-    if any(split) and (args.draws != "jax" or args.config in ("config1",
-                                                              "config2")):
+    if any(split) and (args.draws != "jax" or args.config in (
+            "config1", "config2", "compare_burgers")):
         p.error("--save-to, --stop-after, --resume-from and --no-render take "
                 "config3, config4 or config5 with --draws jax")
     sys.path.insert(0, ROOT)
     counts = dict(CONFIGS[args.config]["counts"])
+    if args.adjoint_iterations is not None and "adjoint_iterations" not in counts:
+        p.error("--adjoint-iterations takes compare_burgers")
     for k in counts:
         if getattr(args, k) is not None:
             counts[k] = getattr(args, k)
     print(card_line(), flush=True)
     kernel = args.route == "kernel"
     print(f"{args.config}, draws {args.draws}, counts {counts}, device "
-          f"{args.device}" + (", route kernel" if kernel else ""), flush=True)
+          f"{args.device}" + (", route kernel" if kernel else "")
+          + (f", seed {args.seed}" if args.seed else ""), flush=True)
     workdir = os.path.join(ROOT, "runs", "quality_torch",
                            f"{args.config}_{args.draws}"
-                           + ("_kernel" if kernel else ""))
+                           + ("_kernel" if kernel else "")
+                           + (f"_s{args.seed}" if args.seed else ""))
     t0 = time.perf_counter()
     if args.draws == "jax":
         report_device_datasets(t0)
-        report_stages(t0)
+        stages = report_stages(t0)
         with (kernel_route(args.config, args.device) if kernel
               else contextlib.nullcontext()) as route, \
                 split_run(workdir, args.save_to, args.stop_after,
                           args.resume_from, not args.no_render) as state:
             try:
                 results = run_jax_draws(args.config, counts, args.device,
-                                        workdir, resume=bool(args.resume_from))
+                                        workdir, resume=bool(args.resume_from),
+                                        seed=args.seed)
             except StopAfterStage as e:
                 print(f"stopped after {e} (--stop-after): "
                       f"{time.perf_counter() - t0:.1f} s; checkpoints, "
@@ -847,10 +1256,17 @@ def main() -> None:
     else:
         results = run_cli(args.config, counts, args.device, workdir)
     wall = time.perf_counter() - t0
-    summary = compare(args.config, args.draws, results)
+    if args.config == "compare_burgers":
+        summary = compare_schemes_table(results, stages)
+    else:
+        summary = compare(args.config, args.draws, results)
     if kernel:
         compare_default_route(args.config, summary, results, route["data"])
-    summary.update(wall_s=wall, counts=counts, card=card_line())
+    if args.ood:
+        summary["ood"] = run_ood(args.config, counts, args.device, workdir,
+                                 args.route, results["eval"])
+    summary.update(wall_s=wall, counts=counts, seed=args.seed,
+                   card=card_line())
     if args.draws == "jax":
         summary.update(digests=state["digests"],
                        resumed_from=args.resume_from,
@@ -860,7 +1276,9 @@ def main() -> None:
     if args.cross_eval and args.draws == "port":
         summary["on_jax_val"] = cross_eval(args.config, counts, args.device,
                                            workdir)
-    print(f"wall time {wall:.1f} s", flush=True)
+    print(f"wall time {wall:.1f} s"
+          + (f", then --ood {summary['ood']['seconds']:.1f} s" if args.ood
+             else ""), flush=True)
     for where in (workdir, args.save_to):
         if where:
             with open(os.path.join(where, "summary.json"), "w") as f:
